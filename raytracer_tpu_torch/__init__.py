@@ -1,0 +1,29 @@
+"""raytracer_tpu_torch - the PyTorch/CUDA port of raytracer_tpu.
+
+A second package beside the JAX one, for an NVIDIA H100.  It imports
+torch and never jax or the JAX package.  This slice carries the main
+path: the AK135 annulus from the O(M) circulant builder, the
+directional-sweep solver whose radial Gauss-Seidel sweep is the
+hand-written CUDA kernel `csrc/rsweep.cu`, the predecessor tree, ray
+paths and the travel-time CSV.  Entry points run on the card unless the
+caller passes `device="cpu"`.
+"""
+from .config import DEFAULT_SOLVER_CONFIG, R, SolverConfig
+from .models.annulus import Grid2D, closest_point, init_annulus
+from .models.fast_annulus import init_annulus_circulant
+from .models.velocity import (LinearInterpolation, interpolate_velocity,
+                              velocity_profile)
+from .ops.circulant import CirculantGraph, build_circulant
+from .solvers.api import AnnulusSolver
+from .solvers.path import recontruct_path
+from .solvers.types import BellmanFordMoore
+from .utils.io import save_solution_npz, travel_times
+
+__all__ = [
+    "DEFAULT_SOLVER_CONFIG", "R", "SolverConfig",
+    "Grid2D", "closest_point", "init_annulus", "init_annulus_circulant",
+    "LinearInterpolation", "interpolate_velocity", "velocity_profile",
+    "CirculantGraph", "build_circulant",
+    "AnnulusSolver", "recontruct_path", "BellmanFordMoore",
+    "save_solution_npz", "travel_times",
+]

@@ -1,0 +1,77 @@
+"""Carry the JAX package's packed tables over to the port.
+
+The solver has no weights: its parameters are the packed stencil tables.
+`tables_from_numpy` takes the JAX package's packed tables (as NumPy
+arrays or anything `np.asarray` reads) together with their static tuples
+and returns the port's own table types, so both packages can run on
+identical tables.  Nothing here imports the JAX package: the inputs are
+read by field name.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+
+from .ops.circulant import CirculantGraph, ColumnMap
+from .ops.sweep_theta import RSweepStatic, SweepStatic, SweepTables
+
+
+def _fields(obj) -> dict:
+    """Field name -> value of a NamedTuple, dataclass or mapping."""
+    if hasattr(obj, "_asdict"):
+        return dict(obj._asdict())
+    if dataclasses.is_dataclass(obj):
+        return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+    if isinstance(obj, Mapping):
+        return dict(obj)
+    raise TypeError(f"cannot read fields of {type(obj).__name__}")
+
+
+def _freeze(x):
+    """Nested sequences of ints -> nested tuples of Python ints."""
+    if isinstance(x, (tuple, list)):
+        return tuple(_freeze(v) for v in x)
+    return int(x)
+
+
+def _arrays(x):
+    return tuple(np.asarray(a) for a in x)
+
+
+def tables_from_numpy(tables, static, wtab_dn, wtab_up, rstatic, cg):
+    """The port's tables from the JAX package's packed ones.
+
+    tables   : SweepTables fields (wg, cfp, cbp, fan_w, fan_in, wr_dn,
+               wr_up, ring_f, ring_b, ring2_f, ring2_b, wh)
+    static   : SweepStatic fields (Mp, ML, nt, dms, chain_spans, taps_dn,
+               taps_up, h_cap, h_spans)
+    wtab_dn, wtab_up : the radial-sweep weight tables
+    rstatic  : RSweepStatic fields (MT, K8, NTL, NTB, taps_dn, taps_up,
+               Ddn, Dup)
+    cg       : CirculantGraph fields (src_flat, w, fan_slots, fan_w,
+               cmap, n), cmap with ColumnMap fields
+    Returns (SweepTables, SweepStatic, (wtab_dn, wtab_up), RSweepStatic,
+    CirculantGraph) of the port, arrays as NumPy with their bits kept.
+    """
+    t = _fields(tables)
+    tbl = SweepTables(**{
+        k: _arrays(t[k]) if k in ("wg", "wh") else np.asarray(t[k])
+        for k in SweepTables._fields})
+    s = _fields(static)
+    st = SweepStatic(**{k: _freeze(s[k]) for k in SweepStatic._fields})
+    r = _fields(rstatic)
+    rst = RSweepStatic(**{k: _freeze(r[k]) for k in RSweepStatic._fields})
+    c = _fields(cg)
+    m = _fields(c["cmap"])
+    cmap = ColumnMap(c_of=np.asarray(m["c_of"]), m_of=np.asarray(m["m_of"]),
+                     node_of=np.asarray(m["node_of"]),
+                     center=int(m["center"]), M=int(m["M"]),
+                     ntheta=int(m["ntheta"]))
+    cg_port = CirculantGraph(
+        src_flat=np.asarray(c["src_flat"]), w=np.asarray(c["w"]),
+        fan_slots=np.asarray(c["fan_slots"]), fan_w=np.asarray(c["fan_w"]),
+        cmap=cmap, n=int(c["n"]))
+    return (tbl, st, (np.asarray(wtab_dn), np.asarray(wtab_up)), rst,
+            cg_port)

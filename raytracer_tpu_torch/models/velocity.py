@@ -1,0 +1,75 @@
+"""Radial Earth velocity model (AK135 Vp/Vs table).
+
+Host-side NumPy, a copy of the parts of `raytracer_tpu/models/velocity.py`
+the main path needs.  The 1-km-sampled `depth Vp Vs` table is vendored
+under `raytracer_tpu_torch/data/`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Callable
+
+import numpy as np
+
+from ..config import DISCONTINUITY_RADII, VELOCITY_BUFFER
+
+_DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+
+_PROFILE_FILES = {
+    "ak135": "R_Vp_Vs_AK135.txt",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class VelProfile:
+    """Radial profile: radius (km, ascending), Vp and Vs (km/s)."""
+
+    r: np.ndarray
+    Vp: np.ndarray
+    Vs: np.ndarray
+
+
+def velocity_profile(model: str = "ak135") -> VelProfile:
+    """Load a radial Earth model table and convert depth -> radius.
+
+    The table is `depth Vp Vs` with 1-km sampling; radius = max(depth) -
+    depth, rows reversed so radius is ascending.
+    """
+    try:
+        fname = _PROFILE_FILES[model.lower()]
+    except KeyError:
+        raise ValueError(f"unknown velocity model {model!r}; expected one of {sorted(_PROFILE_FILES)}")
+    table = np.loadtxt(os.path.join(_DATA_DIR, fname))
+    depth = table[:, 0]
+    r = depth.max() - depth
+    return VelProfile(r=r[::-1].copy(), Vp=table[::-1, 1].copy(), Vs=table[::-1, 2].copy())
+
+
+class LinearInterpolation:
+    """1-D linear interpolant over (x, y) with clamped extrapolation."""
+
+    def __init__(self, x, y):
+        self.x = np.asarray(x, dtype=np.float64)
+        self.y = np.asarray(y, dtype=np.float64)
+        if self.x.ndim != 1 or self.x.shape != self.y.shape:
+            raise ValueError("LinearInterpolation expects 1-D x and y of equal length")
+
+    def __call__(self, r):
+        return np.interp(r, self.x, self.y)
+
+
+def interpolate_velocity(r: np.ndarray, interpolant: Callable, buffer: float = VELOCITY_BUFFER) -> np.ndarray:
+    """Sample a radial velocity interpolant onto grid nodes.
+
+    Nodes lying exactly on a discontinuity take the velocity just *above*
+    (r + buffer).
+    """
+    r = np.asarray(r)
+    V = interpolant(r)
+    on_disc = np.zeros(r.shape, dtype=bool)
+    for rad in DISCONTINUITY_RADII:
+        on_disc |= r == rad
+    if on_disc.any():
+        V = np.where(on_disc, interpolant(r + buffer), V)
+    return V

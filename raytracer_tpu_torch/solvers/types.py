@@ -1,0 +1,11 @@
+"""SSSP result container: predecessor ids and travel times."""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+
+
+class BellmanFordMoore(NamedTuple):
+    prev: np.ndarray
+    dist: np.ndarray

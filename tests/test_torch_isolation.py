@@ -1,0 +1,136 @@
+"""PyTorch port: nothing on the card's side needs JAX.
+
+The machine with the GPU has PyTorch and the CUDA toolkit but no JAX, so
+the port and chip_smoke.py must import neither jax, jaxlib nor anything
+of the JAX package (not even its NumPy-only modules, whose package
+__init__ loads JAX).  A subprocess that refuses those imports loads every
+module of the port and builds the 180x63 tables; an AST scan checks the
+sources; the kernel build goes through plain nvcc, never through
+torch.utils.cpp_extension.
+"""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "raytracer_tpu_torch")
+SMOKE = os.path.join(ROOT, "chip_smoke.py")
+BLOCKED = ("jax", "jaxlib", "raytracer_tpu")
+
+
+def _sources():
+    out = [SMOKE]
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in sorted(files)
+                if f.endswith(".py")]
+    return out
+
+
+def _clean_env():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["JAX_PLATFORMS"] = "cpu"
+    return env
+
+
+_REFUSING_RUN = textwrap.dedent("""
+    import importlib, importlib.abc, importlib.util, pkgutil, sys
+    BLOCKED = {blocked!r}
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("refused import of " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    sys.path.insert(0, {root!r})
+    import numpy as np
+    import raytracer_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(
+        raytracer_tpu_torch.__path__, "raytracer_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from raytracer_tpu_torch.models.fast_annulus import init_annulus_circulant
+    from raytracer_tpu_torch.ops.sweep_theta import (pack_rsweep_tables,
+                                                     pack_sweep_tables)
+    from raytracer_tpu_torch.ops.wrapped_t import pack_twrapped_stencil
+    gr, cg, U = init_annulus_circulant(180, 63, 20.0)
+    ws = pack_twrapped_stencil(cg, dtype=np.float32, band_closure=0)
+    pack_sweep_tables(ws, cg, np.float32)
+    (wdn, wup), rst = pack_rsweep_tables(ws, cg, np.float32)
+    assert wdn.shape == (888, 256) and rst.MT == 840
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not leaked, leaked
+    print("ISOLATED", len(names))
+""")
+
+
+def test_port_imports_and_builds_tables_without_jax(tmp_path):
+    code = _REFUSING_RUN.format(blocked=BLOCKED, root=ROOT, smoke=SMOKE)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    n_modules = int(proc.stdout.split("ISOLATED")[1])
+    assert n_modules >= 20
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_sources_name_no_jax_and_no_cpp_extension(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            mods = []
+        for m in mods:
+            assert m.split(".")[0] not in BLOCKED, f"{path}: imports {m}"
+            assert "cpp_extension" not in m, f"{path}: imports {m}"
+        if isinstance(node, ast.Attribute):
+            assert node.attr != "cpp_extension", path
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert node.value.split(".")[0] not in BLOCKED or " " in node.value, \
+                f"{path}: names module {node.value!r}"
+
+
+def test_build_directory_is_ignored():
+    with open(os.path.join(ROOT, ".gitignore")) as f:
+        lines = [ln.strip() for ln in f]
+    assert "raytracer_tpu_torch/_build/" in lines
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """No card here: the smoke run exits non-zero and prints no result."""
+    proc = subprocess.run([sys.executable, SMOKE], cwd=tmp_path,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "cuda" in proc.stderr.lower()
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """Copied into a directory that holds nothing else of the repo, the
+    smoke run fails even where torch reports a card."""
+    alone = tmp_path / "chip_smoke.py"
+    with open(SMOKE) as f:
+        alone.write_text(f.read())
+    code = ("import runpy, torch; torch.cuda.is_available = lambda: True; "
+            f"runpy.run_path({str(alone)!r}, run_name='__main__')")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "raytracer_tpu_torch" in proc.stderr
