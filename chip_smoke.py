@@ -2,23 +2,35 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure raises and the exit code is
-non-zero):
+Phases (each prints one line with its seconds; any failure raises and
+the exit code is non-zero):
   1. environment: torch, CUDA, nvcc release, ninja, the card's name and
      power limit;
   2. build: every CUDA kernel of the port, one nvcc per source, all
      started together;
-  3. every kernel against its plain PyTorch version on the card, at the
-     shapes of the 180x63 AK135 main path (bit equality: each candidate
-     is one f32 add followed by a min), with both timed;
+  3. every kernel against its plain PyTorch version on the card, with
+     both timed, at the shapes of the paths below (bit equality: each
+     candidate is one f32 add followed by a min, and the scans keep the
+     TPU kernels' span schedules): rsweep at 180x63; titer at 180x63
+     (S=1 and S=2, dup 4) and at 176x40 (S=2, dup 0); band at 1080x300
+     (S=1 and S=2);
   4. the main path through the user entry points: init_annulus_circulant
      (180, 63, 20) -> AnnulusSolver(method="auto") on cuda -> solve with
-     prev -> receiver fan -> paths -> travel-time CSV, with the kernel
-     launch counts read just around it and the result held against the
+     prev -> receiver fan -> paths -> travel-time CSV, held against the
      JAX package's anchors and the same solve on the CPU;
-  5. the port's main_annulus CLI into a temporary directory.
-Then one JSON line of kernel numbers, the card's name and power limit
-from nvidia-smi, and as the last line {"ok": true, "device": {...}}.
+  5. the port's main_annulus CLI into a temporary directory;
+  6. AnnulusSolver(method="twrapped") at 180x63 (the titer kernel),
+     held to the anchors and to phase 4's sweep field at every node;
+  7. AnnulusSolver(method="stream") at 1080x300 with warm level 1 (the
+     band kernel), held to the same solve on the CPU at every node, and
+     to the sweep solve of the same grid at the surface receivers
+     (2e-3 s) and at every node (ENGINE_ATOL_1080, see there);
+  8. travel_time_table of 8 sources x 150 receivers at 180x63 on
+     'sweep' and 'twrapped', each row held to its single-source solve.
+Every kernel-launch count is set to 0 just before each path (4, 6, 7)
+and read just after it.  Then one JSON line of kernel numbers, the
+card's name and power limit from nvidia-smi, and as the last line
+{"ok": true, "device": {...}}.
 
 Needs no network and writes only to a temporary directory and to the
 package's `_build/`.  Without CUDA, or without the package beside it, it
@@ -43,6 +55,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 T60_REF, T150_REF, T_ATOL = 610.742, 1050.994, 0.01
 CPU_ATOL = 2e-3          # two tol units of f32 termination slack
 MAX_ROUNDS = 10
+TABLE_SOURCES, TABLE_RECEIVERS = 8, 150
+# stream against sweep at 1080x300 over every node: both engines stop
+# once no node improves by more than tol = 1e-3 s in one iteration or
+# round, and over 1080 columns that slack adds up.  Phase 7 measures it
+# against a stream solve run to tol = 1e-5: on an NVIDIA H100 80GB HBM3
+# at a 700 W power limit the default-tol sweep sat up to 8.9 ms above
+# it and the warm stream up to 7.9 ms, and the two differed by up to
+# 8.1 ms (in the inner core); at the surface receivers they agreed
+# within 2e-3 s.
+ENGINE_ATOL_1080 = 1e-2
+TIGHT_TOL = 1e-5
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # f32 outside the tensor cores, same sheet
 
@@ -72,6 +95,39 @@ def _cuda_ms(fn, n: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n
+
+
+def _launch_counters():
+    """name -> the wrapper whose `launches` counts that kernel."""
+    from raytracer_tpu_torch.ops import stream_t, sweep_theta, wrapped_t
+
+    return {"rsweep": sweep_theta.rsweep, "titer": wrapped_t.titer,
+            "band": stream_t.band}
+
+
+def _reset_counts():
+    for fn in _launch_counters().values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in _launch_counters().items()}
+
+
+def _max_err(got, want) -> float:
+    """Max abs difference over finite entries; inf when the +inf
+    patterns differ."""
+    import torch
+
+    if not torch.equal(torch.isinf(got), torch.isinf(want)):
+        return float("inf")
+    fin = torch.isfinite(want)
+    return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+
+
+def _bound_ms(nbytes: float, ops: float):
+    t_b, t_o = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
 def phase_environment():
@@ -218,26 +274,26 @@ def phase_main_path(rec: dict, tmp: str):
 
     import raytracer_tpu_torch as rt
     from raytracer_tpu_torch.main_annulus import receiver_degrees
-    from raytracer_tpu_torch.ops import sweep_theta
 
     t_build = time.perf_counter()
     gr, cg, U = rt.init_annulus_circulant(180, 63, spacing=20.0)
     t_build = time.perf_counter() - t_build
     source = rt.closest_point(gr, 0.0, rt.R, system="polar")
 
-    sweep_theta.rsweep.launches = 0
     solver = rt.AnnulusSolver(gr, None, None, U, method="auto", circulant=cg)
+    _reset_counts()
     t0 = time.perf_counter()
     D = solver.solve(source)
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
+    counts = _counts()
     degs = receiver_degrees()
     receivers = [rt.closest_point(gr, np.deg2rad(d), rt.R, system="polar")
                  for d in degs]
     paths = [rt.recontruct_path(D.prev, source, r) for r in receivers]
     csv_path = os.path.join(tmp, "main_path_travel_times.csv")
     tt = rt.travel_times(D, gr, receivers, isave=True, flname=csv_path)
-    launches = sweep_theta.rsweep.launches
+    launches = counts["rsweep"]
     rounds = solver.last_iterations
 
     assert solver.method == "sweep", solver.method
@@ -276,6 +332,7 @@ def phase_main_path(rec: dict, tmp: str):
     assert np.array_equal(prev, D.prev)
 
     rec["rsweep"]["launches"] = launches
+    rec["sweep_180"] = (gr, cg, U, source, D, receivers, degs)
     print(f"phase 4 main path: {gr.nnods} nodes (grid {t_build:.2f} s), "
           f"method={solver.method} on {solver.device}, {rounds} rounds, "
           f"rsweep launches={launches}, t(60)={t60:.4f} s, "
@@ -283,7 +340,8 @@ def phase_main_path(rec: dict, tmp: str):
           f"{len(paths)} paths end at the source; first solve+prev "
           f"{t_first:.3f} s, steady solve median of 5 "
           f"{1e3 * statistics.median(steady):.2f} ms, prev recovery "
-          f"{1e3 * t_prev:.2f} ms", flush=True)
+          f"{1e3 * t_prev:.2f} ms; launches on this path {counts}",
+          flush=True)
 
 
 def phase_cli(tmp: str):
@@ -300,37 +358,334 @@ def phase_cli(tmp: str):
           f"the npz in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
+def _titer_work(ws, st, S, iters):
+    """(bytes, operations) of one titer launch: the field and the centre
+    values read and written once, the tables read once; one add and one
+    min per candidate - ring and chain steps over the whole page, band
+    taps only where the weight row is finite (an +inf weight is no work
+    a kernel must do), the duplicate rows' merged band rows, the fan's
+    reduce and broadcast."""
+    import numpy as np
+
+    from raytracer_tpu_torch.ops.wrapped_t import _scan_plan
+
+    ring_statics, n_ring, chain_statics, chain_rep, n_chain = _scan_plan(st)
+    rows, ML, NTT = S * st.NTT, st.ML, st.NTT
+    n_dm5 = (2 * st.maxdm + 1) * 5
+    ring = 2 * 2 * ML * S * sum(NTT - s for s in ring_statics
+                                + (16,) * n_ring)
+    chain = 2 * rows * ML * (len(chain_statics) + n_chain) * 2
+    finite = int(np.isfinite(ws.wrows[:n_dm5]).sum())
+    dup = NTT - st.nt
+    band = 2 * S * (NTT + 2 * dup) * finite
+    fan = 2 * 2 * rows * ML
+    ops = iters * (ring + chain + band + fan)
+    tables = sum(a.size for a in (ws.wrows, ws.ring_f, ws.ring_b, ws.cfl,
+                                  ws.cbl, ws.fan_w))
+    nbytes = 4 * (2 * rows * ML + 2 * S + tables)
+    return nbytes, ops
+
+
+def _band_work(wrows, maxdm, S, nt, ML):
+    """(bytes, operations) of one band launch: the 5-page stack read
+    once, the output written once, the weight rows read once; one add
+    and one min per finite weight entry per (source, theta row)."""
+    import numpy as np
+
+    w = wrows.cpu().numpy()[: (2 * maxdm + 1) * 5]
+    nbytes = 4 * (5 * S * nt * ML + S * nt * ML + wrows.numel())
+    return nbytes, 2 * S * nt * int(np.isfinite(w).sum())
+
+
+def _random_field(rng, shape, Mp):
+    """Finite travel times with ~half +inf cells and +inf pad lanes
+    [Mp, ML), the invariant the kernels' tables keep."""
+    import numpy as np
+    import torch
+
+    v = rng.uniform(0.0, 1500.0, shape).astype(np.float32)
+    v[rng.random(shape) < 0.5] = np.inf
+    v[..., Mp:] = np.inf
+    return torch.from_numpy(v).cuda()
+
+
+def phase_jacobi_kernels(rec: dict):
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.models.fast_annulus import init_annulus_circulant
+    from raytracer_tpu_torch.ops import stream_t, wrapped_t
+
+    rng = np.random.default_rng(5)
+    titer_rows = []
+    for ntheta, nr, S in ((180, 63, 1), (180, 63, 2), (176, 40, 2)):
+        _, cg, _ = init_annulus_circulant(ntheta, nr, spacing=20.0)
+        ws = wrapped_t.pack_twrapped_stencil(cg, dtype=np.float32,
+                                             band_closure=1)
+        st = wrapped_t.TWStatic(ws.Mp, ws.ML, ws.NTT, ws.nt, ws.maxdm)
+        tbl = wrapped_t.device_twrapped_tables(ws, "cuda")
+        dist = _random_field(rng, (S * ws.NTT, ws.ML), ws.Mp)
+        cen = torch.tensor(rng.uniform(0.0, 1500.0, S).astype(np.float32),
+                           device="cuda")
+        d_k, c_k = wrapped_t.titer(st, dist, cen, tbl, 4)
+        d_r, c_r = wrapped_t.titer_reference(st, dist, cen, tbl, 4)
+        torch.cuda.synchronize()
+        err = max(_max_err(d_k, d_r), _max_err(c_k, c_r))
+        if not (torch.equal(d_k, d_r) and torch.equal(c_k, c_r)):
+            raise AssertionError(
+                f"titer kernel != plain version at {ntheta}x{nr} S={S} "
+                f"(dup {ws.NTT - ws.nt}): max abs err {err}")
+        ms = _cuda_ms(lambda: wrapped_t.titer(st, dist, cen, tbl, 4), 20)
+        plain = _cuda_ms(lambda: wrapped_t.titer_reference(st, dist, cen,
+                                                           tbl, 4), 2)
+        nbytes, ops = _titer_work(ws, st, S, 4)
+        bound, by = _bound_ms(nbytes, ops)
+        titer_rows.append(dict(
+            grid=f"{ntheta}x{nr}", S=S, dup=ws.NTT - ws.nt, max_abs_err=err,
+            ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, ops=ops))
+    band_rows = []
+    _, cg, _ = init_annulus_circulant(1080, 300, spacing=20.0)
+    ws = wrapped_t.pack_twrapped_stencil(cg, dtype=np.float32,
+                                         band_closure=1)
+    wrows = torch.tensor(ws.wrows, device="cuda")
+    for S in (1, 2):
+        v = _random_field(rng, (S, ws.nt, ws.ML), ws.Mp)
+        stack = torch.stack([torch.roll(v, -dc, dims=1)
+                             for dc in range(-2, 3)])
+        out_k = stream_t.band(stack, wrows, ws.maxdm)
+        out_r = stream_t.band_reference(stack, wrows, ws.maxdm)
+        torch.cuda.synchronize()
+        err = _max_err(out_k, out_r)
+        if not torch.equal(out_k, out_r):
+            raise AssertionError(f"band kernel != plain version at 1080x300 "
+                                 f"S={S}: max abs err {err}")
+        ms = _cuda_ms(lambda: stream_t.band(stack, wrows, ws.maxdm), 50)
+        plain = _cuda_ms(lambda: stream_t.band_reference(stack, wrows,
+                                                         ws.maxdm), 3)
+        nbytes, ops = _band_work(wrows, ws.maxdm, S, ws.nt, ws.ML)
+        bound, by = _bound_ms(nbytes, ops)
+        band_rows.append(dict(
+            grid="1080x300", S=S, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=bound, bound_by=by, nbytes=nbytes))
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    for name, rows in (("titer", titer_rows), ("band", band_rows)):
+        # times at the main paths' shape (S=1), errors over every case
+        rec[name] = {k: rows[0][k] for k in keys}
+        rec[name]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    print("phase 3a kernels: titer (T=4) bit-equal to titer_reference: "
+          + "; ".join(f"{r['grid']} S={r['S']} dup={r['dup']}: kernel "
+                      f"{r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, "
+                      f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+                      f"{r['ops'] / 1e9:.3f} G ops)" for r in titer_rows)
+          + ". band bit-equal to band_reference: "
+          + "; ".join(f"{r['grid']} S={r['S']}: kernel {r['ms']:.4f} ms, "
+                      f"plain {r['plain_ms']:.2f} ms, bound "
+                      f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
+                      f"{r['nbytes'] / 1e6:.2f} MB)" for r in band_rows),
+          flush=True)
+
+
+def phase_twrapped(rec: dict):
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+
+    gr, cg, U, source, D_sweep, receivers, degs = rec["sweep_180"]
+    solver = rt.AnnulusSolver(gr, None, None, U, method="twrapped",
+                              circulant=cg)
+    _reset_counts()
+    t0 = time.perf_counter()
+    D = solver.solve(source, want_prev=False)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    counts = _counts()
+    iters = solver.last_iterations
+    assert solver.method == "twrapped", solver.method
+    assert counts["titer"] > 0 and counts["titer"] * 4 == iters, \
+        (counts, iters)
+    assert D.dist.shape == (gr.nnods,) and np.isfinite(D.dist).all()
+    tt = rt.travel_times(D, gr, receivers)
+    t60 = float(tt[np.argmin(np.abs(degs - 60.0))])
+    t150 = float(tt[np.argmin(np.abs(degs - 150.0))])
+    assert abs(t60 - T60_REF) <= T_ATOL, t60
+    assert abs(t150 - T150_REF) <= T_ATOL, t150
+    err = float(np.abs(D.dist - D_sweep.dist).max())
+    assert err <= CPU_ATOL, err
+    steady = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve(source, want_prev=False)
+        torch.cuda.synchronize()
+        steady.append(time.perf_counter() - t0)
+    rec["titer"]["launches"] = counts["titer"]
+    rec["twrapped_solver"] = solver
+    rec["twrapped_ms"] = 1e3 * statistics.median(steady)
+    print(f"phase 6 twrapped: {gr.nnods} nodes, method={solver.method}, "
+          f"{iters} iterations, titer launches={counts['titer']} "
+          f"(path counts {counts}), t(60)={t60:.4f} s, t(150)={t150:.4f} s,"
+          f" max |twrapped - sweep| = {err:.3g} s over every node; first "
+          f"solve {t_first:.3f} s, steady solve median of 3 "
+          f"{rec['twrapped_ms']:.2f} ms", flush=True)
+
+
+def phase_stream(rec: dict):
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+    from raytracer_tpu_torch.main_annulus import receiver_degrees
+    from raytracer_tpu_torch.ops.stream_t import auto_warm_levels
+
+    gr, cg, U = rt.init_annulus_circulant(1080, 300, spacing=20.0)
+    source = rt.closest_point(gr, 0.0, rt.R, system="polar")
+    sweep = rt.AnnulusSolver(gr, None, None, U, method="sweep", circulant=cg)
+    d_sweep = sweep.solve(source, want_prev=False).dist
+    rounds = sweep.last_iterations
+    solver = rt.AnnulusSolver(gr, None, None, U, method="stream",
+                              circulant=cg)
+    assert auto_warm_levels(cg.ntheta) == 1 and solver.config.warm_levels \
+        is None
+    _reset_counts()
+    t0 = time.perf_counter()
+    D = solver.solve(source, want_prev=False)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    counts = _counts()
+    iters = solver.last_iterations
+    assert solver.method == "stream", solver.method
+    assert counts["band"] == iters > 0, (counts, iters)
+    assert D.dist.shape == (gr.nnods,) and np.isfinite(D.dist).all()
+    err_all = float(np.abs(D.dist - d_sweep).max())
+    assert err_all <= ENGINE_ATOL_1080, err_all
+    recs = [rt.closest_point(gr, np.deg2rad(d), rt.R, system="polar")
+            for d in receiver_degrees()]
+    err_rec = float(np.abs(D.dist[recs] - d_sweep[recs]).max())
+    assert err_rec <= CPU_ATOL, err_rec
+    cpu = rt.AnnulusSolver(gr, None, None, U, method="stream", circulant=cg,
+                           device="cpu")
+    t0 = time.perf_counter()
+    d_cpu = cpu.solve(source, want_prev=False).dist
+    t_cpu = time.perf_counter() - t0
+    err_cpu = float(np.abs(D.dist - d_cpu).max())
+    assert err_cpu <= CPU_ATOL, err_cpu
+    assert cpu.last_iterations == iters, (cpu.last_iterations, iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.solve(source, want_prev=False)
+    torch.cuda.synchronize()
+    steady = time.perf_counter() - t0
+    iters_by = {}
+    fields = {}
+    for name, cfg in (("cold", rt.SolverConfig(warm_levels=0)),
+                      ("tight", rt.SolverConfig(warm_levels=0, tol=TIGHT_TOL,
+                                                max_iters=5000))):
+        s_ = rt.AnnulusSolver(gr, None, None, U, cfg, method="stream",
+                              circulant=cg)
+        fields[name] = s_.solve(source, want_prev=False).dist
+        iters_by[name] = s_.last_iterations
+    ref = fields["tight"]
+    above = {name: float((d - ref).max()) for name, d in
+             (("sweep", d_sweep), ("warm stream", D.dist),
+              ("cold stream", fields["cold"]))}
+    for name, a in above.items():
+        assert -CPU_ATOL <= a <= ENGINE_ATOL_1080, (name, a)
+    rec["band"]["launches"] = counts["band"]
+    rec["stream_ms"] = 1e3 * steady
+    print(f"phase 7 stream: 1080x300, {gr.nnods} nodes, warm level 1, "
+          f"{iters} iterations over both levels, band launches="
+          f"{counts['band']} (path counts {counts}); max |cuda - cpu| = "
+          f"{err_cpu:.3g} s over every node (the CPU solve through the "
+          f"plain versions took {t_cpu:.1f} s, same iterations); max "
+          f"|stream - sweep| = {err_rec:.3g} s over the {len(recs)} "
+          f"surface receivers and {err_all:.3g} s over every node (sweep "
+          f"{rounds} rounds); first solve {t_first:.3f} s, steady solve "
+          f"{1e3 * steady:.1f} ms; cold stream {iters_by['cold']} "
+          f"iterations; against a cold stream solve at tol={TIGHT_TOL:g} "
+          f"({iters_by['tight']} iterations) the most any node sits above "
+          f"is " + ", ".join(f"{n} {a:.3g} s" for n, a in above.items()),
+          flush=True)
+
+
+def phase_tables(rec: dict):
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+
+    gr, cg, U, _, _, receivers, _ = rec["sweep_180"]
+    recs = np.asarray(receivers[:TABLE_RECEIVERS])
+    assert len(recs) == TABLE_RECEIVERS
+    srcs = [rt.closest_point(gr, np.deg2rad(d), rt.R, system="polar")
+            for d in np.linspace(0.0, 315.0, TABLE_SOURCES)]
+    parts = []
+    for method in ("sweep", "twrapped"):
+        solver = rt.AnnulusSolver(gr, None, None, U, method=method,
+                                  circulant=cg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = solver.travel_time_table(srcs, recs, batch=8)
+        torch.cuda.synchronize()
+        t_table = time.perf_counter() - t0
+        single = np.stack([solver.solve(s, want_prev=False).dist[recs]
+                           for s in srcs])
+        assert table.shape == (TABLE_SOURCES, TABLE_RECEIVERS)
+        assert np.isfinite(table).all()
+        err = float(np.abs(table - single).max())
+        assert err <= CPU_ATOL, (method, err)
+        parts.append(f"{method}: {1e3 * t_table:.1f} ms, max |table - "
+                     f"single solves| = {err:.3g} s"
+                     f"{' (bit-equal)' if err == 0.0 else ''}")
+    print(f"phase 8 tables: {TABLE_SOURCES} sources x {TABLE_RECEIVERS} "
+          f"receivers at 180x63, batch=8; " + "; ".join(parts), flush=True)
+
+
 def main():
-    faulthandler.dump_traceback_later(480, exit=True)
+    faulthandler.dump_traceback_later(900, exit=True)
     t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     phase_environment()
     import torch
 
-    phase_build()
     rec: dict = {}
-    phase_kernels(rec)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_main_path(rec, tmp)
-        phase_cli(tmp)
-    r = rec["rsweep"]
+        for phase in (phase_build, lambda: phase_kernels(rec),
+                      lambda: phase_jacobi_kernels(rec),
+                      lambda: phase_main_path(rec, tmp),
+                      lambda: phase_cli(tmp), lambda: phase_twrapped(rec),
+                      lambda: phase_stream(rec), lambda: phase_tables(rec)):
+            t0 = time.perf_counter()
+            phase()
+            print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+    sources = {
+        "rsweep": ("raytracer_tpu_torch/csrc/rsweep.cu",
+                   "raytracer_tpu/ops/sweep_theta.py:551"),
+        "titer": ("raytracer_tpu_torch/csrc/titer.cu",
+                  "raytracer_tpu/ops/wrapped_t.py:254"),
+        "band": ("raytracer_tpu_torch/csrc/band.cu",
+                 "raytracer_tpu/ops/stream_t.py:253"),
+    }
     kernels_line = {"kernels": [{
-        "name": "rsweep",
+        "name": name,
         "route": "cuda",
-        "source": "raytracer_tpu_torch/csrc/rsweep.cu",
-        "replaces": "raytracer_tpu/ops/sweep_theta.py:551",
-        "launches": r["launches"],
+        "source": src,
+        "replaces": replaces,
+        "launches": rec[name]["launches"],
         "bit_equal": True,
-        "max_abs_err": r["max_abs_err"],
-        "ms": r["ms"],
-        "kernel_ms": r["ms"],
-        "plain_ms": r["plain_ms"],
-        "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"],
+        "max_abs_err": rec[name]["max_abs_err"],
+        "ms": rec[name]["ms"],
+        "plain_ms": rec[name]["plain_ms"],
+        "bound_ms": rec[name]["bound_ms"],
+        "bound_by": rec[name]["bound_by"],
         "library_ms": None,
-    }]}
+    } for name, (src, replaces) in sources.items()]}
+    for k in kernels_line["kernels"]:
+        assert k["launches"] > 0, k
     faulthandler.cancel_dump_traceback_later()
-    print(f"total wall {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"total wall {time.perf_counter() - t_start:.1f} s "
+          f"(twrapped steady solve {rec['twrapped_ms']:.2f} ms, stream "
+          f"steady solve {rec['stream_ms']:.1f} ms)", flush=True)
     print(json.dumps(kernels_line))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

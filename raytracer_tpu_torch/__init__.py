@@ -1,12 +1,13 @@
 """raytracer_tpu_torch - the PyTorch/CUDA port of raytracer_tpu.
 
 A second package beside the JAX one, for an NVIDIA H100.  It imports
-torch and never jax or the JAX package.  This slice carries the main
-path: the AK135 annulus from the O(M) circulant builder, the
-directional-sweep solver whose radial Gauss-Seidel sweep is the
-hand-written CUDA kernel `csrc/rsweep.cu`, the predecessor tree, ray
-paths and the travel-time CSV.  Entry points run on the card unless the
-caller passes `device="cpu"`.
+torch and never jax or the JAX package.  It carries the main path (the
+AK135 annulus from the O(M) circulant builder, the directional-sweep
+solver whose radial Gauss-Seidel sweep is the hand-written CUDA kernel
+`csrc/rsweep.cu`, the predecessor tree, ray paths and the travel-time
+CSV) and the Jacobi engines 'twrapped' (kernel `csrc/titer.cu`) and
+'stream' (kernel `csrc/band.cu`) with the plain 'circulant' oracle.
+Entry points run on the card unless the caller passes `device="cpu"`.
 """
 from .config import DEFAULT_SOLVER_CONFIG, R, SolverConfig
 from .models.annulus import Grid2D, closest_point, init_annulus

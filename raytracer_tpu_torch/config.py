@@ -1,8 +1,9 @@
 """Global constants and solver knobs of the PyTorch port.
 
-A copy of the parts of `raytracer_tpu/config.py` that the sweep solve
-needs: the Earth radius, the AK135 discontinuity radii the mesh forces
-into every column, and `SolverConfig` with the same `tol_value` rule.
+A copy of the parts of `raytracer_tpu/config.py` that the port's solvers
+need: the Earth radius, the AK135 discontinuity radii the mesh forces
+into every column, and `SolverConfig` with the same defaults and the
+same `tol_value` rule.
 """
 from __future__ import annotations
 
@@ -35,18 +36,28 @@ R_INNER = 0.1
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """Runtime knobs for the sweep solver.
+    """Runtime knobs for the circulant solvers.
 
     dtype     : device dtype of distances and weights
-    max_iters : hard cap on the number of sweep rounds
+    max_iters : hard cap on the number of sweep rounds or iterations
     tol       : stop once no distance improves by more than `tol`
                 seconds; None picks 1e-3 for float32 (one f32 ULP of the
                 largest travel times is ~2.4e-4 s) and 0.0 for float64
+    band_closure : min-plus band-closure levels of the Jacobi engines'
+                stencil ('twrapped', 'stream'): each level squares the
+                truncated (dm, dc) band at pack time, so one band sweep
+                composes up to 2**levels original hops (exact; see
+                ops/wrapped_t.py::_compose_band)
+    warm_levels : coarse-to-fine warm-start levels of the 'stream'
+                engine (exact; 0 = off, None = the measured policy of
+                ops/stream_t.py::auto_warm_levels)
     """
 
     dtype: str = "float32"
     max_iters: int = 100_000
     tol: float = None
+    band_closure: int = 1
+    warm_levels: int = None
 
     def tol_value(self) -> float:
         if self.tol is not None:

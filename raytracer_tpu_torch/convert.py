@@ -1,11 +1,14 @@
 """Carry the JAX package's packed tables over to the port.
 
 The solver has no weights: its parameters are the packed stencil tables.
-`tables_from_numpy` takes the JAX package's packed tables (as NumPy
-arrays or anything `np.asarray` reads) together with their static tuples
-and returns the port's own table types, so both packages can run on
-identical tables.  Nothing here imports the JAX package: the inputs are
-read by field name.
+`tables_from_numpy` (the sweep's tables), `stencil_from_numpy` (a
+theta-major `TWStencil`, the Jacobi engines' tables) and
+`stream_level_from_numpy` (one level's `StreamTables`/`LevelStatic`)
+take the JAX package's packed tables (as NumPy arrays or anything
+`np.asarray` reads) together with their static fields and return the
+port's own table types, so both packages can run on identical tables.
+Nothing here imports the JAX package: the inputs are read by field
+name.
 """
 from __future__ import annotations
 
@@ -15,7 +18,9 @@ from typing import Mapping
 import numpy as np
 
 from .ops.circulant import CirculantGraph, ColumnMap
+from .ops.stream_t import LevelStatic, StreamTables
 from .ops.sweep_theta import RSweepStatic, SweepStatic, SweepTables
+from .ops.wrapped_t import TWStencil
 
 
 def _fields(obj) -> dict:
@@ -75,3 +80,25 @@ def tables_from_numpy(tables, static, wtab_dn, wtab_up, rstatic, cg):
         cmap=cmap, n=int(c["n"]))
     return (tbl, st, (np.asarray(wtab_dn), np.asarray(wtab_up)), rst,
             cg_port)
+
+
+def stencil_from_numpy(ws) -> TWStencil:
+    """The port's TWStencil from the JAX package's packed one (fields
+    wrows, ring_f, ring_b, cfl, cbl, fan_w, maxdm, Mp, ML, M, nt, NTT),
+    arrays as NumPy with their bits kept and a fresh, empty table cache
+    (the JAX cache holds JAX arrays)."""
+    f = _fields(ws)
+    arrays = ("wrows", "ring_f", "ring_b", "cfl", "cbl", "fan_w")
+    return TWStencil(**{k: np.asarray(f[k]) if k in arrays else int(f[k])
+                        for k in TWStencil._fields if k != "dcache"},
+                     dcache={})
+
+
+def stream_level_from_numpy(tables, static):
+    """(StreamTables, LevelStatic) of the port from one level of the JAX
+    package's streamed path: tables with fields wrows, ring_f, ring_b,
+    cfp, cbp, fan_w; static with Mp, ML, nt, maxdm, chain_spans, TB."""
+    t = _fields(tables)
+    s = _fields(static)
+    return (StreamTables(**{k: np.asarray(t[k]) for k in StreamTables._fields}),
+            LevelStatic(**{k: _freeze(s[k]) for k in LevelStatic._fields}))

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel source `csrc/<name>.cu` exposes an `extern "C"` launch
+Each kernel source `csrc/<name>.cu` (which may include the shared
+headers `csrc/*.cuh`) exposes an `extern "C"` launch
 function that takes raw pointers, ints and a `cudaStream_t` and returns
 `cudaGetLastError()`.  At first use it is compiled with plain `nvcc` into
 a shared library under `_build/` (listed in .gitignore) and loaded with
@@ -54,9 +55,14 @@ def source_path(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    """`_build/lib<name>_<hash>.so`, the hash over source and flags."""
-    with open(source_path(name), "rb") as f:
-        h = hashlib.sha256(f.read())
+    """`_build/lib<name>_<hash>.so`, the hash over the source, the shared
+    headers `csrc/*.cuh` and the flags."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC_DIR, f)
+                                       for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 

@@ -1,12 +1,15 @@
 """End-to-end driver of the PyTorch port (the main path).
 
 Builds the AK135 annulus with the O(M) circulant builder, solves the
-travel-time field from a surface source with the directional-sweep
-solver, reconstructs ray paths to the receiver fan (2..150 deg both
+travel-time field from a surface source with the chosen engine
+(`--method`, the JAX driver's choices; 'auto' takes the directional
+sweep, and methods not ported yet raise naming their ROADMAP item),
+reconstructs ray paths to the receiver fan (2..150 deg both
 sides), and writes the travel-time CSV and the npz archive to
 `--out-prefix`.  Runs on the card unless `--device cpu` is given.
 
     python -m raytracer_tpu_torch.main_annulus --ntheta 180 --nr 63
+    python -m raytracer_tpu_torch.main_annulus --method twrapped
 """
 from __future__ import annotations
 
@@ -34,6 +37,10 @@ def main(argv=None):
     ap.add_argument("--ntheta", type=int, default=180)
     ap.add_argument("--nr", type=int, default=63)
     ap.add_argument("--spacing", type=float, default=20.0)
+    ap.add_argument("--method", default="auto",
+                    choices=["auto", "sweep", "stream", "twrapped", "wrapped",
+                             "diag", "circulant", "pallas", "fused", "banded",
+                             "ell"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out-prefix", default="annulus_run")
     args = ap.parse_args(argv)
@@ -52,13 +59,15 @@ def main(argv=None):
     source = closest_point(gr, 0.0, R, system="polar")
 
     solver = section("solver pack", lambda: AnnulusSolver(
-        gr, None, None, U, circulant=cg, device=args.device))
+        gr, None, None, U, method=args.method, circulant=cg,
+        device=args.device))
     print(f"solver method: {solver.method} on {solver.device}")
 
     section("solve (first)", lambda: solver.solve(source, want_prev=False))
     section("solve (steady)", lambda: solver.solve(source, want_prev=False))
     D = section("solve + prev recovery", lambda: solver.solve(source))
-    print(f"Converged in {solver.last_iterations} rounds")
+    unit = "rounds" if solver.method == "sweep" else "iterations"
+    print(f"Converged in {solver.last_iterations} {unit}")
 
     degs = receiver_degrees()
     receivers = [closest_point(gr, np.deg2rad(d), R, system="polar")

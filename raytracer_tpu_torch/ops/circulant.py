@@ -11,18 +11,23 @@ per-slot fan weight vector; halo twin links become zero-weight stencil
 edges.
 
 Host table building (`column_map`, `build_circulant`) is NumPy, a copy of
-`raytracer_tpu/ops/circulant.py`.  The predecessor recovery
-(`recover_prev_device`) is torch tensor code on the solver's device, the
-counterpart of the JAX package's `_prev_argmin_jit`.
+`raytracer_tpu/ops/circulant.py`.  The plain Jacobi solve
+(`solve_circulant`, the 'circulant' method and the oracle the kernel
+engines are tested against) and the predecessor recovery
+(`recover_prev_device`) are torch tensor code on the solver's device,
+the counterparts of the JAX package's `_solve_circulant_jit` and
+`_prev_argmin_jit`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
 
 _DC_RANGE = 2  # star-1 element stencils reach at most +-2 theta columns
 
@@ -353,6 +358,106 @@ def build_circulant(
         cmap=cmap,
         n=gr.nnods,
     )
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device of `device`; a CUDA device must exist (no silent
+    fall-back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "the plain PyTorch path")
+    return dev
+
+
+# ----------------------------------------------------------------------
+# plain Jacobi solve on the circulant layout
+# ----------------------------------------------------------------------
+
+
+class CircState(NamedTuple):
+    dist: torch.Tensor     # (M, ntheta)
+    dcen: torch.Tensor     # () centre distance
+    changed: bool
+    it: int
+
+
+def _circ_step(state: CircState, src_flat, w, fan_slots, fan_w) -> CircState:
+    """One Jacobi sweep: every node takes the min over its stencil taps
+    of the previous field, and the centre exchanges with its fan."""
+    dist, dcen = state.dist, state.dcen
+    M, nt = dist.shape
+
+    # stack of lane-rolled copies: R[(dc+2)*M + m, c] = dist[m, c + dc]
+    R = torch.cat([torch.roll(dist, -d, dims=1)
+                   for d in range(-_DC_RANGE, _DC_RANGE + 1)], dim=0)
+    g = R[src_flat]                               # (M, K, nt) row gather
+    cand = (g + w[:, :, None]).amin(dim=1)
+
+    if fan_slots.shape[0] > 0:
+        fan = dist[fan_slots] + fan_w[:, None]    # (F, nt)
+        new_dcen = torch.minimum(dcen, fan.amin())
+        # fan slots are distinct (one centre edge per node)
+        cand[fan_slots] = torch.minimum(cand[fan_slots],
+                                        dcen + fan_w[:, None])
+    else:
+        new_dcen = dcen
+
+    new_dist = torch.minimum(dist, cand)
+    changed = bool(((new_dist < dist).any() | (new_dcen < dcen)).item())
+    return CircState(new_dist, new_dcen, changed, state.it + 1)
+
+
+def solve_circulant(
+    cg: CirculantGraph,
+    source: int,
+    config: SolverConfig = DEFAULT_SOLVER_CONFIG,
+    device="cuda",
+    _dcache: Optional[dict] = None,
+) -> Tuple[np.ndarray, int]:
+    """Distance field via the circulant relaxation on `device`; returns
+    (dist, iters).
+
+    Relaxes ALL nodes every sweep (no frontier bookkeeping) and stops at
+    the first sweep that changes nothing, so the iteration count is the
+    hop diameter plus one.  Plain tensor code: the oracle the kernel
+    engines are held against.  Pass a dict as `_dcache` to upload the
+    stencil once across repeated calls.
+    """
+    device = resolve_device(device)
+    dtype = getattr(torch, np.dtype(config.dtype).name)
+    cmap = cg.cmap
+    if _dcache is None:
+        _dcache = {}
+    key = ("circ_tables", str(device), str(dtype))
+    if key not in _dcache:
+        _dcache[key] = (
+            torch.tensor(cg.src_flat.astype(np.int64), device=device),
+            torch.tensor(cg.w, dtype=dtype, device=device),
+            torch.tensor(cg.fan_slots.astype(np.int64), device=device),
+            torch.tensor(cg.fan_w, dtype=dtype, device=device),
+        )
+    src_flat, w, fan_slots, fan_w = _dcache[key]
+
+    src_is_center = source == cmap.center
+    dist = torch.full((cmap.M, cmap.ntheta), float("inf"), dtype=dtype,
+                      device=device)
+    dcen = torch.tensor(float("inf"), dtype=dtype, device=device)
+    if src_is_center:
+        dcen = torch.zeros((), dtype=dtype, device=device)
+    else:
+        dist[int(cmap.m_of[source]), int(cmap.c_of[source])] = 0.0
+
+    st = CircState(dist, dcen, True, 0)
+    while st.changed and st.it < config.max_iters:
+        st = _circ_step(st, src_flat, w, fan_slots, fan_w)
+    dist2d = st.dist.cpu().numpy()
+    out = np.empty(cg.n, dtype=dist2d.dtype)
+    valid = cmap.m_of >= 0
+    out[valid] = dist2d[cmap.m_of[valid], cmap.c_of[valid]]
+    if cmap.center >= 0:
+        out[cmap.center] = float(st.dcen)
+    return out, st.it
 
 
 # ----------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Shared helpers of the batched circulant solvers.
 
 A copy of the host table helpers of `raytracer_tpu/ops/diag_wrapped.py`
-(chain spans, min-plus window costs) plus the chunked-solve protocol and
-the node-extraction index arrays, with the device arrays as torch
-tensors.
+(chain spans, min-plus window costs, the vertical band closure) plus the
+chunked-solve protocol and the node-extraction index arrays, with the
+device arrays as torch tensors.
 """
 from __future__ import annotations
 
@@ -47,6 +47,57 @@ def _window_costs(c1: np.ndarray, need) -> np.ndarray:
         span *= 2
     assert len(out) == len(need)
     return np.stack(out)
+
+
+def _compose_vertical(dms, dcs, wmat, pad, levels: int):
+    """Append min-plus squares of the dc=0 sub-band (truncated to |dm| <=
+    pad) as extra diagonals.
+
+    Ray paths spend ~half their hops descending vertically with |dm| in
+    the 8..14 range (layer strides) and almost never repeat a hop type,
+    so the chain scan (dm=+-1 only) cannot compose them; each vertical
+    hop otherwise costs one full band sweep.  A composed diagonal
+    (dm1+dm2, 0) with weight w1[m] + w2[m+dm1] is a real 2-hop path cost,
+    so relaxing with it preserves the exact fixpoint while collapsing
+    vertical runs of up to 2^levels hops into one sweep.
+    """
+    Mp = wmat.shape[1]
+    vert = {}
+    for d in np.flatnonzero(dcs == 0):
+        vert[int(dms[d])] = wmat[d]
+    base_keys = set(zip(dms.tolist(), dcs.tolist()))
+    cur = dict(vert)
+    cur[0] = np.minimum(cur.get(0, np.inf), np.zeros(Mp))  # identity
+    add_dm, add_w = [], []
+    for _ in range(levels):
+        nxt = {}
+        for dm1, w1 in cur.items():
+            for dm2, w2 in cur.items():
+                dm = dm1 + dm2
+                if abs(dm) > pad:
+                    continue
+                w2s = np.full(Mp, np.inf)
+                if dm1 >= 0:
+                    w2s[: Mp - dm1] = w2[dm1:]
+                else:
+                    w2s[-dm1:] = w2[: Mp + dm1]
+                cand = w1 + w2s
+                nxt[dm] = np.minimum(nxt[dm], cand) if dm in nxt else cand
+        cur = nxt
+    for dm, w in cur.items():
+        if dm == 0 or not np.isfinite(w).any():
+            continue
+        if (dm, 0) in base_keys:
+            d = int(np.flatnonzero((dms == dm) & (dcs == 0))[0])
+            wmat[d] = np.minimum(wmat[d], w)
+        else:
+            add_dm.append(dm)
+            add_w.append(w)
+    if add_dm:
+        dms = np.concatenate([dms, np.asarray(add_dm, dms.dtype)])
+        dcs = np.concatenate([dcs, np.zeros(len(add_dm), dcs.dtype)])
+        wmat = np.concatenate([wmat, np.stack(add_w)])
+    return dms, dcs, wmat
 
 
 def _pipelined_chunk_solve(sources, S: int, n_out: int, dtype, dispatch,

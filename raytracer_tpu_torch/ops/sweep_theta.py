@@ -38,7 +38,7 @@ import torch
 
 from .. import kernels
 from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
-from .circulant import CirculantGraph, _DC_RANGE
+from .circulant import CirculantGraph, _DC_RANGE, resolve_device
 from .diag_circulant import LANES, SUB, _round_up, decompose_diagonals
 from .diag_wrapped import (_extract_cached, _pipelined_chunk_solve,
                            _window_costs)
@@ -645,16 +645,6 @@ def _solve_sweep(src_m, src_c, src_cen, tbl: SweepTables, wtab_dn,
             dist0[b, int(src_c[b]), int(src_m[b])] = 0.0
     return _run_sweep_rounds(dist0, cen0, 0, tbl, wtab_dn, wtab_up, tol,
                              static, rst, max_iters)
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device of `device`; a CUDA device must exist (no silent
-    fall-back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "the plain PyTorch path")
-    return dev
 
 
 def device_tables(ws: TWStencil, cg: CirculantGraph, dtype, device):

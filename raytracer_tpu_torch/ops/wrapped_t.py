@@ -1,21 +1,47 @@
-"""Theta-major stencil tables (host NumPy) and receiver extraction.
+"""Theta-major full-iteration Jacobi engine ('twrapped'), PyTorch port.
 
-A copy of the table packing of `raytracer_tpu/ops/wrapped_t.py`: the
-sweep solver takes its fan row, its geometry (Mp, ML, nt) and its table
-cache from a closure-free `TWStencil`.  The Jacobi kernel that consumes
-the rest of these tables (the 'twrapped' method) is not ported yet.
+Counterpart of `raytracer_tpu/ops/wrapped_t.py`.  The distance page is
+stored THETA-MAJOR: row t of a source block holds theta (t mod nt), lane
+m holds slot m, and the nt theta rows are padded to NTT (a multiple of
+8) with dup = NTT - nt duplicate rows.  One Jacobi iteration is
+
+    ring scan (theta, rows) -> chain scan (slots, lanes)
+        -> moving-frame band sweep over (dm, dc in -2..2) + duplicate-row
+           merge -> centre fan
+
+and `titer` runs `iters` of them per call: on a CUDA tensor as the
+hand-written kernel `csrc/titer.cu` (one launch function that enqueues
+one kernel per phase), on a CPU tensor as its plain twin
+`titer_reference`, which follows the Pallas body op for op.  The solve
+loop calls it until no distance improves by more than
+`SolverConfig.tol`, counting `sweeps_per_call` iterations per call as
+the JAX package does.
+
+The host table packing (`pack_twrapped_stencil`, the band closure) is
+NumPy, a copy of the JAX package's; the sweep solver also packs its
+tables from a closure-free `TWStencil`.
+
+Exactness: every candidate is a real path cost, wrong reads are +inf
+(pad lanes [Mp, ML) hold +inf in every cost table, so lane rolls that
+wrap are self-masking), iterates decrease to the SSSP fixpoint.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from .circulant import CirculantGraph, _DC_RANGE
+from .. import kernels
+from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
+from .circulant import CirculantGraph, _DC_RANGE, resolve_device
 from .diag_circulant import LANES, SUB, _round_up, decompose_diagonals
-from .diag_wrapped import _chain_spans, _window_costs
+from .diag_wrapped import (_chain_spans, _compose_vertical, _extract_cached,
+                           _pipelined_chunk_solve, _pow2_below,
+                           _window_costs)
 
+RING_REPEAT = 16   # fixed span of the theta (row) scan after the statics
 NDC = 2 * _DC_RANGE + 1
 
 
@@ -107,6 +133,22 @@ def _compose_band(dms, dcs, wmat, pad_dm: int, levels: int):
             np.stack(rows))
 
 
+_VMEM_BUDGET = 100 * 1024 * 1024
+
+
+def max_twrapped_batch(tw: "TWStencil",
+                       limit_bytes: int = _VMEM_BUDGET) -> int:
+    """Largest source block S whose monolithic kernel fits the TPU
+    kernel's scoped VMEM limit (the JAX package's figure, kept as it is
+    so that a grid takes the same engine in both packages).  The kernel
+    materialises ~13 field-sized arrays of (S*NTT, ML).  0 means even
+    S=1 does not fit: route to the streamed path (ops/stream_t.py)."""
+    itemsize = np.dtype(tw.wrows.dtype).itemsize
+    per_source = 13 * tw.NTT * tw.ML * itemsize
+    fixed = tw.wrows.size * itemsize
+    return max(0, int((limit_bytes - fixed) // per_source))
+
+
 def supports_twrapped(cg: CirculantGraph) -> bool:
     """Same wrap condition as the slot-major kernel, on the 8-row cover:
     every defect row needs a defect-free twin."""
@@ -117,11 +159,15 @@ def supports_twrapped(cg: CirculantGraph) -> bool:
 
 
 def pack_twrapped_stencil(cg: CirculantGraph, dtype=np.float32,
+                          vertical_closure: int = 0,
                           band_closure: int = 0) -> TWStencil:
     """Theta-major stencil tables; the sweep solver packs it with
     band_closure=0 and keeps its own tables in `dcache`."""
     dec = decompose_diagonals(cg)
     dms, dcs, wmat = dec.dms, dec.dcs, dec.wmat.copy()
+    if vertical_closure:
+        dms, dcs, wmat = _compose_vertical(dms, dcs, wmat, dec.pad,
+                                           vertical_closure)
     if band_closure:
         dms, dcs, wmat = _compose_band(dms, dcs, wmat, dec.pad, band_closure)
     return pack_tables_from_decomp(dms, dcs, wmat, dec.Mp, dec.nt, dec.M,
@@ -197,3 +243,315 @@ def _textract(dist: torch.Tensor, cen: torch.Tensor, it: int,
     itcol = torch.full((S, 1), float(it), dtype=dist.dtype,
                        device=dist.device)
     return torch.cat([vals, itcol], dim=1)
+
+
+# ----------------------------------------------------------------------
+# T Jacobi iterations: CUDA kernel wrapper + plain twin
+# ----------------------------------------------------------------------
+
+
+class TWStatic(NamedTuple):
+    """Static geometry of the theta-major kernel (the JAX `tw_static`)."""
+
+    Mp: int
+    ML: int
+    NTT: int
+    nt: int
+    maxdm: int
+
+
+class TWTables(NamedTuple):
+    """The kernel's cost tables as tensors on one device."""
+
+    wrows: torch.Tensor   # (R8, ML)
+    ring_f: torch.Tensor  # (1, ML)
+    ring_b: torch.Tensor  # (1, ML)
+    cfl: torch.Tensor     # (L, 1, ML)
+    cbl: torch.Tensor     # (L, 1, ML)
+    fan_w: torch.Tensor   # (1, ML)
+
+
+def _scan_plan(st: TWStatic):
+    """(ring statics, n_ring, chain statics, chain repeat span, n_chain):
+    the span schedule of the TPU kernel's ring and chain scans."""
+    Mp, NTT = st.Mp, st.NTT
+    ring_statics = tuple(s for s in _pow2_below(RING_REPEAT) if s < NTT)
+    n_ring = (max(0, -(-(NTT - RING_REPEAT) // RING_REPEAT))
+              if NTT > RING_REPEAT else 0)
+    chain_all = _chain_spans(Mp)
+    chain_statics, chain_rep = chain_all[:-1], chain_all[-1]
+    n_chain = max(0, -(-(Mp - chain_rep) // chain_rep))
+    return ring_statics, n_ring, chain_statics, chain_rep, n_chain
+
+
+def titer_reference(st: TWStatic, dist: torch.Tensor, cen: torch.Tensor,
+                    tbl: TWTables, iters: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of `titer`: `iters` Jacobi iterations of the
+    (S*NTT, ML) theta-major field, following the TPU kernel's body op for
+    op (`_make_titer_kernel` of the JAX package).  cen (S,) holds each
+    source block's centre distance.  Returns new (dist, cen)."""
+    Mp, ML, NTT, nt, maxdm = st
+    rows = dist.shape[0]
+    S = rows // NTT
+    dup = NTT - nt
+    n_dm = 2 * maxdm + 1
+    ring_statics, n_ring, chain_statics, chain_rep, n_chain = _scan_plan(st)
+    dev = dist.device
+    row = (torch.arange(rows, device=dev) % NTT)[:, None]
+    inf = torch.tensor(float("inf"), dtype=dist.dtype, device=dev)
+    rf, rb, fan = tbl.ring_f, tbl.ring_b, tbl.fan_w
+    cfl, cbl, w_ref = tbl.cfl, tbl.cbl, tbl.wrows
+
+    def ring_scan(v):
+        # row t improves from row t-s (theta - s) at cost s*rf
+        for s in ring_statics:
+            cand = torch.roll(v, s, dims=0) + (s * rf)
+            v = torch.minimum(v, torch.where(row < s, inf, cand))
+        costF = RING_REPEAT * rf
+        for _ in range(n_ring):
+            cand = torch.roll(v, RING_REPEAT, dims=0) + costF
+            v = torch.minimum(v, torch.where(row < RING_REPEAT, inf, cand))
+        for s in ring_statics:
+            cand = torch.roll(v, rows - s, dims=0) + (s * rb)
+            v = torch.minimum(v, torch.where(row >= NTT - s, inf, cand))
+        costB = RING_REPEAT * rb
+        for _ in range(n_ring):
+            cand = torch.roll(v, rows - RING_REPEAT, dims=0) + costB
+            v = torch.minimum(v, torch.where(row >= NTT - RING_REPEAT, inf,
+                                             cand))
+        return v
+
+    def chain_scan(v):
+        # +inf window-boundary costs make lane-wrap reads self-masking
+        for k, s in enumerate(chain_statics):
+            v = torch.minimum(v, torch.roll(v, s, dims=1) + cfl[k])
+        L = len(chain_statics)
+        for _ in range(n_chain):
+            v = torch.minimum(v, torch.roll(v, chain_rep, dims=1) + cfl[L])
+        for k, s in enumerate(chain_statics):
+            v = torch.minimum(v, torch.roll(v, ML - s, dims=1) + cbl[k])
+        for _ in range(n_chain):
+            v = torch.minimum(v, torch.roll(v, ML - chain_rep, dims=1)
+                              + cbl[L])
+        return v
+
+    def band_sweep(cur):
+        pages = []
+        for dc in range(-_DC_RANGE, _DC_RANGE + 1):
+            if dc == 0:
+                r = cur
+            elif dup == 0 and S > 1:
+                # exact wrap within each source block
+                r = torch.roll(cur.view(S, NTT, ML), -dc, dims=1
+                               ).reshape(rows, ML)
+            else:
+                r = torch.roll(cur, (-dc) % rows, dims=0)
+                if dup:
+                    if dc > 0:
+                        r = torch.where(row >= NTT - dc, inf, r)
+                    else:
+                        r = torch.where(row < -dc, inf, r)
+            pages.append(r)
+        # moving-frame accumulator: one lane roll per trip; the weight
+        # rows are host-shifted into source-slot coordinates
+        macc = torch.roll(cur, (ML - maxdm - 1) % ML, dims=1)
+        for t in range(n_dm):
+            macc = torch.roll(macc, 1, dims=1)
+            for u5 in range(NDC):
+                w = w_ref[t * NDC + u5: t * NDC + u5 + 1, :]
+                macc = torch.minimum(macc, pages[u5] + w)
+        return torch.roll(macc, (ML - maxdm) % ML, dims=1)
+
+    def merge_dup(acc):
+        if not dup:
+            return acc
+        fwd = torch.where(row < dup, torch.roll(acc, (-nt) % rows, dims=0),
+                          inf)
+        bwd = torch.where(row >= nt, torch.roll(acc, nt, dims=0), inf)
+        return torch.minimum(acc, torch.minimum(fwd, bwd))
+
+    v = dist
+    for _ in range(iters):
+        v = chain_scan(ring_scan(v))
+        v = merge_dup(band_sweep(v)).view(S, NTT, ML)
+        cen = torch.minimum(cen, (v + fan).amin(dim=(1, 2)))
+        v = torch.minimum(v, cen[:, None, None] + fan).reshape(rows, ML)
+    return v, cen
+
+
+def _check_titer_args(st: TWStatic, dist: torch.Tensor, cen: torch.Tensor,
+                      tbl: TWTables):
+    Mp, ML, NTT, nt, maxdm = st
+    if dist.dim() != 2 or dist.shape[1] != ML or dist.shape[0] % NTT:
+        raise ValueError(f"dist must be (S*{NTT}, {ML}), got "
+                         f"{tuple(dist.shape)}")
+    S = dist.shape[0] // NTT
+    if tuple(cen.shape) != (S,):
+        raise ValueError(f"cen must be ({S},), got {tuple(cen.shape)}")
+    L = len(_chain_spans(Mp))
+    want = {"wrows": (_round_up((2 * maxdm + 1) * NDC, SUB), ML),
+            "ring_f": (1, ML), "ring_b": (1, ML), "cfl": (L, 1, ML),
+            "cbl": (L, 1, ML), "fan_w": (1, ML)}
+    for name, shape in want.items():
+        t = getattr(tbl, name)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    for t in (dist, cen) + tuple(tbl):
+        if t.device != dist.device:
+            raise ValueError(f"titer tensors on {t.device} and {dist.device}")
+        if t.dtype != dist.dtype:
+            raise TypeError(f"titer tensors of {t.dtype} and {dist.dtype}")
+
+
+def _titer_lib() -> ctypes.CDLL:
+    lib = kernels.load("titer")
+    fn = lib.titer_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p])
+    return lib
+
+
+def titer(st: TWStatic, dist: torch.Tensor, cen: torch.Tensor,
+          tbl: TWTables, iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`iters` Jacobi iterations of the (S*NTT, ML) theta-major field;
+    returns new (dist, cen), the inputs untouched.
+
+    A CUDA tensor goes to the hand-written kernel `csrc/titer.cu`: one
+    launch function that enqueues one kernel per phase on the current
+    stream (`titer.launches` counts its calls).  A CPU tensor goes to
+    `titer_reference`.  Any other device raises.
+    """
+    _check_titer_args(st, dist, cen, tbl)
+    if dist.device.type == "cpu":
+        return titer_reference(st, dist, cen, tbl, iters)
+    if dist.device.type != "cuda":
+        raise ValueError(f"titer runs on cuda or cpu, not {dist.device}")
+    if dist.dtype != torch.float32:
+        raise TypeError(f"the titer kernel takes float32, got {dist.dtype}")
+    tensors = (dist, cen) + tuple(tbl)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("titer takes contiguous tensors")
+    Mp, ML, NTT, nt, maxdm = st
+    S = dist.shape[0] // NTT
+    ring_statics, n_ring, chain_statics, chain_rep, n_chain = _scan_plan(st)
+    out = torch.empty_like(dist)
+    scratch = torch.empty_like(dist)
+    cen_out = torch.empty_like(cen)
+    stream = torch.cuda.current_stream(dist.device).cuda_stream
+    rc = _titer_lib().titer_launch(
+        dist.data_ptr(), cen.data_ptr(), tbl.wrows.data_ptr(),
+        tbl.ring_f.data_ptr(), tbl.ring_b.data_ptr(), tbl.cfl.data_ptr(),
+        tbl.cbl.data_ptr(), tbl.fan_w.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), cen_out.data_ptr(),
+        S, ML, NTT, nt, maxdm, len(ring_statics), n_ring,
+        len(chain_statics), chain_rep, n_chain, int(iters), stream)
+    if rc != 0:
+        raise RuntimeError(f"titer kernel launch failed: CUDA error {rc}")
+    titer.launches += 1
+    return out, cen_out
+
+
+titer.launches = 0
+
+
+# ----------------------------------------------------------------------
+# the solve
+# ----------------------------------------------------------------------
+
+
+class TWState(NamedTuple):
+    dist: torch.Tensor    # (S*NTT, ML)
+    dcen: torch.Tensor    # (S,)
+    changed: bool
+    it: int
+
+
+def _solve_twrapped(src_m, src_c, src_cen, tbl: TWTables, tol,
+                    st: TWStatic, max_iters: int, sweeps: int,
+                    S: int) -> TWState:
+    """Full solve of a source block from (S,) source descriptors: zero at
+    each source's slot on its theta row and that row's duplicates, or at
+    the centre for centre sources; `titer` calls of `sweeps` iterations
+    until no distance improves by more than `tol`."""
+    dev = tbl.wrows.device
+    dtype = tbl.wrows.dtype
+    Mp, ML, NTT, nt, maxdm = st
+    t_r = (torch.arange(S * NTT, device=dev) % NTT)[:, None]
+    c_r = torch.as_tensor(np.repeat(src_c, NTT), device=dev)[:, None]
+    m_r = torch.as_tensor(np.repeat(src_m, NTT), device=dev)[:, None]
+    s_r = torch.as_tensor(np.repeat(src_cen, NTT), device=dev)[:, None]
+    lane = torch.arange(ML, device=dev)[None, :]
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    dist = torch.where((t_r % nt == c_r) & (lane == m_r) & ~s_r, zero, inf)
+    cen = torch.where(torch.as_tensor(np.asarray(src_cen), device=dev),
+                      zero, inf)
+    state = TWState(dist, cen, True, 0)
+    while state.changed and state.it < max_iters:
+        d, c = titer(st, state.dist, state.dcen, tbl, sweeps)
+        changed = bool(((d < state.dist - tol).any()
+                        | (c < state.dcen - tol).any()).item())
+        state = TWState(d, c, changed, state.it + sweeps)
+    return state
+
+
+def device_twrapped_tables(ws: TWStencil, device) -> TWTables:
+    """The stencil's cost tables on `device`, cached in its dcache."""
+    key = ("twrapped_device", str(device))
+    if key not in ws.dcache:
+        ws.dcache[key] = TWTables(*(
+            torch.tensor(a, device=device)
+            for a in (ws.wrows, ws.ring_f, ws.ring_b, ws.cfl, ws.cbl,
+                      ws.fan_w)))
+    return ws.dcache[key]
+
+
+def solve_circulant_twrapped(
+    cg: CirculantGraph,
+    sources,
+    config: SolverConfig = DEFAULT_SOLVER_CONFIG,
+    sweeps_per_call: int = 4,
+    vertical_closure: int = 0,
+    band_closure: int = 0,
+    batch: int = 1,
+    receivers=None,
+    device_out: bool = False,
+    device="cuda",
+    _packed: TWStencil = None,
+) -> Tuple[np.ndarray, int]:
+    """Theta-major full-iteration solve on `device`: sources in chunks of
+    `batch` NTT-row blocks, optional on-device receiver extraction.
+    Returns ((n_sources, n_out) host array, iterations); device_out=True
+    returns the rows as a tensor on the device.  Check
+    `supports_twrapped(cg)`."""
+    if not supports_twrapped(cg):
+        raise ValueError("theta-major kernel unsupported for this ntheta; "
+                         "the 'wrapped'/'diag' engines are ROADMAP A.11")
+    device = resolve_device(device)
+    dtype = np.dtype(config.dtype)
+    ws = _packed if _packed is not None else pack_twrapped_stencil(
+        cg, dtype=dtype, vertical_closure=vertical_closure,
+        band_closure=band_closure)
+    sources = np.atleast_1d(np.asarray(sources, dtype=np.int64))
+    cmap = cg.cmap
+    S = max(1, min(batch, len(sources)))
+    st = TWStatic(ws.Mp, ws.ML, ws.NTT, ws.nt, ws.maxdm)
+    tbl = device_twrapped_tables(ws, device)
+    tol = torch.tensor(config.tol_value(), dtype=tbl.wrows.dtype,
+                       device=device)
+    n_out, ext = _extract_cached(ws.dcache, cmap, receivers, device)
+
+    def dispatch(chunk):
+        is_cen = chunk == cmap.center
+        src_m = np.where(is_cen, 0, cmap.m_of[chunk]).astype(np.int64)
+        src_c = np.where(is_cen, 0, cmap.c_of[chunk]).astype(np.int64)
+        state = _solve_twrapped(src_m, src_c, is_cen, tbl, tol, st,
+                                config.max_iters, sweeps_per_call, S)
+        return _textract(state.dist.view(S, ws.NTT, ws.ML), state.dcen,
+                         state.it, *ext)
+
+    return _pipelined_chunk_solve(sources, S, n_out, dtype, dispatch,
+                                  device_out=device_out)

@@ -1,32 +1,33 @@
 """High-level solver API of the PyTorch port.
 
 `AnnulusSolver` packs the circulant graph once and then serves repeated
-solves on one explicit device.  This slice of the port carries the
-directional-sweep engine only (the JAX package's auto route on its
-accelerator); every other method raises `NotImplementedError` naming the
+solves on one explicit device.  This port carries the directional-sweep
+engine ('sweep', the JAX package's auto route on its accelerator), the
+Jacobi engines 'twrapped' and 'stream', and the plain Jacobi oracle
+'circulant'; every other method raises `NotImplementedError` naming the
 ROADMAP item that ports it.  Nothing falls back silently: no CPU run
-unless the caller asks for `device="cpu"`, no other engine unless the
-caller asks for it.
+unless the caller asks for `device="cpu"`, no engine the JAX package
+would not route to.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import scipy.sparse as sp
 
 from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
 from ..ops.circulant import (CirculantError, CirculantGraph,
-                             build_circulant, recover_prev_device)
-from ..ops.sweep_theta import resolve_device, solve_circulant_sweep
-from ..ops.wrapped_t import pack_twrapped_stencil, supports_twrapped
+                             build_circulant, recover_prev_device,
+                             resolve_device, solve_circulant)
+from ..ops.stream_t import solve_circulant_stream
+from ..ops.sweep_theta import solve_circulant_sweep
+from ..ops.wrapped_t import (max_twrapped_batch, pack_twrapped_stencil,
+                             solve_circulant_twrapped, supports_twrapped)
 from .types import BellmanFordMoore
 
 # methods of the JAX package's AnnulusSolver that later slices port
 _NOT_PORTED = {
-    "twrapped": "ROADMAP A.5 (Jacobi engines; kernel B.2)",
-    "stream": "ROADMAP A.5 (Jacobi engines; kernel B.3)",
-    "circulant": "ROADMAP A.5 (the plain solve_circulant Jacobi oracle)",
     "ell": "ROADMAP A.6 (generic graphs)",
     "banded": "ROADMAP A.6 (generic graphs)",
     "wrapped": "ROADMAP A.11 (deprecated engines; kernel B.5)",
@@ -34,16 +35,33 @@ _NOT_PORTED = {
     "pallas": "ROADMAP A.11 (quarantined engines; kernel B.7)",
     "fused": "ROADMAP A.11 (quarantined engines; kernel B.8)",
 }
+_PORTED = ("sweep", "twrapped", "stream", "circulant")
+# the JAX package's auto re-route of grids without sweep support:
+# 'twrapped' up to this many nodes, 'stream' above
+_TWRAPPED_MAX_NODES = 350_000
 
 
 class AnnulusSolver:
     """One-time graph packing + repeated SSSP solves on `device`.
 
     method:
-      'auto'  -> 'sweep'
-      'sweep' -> directional-sweep solver (ops/sweep_theta.py): radial
-                 Gauss-Seidel sweeps as a CUDA kernel + hierarchical
-                 horizontal closure; converges in ~3-4 ROUNDS
+      'auto'      -> 'sweep'; a grid without sweep support (the wrap
+                     condition of `supports_twrapped`) goes to 'stream'
+                     above 350k nodes and to 'twrapped' otherwise, as in
+                     the JAX package
+      'sweep'     -> directional-sweep solver (ops/sweep_theta.py): radial
+                     Gauss-Seidel sweeps as a CUDA kernel + hierarchical
+                     horizontal closure; converges in ~3-4 ROUNDS
+      'twrapped'  -> theta-major full-iteration Jacobi engine
+                     (ops/wrapped_t.py, CUDA kernel csrc/titer.cu); a grid
+                     it does not support goes on to 'wrapped'/'diag'
+                     (ROADMAP A.11, not ported: raises), and a grid whose
+                     source block exceeds the kernel's budget even at one
+                     source goes to 'stream'
+      'stream'    -> streamed theta-major Jacobi engine (ops/stream_t.py,
+                     band sweep as the CUDA kernel csrc/band.cu); any size
+      'circulant' -> plain Jacobi solve (ops/circulant.solve_circulant),
+                     the oracle of the kernel engines
     device: "cuda" (default) or "cpu"; the CPU runs the kernels' plain
     PyTorch versions and is there for tests.
     """
@@ -68,11 +86,13 @@ class AnnulusSolver:
         self.config = config
         self.last_iterations: Optional[int] = None
         self._device_cache: dict = {}
+        self._sweep_stencil = None
+        self._twrapped_stencil = None
 
         was_auto = method == "auto"
         if was_auto:
             method = "sweep"
-        if method != "sweep":
+        if method not in _PORTED:
             raise NotImplementedError(
                 f"method={method!r} is not ported yet: "
                 f"{_NOT_PORTED.get(method, 'unknown method')}")
@@ -86,22 +106,82 @@ class AnnulusSolver:
                 raise NotImplementedError(
                     f"circulant layout unavailable ({e}); the 'ell'/"
                     f"'banded' fallback is {_NOT_PORTED['ell']}") from e
-        if was_auto and not supports_twrapped(circulant):
-            # the JAX package re-routes this wrap structure to the Jacobi
-            # chain (twrapped/stream by size)
+        if method == "sweep" and was_auto and not supports_twrapped(circulant):
+            # auto only: the wrap structure has no sweep support; the
+            # Jacobi chain by size
+            method = ("twrapped" if gr.nnods <= _TWRAPPED_MAX_NODES
+                      else "stream")
+        if method == "twrapped" and not supports_twrapped(circulant):
             raise NotImplementedError(
-                f"ntheta={circulant.ntheta} has no sweep support under "
-                f"'auto'; its twrapped/stream route is {_NOT_PORTED['twrapped']}")
+                f"ntheta={circulant.ntheta} has no twrapped support; the JAX "
+                f"package goes on to 'wrapped'/'diag', which are "
+                f"{_NOT_PORTED['wrapped']}")
         self.circulant: CirculantGraph = circulant
         self._method = method
-        # the sweep tables are rebuilt from the RAW decomposition: the
-        # shared stencil is packed closure-free
-        self._sweep_stencil = pack_twrapped_stencil(
-            circulant, dtype=np.dtype(config.dtype), band_closure=0)
 
     @property
     def method(self) -> str:
         return self._method
+
+    def _packed(self, sweep: bool):
+        """The theta-major stencil, packed once: closure-free for the
+        sweep (its tables are rebuilt from the RAW decomposition), with
+        `config.band_closure` for the Jacobi engines."""
+        attr = "_sweep_stencil" if sweep else "_twrapped_stencil"
+        if getattr(self, attr) is None:
+            setattr(self, attr, pack_twrapped_stencil(
+                self.circulant, dtype=np.dtype(self.config.dtype),
+                band_closure=0 if sweep else self.config.band_closure))
+        return getattr(self, attr)
+
+    def _dist_batch(self, sources: Sequence[int], receivers=None,
+                    batch: int = 8, device_out: bool = False):
+        """(S, n) distance fields for a batch of sources; with `receivers`,
+        (S, n_receivers), extracted on the device.  `batch` bounds the
+        source block of one solve.  device_out=True keeps the rows on
+        the device on the kernel engines (ignored by 'circulant')."""
+        cfg = self.config
+        if self._method == "twrapped":
+            ws = self._packed(sweep=False)
+            # the JAX package's source-block clamp (its TPU VMEM figure);
+            # a grid too large even at S=1 goes to the streamed engine
+            smax = max_twrapped_batch(ws)
+            if smax < 1:
+                self._method = "stream"
+            else:
+                dist, iters = solve_circulant_twrapped(
+                    self.circulant, sources, cfg,
+                    batch=min(batch, smax, len(sources)),
+                    receivers=receivers, device_out=device_out,
+                    device=self.device, _packed=ws)
+                self.last_iterations = iters
+                return dist
+        if self._method == "stream":
+            dist, iters = solve_circulant_stream(
+                self.circulant, sources, cfg,
+                band_closure=cfg.band_closure,
+                batch=min(batch, len(sources)), receivers=receivers,
+                device_out=device_out, device=self.device,
+                _packed=self._packed(sweep=False))
+            self.last_iterations = iters
+            return dist
+        if self._method == "sweep":
+            dist, iters = solve_circulant_sweep(
+                self.circulant, sources, cfg,
+                batch=min(batch, len(sources)), receivers=receivers,
+                device_out=device_out, device=self.device,
+                _packed=self._packed(sweep=True))
+            self.last_iterations = iters
+            return dist
+        rows = []
+        for s in sources:
+            d, iters = solve_circulant(self.circulant, int(s), cfg,
+                                       device=self.device,
+                                       _dcache=self._device_cache)
+            self.last_iterations = iters
+            rows.append(d)
+        dist = np.stack(rows)
+        return dist if receivers is None else dist[:, receivers]
 
     def recover_prev(self, dist) -> np.ndarray:
         """Predecessor tree from a converged distance field: the argmin
@@ -109,16 +189,38 @@ class AnnulusSolver:
         return recover_prev_device(self.circulant, dist, self.device,
                                    _dcache=self._device_cache)
 
-    def solve(self, source: int, want_prev: bool = True) -> BellmanFordMoore:
+    def solve(self, source: int, want_prev: bool = True,
+              device_dist: bool = False) -> BellmanFordMoore:
         """Single-source solve; dist as a host array, prev (int64) from
-        the device argmin sweep when `want_prev`."""
-        dist, self.last_iterations = solve_circulant_sweep(
-            self.circulant, [source], self.config, device=self.device,
-            _packed=self._sweep_stencil)
-        dist = dist[0]
+        the device argmin sweep when `want_prev`.  device_dist=True
+        (kernel engines only) returns `dist` as a tensor on the solver's
+        device after the solve has converged; 'circulant' returns a host
+        array all the same, as in the JAX package."""
+        dist = self._dist_batch([source], device_out=device_dist)[0]
         if want_prev:
             prev = self.recover_prev(dist)
             prev[source] = source
         else:
             prev = np.arange(len(dist))
         return BellmanFordMoore(prev=prev, dist=dist)
+
+    def travel_time_table(self, sources: Sequence[int],
+                          receivers: Sequence[int],
+                          batch: int = 8) -> np.ndarray:
+        """(n_sources, n_receivers) first-arrival table (no predecessors).
+
+        The kernel engines are handed the WHOLE source list at once and
+        chunk it by `batch` themselves; only the receiver columns leave
+        the device.  'circulant' solves chunk by chunk.
+        """
+        receivers = np.asarray(receivers)
+        if self._method in ("twrapped", "sweep", "stream"):
+            return self._dist_batch([int(s) for s in sources],
+                                    receivers=receivers, batch=batch)
+        out = np.empty((len(sources), len(receivers)),
+                       dtype=np.dtype(self.config.dtype))
+        for i in range(0, len(sources), batch):
+            chunk = [int(s) for s in sources[i:i + batch]]
+            out[i:i + len(chunk)] = self._dist_batch(chunk,
+                                                     receivers=receivers)
+        return out

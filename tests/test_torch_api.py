@@ -1,12 +1,15 @@
 """PyTorch port: AnnulusSolver end to end on the CPU against the JAX
-package's prev recovery, paths and travel-time CSV, and the port's
-refusals (no silent CPU run, no silent engine change)."""
+package's prev recovery, paths and travel-time CSV; the ported methods,
+travel-time tables and device-resident fields against the JAX
+AnnulusSolver; the auto routing; and the port's refusals (no silent CPU
+run, no silent engine change)."""
 import numpy as np
 import pytest
 import torch
 
 import raytracer_tpu as rt
 import raytracer_tpu_torch as pt
+from raytracer_tpu.config import SolverConfig as JConfig
 from raytracer_tpu.ops.circulant import recover_prev_device as j_prev
 from raytracer_tpu.solvers.path import recontruct_path as j_path
 from raytracer_tpu.utils.io import travel_times as j_tt
@@ -88,8 +91,7 @@ def test_cuda_default_raises_without_cuda(solved, monkeypatch):
         pt.AnnulusSolver(gr, None, None, U, circulant=cg)
 
 
-@pytest.mark.parametrize("method", ["twrapped", "stream", "circulant",
-                                    "ell", "banded", "wrapped", "diag",
+@pytest.mark.parametrize("method", ["ell", "banded", "wrapped", "diag",
                                     "pallas", "fused"])
 def test_unported_methods_name_their_roadmap_item(solved, method):
     gr, cg, U, *_ = solved
@@ -98,13 +100,121 @@ def test_unported_methods_name_their_roadmap_item(solved, method):
                          device="cpu")
 
 
+def _jax_solver(jgr, jcg, U, method):
+    return rt.AnnulusSolver(jgr, None, None, U, JConfig(dtype="float32"),
+                            method=method, circulant=jcg)
+
+
+@pytest.mark.parametrize("method", ["twrapped", "stream", "circulant"])
+def test_ported_methods_solve_like_jax(solved, method):
+    """The Jacobi engines and the plain oracle through AnnulusSolver: the
+    same field, iteration count and prev tree as the JAX AnnulusSolver
+    (its Pallas kernels in interpret mode)."""
+    gr, cg, U, jgr, jcg, _, src, D_sweep = solved
+    solver = pt.AnnulusSolver(gr, None, None, U, method=method, circulant=cg,
+                              device="cpu")
+    D = solver.solve(src)
+    jsolver = _jax_solver(jgr, jcg, U, method)
+    Dj = jsolver.solve(src, want_prev=False)
+    assert solver.method == jsolver.method == method
+    np.testing.assert_allclose(D.dist, Dj.dist, rtol=0, atol=TOL)
+    assert solver.last_iterations == jsolver.last_iterations
+    want = j_prev(jcg, D.dist)
+    want[src] = src
+    np.testing.assert_array_equal(D.prev, want)
+    np.testing.assert_allclose(D.dist, D_sweep.dist, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("method", ["sweep", "twrapped", "stream",
+                                    "circulant"])
+def test_travel_time_table_matches_jax_and_single_solves(solved, method):
+    gr, cg, U, jgr, jcg, *_ = solved
+    srcs = [pt.closest_point(gr, np.deg2rad(d), pt.R, system="polar")
+            for d in (0.0, 100.0, 250.0)] + [cg.cmap.center]
+    recs = [pt.closest_point(gr, np.deg2rad(d), pt.R, system="polar")
+            for d in (10.0, 60.0, 150.0, 200.0)] + [cg.cmap.center]
+    solver = pt.AnnulusSolver(gr, None, None, U, method=method, circulant=cg,
+                              device="cpu")
+    table = solver.travel_time_table(srcs, recs, batch=2)
+    assert table.shape == (len(srcs), len(recs))
+    single = np.stack([solver.solve(s, want_prev=False).dist[recs]
+                       for s in srcs])
+    np.testing.assert_allclose(table, single, rtol=0, atol=TOL)
+    want = _jax_solver(jgr, jcg, U, method).travel_time_table(srcs, recs,
+                                                              batch=2)
+    np.testing.assert_allclose(table, want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("method", ["sweep", "twrapped", "stream"])
+def test_device_dist_leaves_the_field_on_the_device(solved, method):
+    """device_dist=True returns the converged field as a tensor on the
+    solver's device, equal to the host result and, within the solver
+    tolerance, to the JAX solver's device-resident field."""
+    gr, cg, U, jgr, jcg, _, src, D_sweep = solved
+    solver = pt.AnnulusSolver(gr, None, None, U, method=method, circulant=cg,
+                              device="cpu")
+    D = solver.solve(src, device_dist=True)
+    assert isinstance(D.dist, torch.Tensor)
+    assert D.dist.device == torch.device("cpu")
+    host = solver.solve(src)
+    np.testing.assert_array_equal(D.dist.numpy(), host.dist)
+    np.testing.assert_array_equal(D.prev, host.prev)
+    Dj = _jax_solver(jgr, jcg, U, method).solve(src, want_prev=False,
+                                                device_dist=True)
+    assert not isinstance(Dj.dist, np.ndarray)
+    np.testing.assert_allclose(D.dist.numpy(), np.asarray(Dj.dist), rtol=0,
+                               atol=TOL)
+
+
+def test_device_dist_on_circulant_is_a_host_array(solved):
+    """As in the JAX package, the plain oracle ignores device_dist."""
+    gr, cg, U, *_, src, _ = solved
+    solver = pt.AnnulusSolver(gr, None, None, U, method="circulant",
+                              circulant=cg, device="cpu")
+    D = solver.solve(src, want_prev=False, device_dist=True)
+    assert isinstance(D.dist, np.ndarray)
+
+
 def test_auto_without_sweep_support_raises():
-    """ntheta=47 pads to 48 with one duplicate row: the JAX package's
-    auto route re-routes it to twrapped/stream, which this slice does not
-    carry - the port says so instead of running another solver."""
+    """ntheta=47 pads to 48 with one duplicate row, so it has no sweep
+    support.  At 350k nodes or fewer the JAX package's auto route goes to
+    twrapped, which refuses this wrap structure and falls on to
+    'wrapped'/'diag' (ROADMAP A.11): the port says so instead of running
+    another solver."""
     gr, cg, U = pt.init_annulus_circulant(47, 6, 400.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+    assert gr.nnods <= 350_000
+    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
         pt.AnnulusSolver(gr, None, None, U, circulant=cg, device="cpu")
+
+
+def test_explicit_twrapped_without_support_raises():
+    gr, cg, U = pt.init_annulus_circulant(47, 6, 400.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+        pt.AnnulusSolver(gr, None, None, U, method="twrapped", circulant=cg,
+                         device="cpu")
+
+
+def test_stream_solves_grid_without_sweep_support():
+    gr, cg, U = pt.init_annulus_circulant(47, 6, 400.0)
+    jgr, jcg, _ = rt.init_annulus_circulant(47, 6, 400.0)
+    src = pt.closest_point(gr, np.deg2rad(33.0), pt.R, system="polar")
+    solver = pt.AnnulusSolver(gr, None, None, U, method="stream",
+                              circulant=cg, device="cpu")
+    d = solver.solve(src, want_prev=False).dist
+    jsolver = _jax_solver(jgr, jcg, U, "stream")
+    np.testing.assert_allclose(d, jsolver.solve(src, want_prev=False).dist,
+                               rtol=0, atol=TOL)
+    assert solver.last_iterations == jsolver.last_iterations
+
+
+def test_auto_routes_large_grid_without_sweep_support_to_stream():
+    """Above 350k nodes a grid without sweep support goes to the streamed
+    engine under auto (routing only; no solve at this size here)."""
+    gr, cg, U = pt.init_annulus_circulant(1087, 300, 20.0)
+    assert gr.nnods > 350_000
+    assert not pt.ops.wrapped_t.supports_twrapped(cg)
+    solver = pt.AnnulusSolver(gr, None, None, U, circulant=cg, device="cpu")
+    assert solver.method == "stream"
 
 
 def test_main_annulus_cli_on_cpu(tmp_path, capsys):
@@ -118,3 +228,21 @@ def test_main_annulus_cli_on_cpu(tmp_path, capsys):
     with np.load(tmp_path / "run.npz") as f:
         assert f["dist"].shape == f["prev"].shape
         assert int(f["source"]) == int(f["path_0"][-1])
+
+
+def test_main_annulus_cli_method_on_cpu(tmp_path, capsys):
+    """--method takes the JAX driver's choices: a ported engine runs, an
+    unported one raises naming its ROADMAP item."""
+    prefix = tmp_path / "tw"
+    main_annulus.main(["--ntheta", "48", "--nr", "12", "--spacing", "150",
+                       "--method", "twrapped", "--device", "cpu",
+                       "--out-prefix", str(prefix)])
+    out = capsys.readouterr().out
+    assert "solver method: twrapped on cpu" in out
+    assert "iterations" in out
+    assert len((tmp_path / "tw_travel_times.csv").read_text()
+               .splitlines()) == 151
+    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+        main_annulus.main(["--ntheta", "48", "--nr", "12", "--spacing",
+                           "150", "--method", "wrapped", "--device", "cpu",
+                           "--out-prefix", str(tmp_path / "w")])

@@ -66,6 +66,18 @@ _REFUSING_RUN = textwrap.dedent("""
     pack_sweep_tables(ws, cg, np.float32)
     (wdn, wup), rst = pack_rsweep_tables(ws, cg, np.float32)
     assert wdn.shape == (888, 256) and rst.MT == 840
+    from raytracer_tpu_torch.ops.stream_t import _stream_tables
+    from raytracer_tpu_torch.ops.wrapped_t import max_twrapped_batch
+    wsj = pack_twrapped_stencil(cg, dtype=np.float32, band_closure=1)
+    assert wsj.wrows.shape == (488, 896) and max_twrapped_batch(wsj) >= 8
+    _stream_tables(wsj, np.float32)
+    import raytracer_tpu_torch as pt
+    gr, cg, U = init_annulus_circulant(48, 12, 150.0)
+    src = pt.closest_point(gr, 0.0, pt.R, system="polar")
+    for method in ("twrapped", "stream", "circulant"):
+        s = pt.AnnulusSolver(gr, None, None, U, method=method, circulant=cg,
+                             device="cpu")
+        assert np.isfinite(s.solve(src, want_prev=False).dist).all()
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("ISOLATED", len(names))
@@ -102,6 +114,20 @@ def test_sources_name_no_jax_and_no_cpp_extension(path):
         if isinstance(node, ast.Constant) and isinstance(node.value, str):
             assert node.value.split(".")[0] not in BLOCKED or " " in node.value, \
                 f"{path}: names module {node.value!r}"
+
+
+@pytest.mark.parametrize(
+    "path", sorted(os.path.join(PKG, "csrc", f)
+                   for f in os.listdir(os.path.join(PKG, "csrc"))),
+    ids=lambda p: os.path.relpath(p, ROOT))
+def test_cuda_sources_include_no_pytorch_headers(path):
+    """The kernels build with plain nvcc behind a C interface: no
+    PyTorch or ATen header, which would put the build at minutes."""
+    with open(path) as f:
+        includes = [ln for ln in f if ln.lstrip().startswith("#include")]
+    assert includes
+    for ln in includes:
+        assert "torch" not in ln and "ATen" not in ln and "c10" not in ln, ln
 
 
 def test_build_directory_is_ignored():
