@@ -13,22 +13,36 @@ the exit code is non-zero):
      candidate is one f32 add followed by a min, and the scans keep the
      TPU kernels' span schedules): rsweep at 180x63; titer at 180x63
      (S=1 and S=2, dup 4) and at 176x40 (S=2, dup 0); band at 1080x300
-     (S=1 and S=2);
+     (S=1 and S=2); (3b) witer at 183x63 (S=1 and S=2, dup 73) and at
+     256x63 (S=2, dup 0); diag at 127x63 (dup 1) and at 183x63;
   4. the main path through the user entry points: init_annulus_circulant
      (180, 63, 20) -> AnnulusSolver(method="auto") on cuda -> solve with
      prev -> receiver fan -> paths -> travel-time CSV, held against the
      JAX package's anchors and the same solve on the CPU;
-  5. the port's main_annulus CLI into a temporary directory;
+  5. the port's main_annulus CLI on the 180x63 grid into a temporary
+     directory;
   6. AnnulusSolver(method="twrapped") at 180x63 (the titer kernel),
      held to the anchors and to phase 4's sweep field at every node;
   7. AnnulusSolver(method="stream") at 1080x300 with warm level 1 (the
      band kernel), held to the same solve on the CPU at every node, and
      to the sweep solve of the same grid at the surface receivers
-     (2e-3 s) and at every node (ENGINE_ATOL_1080, see there);
+     (2e-3 s) and at every node (ENGINE_ATOL, see there);
   8. travel_time_table of 8 sources x 150 receivers at 180x63 on
-     'sweep' and 'twrapped', each row held to its single-source solve.
-Every kernel-launch count is set to 0 just before each path (4, 6, 7)
-and read just after it.  Then one JSON line of kernel numbers, the
+     'sweep' and 'twrapped', each row held to its single-source solve;
+  9. AnnulusSolver(method="auto") at 183x63, which routes to 'wrapped'
+     (the witer kernel), held to the JAX package's iteration count and
+     spread from 'stream', to a tol=1e-5 stream solve at every node
+     (2e-3 s), to 'stream' at the surface receivers (2e-3 s) and at every
+     node (ENGINE_ATOL); explicit 'wrapped' at 180x63 held to the anchors
+     and to the sweep field at every node; an 8 x 150 table; a
+     device-resident result through the travel-time CSV and the npz;
+ 10. AnnulusSolver(method="auto") at 127x63, which routes to 'diag' (the
+     diag kernel), held to the JAX package's iteration count and spread
+     from 'stream', and to 'stream' and a tol=1e-5 stream solve at every
+     node (ENGINE_ATOL); explicit 'diag' at 180x63 held to the anchors
+     and to the sweep field (ENGINE_ATOL).
+Every kernel-launch count is set to 0 just before each path (4, 6, 7,
+9, 10) and read just after it.  Then one JSON line of kernel numbers, the
 card's name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -56,16 +70,25 @@ T60_REF, T150_REF, T_ATOL = 610.742, 1050.994, 0.01
 CPU_ATOL = 2e-3          # two tol units of f32 termination slack
 MAX_ROUNDS = 10
 TABLE_SOURCES, TABLE_RECEIVERS = 8, 150
-# stream against sweep at 1080x300 over every node: both engines stop
-# once no node improves by more than tol = 1e-3 s in one iteration or
-# round, and over 1080 columns that slack adds up.  Phase 7 measures it
-# against a stream solve run to tol = 1e-5: on an NVIDIA H100 80GB HBM3
-# at a 700 W power limit the default-tol sweep sat up to 8.9 ms above
-# it and the warm stream up to 7.9 ms, and the two differed by up to
-# 8.1 ms (in the inner core); at the surface receivers they agreed
-# within 2e-3 s.
-ENGINE_ATOL_1080 = 1e-2
+# One engine against another over every node.  Every engine stops once
+# no node improves by more than tol = 1e-3 s in one iteration or round,
+# and that slack adds up (ROADMAP C.5): on an NVIDIA H100 80GB HBM3 at a
+# 700 W power limit, at 1080x300 the default-tol sweep sat up to 8.9 ms
+# above a stream solve run to tol = 1e-5 and the warm stream up to
+# 7.9 ms (the two differed by up to 8.1 ms, in the inner core); at
+# 183x63 the stream itself sits up to 3.9 ms above it, so 'wrapped'
+# (within 1.8 ms of it) differs from 'stream' by 2.5 ms.  'diag' also
+# sits up to 4.4 ms BELOW the tol = 1e-5 solve: its ring scan's closed
+# form (cumulative minima of b - j*c, then + j*c) rounds some sums below
+# every real path (ROADMAP C.7).  The JAX package run on the CPU gives
+# the same spreads (JAX_SPREAD).  Phases 7, 9 and 10 print each figure.
+ENGINE_ATOL = 1e-2
 TIGHT_TOL = 1e-5
+# the JAX package's engines on the CPU (tools/jax_engine_spread.py):
+# iterations of the engine, and its max |field - stream field| (s)
+JAX_SPREAD = {"wrapped 183x63": (108, 2.50244140625e-3),
+              "diag 127x63": (92, 4.2724609375e-3)}
+SPREAD_ATOL = 1e-6
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # f32 outside the tensor cores, same sheet
 
@@ -99,10 +122,12 @@ def _cuda_ms(fn, n: int) -> float:
 
 def _launch_counters():
     """name -> the wrapper whose `launches` counts that kernel."""
-    from raytracer_tpu_torch.ops import stream_t, sweep_theta, wrapped_t
+    from raytracer_tpu_torch.ops import (diag_circulant, diag_wrapped,
+                                         stream_t, sweep_theta, wrapped_t)
 
     return {"rsweep": sweep_theta.rsweep, "titer": wrapped_t.titer,
-            "band": stream_t.band}
+            "band": stream_t.band, "witer": diag_wrapped.witer,
+            "diag": diag_circulant.diag_sweep}
 
 
 def _reset_counts():
@@ -125,9 +150,47 @@ def _max_err(got, want) -> float:
     return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
 
 
+def _steady_ms(solver, source, n):
+    """Median host milliseconds of n single-source solves, each one
+    between two synchronizes."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve(source, want_prev=False)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
 def _bound_ms(nbytes: float, ops: float):
     t_b, t_o = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def _kernel_split_ms(fn, n: int) -> dict:
+    """Device milliseconds per call of fn, by CUDA kernel (and copy),
+    from torch.profiler's CUDA trace over n calls after one warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = e.device_time_total
+        if t > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].strip()
+            out[name] = out.get(name, 0.0) + t / 1e3 / n
+    return out
 
 
 def phase_environment():
@@ -316,13 +379,7 @@ def phase_main_path(rec: dict, tmp: str):
     err_cpu = float(np.abs(D.dist - d_cpu).max())
     assert err_cpu <= CPU_ATOL, err_cpu
 
-    steady = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solver.solve(source, want_prev=False)
-        torch.cuda.synchronize()
-        steady.append(time.perf_counter() - t0)
+    steady_ms = _steady_ms(solver, source, 5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     prev = solver.recover_prev(D.dist)
@@ -339,7 +396,7 @@ def phase_main_path(rec: dict, tmp: str):
           f"t(150)={t150:.4f} s, max |cuda - cpu| = {err_cpu:.3g} s, "
           f"{len(paths)} paths end at the source; first solve+prev "
           f"{t_first:.3f} s, steady solve median of 5 "
-          f"{1e3 * statistics.median(steady):.2f} ms, prev recovery "
+          f"{steady_ms:.2f} ms, prev recovery "
           f"{1e3 * t_prev:.2f} ms; launches on this path {counts}",
           flush=True)
 
@@ -349,7 +406,8 @@ def phase_cli(tmp: str):
 
     prefix = os.path.join(tmp, "cli")
     t0 = time.perf_counter()
-    main_annulus.main(["--out-prefix", prefix])
+    main_annulus.main(["--ntheta", "180", "--nr", "63", "--out-prefix",
+                       prefix])
     with open(f"{prefix}_travel_times.csv") as f:
         n_rows = len(f.read().strip().splitlines())
     assert n_rows == 151, n_rows
@@ -512,16 +570,9 @@ def phase_twrapped(rec: dict):
     assert abs(t150 - T150_REF) <= T_ATOL, t150
     err = float(np.abs(D.dist - D_sweep.dist).max())
     assert err <= CPU_ATOL, err
-    steady = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solver.solve(source, want_prev=False)
-        torch.cuda.synchronize()
-        steady.append(time.perf_counter() - t0)
     rec["titer"]["launches"] = counts["titer"]
     rec["twrapped_solver"] = solver
-    rec["twrapped_ms"] = 1e3 * statistics.median(steady)
+    rec["twrapped_ms"] = _steady_ms(solver, source, 3)
     print(f"phase 6 twrapped: {gr.nnods} nodes, method={solver.method}, "
           f"{iters} iterations, titer launches={counts['titer']} "
           f"(path counts {counts}), t(60)={t60:.4f} s, t(150)={t150:.4f} s,"
@@ -558,7 +609,7 @@ def phase_stream(rec: dict):
     assert counts["band"] == iters > 0, (counts, iters)
     assert D.dist.shape == (gr.nnods,) and np.isfinite(D.dist).all()
     err_all = float(np.abs(D.dist - d_sweep).max())
-    assert err_all <= ENGINE_ATOL_1080, err_all
+    assert err_all <= ENGINE_ATOL, err_all
     recs = [rt.closest_point(gr, np.deg2rad(d), rt.R, system="polar")
             for d in receiver_degrees()]
     err_rec = float(np.abs(D.dist[recs] - d_sweep[recs]).max())
@@ -590,7 +641,7 @@ def phase_stream(rec: dict):
              (("sweep", d_sweep), ("warm stream", D.dist),
               ("cold stream", fields["cold"]))}
     for name, a in above.items():
-        assert -CPU_ATOL <= a <= ENGINE_ATOL_1080, (name, a)
+        assert -CPU_ATOL <= a <= ENGINE_ATOL, (name, a)
     rec["band"]["launches"] = counts["band"]
     rec["stream_ms"] = 1e3 * steady
     print(f"phase 7 stream: 1080x300, {gr.nnods} nodes, warm level 1, "
@@ -641,6 +692,323 @@ def phase_tables(rec: dict):
           f"receivers at 180x63, batch=8; " + "; ".join(parts), flush=True)
 
 
+def _witer_work(ws, S, iters):
+    """(bytes, operations) of one witer launch: the field and the centre
+    values read and written once, the tables read once; one add and one
+    min per candidate - ring and chain steps over the whole field, band
+    taps only where a diagonal's weight is finite (one band per lane;
+    the duplicate merge is one min per merged lane), the fan's reduce
+    and broadcast."""
+    import numpy as np
+
+    from raytracer_tpu_torch.ops.diag_wrapped import _chain_plan, _ring_plan
+
+    ring_statics, n_ring = _ring_plan(ws.NTL)
+    chain_statics, _, n_chain = _chain_plan(ws.Mp)
+    Mp, NTL, NTLT = ws.Mp, ws.NTL, S * ws.NTL
+    dup = NTL - ws.nt
+    ring = 2 * 2 * Mp * S * sum(NTL - s for s in ring_statics
+                                + (16,) * n_ring)
+    chain = 2 * 2 * Mp * NTLT * (len(chain_statics) + n_chain)
+    finite = int(np.isfinite(ws.wpT[:ws.D, :Mp]).sum())
+    band = 2 * NTLT * finite
+    merge = 2 * dup * Mp * S
+    fan = 2 * 2 * Mp * NTLT
+    ops = iters * (ring + chain + band + merge + fan)
+    tables = (2 * ws.D + ws.D * Mp + ws.ring_f.size + ws.ring_b.size
+              + ws.cfl.size + ws.cbl.size + ws.fan_w.size)
+    return 4 * (2 * Mp * NTLT + 2 * S + tables), ops
+
+
+def _diag_work(ds):
+    """(bytes, operations) of one diag sweep: the field read and written
+    once, the (dm, dc) taps and the (D, Mp) weights read once; one add
+    and one min per theta lane for every finite (row, diagonal) weight."""
+    import numpy as np
+
+    finite = int(np.isfinite(ds.wp).sum())
+    nbytes = 4 * (2 * ds.Mp * ds.NTL + 2 * ds.D + ds.D * ds.Mp)
+    return nbytes, 2 * ds.ntheta * finite
+
+
+def phase_wrapped_diag_kernels(rec: dict):
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.models.fast_annulus import init_annulus_circulant
+    from raytracer_tpu_torch.ops import diag_circulant, diag_wrapped
+
+    rng = np.random.default_rng(6)
+    witer_rows = []
+    for ntheta, S in ((183, 1), (183, 2), (256, 2)):
+        _, cg, _ = init_annulus_circulant(ntheta, 63, spacing=20.0)
+        ws = diag_wrapped.pack_wrapped_stencil(cg, dtype=np.float32)
+        st = diag_wrapped.WStatic(ws.rho_starts, ws.Mp, ws.NTL, ws.pad2,
+                                  ws.nt)
+        tbl = diag_wrapped.device_wrapped_tables(ws, "cuda")
+        # every lane of the wrapped cover is real data: no +inf pad lanes
+        dist = _random_field(rng, (ws.Mp, S * ws.NTL), S * ws.NTL)
+        cen = torch.tensor(rng.uniform(0.0, 1500.0, S).astype(np.float32),
+                           device="cuda")
+        d_k, c_k = diag_wrapped.witer(st, dist, cen, tbl, 4)
+        d_r, c_r = diag_wrapped.witer_reference(st, dist, cen, tbl, 4)
+        torch.cuda.synchronize()
+        err = max(_max_err(d_k, d_r), _max_err(c_k, c_r))
+        if not (torch.equal(d_k, d_r) and torch.equal(c_k, c_r)):
+            raise AssertionError(
+                f"witer kernel != plain version at {ntheta}x63 S={S} "
+                f"(dup {ws.NTL - ws.nt}): max abs err {err}")
+        ms = _cuda_ms(lambda: diag_wrapped.witer(st, dist, cen, tbl, 4), 10)
+        plain = _cuda_ms(lambda: diag_wrapped.witer_reference(
+            st, dist, cen, tbl, 4), 1)
+        if not witer_rows:  # the phase split at the path's shape (S=1)
+            rec["witer_split"] = _kernel_split_ms(
+                lambda: diag_wrapped.witer(st, dist, cen, tbl, 4), 5)
+        nbytes, ops = _witer_work(ws, S, 4)
+        bound, by = _bound_ms(nbytes, ops)
+        witer_rows.append(dict(
+            grid=f"{ntheta}x63", S=S, dup=ws.NTL - ws.nt, max_abs_err=err,
+            ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, ops=ops))
+    diag_rows = []
+    for ntheta in (127, 183):
+        _, cg, _ = init_annulus_circulant(ntheta, 63, spacing=20.0)
+        ds = diag_circulant.pack_diag_stencil(cg, dtype=np.float32)
+        st = diag_circulant.DiagStatic(ds.D, ds.Mp, ds.NTL, ds.pad,
+                                       ds.ntheta)
+        tbl = diag_circulant.device_diag_tables(ds, "cuda")
+        dist = _random_field(rng, (ds.Mp, ds.NTL), ds.NTL)
+        out_k = diag_circulant.diag_sweep(st, dist, tbl)
+        out_r = diag_circulant.diag_sweep_reference(st, dist, tbl)
+        torch.cuda.synchronize()
+        err = _max_err(out_k, out_r)
+        if not torch.equal(out_k, out_r):
+            raise AssertionError(f"diag kernel != plain version at "
+                                 f"{ntheta}x63: max abs err {err}")
+        ms = _cuda_ms(lambda: diag_circulant.diag_sweep(st, dist, tbl), 50)
+        plain = _cuda_ms(lambda: diag_circulant.diag_sweep_reference(
+            st, dist, tbl), 3)
+        nbytes, ops = _diag_work(ds)
+        bound, by = _bound_ms(nbytes, ops)
+        diag_rows.append(dict(
+            grid=f"{ntheta}x63", dup=ds.NTL - ds.ntheta, D=ds.D,
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+            bound_by=by, nbytes=nbytes, ops=ops))
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    for name, rows in (("witer", witer_rows), ("diag", diag_rows)):
+        # times at the main paths' shapes (S=1; 127x63 for diag), errors
+        # over every case
+        rec[name] = {k: rows[0][k] for k in keys}
+        rec[name]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    rec["witer_rows"], rec["diag_rows"] = witer_rows, diag_rows
+    print("phase 3b kernels: witer (T=4) bit-equal to witer_reference: "
+          + "; ".join(f"{r['grid']} S={r['S']} dup={r['dup']}: kernel "
+                      f"{r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, "
+                      f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+                      f"{r['ops'] / 1e9:.3f} G ops)" for r in witer_rows)
+          + ". diag bit-equal to diag_sweep_reference: "
+          + "; ".join(f"{r['grid']} dup={r['dup']} D={r['D']}: kernel "
+                      f"{r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, "
+                      f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+                      f"{r['nbytes'] / 1e6:.2f} MB, {r['ops'] / 1e6:.1f} M "
+                      f"ops)" for r in diag_rows)
+          + ". witer at 183x63 S=1 by phase (torch.profiler, device ms per "
+          "launch): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                  rec["witer_split"].items()),
+          flush=True)
+
+
+def _engine_checks(rt, gr, cg, U, source, d, name):
+    """The stream and tol=1e-5 stream fields on this grid, and d's
+    spread from them: (stream iterations, every-node and receiver
+    |d - stream|, most above and below the tight field, receivers)."""
+    import numpy as np
+
+    from raytracer_tpu_torch.main_annulus import receiver_degrees
+
+    stream = rt.AnnulusSolver(gr, None, None, U, method="stream",
+                              circulant=cg)
+    d_stream = stream.solve(source, want_prev=False).dist
+    tight = rt.AnnulusSolver(gr, None, None, U,
+                             rt.SolverConfig(warm_levels=0, tol=TIGHT_TOL,
+                                             max_iters=5000),
+                             method="stream", circulant=cg)
+    d_tight = tight.solve(source, want_prev=False).dist
+    recs = [rt.closest_point(gr, np.deg2rad(x), rt.R, system="polar")
+            for x in receiver_degrees()]
+    out = dict(
+        stream_iters=stream.last_iterations,
+        tight_iters=tight.last_iterations,
+        all=float(np.abs(d - d_stream).max()),
+        recs=float(np.abs(d[recs] - d_stream[recs]).max()),
+        above=float((d - d_tight).max()), below=float((d - d_tight).min()),
+        stream_above=float((d_stream - d_tight).max()))
+    print(f"  {name}: max |{name} - stream| = {out['all']:.6g} s over every "
+          f"node, {out['recs']:.3g} s over the {len(recs)} surface "
+          f"receivers (stream {out['stream_iters']} iterations); against a "
+          f"cold stream solve at tol={TIGHT_TOL:g} ({out['tight_iters']} "
+          f"iterations) {name} sits at most {out['above']:.3g} s above and "
+          f"{max(0.0, -out['below']):.3g} s below it, the default stream "
+          f"{out['stream_above']:.3g} s above", flush=True)
+    return out
+
+
+def _anchors(rt, solver, receivers, degs, source):
+    """(t(60), t(150), field) of a single solve at 180x63."""
+    import numpy as np
+
+    D = solver.solve(source, want_prev=False)
+    tt = rt.travel_times(D, solver.gr, receivers)
+    t60 = float(tt[np.argmin(np.abs(degs - 60.0))])
+    t150 = float(tt[np.argmin(np.abs(degs - 150.0))])
+    assert abs(t60 - T60_REF) <= T_ATOL, (solver.method, t60)
+    assert abs(t150 - T150_REF) <= T_ATOL, (solver.method, t150)
+    return t60, t150, D.dist
+
+
+def phase_wrapped(rec: dict, tmp: str):
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+
+    gr, cg, U = rt.init_annulus_circulant(183, 63, spacing=20.0)
+    source = rt.closest_point(gr, 0.0, rt.R, system="polar")
+    solver = rt.AnnulusSolver(gr, None, None, U, method="auto", circulant=cg)
+    _reset_counts()
+    t0 = time.perf_counter()
+    D = solver.solve(source, want_prev=False)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    counts = _counts()
+    iters = solver.last_iterations
+    ref_iters, ref_spread = JAX_SPREAD["wrapped 183x63"]
+    assert solver.method == "wrapped", solver.method
+    assert counts["witer"] > 0 and counts["witer"] * 4 == iters, \
+        (counts, iters)
+    assert iters == ref_iters, (iters, ref_iters)
+    assert D.dist.shape == (gr.nnods,) and np.isfinite(D.dist).all()
+    chk = _engine_checks(rt, gr, cg, U, source, D.dist, "wrapped")
+    assert abs(chk["all"] - ref_spread) <= SPREAD_ATOL, chk["all"]
+    assert chk["all"] <= ENGINE_ATOL and chk["recs"] <= CPU_ATOL, chk
+    assert -CPU_ATOL <= chk["below"] and chk["above"] <= CPU_ATOL, chk
+    steady = _steady_ms(solver, source, 3)
+
+    # a device-resident result through the outputs (ROADMAP C.1)
+    Dd = solver.solve(source, device_dist=True)
+    assert isinstance(Dd.dist, torch.Tensor) and Dd.dist.is_cuda
+    _, _, _, _, D_sweep, receivers180, degs = rec["sweep_180"]
+    recs = [rt.closest_point(gr, np.deg2rad(x), rt.R, system="polar")
+            for x in degs]
+    tt = rt.travel_times(Dd, gr, recs, isave=True,
+                         flname=os.path.join(tmp, "wrapped_183.csv"))
+    assert np.array_equal(tt, D.dist[recs])
+    npz = os.path.join(tmp, "wrapped_183.npz")
+    rt.save_solution_npz(npz, Dd, gr, source)
+    with np.load(npz) as f:
+        assert np.array_equal(f["dist"], D.dist)
+
+    # 8 x 150 table against single solves
+    srcs = [rt.closest_point(gr, np.deg2rad(x), rt.R, system="polar")
+            for x in np.linspace(0.0, 315.0, TABLE_SOURCES)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = solver.travel_time_table(srcs, np.asarray(recs), batch=8)
+    torch.cuda.synchronize()
+    t_table = time.perf_counter() - t0
+    single = np.stack([solver.solve(x, want_prev=False).dist[recs]
+                       for x in srcs])
+    assert table.shape == (TABLE_SOURCES, TABLE_RECEIVERS)
+    err_table = float(np.abs(table - single).max())
+    assert err_table <= CPU_ATOL, err_table
+
+    # explicit 'wrapped' at 180x63: the anchors and the sweep field
+    gr180, cg180, U180, source180 = (rec["sweep_180"][0], rec["sweep_180"][1],
+                                     rec["sweep_180"][2], rec["sweep_180"][3])
+    w180 = rt.AnnulusSolver(gr180, None, None, U180, method="wrapped",
+                            circulant=cg180)
+    t60, t150, d180 = _anchors(rt, w180, receivers180, degs, source180)
+    err_sweep = float(np.abs(d180 - D_sweep.dist).max())
+    assert err_sweep <= CPU_ATOL, err_sweep
+
+    rec["witer"]["launches"] = counts["witer"]
+    rec["wrapped_ms"] = steady
+    rec["wrapped_launches"] = counts["witer"]
+    print(f"phase 9 wrapped: 183x63, {gr.nnods} nodes, auto -> "
+          f"{solver.method}, {iters} iterations (the JAX package: "
+          f"{ref_iters}), witer launches={counts['witer']} (path counts "
+          f"{counts}); first solve {t_first:.3f} s, steady solve median of "
+          f"3 {steady:.2f} ms; a device_dist result through travel_times "
+          f"and save_solution_npz equals the host one; 8x150 table "
+          f"{1e3 * t_table:.1f} ms, max |table - single solves| = "
+          f"{err_table:.3g} s; explicit wrapped at 180x63 "
+          f"({w180.last_iterations} iterations): t(60)={t60:.4f} s, "
+          f"t(150)={t150:.4f} s, max |wrapped - sweep| = {err_sweep:.3g} s "
+          f"over every node", flush=True)
+
+
+def phase_diag(rec: dict):
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+
+    gr, cg, U = rt.init_annulus_circulant(127, 63, spacing=20.0)
+    source = rt.closest_point(gr, 0.0, rt.R, system="polar")
+    solver = rt.AnnulusSolver(gr, None, None, U, method="auto", circulant=cg)
+    _reset_counts()
+    t0 = time.perf_counter()
+    D = solver.solve(source, want_prev=False)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    counts = _counts()
+    iters = solver.last_iterations
+    ref_iters, ref_spread = JAX_SPREAD["diag 127x63"]
+    assert solver.method == "diag", solver.method
+    assert counts["diag"] == iters > 0, (counts, iters)
+    assert iters == ref_iters, (iters, ref_iters)
+    assert D.dist.shape == (gr.nnods,) and np.isfinite(D.dist).all()
+    chk = _engine_checks(rt, gr, cg, U, source, D.dist, "diag")
+    assert abs(chk["all"] - ref_spread) <= SPREAD_ATOL, chk["all"]
+    assert chk["all"] <= ENGINE_ATOL, chk
+    assert -ENGINE_ATOL <= chk["below"] and chk["above"] <= ENGINE_ATOL, chk
+    steady = _steady_ms(solver, source, 1)
+    # the per-iteration torch glue: the scans on a converged field
+    from raytracer_tpu_torch.ops import diag_circulant as pdc
+
+    ds = pdc.pack_diag_stencil(cg, dtype=np.float32)
+    sc = pdc.device_diag_scan_tables(ds, "cuda")
+    x = torch.full((ds.Mp, ds.NTL), float("inf"), device="cuda")
+    valid = cg.cmap.m_of >= 0
+    x[torch.as_tensor(cg.cmap.m_of[valid], device="cuda"),
+      torch.as_tensor(cg.cmap.c_of[valid], device="cuda")] = torch.as_tensor(
+        D.dist[valid], device="cuda")
+    ring_ms = _cuda_ms(lambda: pdc._ring_scan(x, sc.ring_f, sc.ring_b,
+                                              ds.ntheta), 20)
+    chain_ms = _cuda_ms(lambda: pdc._chain_scan(x, sc.chain_f, sc.chain_b),
+                        20)
+
+    gr180, cg180, U180, source180, D_sweep, receivers180, degs = \
+        rec["sweep_180"]
+    d180s = rt.AnnulusSolver(gr180, None, None, U180, method="diag",
+                             circulant=cg180)
+    t60, t150, d180 = _anchors(rt, d180s, receivers180, degs, source180)
+    err_sweep = float(np.abs(d180 - D_sweep.dist).max())
+    assert err_sweep <= ENGINE_ATOL, err_sweep
+    rec["diag"]["launches"] = counts["diag"]
+    rec["diag_ms"] = steady
+    rec["diag_launches"] = counts["diag"]
+    print(f"phase 10 diag: 127x63, {gr.nnods} nodes, auto -> "
+          f"{solver.method}, {iters} iterations (the JAX package: "
+          f"{ref_iters}), diag launches={counts['diag']} (path counts "
+          f"{counts}); first solve {t_first:.3f} s, steady solve "
+          f"{steady:.1f} ms, of it per iteration the ring scan "
+          f"{ring_ms:.3f} ms and the chain scan {chain_ms:.3f} ms (CUDA "
+          f"events around the torch ops); explicit diag at 180x63 "
+          f"({d180s.last_iterations} iterations): t(60)={t60:.4f} s, "
+          f"t(150)={t150:.4f} s, max |diag - sweep| = {err_sweep:.3g} s "
+          f"over every node", flush=True)
+
+
 def main():
     faulthandler.dump_traceback_later(900, exit=True)
     t_start = time.perf_counter()
@@ -652,25 +1020,38 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         for phase in (phase_build, lambda: phase_kernels(rec),
                       lambda: phase_jacobi_kernels(rec),
+                      lambda: phase_wrapped_diag_kernels(rec),
                       lambda: phase_main_path(rec, tmp),
                       lambda: phase_cli(tmp), lambda: phase_twrapped(rec),
-                      lambda: phase_stream(rec), lambda: phase_tables(rec)):
+                      lambda: phase_stream(rec), lambda: phase_tables(rec),
+                      lambda: phase_wrapped(rec, tmp),
+                      lambda: phase_diag(rec)):
             t0 = time.perf_counter()
             phase()
             print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
     sources = {
         "rsweep": ("raytracer_tpu_torch/csrc/rsweep.cu",
-                   "raytracer_tpu/ops/sweep_theta.py:551"),
+                   "raytracer_tpu/ops/sweep_theta.py:551",
+                   "auto 180x63 -> sweep"),
         "titer": ("raytracer_tpu_torch/csrc/titer.cu",
-                  "raytracer_tpu/ops/wrapped_t.py:254"),
+                  "raytracer_tpu/ops/wrapped_t.py:254",
+                  "twrapped 180x63"),
         "band": ("raytracer_tpu_torch/csrc/band.cu",
-                 "raytracer_tpu/ops/stream_t.py:253"),
+                 "raytracer_tpu/ops/stream_t.py:253",
+                 "stream 1080x300"),
+        "witer": ("raytracer_tpu_torch/csrc/witer.cu",
+                  "raytracer_tpu/ops/diag_wrapped.py:272",
+                  "auto 183x63 -> wrapped"),
+        "diag": ("raytracer_tpu_torch/csrc/diag.cu",
+                 "raytracer_tpu/ops/diag_circulant.py:230",
+                 "auto 127x63 -> diag"),
     }
     kernels_line = {"kernels": [{
         "name": name,
         "route": "cuda",
         "source": src,
         "replaces": replaces,
+        "path": path,
         "launches": rec[name]["launches"],
         "bit_equal": True,
         "max_abs_err": rec[name]["max_abs_err"],
@@ -679,13 +1060,17 @@ def main():
         "bound_ms": rec[name]["bound_ms"],
         "bound_by": rec[name]["bound_by"],
         "library_ms": None,
-    } for name, (src, replaces) in sources.items()]}
+    } for name, (src, replaces, path) in sources.items()]}
     for k in kernels_line["kernels"]:
         assert k["launches"] > 0, k
     faulthandler.cancel_dump_traceback_later()
     print(f"total wall {time.perf_counter() - t_start:.1f} s "
           f"(twrapped steady solve {rec['twrapped_ms']:.2f} ms, stream "
-          f"steady solve {rec['stream_ms']:.1f} ms)", flush=True)
+          f"steady solve {rec['stream_ms']:.1f} ms, wrapped 183x63 "
+          f"{rec['wrapped_ms']:.2f} ms = {rec['wrapped_launches']} x "
+          f"{rec['witer']['ms']:.4f} ms of witer + the rest, diag 127x63 "
+          f"{rec['diag_ms']:.1f} ms = {rec['diag_launches']} x "
+          f"{rec['diag']['ms']:.4f} ms of diag + the rest)", flush=True)
     print(json.dumps(kernels_line))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

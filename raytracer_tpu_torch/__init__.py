@@ -5,8 +5,9 @@ torch and never jax or the JAX package.  It carries the main path (the
 AK135 annulus from the O(M) circulant builder, the directional-sweep
 solver whose radial Gauss-Seidel sweep is the hand-written CUDA kernel
 `csrc/rsweep.cu`, the predecessor tree, ray paths and the travel-time
-CSV) and the Jacobi engines 'twrapped' (kernel `csrc/titer.cu`) and
-'stream' (kernel `csrc/band.cu`) with the plain 'circulant' oracle.
+CSV), the Jacobi engines 'twrapped' (kernel `csrc/titer.cu`), 'stream'
+(kernel `csrc/band.cu`), 'wrapped' (kernel `csrc/witer.cu`) and 'diag'
+(kernel `csrc/diag.cu`), and the plain 'circulant' oracle.
 Entry points run on the card unless the caller passes `device="cpu"`.
 """
 from .config import DEFAULT_SOLVER_CONFIG, R, SolverConfig

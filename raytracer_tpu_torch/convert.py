@@ -2,11 +2,13 @@
 
 The solver has no weights: its parameters are the packed stencil tables.
 `tables_from_numpy` (the sweep's tables), `stencil_from_numpy` (a
-theta-major `TWStencil`, the Jacobi engines' tables) and
-`stream_level_from_numpy` (one level's `StreamTables`/`LevelStatic`)
-take the JAX package's packed tables (as NumPy arrays or anything
-`np.asarray` reads) together with their static fields and return the
-port's own table types, so both packages can run on identical tables.
+theta-major `TWStencil`, the Jacobi engines' tables),
+`stream_level_from_numpy` (one level's `StreamTables`/`LevelStatic`),
+`wrapped_from_numpy` (a slot-major `WrappedStencil`) and
+`diag_from_numpy` (a `DiagStencil`) take the JAX package's packed
+tables (as NumPy arrays or anything `np.asarray` reads) together with
+their static fields and return the port's own table types, so both
+packages can run on identical tables.
 Nothing here imports the JAX package: the inputs are read by field
 name.
 """
@@ -18,6 +20,8 @@ from typing import Mapping
 import numpy as np
 
 from .ops.circulant import CirculantGraph, ColumnMap
+from .ops.diag_circulant import DiagStencil
+from .ops.diag_wrapped import WrappedStencil
 from .ops.stream_t import LevelStatic, StreamTables
 from .ops.sweep_theta import RSweepStatic, SweepStatic, SweepTables
 from .ops.wrapped_t import TWStencil
@@ -102,3 +106,29 @@ def stream_level_from_numpy(tables, static):
     s = _fields(static)
     return (StreamTables(**{k: np.asarray(t[k]) for k in StreamTables._fields}),
             LevelStatic(**{k: _freeze(s[k]) for k in LevelStatic._fields}))
+
+
+def wrapped_from_numpy(ws) -> WrappedStencil:
+    """The port's WrappedStencil from the JAX package's packed one
+    (fields offs, wp, wpT, rho_starts, ring_f, ring_b, cfl, cbl, fan_w,
+    pad2, D, Mp, M, nt, NTL), arrays as NumPy with their bits kept and a
+    fresh, empty table cache."""
+    f = _fields(ws)
+    arrays = ("offs", "wp", "wpT", "ring_f", "ring_b", "cfl", "cbl", "fan_w")
+    out = {k: np.asarray(f[k]) if k in arrays else int(f[k])
+           for k in WrappedStencil._fields
+           if k not in ("dcache", "rho_starts")}
+    return WrappedStencil(**out, dcache={},
+                          rho_starts=_freeze(f["rho_starts"]))
+
+
+def diag_from_numpy(ds) -> DiagStencil:
+    """The port's DiagStencil from the JAX package's packed one (fields
+    u_idx, offs, wp, ring_f, ring_b, chain_f, chain_b, fan_w, pad, D, Mp,
+    M, ntheta, NTL), arrays as NumPy with their bits kept."""
+    f = _fields(ds)
+    arrays = ("u_idx", "offs", "wp", "ring_f", "ring_b", "chain_f",
+              "chain_b", "fan_w")
+    return DiagStencil(**{
+        k.name: np.asarray(f[k.name]) if k.name in arrays else int(f[k.name])
+        for k in dataclasses.fields(DiagStencil)})

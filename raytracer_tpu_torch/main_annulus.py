@@ -3,13 +3,14 @@
 Builds the AK135 annulus with the O(M) circulant builder, solves the
 travel-time field from a surface source with the chosen engine
 (`--method`, the JAX driver's choices; 'auto' takes the directional
-sweep, and methods not ported yet raise naming their ROADMAP item),
+sweep, or the JAX package's Jacobi route on a grid without sweep
+support, and methods not ported yet raise naming their ROADMAP item),
 reconstructs ray paths to the receiver fan (2..150 deg both
 sides), and writes the travel-time CSV and the npz archive to
 `--out-prefix`.  Runs on the card unless `--device cpu` is given.
 
     python -m raytracer_tpu_torch.main_annulus --ntheta 180 --nr 63
-    python -m raytracer_tpu_torch.main_annulus --method twrapped
+    python -m raytracer_tpu_torch.main_annulus --method wrapped
 """
 from __future__ import annotations
 
@@ -32,10 +33,12 @@ def receiver_degrees() -> np.ndarray:
     return np.concatenate([degs, 360.0 - degs[::-1]])
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's options; each one the JAX package's main_annulus.py also
+    has keeps its default (the 180x50 grid)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--ntheta", type=int, default=180)
-    ap.add_argument("--nr", type=int, default=63)
+    ap.add_argument("--nr", type=int, default=50)
     ap.add_argument("--spacing", type=float, default=20.0)
     ap.add_argument("--method", default="auto",
                     choices=["auto", "sweep", "stream", "twrapped", "wrapped",
@@ -43,7 +46,11 @@ def main(argv=None):
                              "ell"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out-prefix", default="annulus_run")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     times = {}
 

@@ -1,8 +1,8 @@
-"""Radial Earth velocity model (AK135 Vp/Vs table).
+"""Radial Earth velocity models (AK135 / IASP91 Vp/Vs tables).
 
 Host-side NumPy, a copy of the parts of `raytracer_tpu/models/velocity.py`
-the main path needs.  The 1-km-sampled `depth Vp Vs` table is vendored
-under `raytracer_tpu_torch/data/`.
+the port needs.  The `depth Vp Vs` tables are the JAX package's, copied
+byte for byte under `raytracer_tpu_torch/data/`.
 """
 from __future__ import annotations
 
@@ -17,7 +17,11 @@ from ..config import DISCONTINUITY_RADII, VELOCITY_BUFFER
 _DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 
 _PROFILE_FILES = {
+    # the reference's two tables (both IASP91-generated) and the genuine
+    # AK135 .tvel knots (Kennett, Engdahl & Buland 1995)
     "ak135": "R_Vp_Vs_AK135.txt",
+    "iasp91": "R_Vp_Vs_IASP91.txt",
+    "ak135-true": "AK135_tvel_Kennett1995.txt",
 }
 
 

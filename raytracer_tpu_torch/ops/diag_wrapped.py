@@ -1,16 +1,47 @@
-"""Shared helpers of the batched circulant solvers.
+"""Slot-major full-iteration Jacobi engine ('wrapped'), PyTorch port.
 
-A copy of the host table helpers of `raytracer_tpu/ops/diag_wrapped.py`
-(chain spans, min-plus window costs, the vertical band closure) plus the
-chunked-solve protocol and the node-extraction index arrays, with the
-device arrays as torch tensors.
+Counterpart of `raytracer_tpu/ops/diag_wrapped.py`, plus the shared
+helpers of the batched circulant solvers (chain spans, min-plus window
+costs, the vertical band closure, the chunked-solve protocol and the
+node-extraction index arrays) that 'twrapped' and the sweep also use.
+
+The distance field is stored (Mp slot rows, S*NTL theta lanes): source
+block b holds NTL lanes, lane l holding theta (l mod nt), so every lane
+is real data and lanes [nt, NTL) duplicate thetas 0..dup-1 (dup =
+NTL - nt).  One Jacobi iteration is
+
+    ring scan (theta, lanes) -> chain scan (slots, rows)
+        -> band sweep over the (dm, dc) diagonals, grouped by rho =
+           dm mod 8 -> duplicate-lane merge -> centre fan
+
+and `witer` runs `iters` of them per call: on a CUDA tensor as the
+hand-written kernel `csrc/witer.cu` (one launch function that enqueues
+one kernel per phase), on a CPU tensor as its plain twin
+`witer_reference`, which follows the Pallas body op for op.  Theta
+shifts that cross a block's lane edge (the |dc| "defect" lanes) read
++inf and are recovered by the duplicate merge, so the fixpoint is exact.
+The solve calls `witer` until no distance improves by more than
+`SolverConfig.tol`, counting `sweeps_per_call` iterations per call as
+the JAX package does.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from .. import kernels
+from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
+from .circulant import CirculantGraph, _DC_RANGE, resolve_device
+from .diag_circulant import LANES, SUB, _round_up, decompose_diagonals
+
+RING_REPEAT = 16   # fixed span of the ring scan (statics cover 1..15)
 CHAIN_REPEAT = 32  # repeat span of the chain scan (statics cover 1..31)
+UNROLL = 4         # each rho group is padded to a multiple of this with
+                   # no-op diagonals (offset 0, +inf weight), as the TPU
+                   # kernel's band loop takes UNROLL diagonals per trip
 
 
 def _pow2_below(n: int):
@@ -170,3 +201,490 @@ def _node_extract_arrays(cmap, receivers=None):
     m_idx = np.where(valid, m, 0).astype(np.int32)
     c_idx = np.where(valid, c, 0).astype(np.int32)
     return m_idx, c_idx, center_mask, valid
+
+
+# ----------------------------------------------------------------------
+# the wrapped-lane stencil
+# ----------------------------------------------------------------------
+
+
+class WrappedStencil(NamedTuple):
+    """Rho-grouped diagonal stencil + scan tables for the full-iteration
+    wrapped-lane kernel (the JAX package's fields).
+
+    offs       : (D,) int32 - 8-aligned flat row offset into the TPU
+                 kernel's 5-page dc scratch: (dc+2) * rows5 + pad2 + dm - rho
+    wp         : (G, Mp, 128) lane-packed weights in GROUPED diagonal
+                 order (diagonal j's weights live in wp[j//128, :, j%128])
+    wpT        : (Dp8, Mp128) row-major weights, row j = grouped diagonal j
+    dcache     : per-stencil cache of device tensors (tables, extraction)
+    rho_starts : 9 static ints - group r covers [starts[r], starts[r+1])
+    ring_f/b   : (Mp, 1) per-slot ring hop cost (theta -/+ direction)
+    cfl/cbl    : (L, Mp, 1) chain window costs, spans 1,2,4,..,CHAIN_REPEAT
+    fan_w      : (Mp, 1) centre<->slot weights (+inf off the fan)
+    pad2       : row padding (pad + 8)
+    """
+
+    offs: np.ndarray
+    wp: np.ndarray
+    wpT: np.ndarray
+    dcache: dict
+    rho_starts: Tuple[int, ...]
+    ring_f: np.ndarray
+    ring_b: np.ndarray
+    cfl: np.ndarray
+    cbl: np.ndarray
+    fan_w: np.ndarray
+    pad2: int
+    D: int
+    Mp: int
+    M: int
+    nt: int
+    NTL: int
+
+
+def supports_wrapped(cg: CirculantGraph) -> bool:
+    """The duplicate-merge needs a defect-free twin for every defect lane:
+    either no wrap defects at all (nt divides NTL) or at least _DC_RANGE
+    duplicated thetas."""
+    nt = cg.ntheta
+    NTL = _round_up(nt, LANES)
+    dup = NTL - nt
+    return nt >= SUB and (dup == 0 or dup >= _DC_RANGE)
+
+
+def pack_wrapped_stencil(cg: CirculantGraph, dtype=np.float32,
+                         vertical_closure: int = 0) -> WrappedStencil:
+    dec = decompose_diagonals(cg)
+    dms, dcs, wmat = dec.dms, dec.dcs, dec.wmat.copy()
+    D, Mp, nt, NTL = dec.D, dec.Mp, dec.nt, dec.NTL
+    if vertical_closure:
+        dms, dcs, wmat = _compose_vertical(dms, dcs, wmat, dec.pad,
+                                           vertical_closure)
+    pad2 = dec.pad + SUB
+    rows5 = Mp + 2 * pad2
+
+    rho = np.mod(dms, SUB)
+    raw_offs = ((dcs + _DC_RANGE) * rows5 + pad2 + dms - rho).astype(np.int32)
+
+    # group by rho, padding each group to a multiple of UNROLL with dummy
+    # diagonals (offset 0, +inf weight column -> exact no-ops)
+    offs_g, w_cols, starts = [], [], [0]
+    for r in range(SUB):
+        sel = np.flatnonzero(rho == r)
+        n_pad = _round_up(len(sel), UNROLL)
+        o = np.zeros(n_pad, dtype=np.int32)
+        o[: len(sel)] = raw_offs[sel]
+        offs_g.append(o)
+        w_cols.append(sel)
+        starts.append(starts[-1] + n_pad)
+    offs = np.concatenate(offs_g)
+    rho_starts = tuple(starts)
+    Dp = rho_starts[-1]
+    assert offs.min() >= 0 and np.all(offs % SUB == 0)
+    assert np.all(offs + Mp + SUB <= 5 * rows5)
+
+    G = _round_up(Dp, LANES) // LANES
+    wp = np.full((G, Mp, LANES), np.inf)
+    wpT = np.full((_round_up(Dp, SUB), _round_up(Mp, LANES)), np.inf)
+    for r in range(SUB):
+        for k, src_idx in enumerate(w_cols[r]):
+            j = rho_starts[r] + k
+            wp[j // LANES, :, j % LANES] = wmat[src_idx]
+            wpT[j, :Mp] = wmat[src_idx]
+
+    def _diag_vec(dm0: int, dc0: int) -> np.ndarray:
+        hit = (dms == dm0) & (dcs == dc0)
+        out = np.full(Mp, np.inf)
+        if hit.any():
+            out[:] = wmat[int(np.flatnonzero(hit)[0])]
+        return out
+
+    chain_f = _diag_vec(-1, 0)
+    chain_f[0] = np.inf
+    chain_b = _diag_vec(+1, 0)
+    chain_b[-1] = np.inf
+    spans = _chain_spans(Mp)
+    cfl = _window_costs(chain_f, spans)[:, :, None]
+    cbl = _window_costs(chain_b[::-1], spans)[:, ::-1, None]
+
+    fan_w = np.full((Mp, 1), np.inf)
+    fan_w[cg.fan_slots, 0] = cg.fan_w
+
+    return WrappedStencil(
+        offs=offs, wp=wp.astype(dtype), wpT=wpT.astype(dtype),
+        dcache={}, rho_starts=rho_starts,
+        ring_f=_diag_vec(0, -1)[:, None].astype(dtype),
+        ring_b=_diag_vec(0, +1)[:, None].astype(dtype),
+        cfl=cfl.astype(dtype), cbl=cbl.astype(dtype),
+        fan_w=fan_w.astype(dtype),
+        pad2=pad2, D=Dp, Mp=Mp, M=dec.M, nt=nt, NTL=NTL,
+    )
+
+
+# ----------------------------------------------------------------------
+# T full iterations: CUDA kernel wrapper + plain twin
+# ----------------------------------------------------------------------
+
+
+class WStatic(NamedTuple):
+    """Static geometry of the slot-major kernel (the JAX `ws_static`)."""
+
+    rho_starts: Tuple[int, ...]
+    Mp: int
+    NTL: int
+    pad2: int
+    nt: int
+
+
+class WTables(NamedTuple):
+    """The kernel's tables as tensors on one device.  `offs` is the TPU
+    kernel's form of the diagonals (read by the twin), `taps` the CUDA
+    kernel's (the same diagonals); both read the weights from `wpT`."""
+
+    offs: torch.Tensor    # (Dp,) int32
+    taps: torch.Tensor    # (Dp, 2) int32 (dm, dc) of each diagonal
+    wpT: torch.Tensor     # (Dp8, Mp128)
+    ring_f: torch.Tensor  # (Mp, 1)
+    ring_b: torch.Tensor  # (Mp, 1)
+    cfl: torch.Tensor     # (L, Mp, 1)
+    cbl: torch.Tensor     # (L, Mp, 1)
+    fan_w: torch.Tensor   # (Mp, 1)
+
+
+def wrapped_taps(ws: WrappedStencil) -> np.ndarray:
+    """(Dp, 2) int32 (dm, dc) of each grouped diagonal, decoded from its
+    offset into the TPU kernel's 5-page scratch (the no-op padding
+    diagonals decode to some (dm, dc) and keep their +inf weights)."""
+    rows5 = ws.Mp + 2 * ws.pad2
+    rho = np.zeros(ws.D, dtype=np.int64)
+    for r in range(SUB):
+        rho[ws.rho_starts[r]:ws.rho_starts[r + 1]] = r
+    offs = ws.offs.astype(np.int64)
+    dc = offs // rows5 - _DC_RANGE
+    dm = offs % rows5 - ws.pad2 + rho
+    return np.stack([dm, dc], axis=1).astype(np.int32)
+
+
+def _ring_plan(NTL: int):
+    """(ring statics, n_ring): the TPU kernel's ring-scan span schedule."""
+    return _pow2_below(RING_REPEAT), -(-(NTL - RING_REPEAT) // RING_REPEAT)
+
+
+def _chain_plan(Mp: int):
+    """(chain statics, repeat span, n_chain)."""
+    chain_all = _chain_spans(Mp)
+    chain_statics, chain_rep = chain_all[:-1], chain_all[-1]
+    return chain_statics, chain_rep, max(0, -(-(Mp - chain_rep) // chain_rep))
+
+
+def witer_reference(st: WStatic, dist: torch.Tensor, cen: torch.Tensor,
+                    tbl: WTables, iters: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of `witer`: `iters` full iterations of the
+    (Mp, S*NTL) field, op for op the TPU kernel's body
+    (`_make_iter_kernel` of the JAX package, weights read as rows of
+    wpT).  cen (S,) holds each source block's centre distance.  Returns
+    new (dist, cen)."""
+    rho_starts, Mp, NTL, pad2, nt = st
+    NTLT = dist.shape[1]
+    S = NTLT // NTL
+    rows5 = Mp + 2 * pad2
+    dup = NTL - nt
+    ring_statics, n_ring = _ring_plan(NTL)
+    chain_statics, chain_rep, n_chain = _chain_plan(Mp)
+    dev, dtype = dist.device, dist.dtype
+    lane_full = (torch.arange(NTLT, device=dev) % NTL)[None, :]
+    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    rf, rb, fan = tbl.ring_f, tbl.ring_b, tbl.fan_w
+    cfl, cbl = tbl.cfl, tbl.cbl
+    offs = tbl.offs.tolist()
+    wcols = tbl.wpT[:, :Mp, None]   # row j as an (Mp, 1) column
+
+    def ring_scan(v):
+        # forward: lane l improves from lane l-s (theta - s) at cost s*c
+        for s in ring_statics:
+            cand = torch.roll(v, s, dims=1) + (s * rf)
+            v = torch.minimum(v, torch.where(lane_full < s, inf, cand))
+        costF = RING_REPEAT * rf
+        for _ in range(n_ring):
+            cand = torch.roll(v, RING_REPEAT, dims=1) + costF
+            v = torch.minimum(v, torch.where(lane_full < RING_REPEAT, inf,
+                                             cand))
+        for s in ring_statics:
+            cand = torch.roll(v, NTLT - s, dims=1) + (s * rb)
+            v = torch.minimum(v, torch.where(lane_full >= NTL - s, inf, cand))
+        costB = RING_REPEAT * rb
+        for _ in range(n_ring):
+            cand = torch.roll(v, NTLT - RING_REPEAT, dims=1) + costB
+            v = torch.minimum(v, torch.where(lane_full >= NTL - RING_REPEAT,
+                                             inf, cand))
+        return v
+
+    def chain_scan(v):
+        # window costs carry +inf at boundary rows -> wrap reads are
+        # self-masking, no row masks needed
+        for k, s in enumerate(chain_statics):
+            v = torch.minimum(v, torch.roll(v, s, dims=0) + cfl[k])
+        L = len(chain_statics)
+        for _ in range(n_chain):
+            v = torch.minimum(v, torch.roll(v, chain_rep, dims=0) + cfl[L])
+        for k, s in enumerate(chain_statics):
+            v = torch.minimum(v, torch.roll(v, Mp - s, dims=0) + cbl[k])
+        for _ in range(n_chain):
+            v = torch.minimum(v, torch.roll(v, Mp - chain_rep, dims=0)
+                              + cbl[L])
+        return v
+
+    def band_sweep(cur):
+        # 5 theta-rolled dc pages with +inf row padding; defect lanes
+        # (reads crossing the NTL wrap) masked to +inf
+        q = torch.full((5 * rows5, NTLT), float("inf"), dtype=dtype,
+                       device=dev)
+        for u5, dc in enumerate(range(-_DC_RANGE, _DC_RANGE + 1)):
+            if dc == 0:
+                r = cur
+            elif dup == 0 and S > 1:
+                # exact wrap must stay in-block
+                r = torch.roll(cur.view(Mp, S, NTL), -dc, dims=2
+                               ).reshape(Mp, NTLT)
+            else:
+                r = torch.roll(cur, (-dc) % NTLT, dims=1)
+                if dup:
+                    if dc > 0:
+                        r = torch.where(lane_full >= NTL - dc, inf, r)
+                    elif dc < 0:
+                        r = torch.where(lane_full < -dc, inf, r)
+            q[u5 * rows5 + pad2:u5 * rows5 + pad2 + Mp] = r
+        acc = cur
+        for rho in range(SUB):
+            for j in range(rho_starts[rho], rho_starts[rho + 1]):
+                # the TPU's (Mp+8)-row slice rolled by -rho, first Mp rows
+                o = offs[j] + rho
+                acc = torch.minimum(acc, q[o:o + Mp] + wcols[j])
+        return acc
+
+    def merge_dup(acc):
+        if not dup:
+            return acc
+        fwd = torch.where(lane_full < dup,
+                          torch.roll(acc, (-nt) % NTLT, dims=1), inf)
+        bwd = torch.where(lane_full >= nt, torch.roll(acc, nt, dims=1), inf)
+        return torch.minimum(acc, torch.minimum(fwd, bwd))
+
+    v = dist
+    for _ in range(iters):
+        v = chain_scan(ring_scan(v))
+        v = merge_dup(band_sweep(v)).view(Mp, S, NTL)
+        # per-source-block centre fan
+        cen = torch.minimum(cen, (v + fan[:, :, None]).amin(dim=(0, 2)))
+        v = torch.minimum(v, cen[None, :, None] + fan[:, :, None]
+                          ).reshape(Mp, NTLT)
+    return v, cen
+
+
+def _check_witer_args(st: WStatic, dist: torch.Tensor, cen: torch.Tensor,
+                      tbl: WTables):
+    rho_starts, Mp, NTL, pad2, nt = st
+    if dist.dim() != 2 or dist.shape[0] != Mp or dist.shape[1] % NTL:
+        raise ValueError(f"dist must be ({Mp}, S*{NTL}), got "
+                         f"{tuple(dist.shape)}")
+    S = dist.shape[1] // NTL
+    if tuple(cen.shape) != (S,):
+        raise ValueError(f"cen must be ({S},), got {tuple(cen.shape)}")
+    Dp = rho_starts[-1]
+    L = len(_chain_spans(Mp))
+    want = {"offs": (Dp,), "taps": (Dp, 2),
+            "wpT": (_round_up(Dp, SUB), _round_up(Mp, LANES)),
+            "ring_f": (Mp, 1), "ring_b": (Mp, 1), "cfl": (L, Mp, 1),
+            "cbl": (L, Mp, 1), "fan_w": (Mp, 1)}
+    for name, shape in want.items():
+        t = getattr(tbl, name)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != dist.device:
+            raise ValueError(f"witer tensors on {t.device} and {dist.device}")
+    for t in (cen, tbl.wpT, tbl.ring_f, tbl.ring_b, tbl.cfl, tbl.cbl,
+              tbl.fan_w):
+        if t.dtype != dist.dtype:
+            raise TypeError(f"witer tensors of {t.dtype} and {dist.dtype}")
+
+
+def _witer_lib() -> ctypes.CDLL:
+    lib = kernels.load("witer")
+    fn = lib.witer_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p])
+    return lib
+
+
+def witer(st: WStatic, dist: torch.Tensor, cen: torch.Tensor,
+          tbl: WTables, iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`iters` full iterations of the (Mp, S*NTL) slot-major field;
+    returns new (dist, cen), the inputs untouched.
+
+    A CUDA tensor goes to the hand-written kernel `csrc/witer.cu`: one
+    launch function that enqueues one kernel per phase on the current
+    stream (`witer.launches` counts its calls).  A CPU tensor goes to
+    `witer_reference`.  Any other device raises.
+    """
+    _check_witer_args(st, dist, cen, tbl)
+    if dist.device.type == "cpu":
+        return witer_reference(st, dist, cen, tbl, iters)
+    if dist.device.type != "cuda":
+        raise ValueError(f"witer runs on cuda or cpu, not {dist.device}")
+    if dist.dtype != torch.float32 or tbl.taps.dtype != torch.int32:
+        raise TypeError("the witer kernel takes float32 fields and int32 "
+                        "taps")
+    tensors = (dist, cen, tbl.taps, tbl.wpT, tbl.ring_f, tbl.ring_b,
+               tbl.cfl, tbl.cbl, tbl.fan_w)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("witer takes contiguous tensors")
+    rho_starts, Mp, NTL, pad2, nt = st
+    S = dist.shape[1] // NTL
+    _, n_ring = _ring_plan(NTL)
+    chain_statics, chain_rep, n_chain = _chain_plan(Mp)
+    out = torch.empty_like(dist)
+    scratch = torch.empty_like(dist)
+    cen_out = torch.empty_like(cen)
+    stream = torch.cuda.current_stream(dist.device).cuda_stream
+    rc = _witer_lib().witer_launch(
+        dist.data_ptr(), cen.data_ptr(), tbl.taps.data_ptr(),
+        tbl.wpT.data_ptr(), tbl.ring_f.data_ptr(), tbl.ring_b.data_ptr(),
+        tbl.cfl.data_ptr(), tbl.cbl.data_ptr(), tbl.fan_w.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), cen_out.data_ptr(),
+        S, Mp, NTL, nt, rho_starts[-1], tbl.wpT.shape[1], n_ring,
+        len(chain_statics), chain_rep, n_chain, int(iters), stream)
+    if rc != 0:
+        raise RuntimeError(f"witer kernel launch failed: CUDA error {rc}")
+    witer.launches += 1
+    return out, cen_out
+
+
+witer.launches = 0
+
+
+# ----------------------------------------------------------------------
+# the solve
+# ----------------------------------------------------------------------
+
+
+class WrappedState(NamedTuple):
+    dist: torch.Tensor    # (Mp, S*NTL)
+    dcen: torch.Tensor    # (S,)
+    changed: bool
+    it: int
+
+
+def _solve_wrapped(dist0: torch.Tensor, cen0: torch.Tensor, tbl: WTables,
+                   tol: torch.Tensor, st: WStatic, max_iters: int,
+                   sweeps: int) -> WrappedState:
+    """`witer` calls of `sweeps` iterations until no distance improves by
+    more than `tol` (one host read of the flag per call)."""
+    state = WrappedState(dist0, cen0, True, 0)
+    while state.changed and state.it < max_iters:
+        d, c = witer(st, state.dist, state.dcen, tbl, sweeps)
+        changed = bool(((d < state.dist - tol).any()
+                        | (c < state.dcen - tol).any()).item())
+        state = WrappedState(d, c, changed, state.it + sweeps)
+    return state
+
+
+def _wextract(dist2d: torch.Tensor, cen: torch.Tensor, it: int, m_idx,
+              c_idx, center_mask, valid, S: int, NTL: int) -> torch.Tensor:
+    """(S, k+1) node-ordered values gathered on the device from the
+    wrapped layout, the iteration count in the last column - one tensor,
+    one copy to the host."""
+    width = dist2d.shape[1]
+    flat = dist2d.reshape(-1)
+    base = m_idx * width + c_idx
+    inf = torch.tensor(float("inf"), dtype=dist2d.dtype, device=dist2d.device)
+    rows = []
+    for b in range(S):
+        g = torch.where(valid, flat[base + b * NTL], inf)
+        rows.append(torch.where(center_mask, cen[b], g))
+    vals = torch.stack(rows)
+    itcol = torch.full((S, 1), float(it), dtype=dist2d.dtype,
+                       device=dist2d.device)
+    return torch.cat([vals, itcol], dim=1)
+
+
+def device_wrapped_tables(ws: WrappedStencil, device) -> WTables:
+    """The stencil's tables on `device`, cached in its dcache."""
+    key = ("wrapped_device", str(device))
+    if key not in ws.dcache:
+        ws.dcache[key] = WTables(*(
+            torch.tensor(a, device=device)
+            for a in (ws.offs, wrapped_taps(ws), ws.wpT, ws.ring_f,
+                      ws.ring_b, ws.cfl, ws.cbl, ws.fan_w)))
+    return ws.dcache[key]
+
+
+def solve_circulant_wrapped(
+    cg: CirculantGraph,
+    sources,
+    config: SolverConfig = DEFAULT_SOLVER_CONFIG,
+    sweeps_per_call: int = 4,
+    vertical_closure: int = 0,
+    batch: int = 1,
+    receivers=None,
+    weight_mode: str = "reduce",
+    pre_roll: bool = False,
+    device_out: bool = False,
+    device="cuda",
+    _packed: WrappedStencil = None,
+) -> Tuple[np.ndarray, int]:
+    """Solve source(s) with the full-iteration wrapped-lane kernel on
+    `device`.
+
+    Returns ((n_sources, n_out) host array, iterations); each iteration
+    is one complete scans+sweep+fan pass, `sweeps_per_call` of them per
+    kernel call.  `batch` > 1 solves that many sources per call, side by
+    side as NTL-lane blocks (the last chunk repeats its final source to
+    fill).  With `receivers` (node ids), only those columns are
+    extracted on the device; device_out=True returns the rows as a
+    tensor on the device.  `weight_mode` ('reduce' or 'transpose') and
+    `pre_roll` chose VMEM layouts of the TPU kernel that give the same
+    floats; they are accepted for parity with the JAX package and the
+    port has one layout for all of them.  Check `supports_wrapped(cg)`
+    before calling; solve_circulant_diag takes the other grids.
+    """
+    if not supports_wrapped(cg):
+        raise ValueError("wrapped-lane kernel unsupported for this ntheta; "
+                         "use solve_circulant_diag")
+    if weight_mode not in ("reduce", "transpose"):
+        raise ValueError(f"weight_mode must be 'reduce' or 'transpose', "
+                         f"got {weight_mode!r}")
+    device = resolve_device(device)
+    dtype = np.dtype(config.dtype)
+    ws = _packed if _packed is not None else pack_wrapped_stencil(
+        cg, dtype=dtype, vertical_closure=vertical_closure)
+    sources = np.atleast_1d(np.asarray(sources, dtype=np.int64))
+    cmap = cg.cmap
+    nt, Mp, NTL = ws.nt, ws.Mp, ws.NTL
+    S = max(1, min(batch, len(sources)))
+    st = WStatic(ws.rho_starts, Mp, NTL, ws.pad2, nt)
+    tbl = device_wrapped_tables(ws, device)
+    tdtype = tbl.wpT.dtype
+    tol = torch.tensor(config.tol_value(), dtype=tdtype, device=device)
+    n_out, ext = _extract_cached(ws.dcache, cmap, receivers, device)
+
+    def dispatch(chunk):
+        dist0 = torch.full((Mp, S * NTL), float("inf"), dtype=tdtype,
+                           device=device)
+        cen0 = torch.full((S,), float("inf"), dtype=tdtype, device=device)
+        for b, src in enumerate(chunk):
+            if src == cmap.center:
+                cen0[b] = 0.0
+            else:
+                m, c = int(cmap.m_of[src]), int(cmap.c_of[src])
+                # all duplicate lanes of theta c within block b
+                dist0[m, b * NTL + c:(b + 1) * NTL:nt] = 0.0
+        state = _solve_wrapped(dist0, cen0, tbl, tol, st, config.max_iters,
+                               sweeps_per_call)
+        return _wextract(state.dist, state.dcen, state.it, *ext, S, NTL)
+
+    return _pipelined_chunk_solve(sources, S, n_out, dtype, dispatch,
+                                  device_out=device_out)

@@ -526,10 +526,11 @@ def solve_circulant_twrapped(
     `batch` NTT-row blocks, optional on-device receiver extraction.
     Returns ((n_sources, n_out) host array, iterations); device_out=True
     returns the rows as a tensor on the device.  Check
-    `supports_twrapped(cg)`."""
+    `supports_twrapped(cg)`; ops/diag_wrapped.py and ops/diag_circulant.py
+    take the other grids."""
     if not supports_twrapped(cg):
         raise ValueError("theta-major kernel unsupported for this ntheta; "
-                         "the 'wrapped'/'diag' engines are ROADMAP A.11")
+                         "use solve_circulant_wrapped/diag")
     device = resolve_device(device)
     dtype = np.dtype(config.dtype)
     ws = _packed if _packed is not None else pack_twrapped_stencil(

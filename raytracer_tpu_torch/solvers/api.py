@@ -3,11 +3,11 @@
 `AnnulusSolver` packs the circulant graph once and then serves repeated
 solves on one explicit device.  This port carries the directional-sweep
 engine ('sweep', the JAX package's auto route on its accelerator), the
-Jacobi engines 'twrapped' and 'stream', and the plain Jacobi oracle
-'circulant'; every other method raises `NotImplementedError` naming the
-ROADMAP item that ports it.  Nothing falls back silently: no CPU run
-unless the caller asks for `device="cpu"`, no engine the JAX package
-would not route to.
+Jacobi engines 'twrapped', 'stream', 'wrapped' and 'diag', and the plain
+Jacobi oracle 'circulant'; every other method raises
+`NotImplementedError` naming the ROADMAP item that ports it.  Nothing
+falls back silently: no CPU run unless the caller asks for
+`device="cpu"`, no engine the JAX package would not route to.
 """
 from __future__ import annotations
 
@@ -20,22 +20,26 @@ from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
 from ..ops.circulant import (CirculantError, CirculantGraph,
                              build_circulant, recover_prev_device,
                              resolve_device, solve_circulant)
+from ..ops.diag_circulant import pack_diag_stencil, solve_circulant_diag
+from ..ops.diag_wrapped import (pack_wrapped_stencil,
+                                solve_circulant_wrapped, supports_wrapped)
 from ..ops.stream_t import solve_circulant_stream
 from ..ops.sweep_theta import solve_circulant_sweep
 from ..ops.wrapped_t import (max_twrapped_batch, pack_twrapped_stencil,
                              solve_circulant_twrapped, supports_twrapped)
+from ..utils.cache import build_circulant_cached
 from .types import BellmanFordMoore
 
 # methods of the JAX package's AnnulusSolver that later slices port
 _NOT_PORTED = {
     "ell": "ROADMAP A.6 (generic graphs)",
     "banded": "ROADMAP A.6 (generic graphs)",
-    "wrapped": "ROADMAP A.11 (deprecated engines; kernel B.5)",
-    "diag": "ROADMAP A.11 (deprecated engines; kernel B.6)",
-    "pallas": "ROADMAP A.11 (quarantined engines; kernel B.7)",
-    "fused": "ROADMAP A.11 (quarantined engines; kernel B.8)",
+    "pallas": "ROADMAP A.11b (quarantined engines; kernel B.7)",
+    "fused": "ROADMAP A.11b (quarantined engines; kernel B.8)",
 }
-_PORTED = ("sweep", "twrapped", "stream", "circulant")
+_PORTED = ("sweep", "twrapped", "stream", "wrapped", "diag", "circulant")
+# the kernel engines that chunk a whole source list themselves
+_BATCHED = ("twrapped", "sweep", "stream", "wrapped")
 # the JAX package's auto re-route of grids without sweep support:
 # 'twrapped' up to this many nodes, 'stream' above
 _TWRAPPED_MAX_NODES = 350_000
@@ -54,14 +58,24 @@ class AnnulusSolver:
                      horizontal closure; converges in ~3-4 ROUNDS
       'twrapped'  -> theta-major full-iteration Jacobi engine
                      (ops/wrapped_t.py, CUDA kernel csrc/titer.cu); a grid
-                     it does not support goes on to 'wrapped'/'diag'
-                     (ROADMAP A.11, not ported: raises), and a grid whose
-                     source block exceeds the kernel's budget even at one
-                     source goes to 'stream'
+                     it does not support goes on to 'wrapped', and a grid
+                     whose source block exceeds the kernel's budget even
+                     at one source goes to 'stream'
       'stream'    -> streamed theta-major Jacobi engine (ops/stream_t.py,
                      band sweep as the CUDA kernel csrc/band.cu); any size
+      'wrapped'   -> slot-major full-iteration Jacobi engine
+                     (ops/diag_wrapped.py, CUDA kernel csrc/witer.cu); a
+                     grid it does not support (ntheta < 8, or exactly one
+                     duplicated theta lane: ntheta = 127 mod 128) goes on
+                     to 'diag'
+      'diag'      -> diagonal-band Jacobi engine (ops/diag_circulant.py,
+                     one sweep per iteration as the CUDA kernel
+                     csrc/diag.cu, the ring and chain scans in torch);
+                     sources one after another, any ntheta
       'circulant' -> plain Jacobi solve (ops/circulant.solve_circulant),
                      the oracle of the kernel engines
+    cache_dir: a directory for the circulant stencil built from (A, halo)
+    (utils/cache.py; the JAX package's file names and keys).
     device: "cuda" (default) or "cpu"; the CPU runs the kernels' plain
     PyTorch versions and is there for tests.
     """
@@ -74,6 +88,7 @@ class AnnulusSolver:
         U: np.ndarray,
         config: SolverConfig = DEFAULT_SOLVER_CONFIG,
         method: str = "auto",
+        cache_dir: Optional[str] = None,
         circulant: Optional[CirculantGraph] = None,
         device="cuda",
     ):
@@ -88,6 +103,8 @@ class AnnulusSolver:
         self._device_cache: dict = {}
         self._sweep_stencil = None
         self._twrapped_stencil = None
+        self._wrapped_stencil = None
+        self._diag_stencil = None
 
         was_auto = method == "auto"
         if was_auto:
@@ -99,9 +116,13 @@ class AnnulusSolver:
         if circulant is None:
             if A is None:
                 raise ValueError("pass A and halo, or a prebuilt circulant")
+            dtype = np.dtype(config.dtype)
             try:
-                circulant = build_circulant(gr, A, halo, U,
-                                            dtype=np.dtype(config.dtype))
+                if cache_dir is not None:
+                    circulant = build_circulant_cached(gr, A, halo, U, dtype,
+                                                       cache_dir)
+                else:
+                    circulant = build_circulant(gr, A, halo, U, dtype=dtype)
             except CirculantError as e:
                 raise NotImplementedError(
                     f"circulant layout unavailable ({e}); the 'ell'/"
@@ -112,10 +133,9 @@ class AnnulusSolver:
             method = ("twrapped" if gr.nnods <= _TWRAPPED_MAX_NODES
                       else "stream")
         if method == "twrapped" and not supports_twrapped(circulant):
-            raise NotImplementedError(
-                f"ntheta={circulant.ntheta} has no twrapped support; the JAX "
-                f"package goes on to 'wrapped'/'diag', which are "
-                f"{_NOT_PORTED['wrapped']}")
+            method = "wrapped"
+        if method == "wrapped" and not supports_wrapped(circulant):
+            method = "diag"
         self.circulant: CirculantGraph = circulant
         self._method = method
 
@@ -165,6 +185,17 @@ class AnnulusSolver:
                 _packed=self._packed(sweep=False))
             self.last_iterations = iters
             return dist
+        if self._method == "wrapped":
+            if self._wrapped_stencil is None:
+                self._wrapped_stencil = pack_wrapped_stencil(
+                    self.circulant, dtype=np.dtype(cfg.dtype))
+            dist, iters = solve_circulant_wrapped(
+                self.circulant, sources, cfg,
+                batch=min(batch, len(sources)), receivers=receivers,
+                device_out=device_out, device=self.device,
+                _packed=self._wrapped_stencil)
+            self.last_iterations = iters
+            return dist
         if self._method == "sweep":
             dist, iters = solve_circulant_sweep(
                 self.circulant, sources, cfg,
@@ -173,6 +204,17 @@ class AnnulusSolver:
                 _packed=self._packed(sweep=True))
             self.last_iterations = iters
             return dist
+        if self._method == "diag":
+            # full rows on the host, receivers sliced there, as in the
+            # JAX package
+            if self._diag_stencil is None:
+                self._diag_stencil = pack_diag_stencil(
+                    self.circulant, dtype=np.dtype(cfg.dtype))
+            dist, iters = solve_circulant_diag(
+                self.circulant, sources, cfg, device=self.device,
+                _packed=self._diag_stencil, _dcache=self._device_cache)
+            self.last_iterations = iters
+            return dist if receivers is None else dist[:, receivers]
         rows = []
         for s in sources:
             d, iters = solve_circulant(self.circulant, int(s), cfg,
@@ -194,8 +236,8 @@ class AnnulusSolver:
         """Single-source solve; dist as a host array, prev (int64) from
         the device argmin sweep when `want_prev`.  device_dist=True
         (kernel engines only) returns `dist` as a tensor on the solver's
-        device after the solve has converged; 'circulant' returns a host
-        array all the same, as in the JAX package."""
+        device after the solve has converged; 'diag' and 'circulant'
+        return a host array all the same, as in the JAX package."""
         dist = self._dist_batch([source], device_out=device_dist)[0]
         if want_prev:
             prev = self.recover_prev(dist)
@@ -211,10 +253,10 @@ class AnnulusSolver:
 
         The kernel engines are handed the WHOLE source list at once and
         chunk it by `batch` themselves; only the receiver columns leave
-        the device.  'circulant' solves chunk by chunk.
+        the device.  'diag' and 'circulant' solve chunk by chunk.
         """
         receivers = np.asarray(receivers)
-        if self._method in ("twrapped", "sweep", "stream"):
+        if self._method in _BATCHED:
             return self._dist_batch([int(s) for s in sources],
                                     receivers=receivers, batch=batch)
         out = np.empty((len(sources), len(receivers)),

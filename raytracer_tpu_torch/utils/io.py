@@ -1,16 +1,29 @@
-"""Result export: travel-time CSV and npz archive."""
+"""Result export: travel-time CSV and npz archive.
+
+Both take a result whose `dist` is a host array or a tensor on any
+device (a `solve(device_dist=True)` result holds it on the card) and
+copy it to the host before NumPy reads it.
+"""
 from __future__ import annotations
 
 import csv
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
+
+
+def _host(a) -> np.ndarray:
+    """A host array from a NumPy array or a tensor on any device."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def travel_times(D, gr, receivers: Sequence[int], isave: bool = False, flname: str = "") -> np.ndarray:
     """Travel times at receiver nodes; optional CSV `degree,travel_time`."""
     receivers = np.asarray(receivers)
-    tt = np.asarray(D.dist)[receivers]
+    tt = _host(D.dist)[receivers]
     if isave:
         deg = np.rad2deg(np.asarray(gr.theta)[receivers])
         with open(flname, "w", newline="") as f:
@@ -28,8 +41,8 @@ def save_solution_npz(path: str, D, gr, source: int, paths: Optional[Sequence[np
         "z": np.asarray(gr.z),
         "theta": np.asarray(gr.theta),
         "r": np.asarray(gr.r),
-        "dist": np.asarray(D.dist),
-        "prev": np.asarray(D.prev),
+        "dist": _host(D.dist),
+        "prev": _host(D.prev),
         "source": np.asarray(source),
     }
     if paths is not None:

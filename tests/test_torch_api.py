@@ -1,8 +1,14 @@
 """PyTorch port: AnnulusSolver end to end on the CPU against the JAX
 package's prev recovery, paths and travel-time CSV; the ported methods,
 travel-time tables and device-resident fields against the JAX
-AnnulusSolver; the auto routing; and the port's refusals (no silent CPU
-run, no silent engine change)."""
+AnnulusSolver; the auto routing; the outputs of a device-resident
+result; the CLI's defaults; the solver's parameters and stencil
+cache; and the port's refusals (no silent CPU run, no silent engine
+change)."""
+import ast
+import inspect
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -12,8 +18,24 @@ import raytracer_tpu_torch as pt
 from raytracer_tpu.config import SolverConfig as JConfig
 from raytracer_tpu.ops.circulant import recover_prev_device as j_prev
 from raytracer_tpu.solvers.path import recontruct_path as j_path
+from raytracer_tpu.utils.cache import build_circulant_cached as j_cached
 from raytracer_tpu.utils.io import travel_times as j_tt
 from raytracer_tpu_torch import main_annulus
+from raytracer_tpu_torch.utils.cache import build_circulant_cached as p_cached
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tests: the plain versions
+    run thousands of small ops, and while the suite's workers share the
+    cores, torch's thread pool stalls at each op (a solve that takes
+    half a second alone took minutes that way)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 TOL = 2e-3
 
@@ -91,11 +113,11 @@ def test_cuda_default_raises_without_cuda(solved, monkeypatch):
         pt.AnnulusSolver(gr, None, None, U, circulant=cg)
 
 
-@pytest.mark.parametrize("method", ["ell", "banded", "wrapped", "diag",
-                                    "pallas", "fused"])
+@pytest.mark.parametrize("method", ["ell", "banded", "pallas", "fused"])
 def test_unported_methods_name_their_roadmap_item(solved, method):
     gr, cg, U, *_ = solved
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    item = "A.11b" if method in ("pallas", "fused") else "A.6"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         pt.AnnulusSolver(gr, None, None, U, method=method, circulant=cg,
                          device="cpu")
 
@@ -105,7 +127,8 @@ def _jax_solver(jgr, jcg, U, method):
                             method=method, circulant=jcg)
 
 
-@pytest.mark.parametrize("method", ["twrapped", "stream", "circulant"])
+@pytest.mark.parametrize("method", ["twrapped", "stream", "wrapped", "diag",
+                                    "circulant"])
 def test_ported_methods_solve_like_jax(solved, method):
     """The Jacobi engines and the plain oracle through AnnulusSolver: the
     same field, iteration count and prev tree as the JAX AnnulusSolver
@@ -126,7 +149,7 @@ def test_ported_methods_solve_like_jax(solved, method):
 
 
 @pytest.mark.parametrize("method", ["sweep", "twrapped", "stream",
-                                    "circulant"])
+                                    "wrapped", "diag", "circulant"])
 def test_travel_time_table_matches_jax_and_single_solves(solved, method):
     gr, cg, U, jgr, jcg, *_ = solved
     srcs = [pt.closest_point(gr, np.deg2rad(d), pt.R, system="polar")
@@ -145,7 +168,8 @@ def test_travel_time_table_matches_jax_and_single_solves(solved, method):
     np.testing.assert_allclose(table, want, rtol=0, atol=TOL)
 
 
-@pytest.mark.parametrize("method", ["sweep", "twrapped", "stream"])
+@pytest.mark.parametrize("method", ["sweep", "twrapped", "stream",
+                                    "wrapped"])
 def test_device_dist_leaves_the_field_on_the_device(solved, method):
     """device_dist=True returns the converged field as a tensor on the
     solver's device, equal to the host result and, within the solver
@@ -175,23 +199,102 @@ def test_device_dist_on_circulant_is_a_host_array(solved):
     assert isinstance(D.dist, np.ndarray)
 
 
+def test_device_dist_on_diag_is_a_host_array(solved):
+    """As in the JAX package, 'diag' returns full host rows whatever
+    device_dist says."""
+    gr, cg, U, *_, src, D_sweep = solved
+    solver = pt.AnnulusSolver(gr, None, None, U, method="diag",
+                              circulant=cg, device="cpu")
+    D = solver.solve(src, device_dist=True)
+    assert isinstance(D.dist, np.ndarray)
+    np.testing.assert_allclose(D.dist, D_sweep.dist, rtol=0, atol=TOL)
+
+
+class _OnCard(torch.Tensor):
+    """Stands in for a tensor on the card: `numpy()` raises as it does for
+    a CUDA tensor, and `.cpu()` gives a plain host tensor."""
+
+    def numpy(self, *args, **kwargs):
+        raise TypeError("can't convert cuda:0 device type tensor to numpy. "
+                        "Use Tensor.cpu() to copy the tensor to host memory "
+                        "first.")
+
+    def cpu(self, *args, **kwargs):
+        return torch.Tensor(self.as_subclass(torch.Tensor)).clone()
+
+
+def test_outputs_take_a_tensor_on_any_device(solved, tmp_path):
+    """A `solve(device_dist=True)` result holds `dist` on the card:
+    travel_times and save_solution_npz copy it to the host first."""
+    gr, _, _, jgr, _, _, src, D = solved
+    Dc = pt.BellmanFordMoore(prev=D.prev,
+                             dist=torch.from_numpy(D.dist).as_subclass(_OnCard))
+    with pytest.raises(TypeError, match="cuda"):
+        np.asarray(Dc.dist)
+    _, recs = _receivers(gr)
+    fp = tmp_path / "card.csv"
+    tt = pt.travel_times(Dc, gr, recs, isave=True, flname=str(fp))
+    np.testing.assert_array_equal(tt, j_tt(D, jgr, recs))
+    assert fp.read_text() == (tmp_path / "card.csv").read_text()
+    pt.save_solution_npz(str(tmp_path / "card.npz"), Dc, gr, src)
+    with np.load(tmp_path / "card.npz") as f:
+        np.testing.assert_array_equal(f["dist"], D.dist)
+        np.testing.assert_array_equal(f["prev"], D.prev)
+
+
 def test_auto_without_sweep_support_raises():
     """ntheta=47 pads to 48 with one duplicate row, so it has no sweep
     support.  At 350k nodes or fewer the JAX package's auto route goes to
-    twrapped, which refuses this wrap structure and falls on to
-    'wrapped'/'diag' (ROADMAP A.11): the port says so instead of running
-    another solver."""
+    twrapped, which refuses this wrap structure and falls on to 'wrapped'
+    (81 duplicated lanes of 128): the port takes the same route and
+    solves to the JAX package's explicit 'wrapped' field (off the TPU the
+    JAX auto route takes 'circulant')."""
     gr, cg, U = pt.init_annulus_circulant(47, 6, 400.0)
+    jgr, jcg, _ = rt.init_annulus_circulant(47, 6, 400.0)
     assert gr.nnods <= 350_000
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        pt.AnnulusSolver(gr, None, None, U, circulant=cg, device="cpu")
+    solver = pt.AnnulusSolver(gr, None, None, U, circulant=cg, device="cpu")
+    assert solver.method == "wrapped"
+    src = pt.closest_point(gr, np.deg2rad(33.0), pt.R, system="polar")
+    d = solver.solve(src, want_prev=False).dist
+    jsolver = _jax_solver(jgr, jcg, U, "wrapped")
+    np.testing.assert_allclose(d, jsolver.solve(src, want_prev=False).dist,
+                               rtol=0, atol=TOL)
+    assert solver.last_iterations == jsolver.last_iterations
 
 
 def test_explicit_twrapped_without_support_raises():
+    """An explicit 'twrapped' on a grid it does not support falls on to
+    'wrapped', in both packages."""
     gr, cg, U = pt.init_annulus_circulant(47, 6, 400.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        pt.AnnulusSolver(gr, None, None, U, method="twrapped", circulant=cg,
-                         device="cpu")
+    jgr, jcg, _ = rt.init_annulus_circulant(47, 6, 400.0)
+    solver = pt.AnnulusSolver(gr, None, None, U, method="twrapped",
+                              circulant=cg, device="cpu")
+    jsolver = _jax_solver(jgr, jcg, U, "twrapped")
+    assert solver.method == jsolver.method == "wrapped"
+    src = pt.closest_point(gr, np.deg2rad(200.0), pt.R, system="polar")
+    np.testing.assert_allclose(solver.solve(src, want_prev=False).dist,
+                               jsolver.solve(src, want_prev=False).dist,
+                               rtol=0, atol=TOL)
+    assert solver.last_iterations == jsolver.last_iterations
+
+
+@pytest.mark.parametrize("method", ["auto", "twrapped", "wrapped"])
+def test_ntheta_127_goes_on_to_diag(method):
+    """ntheta=127 has one duplicated lane of 128, which neither twrapped
+    nor wrapped supports: auto, twrapped and wrapped all end at 'diag',
+    whose field is the JAX package's explicit 'diag' field."""
+    gr, cg, U = pt.init_annulus_circulant(127, 3, 500.0)
+    jgr, jcg, _ = rt.init_annulus_circulant(127, 3, 500.0)
+    solver = pt.AnnulusSolver(gr, None, None, U, method=method,
+                              circulant=cg, device="cpu")
+    assert solver.method == "diag"
+    src = pt.closest_point(gr, np.deg2rad(91.0), pt.R, system="polar")
+    d = solver.solve(src, want_prev=False).dist
+    jsolver = _jax_solver(jgr, jcg, U, "diag" if method == "auto" else method)
+    assert jsolver.method == "diag"
+    np.testing.assert_allclose(d, jsolver.solve(src, want_prev=False).dist,
+                               rtol=0, atol=TOL)
+    assert solver.last_iterations == jsolver.last_iterations
 
 
 def test_stream_solves_grid_without_sweep_support():
@@ -233,16 +336,89 @@ def test_main_annulus_cli_on_cpu(tmp_path, capsys):
 def test_main_annulus_cli_method_on_cpu(tmp_path, capsys):
     """--method takes the JAX driver's choices: a ported engine runs, an
     unported one raises naming its ROADMAP item."""
-    prefix = tmp_path / "tw"
-    main_annulus.main(["--ntheta", "48", "--nr", "12", "--spacing", "150",
-                       "--method", "twrapped", "--device", "cpu",
-                       "--out-prefix", str(prefix)])
-    out = capsys.readouterr().out
-    assert "solver method: twrapped on cpu" in out
-    assert "iterations" in out
-    assert len((tmp_path / "tw_travel_times.csv").read_text()
-               .splitlines()) == 151
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+    for method in ("twrapped", "wrapped", "diag"):
+        prefix = tmp_path / method
+        main_annulus.main(["--ntheta", "48", "--nr", "12", "--spacing", "150",
+                           "--method", method, "--device", "cpu",
+                           "--out-prefix", str(prefix)])
+        out = capsys.readouterr().out
+        assert f"solver method: {method} on cpu" in out
+        assert "iterations" in out
+        assert len((tmp_path / f"{method}_travel_times.csv").read_text()
+                   .splitlines()) == 151
+    with pytest.raises(NotImplementedError, match="ROADMAP A.11b"):
         main_annulus.main(["--ntheta", "48", "--nr", "12", "--spacing",
-                           "150", "--method", "wrapped", "--device", "cpu",
-                           "--out-prefix", str(tmp_path / "w")])
+                           "150", "--method", "pallas", "--device", "cpu",
+                           "--out-prefix", str(tmp_path / "p")])
+
+
+def _jax_cli_options() -> dict:
+    """option -> (default, choices) of the root main_annulus.py, read
+    from its source text (importing it would configure JAX)."""
+    with open(os.path.join(ROOT, "main_annulus.py")) as f:
+        tree = ast.parse(f.read())
+    opts = {}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "add_argument"):
+            kw = {k.arg: k.value for k in node.keywords}
+            name = node.args[0].value
+            opts[name] = (ast.literal_eval(kw["default"]) if "default" in kw
+                          else None,
+                          ast.literal_eval(kw["choices"]) if "choices" in kw
+                          else None)
+    return opts
+
+
+def test_main_annulus_defaults_equal_the_jax_cli():
+    """Every option the port's CLI shares with the JAX package's
+    main_annulus.py has that one's default and choices, so both write the
+    same run (the 180x50 grid) when called with no arguments."""
+    want = _jax_cli_options()
+    assert want["--nr"] == (50, None)
+    shared = 0
+    for action in main_annulus.build_parser()._actions:
+        for opt in action.option_strings:
+            if opt in want:
+                shared += 1
+                assert (action.default, action.choices) == \
+                    (want[opt][0], want[opt][1] and list(want[opt][1])), opt
+    assert shared >= 5
+
+
+def test_solver_parameters_are_jax_s():
+    """AnnulusSolver takes the JAX package's parameters in the JAX
+    package's order; `device` comes last."""
+    port = list(inspect.signature(pt.AnnulusSolver).parameters)
+    jax_ = list(inspect.signature(rt.AnnulusSolver).parameters)
+    assert port[-1] == "device"
+    assert port[:-1] == jax_
+
+
+def test_circulant_cache_round_trip_with_jax(tmp_path):
+    """The port's stencil cache writes the JAX package's file (same name,
+    same keys) and reads the one the JAX package writes."""
+    gr, A, halo = pt.init_annulus(16, 4, spacing=400.0)
+    prof = pt.velocity_profile("ak135")
+    U = pt.interpolate_velocity(gr.r, pt.LinearInterpolation(prof.r, prof.Vp))
+    jgr, jA, jhalo = rt.init_annulus(16, 4, spacing=400.0)
+    port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
+    p_cg = p_cached(gr, A, halo, U, np.float32, str(port_dir))
+    j_cg = j_cached(jgr, jA, jhalo, U, np.float32, str(jax_dir))
+    assert os.listdir(port_dir) == os.listdir(jax_dir)
+    name = os.listdir(port_dir)[0]
+    with np.load(port_dir / name) as fp, np.load(jax_dir / name) as fj:
+        assert sorted(fp.files) == sorted(fj.files)
+        for k in fj.files:
+            np.testing.assert_array_equal(fp[k], fj[k])
+    # each package reads the other's file (an empty dir would rebuild)
+    os.replace(jax_dir / name, port_dir / name)
+    got = p_cached(gr, None, None, U, np.float32, str(port_dir))
+    back = j_cached(jgr, None, None, U, np.float32, str(port_dir))
+    for k in ("src_flat", "w", "fan_slots", "fan_w"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(j_cg, k))
+        np.testing.assert_array_equal(getattr(back, k), getattr(p_cg, k))
+    assert got.cmap.center == j_cg.cmap.center and got.n == j_cg.n
+    solver = pt.AnnulusSolver(gr, A, halo, U, pt.SolverConfig(),
+                              "diag", str(port_dir), device="cpu")
+    np.testing.assert_array_equal(solver.circulant.w, j_cg.w)

@@ -5,6 +5,8 @@ nothing of the JAX package); these tests hold every copy equal, bit for
 bit and dtype for dtype, to the original at a small grid and at the
 180x63 main-path grid.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -12,9 +14,15 @@ import raytracer_tpu as rt
 import raytracer_tpu_torch as pt
 from raytracer_tpu.ops import sweep_theta as jsw
 from raytracer_tpu.ops.circulant import build_circulant as j_build
+from raytracer_tpu.models import velocity as jvel
+from raytracer_tpu.ops import diag_circulant as jdc
+from raytracer_tpu.ops import diag_wrapped as jdw
 from raytracer_tpu.ops.diag_circulant import decompose_diagonals as j_decomp
 from raytracer_tpu.ops.wrapped_t import pack_twrapped_stencil as j_pack
 from raytracer_tpu_torch import convert
+from raytracer_tpu_torch.models import velocity as pvel
+from raytracer_tpu_torch.ops import diag_circulant as pdc
+from raytracer_tpu_torch.ops import diag_wrapped as pdw
 from raytracer_tpu_torch.ops import sweep_theta as psw
 from raytracer_tpu_torch.ops.diag_circulant import \
     decompose_diagonals as p_decomp
@@ -67,6 +75,26 @@ def test_velocity_profile_and_sampling():
     _same(rt.interpolate_velocity(r, ji), pt.interpolate_velocity(r, pi), "U")
 
 
+@pytest.mark.parametrize("model", sorted(jvel._PROFILE_FILES))
+def test_velocity_tables_are_copies(model):
+    """Every table the JAX package loads is in the port's own data
+    directory, byte for byte, under the same model name."""
+    assert pvel._PROFILE_FILES[model] == jvel._PROFILE_FILES[model]
+    fname = jvel._PROFILE_FILES[model]
+    with open(os.path.join(jvel._DATA_DIR, fname), "rb") as f:
+        want = f.read()
+    with open(os.path.join(pvel._DATA_DIR, fname), "rb") as f:
+        assert f.read() == want
+
+
+@pytest.mark.parametrize("model", ["ak135", "iasp91", "ak135-true",
+                                   "AK135-True"])
+def test_velocity_profile_every_model(model):
+    jp, pp = rt.velocity_profile(model), pt.velocity_profile(model)
+    for k in ("r", "Vp", "Vs"):
+        _same(getattr(jp, k), getattr(pp, k), f"{model}.{k}")
+
+
 def test_solver_config_tol():
     for dt in ("float32", "float64"):
         assert (pt.SolverConfig(dtype=dt).tol_value()
@@ -108,6 +136,47 @@ def test_pack_twrapped_stencil(both, band_closure):
         _same(getattr(jws, k), getattr(pws, k), k)
     for k in ("maxdm", "Mp", "ML", "M", "nt", "NTT"):
         assert getattr(jws, k) == getattr(pws, k), k
+
+
+@pytest.mark.parametrize("vertical_closure", [0, 2])
+def test_pack_wrapped_stencil(both, vertical_closure):
+    (_, jcg, _), (_, pcg, _), _, _ = both
+    j = jdw.pack_wrapped_stencil(jcg, dtype=np.float32,
+                                 vertical_closure=vertical_closure)
+    p = pdw.pack_wrapped_stencil(pcg, dtype=np.float32,
+                                 vertical_closure=vertical_closure)
+    for k in ("offs", "wp", "wpT", "ring_f", "ring_b", "cfl", "cbl",
+              "fan_w"):
+        _same(getattr(j, k), getattr(p, k), k)
+    for k in ("rho_starts", "pad2", "D", "Mp", "M", "nt", "NTL"):
+        assert getattr(j, k) == getattr(p, k), k
+    assert pdw.supports_wrapped(pcg) == jdw.supports_wrapped(jcg)
+
+
+def test_pack_diag_stencil(both):
+    (_, jcg, _), (_, pcg, _), _, _ = both
+    j = jdc.pack_diag_stencil(jcg, dtype=np.float32)
+    p = pdc.pack_diag_stencil(pcg, dtype=np.float32)
+    for k in ("u_idx", "offs", "wp", "ring_f", "ring_b", "chain_f",
+              "chain_b", "fan_w"):
+        _same(getattr(j, k), getattr(p, k), k)
+    for k in ("pad", "D", "Mp", "M", "ntheta", "NTL"):
+        assert getattr(j, k) == getattr(p, k), k
+
+
+def test_wrapped_and_diag_geometry():
+    """The shapes the witer and diag kernels are sized for: 183x63 goes
+    to 'wrapped' (no twrapped support, dup 73), 127x63 to 'diag' (dup 1:
+    neither twrapped nor wrapped support)."""
+    _, cg, _ = pt.init_annulus_circulant(183, 63, 20.0)
+    ws = pdw.pack_wrapped_stencil(cg, dtype=np.float32)
+    assert cg.n == 150_244 and pdw.supports_wrapped(cg)
+    assert (ws.Mp, ws.NTL, ws.NTL - ws.nt, ws.D, ws.cfl.shape[0]) == \
+        (824, 256, 73, 404, 6)
+    _, cg, _ = pt.init_annulus_circulant(127, 63, 20.0)
+    ds = pdc.pack_diag_stencil(cg, dtype=np.float32)
+    assert cg.n == 131_065 and not pdw.supports_wrapped(cg)
+    assert (ds.Mp, ds.NTL, ds.D, ds.pad) == (1032, 128, 534, 56)
 
 
 def test_pack_sweep_tables(both):

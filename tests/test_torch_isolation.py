@@ -74,10 +74,13 @@ _REFUSING_RUN = textwrap.dedent("""
     import raytracer_tpu_torch as pt
     gr, cg, U = init_annulus_circulant(48, 12, 150.0)
     src = pt.closest_point(gr, 0.0, pt.R, system="polar")
-    for method in ("twrapped", "stream", "circulant"):
+    for method in ("twrapped", "stream", "wrapped", "diag", "circulant"):
         s = pt.AnnulusSolver(gr, None, None, U, method=method, circulant=cg,
                              device="cpu")
+        assert s.method == method
         assert np.isfinite(s.solve(src, want_prev=False).dist).all()
+    for model in ("ak135", "iasp91", "ak135-true"):
+        assert len(pt.velocity_profile(model).r) > 100
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("ISOLATED", len(names))
@@ -128,6 +131,24 @@ def test_cuda_sources_include_no_pytorch_headers(path):
     assert includes
     for ln in includes:
         assert "torch" not in ln and "ATen" not in ln and "c10" not in ln, ln
+
+
+def test_every_kernel_source_is_in_the_port():
+    """The five ported kernels build from the port's own csrc/."""
+    have = set(os.listdir(os.path.join(PKG, "csrc")))
+    assert {"rsweep.cu", "titer.cu", "band.cu", "witer.cu",
+            "diag.cu"} <= have
+
+
+def test_port_has_its_own_velocity_tables():
+    """The three velocity tables live in the port's data directory (the
+    JAX package's copies are out of reach on the card's machine)."""
+    from raytracer_tpu_torch.models import velocity
+
+    assert velocity._DATA_DIR == os.path.join(PKG, "data")
+    have = set(os.listdir(velocity._DATA_DIR))
+    assert set(velocity._PROFILE_FILES.values()) <= have
+    assert {"ak135", "iasp91", "ak135-true"} == set(velocity._PROFILE_FILES)
 
 
 def test_build_directory_is_ignored():
