@@ -14,7 +14,10 @@ the exit code is non-zero):
      TPU kernels' span schedules): rsweep at 180x63; titer at 180x63
      (S=1 and S=2, dup 4) and at 176x40 (S=2, dup 0); band at 1080x300
      (S=1 and S=2); (3b) witer at 183x63 (S=1 and S=2, dup 73) and at
-     256x63 (S=2, dup 0); diag at 127x63 (dup 1) and at 183x63;
+     256x63 (S=2, dup 0); diag at 127x63 (dup 1) and at 183x63; (3c)
+     sweep3d (T sweeps of the 26-tap 3-D stencil) in float32 at (7,5,4)
+     S=1 and (130,6,3) S=3 (256 lanes), in float64 at (8,8,3), and at
+     the 3-D path's 128x128x64 at S=1 and S=7 (T=8);
   4. the main path through the user entry points: init_annulus_circulant
      (180, 63, 20) -> AnnulusSolver(method="auto") on cuda -> solve with
      prev -> receiver fan -> paths -> travel-time CSV, held against the
@@ -40,9 +43,20 @@ the exit code is non-zero):
      diag kernel), held to the JAX package's iteration count and spread
      from 'stream', and to 'stream' and a tol=1e-5 stream solve at every
      node (ENGINE_ATOL); explicit 'diag' at 180x63 held to the anchors
-     and to the sweep field (ENGINE_ATOL).
+     and to the sweep field (ENGINE_ATOL);
+ 11. the 3-D path at 128x128x64 (1,048,576 nodes) on the chip-campaign
+     wedge of benchmarks/chip_dsweep3d.py: grid3d -> prepare3d ->
+     solve3d(engine="auto"), which takes the kernel engine (the sweep3d
+     kernel): the 3x3 surface table held to the JAX package's (JAX_WEDGE,
+     0.01 s); a single-source full-field solve held bit-equal, with the
+     same iterations, to the same route on the CPU (the plain twin); the
+     64-source x 1024-receiver table (source batch 7), three of its rows
+     held to single-source solves (5e-3 s); recover_prev3d equal to the
+     CPU recovery, three backtraces descending to the source;
+ 12. the port's example_grid3d CLI at its defaults on the card, its
+     table held to the root example's (JAX_EXAMPLE, 0.01 s).
 Every kernel-launch count is set to 0 just before each path (4, 6, 7,
-9, 10) and read just after it.  Then one JSON line of kernel numbers, the
+9, 10, 11) and read just after it.  Then one JSON line of kernel numbers, the
 card's name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -89,6 +103,21 @@ TIGHT_TOL = 1e-5
 JAX_SPREAD = {"wrapped 183x63": (108, 2.50244140625e-3),
               "diag 127x63": (92, 4.2724609375e-3)}
 SPREAD_ATOL = 1e-6
+# The JAX package's 3x3 travel-time tables (s) on the CPU, float32, 3
+# surface sources x 3 surface receivers (tools/jax_grid3d_reference.py):
+# the root example_grid3d.py at its defaults (24x24x16, xla engine), and
+# the 128x128x64 chip-campaign wedge (xla engine, scan_every 0).
+JAX_EXAMPLE = [[118.82701110839844, 231.0539093017578, 447.36053466796875],
+               [218.8846435546875, 231.0298309326172, 225.4295654296875],
+               [426.60101318359375, 424.41326904296875, 156.23204040527344]]
+JAX_WEDGE = [[96.63719177246094, 207.28045654296875, 444.18426513671875],
+             [198.22744750976562, 207.27886962890625, 242.14430236816406],
+             [427.5814514160156, 423.6245422363281, 137.81248474121094]]
+WEDGE_DIMS = (128, 128, 64)
+TABLE3D_SOURCES, TABLE3D_RECEIVERS, TABLE3D_BATCH = 64, 1024, 7
+# a source group's row against its single-source solve: the tolerance of
+# the JAX package's test_solve3d_source_batched_matches_single
+BATCH_ATOL = 5e-3
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # f32 outside the tensor cores, same sheet
 
@@ -123,11 +152,13 @@ def _cuda_ms(fn, n: int) -> float:
 def _launch_counters():
     """name -> the wrapper whose `launches` counts that kernel."""
     from raytracer_tpu_torch.ops import (diag_circulant, diag_wrapped,
-                                         stream_t, sweep_theta, wrapped_t)
+                                         stream_t, sweep3d, sweep_theta,
+                                         wrapped_t)
 
     return {"rsweep": sweep_theta.rsweep, "titer": wrapped_t.titer,
             "band": stream_t.band, "witer": diag_wrapped.witer,
-            "diag": diag_circulant.diag_sweep}
+            "diag": diag_circulant.diag_sweep,
+            "sweep3d": sweep3d.sweep3d_T}
 
 
 def _reset_counts():
@@ -172,8 +203,12 @@ def _bound_ms(nbytes: float, ops: float):
 
 def _kernel_split_ms(fn, n: int) -> dict:
     """Device milliseconds per call of fn, by CUDA kernel (and copy),
-    from torch.profiler's CUDA trace over n calls after one warm-up."""
+    from torch.profiler's CUDA trace over n calls after one warm-up.
+    Host-side operator entries (aten::...) also carry the device time of
+    the kernels they launched; those kernels are counted under their own
+    names, so the host entries are left out."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -186,9 +221,10 @@ def _kernel_split_ms(fn, n: int) -> dict:
     out = {}
     for e in prof.key_averages():
         t = e.device_time_total
-        if t > 0:
+        if t > 0 and e.device_type != DeviceType.CPU:
             name = e.key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].strip()
+            name = name.replace("void ", "").split("(")[0].split("<")[0]
+            name = name.strip()
             out[name] = out.get(name, 0.0) + t / 1e3 / n
     return out
 
@@ -1009,6 +1045,264 @@ def phase_diag(rec: dict):
           f"over every node", flush=True)
 
 
+def _wedge3d(dims, lo_deg, hi_deg, depth):
+    """A (theta, phi, r) wedge grid, theta and phi in [lo, hi] deg, r from
+    R - depth to R, and its AK135 Vp."""
+    import numpy as np
+
+    import raytracer_tpu_torch as rt
+
+    g = rt.grid3d((np.deg2rad(lo_deg), np.deg2rad(lo_deg), rt.R - depth),
+                  (np.deg2rad(hi_deg), np.deg2rad(hi_deg), rt.R), dims)
+    prof = rt.velocity_profile("ak135")
+    return g, rt.LinearInterpolation(prof.r, prof.Vp)(g.r)
+
+
+def _sweep3d_work(W4, S, T, itemsize):
+    """(bytes, operations, streamed bytes) of one sweep3d call of T
+    sweeps.  The bound's bytes read each input once and write each output
+    once: the weights and the S fields in, the S fields out.  One add and
+    one min per finite weight per field per sweep.  The streamed bytes
+    are the floor of this kernel's design, which reads the weights again
+    in every sweep (at 1M nodes they exceed the 50 MB L2)."""
+    import torch
+
+    finite = int(torch.isfinite(W4).sum())
+    field = W4.shape[0] * W4.shape[2] * W4.shape[3]
+    nbytes = itemsize * (W4.numel() + 2 * S * field)
+    streamed = itemsize * (T * W4.numel() + 2 * S * field)
+    return nbytes, 2 * finite * S * T, streamed
+
+
+def _field3d(rng, plan, S, dtype):
+    """S packed fields of random travel times, ~30 % +inf."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.ops.sweep3d import pack_field
+
+    v = rng.uniform(0.0, 1500.0, (S,) + plan.shape)
+    v[rng.random(v.shape) < 0.3] = np.inf
+    return pack_field(torch.from_numpy(v.astype(dtype)).cuda(), plan)
+
+
+def phase_sweep3d_kernel(rec: dict):
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.ops import sweep3d
+    from raytracer_tpu_torch.solvers.solve3d import (_shifted_weights,
+                                                     prepare3d)
+    import raytracer_tpu_torch as rt
+
+    rng = np.random.default_rng(7)
+    max_err = 0.0
+    small = []
+    for dims, dtype, S, block_rows in (((7, 5, 4), np.float32, 1, 32),
+                                       ((130, 6, 3), np.float32, 3, 32),
+                                       ((8, 8, 3), np.float64, 1, 1024)):
+        g, U = _wedge3d(dims, 80.0, 100.0, 600.0)
+        plan = sweep3d.plan_sweep3d(_shifted_weights(g, U, dtype), block_rows)
+        W4 = torch.from_numpy(plan.W4).cuda()
+        f = _field3d(rng, plan, S, dtype)
+        args = (W4, plan.n1, plan.BR, plan.NB, plan.L0, plan.H8, 3)
+        out_k = sweep3d.sweep3d_T_batched(f, *args)
+        out_r = sweep3d.sweep3d_reference(f, *args)
+        torch.cuda.synchronize()
+        err = _max_err(out_k, out_r)
+        max_err = max(max_err, err)
+        if not torch.equal(out_k, out_r):
+            raise AssertionError(f"sweep3d kernel != plain version at {dims} "
+                                 f"{np.dtype(dtype).name} S={S}: max abs "
+                                 f"err {err}")
+        small.append(f"{dims} {np.dtype(dtype).name} S={S} L0={plan.L0}")
+
+    t0 = time.perf_counter()
+    g, U = _wedge3d(WEDGE_DIMS, 60.0, 120.0, 2500.0)
+    t_grid = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packed = prepare3d(g, U, rt.SolverConfig(dtype="float32"))
+    t_prep = time.perf_counter() - t0
+    rec["wedge"] = (g, U, packed, t_grid, t_prep)
+    plan = packed.plan
+    W4 = torch.from_numpy(plan.W4).cuda()
+    T = 8
+    rows = []
+    for S in (1, TABLE3D_BATCH):
+        f = _field3d(rng, plan, S, np.float32)
+        args = (W4, plan.n1, plan.BR, plan.NB, plan.L0, plan.H8, T)
+        out_k = sweep3d.sweep3d_T_batched(f, *args)
+        out_r = sweep3d.sweep3d_reference(f, *args)
+        torch.cuda.synchronize()
+        err = _max_err(out_k, out_r)
+        max_err = max(max_err, err)
+        if not torch.equal(out_k, out_r):
+            raise AssertionError(f"sweep3d kernel != plain version at "
+                                 f"{WEDGE_DIMS} S={S}: max abs err {err}")
+        ms = _cuda_ms(lambda: sweep3d.sweep3d_T_batched(f, *args), 10)
+        plain = _cuda_ms(lambda: sweep3d.sweep3d_reference(f, *args), 2)
+        nbytes, ops, streamed = _sweep3d_work(W4, S, T, 4)
+        bound, by = _bound_ms(nbytes, ops)
+        rows.append(dict(S=S, ms=ms, plain_ms=plain, bound_ms=bound,
+                         bound_by=by, nbytes=nbytes, ops=ops,
+                         stream_ms=_bound_ms(streamed, ops)[0],
+                         streamed=streamed))
+    rec["sweep3d"] = {k: rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by")}
+    rec["sweep3d"]["max_abs_err"] = max_err
+    rec["sweep3d_rows"] = rows
+    print("phase 3c kernels: sweep3d (T=3) bit-equal to sweep3d_reference at "
+          + "; ".join(small) + f"; at {WEDGE_DIMS} (NB={plan.NB}, "
+          f"BR={plan.BR}, L0={plan.L0}, W4 {W4.numel() * 4 / 1e6:.2f} MB) "
+          f"T={T}: " + "; ".join(
+              f"S={r['S']}: kernel {r['ms']:.4f} ms per call, plain "
+              f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}, {r['nbytes'] / 1e6:.1f} MB, "
+              f"{r['ops'] / 1e9:.3f} G ops), floor of the weight stream "
+              f"per sweep {r['stream_ms']:.5f} ms ({r['streamed'] / 1e6:.1f} "
+              f"MB)" for r in rows)
+          + f"; grid {t_grid:.2f} s, prepare3d {t_prep:.2f} s", flush=True)
+
+
+def phase_grid3d(rec: dict):
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+    from raytracer_tpu_torch.example_grid3d import (RECEIVER_DEGREES,
+                                                    SOURCE_DEGREES,
+                                                    surface_nodes)
+    from raytracer_tpu_torch.solvers.solve3d import (_auto_source_batch,
+                                                     select_engine3d)
+
+    g, U, packed, t_grid, t_prep = rec["wedge"]
+    cfg = rt.SolverConfig(dtype="float32")
+    n = len(g)
+    route = select_engine3d(packed, "auto", np.float32)
+    batch = _auto_source_batch(packed.plan, 4, TABLE3D_SOURCES)
+    assert route == "pallas" and batch == TABLE3D_BATCH, (route, batch)
+
+    # the main 3-D path: one source's whole field
+    src = n - n // 2
+    _reset_counts()
+    t0 = time.perf_counter()
+    d1, it1 = rt.solve3d(g, U, [src], cfg, _packed=packed)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    counts = _counts()
+    launches = counts["sweep3d"]
+    assert launches > 0 and launches * 8 == it1, (counts, it1)
+    assert d1.shape == (1, n) and np.isfinite(d1).all()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.solve3d(g, U, [src], cfg, _packed=packed)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    steady = 1e3 * statistics.median(times)
+    # device time of one solve by kernel (torch.profiler)
+    split = _kernel_split_ms(
+        lambda: rt.solve3d(g, U, [src], cfg, _packed=packed), 1)
+    t0 = time.perf_counter()
+    d_cpu, it_cpu = rt.solve3d(g, U, [src], cfg, _packed=packed, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    assert it_cpu == it1, (it_cpu, it1)
+    assert np.array_equal(d1, d_cpu), float(np.abs(d1 - d_cpu).max())
+
+    # the example's 3 surface sources x 3 receivers against the JAX package
+    srcs3 = surface_nodes(g, SOURCE_DEGREES)
+    recs3 = surface_nodes(g, RECEIVER_DEGREES)
+    tab3, it3 = rt.solve3d(g, U, srcs3, cfg, receivers=recs3, _packed=packed)
+    err3 = float(np.abs(tab3 - np.asarray(JAX_WEDGE)).max())
+    assert err3 <= T_ATOL, (err3, tab3)
+
+    # the 64-source x 1024-receiver table (benchmarks/chip_dsweep3d.py)
+    rng = np.random.default_rng(0)
+    srcs64 = rng.integers(0, n, TABLE3D_SOURCES).tolist()
+    recs = rng.integers(0, n, TABLE3D_RECEIVERS).tolist()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table, it_tab = rt.solve3d(g, U, srcs64, cfg, receivers=recs,
+                               _packed=packed)
+    torch.cuda.synchronize()
+    t_table = time.perf_counter() - t0
+    tab_launches = _counts()["sweep3d"]
+    assert table.shape == (TABLE3D_SOURCES, TABLE3D_RECEIVERS)
+    assert np.isfinite(table).all()
+    err_rows = 0.0
+    for q in (0, TABLE3D_SOURCES // 2, TABLE3D_SOURCES - 1):
+        row, _ = rt.solve3d(g, U, [srcs64[q]], cfg, receivers=recs,
+                            _packed=packed)
+        err_rows = max(err_rows, float(np.abs(row[0] - table[q]).max()))
+    assert err_rows <= BATCH_ATOL, err_rows
+
+    # the predecessor tree of the single source, on the card and the CPU
+    prev = rt.recover_prev3d(g, U, d1, [src], cfg, _packed=packed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prev = rt.recover_prev3d(g, U, d1, [src], cfg, _packed=packed)
+    torch.cuda.synchronize()
+    t_prev = time.perf_counter() - t0
+    prev_cpu = rt.recover_prev3d(g, U, d1, [src], cfg, _packed=packed,
+                                 device="cpu")
+    assert np.array_equal(prev, prev_cpu)
+    hops = []
+    for r in recs3:
+        p = rt.recontruct_path(prev[0], src, r)
+        assert p[0] == r and p[-1] == src and len(p) > 1, (r, p[:3])
+        assert np.all(np.diff(d1[0][p]) < 0), r
+        hops.append(len(p) - 1)
+
+    ms1 = rec["sweep3d"]["ms"]
+    ms7 = rec["sweep3d_rows"][1]["ms"]
+    rec["sweep3d"]["launches"] = launches
+    rec["grid3d_ms"] = steady
+    rec["grid3d_launches"] = launches
+    print(f"phase 11 grid3d: {WEDGE_DIMS}, {n} nodes (grid {t_grid:.2f} s, "
+          f"prepare3d {t_prep:.2f} s), auto -> {route}, source batch "
+          f"{batch} for {TABLE3D_SOURCES} sources. Single source {src}: "
+          f"{it1} iterations, sweep3d launches={launches} (path counts "
+          f"{counts}); first solve {t_first:.3f} s, steady solve median of 3 "
+          f"{steady:.2f} ms, of it the kernel {launches} x {ms1:.4f} ms = "
+          f"{100 * launches * ms1 / steady:.1f} %; device ms per solve "
+          f"by kernel (torch.profiler): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in split.items())
+          + f" (busy {100 * sum(split.values()) / steady:.1f} % of the "
+          f"steady solve); bit-equal to the CPU "
+          f"route ({it_cpu} iterations, {t_cpu:.1f} s through the plain "
+          f"twin). 3x3 surface table ({it3} iterations) within "
+          f"{err3:.3g} s of the JAX package's. {TABLE3D_SOURCES}x"
+          f"{TABLE3D_RECEIVERS} table: {1e3 * t_table:.1f} ms = "
+          f"{1e3 * t_table / TABLE3D_SOURCES:.2f} ms per source, {it_tab} "
+          f"iterations at most, {tab_launches} launches, of it the kernel "
+          f"{tab_launches} x {ms7:.4f} ms = "
+          f"{100 * tab_launches * ms7 / (1e3 * t_table):.1f} %; three rows "
+          f"within {err_rows:.3g} s of their single solves. recover_prev3d "
+          f"{1e3 * t_prev:.2f} ms, equal to the CPU recovery; backtraces of "
+          f"{hops} hops descend to the source", flush=True)
+
+
+def phase_example3d():
+    import numpy as np
+
+    t0 = time.perf_counter()
+    out = _run([sys.executable, "-m", "raytracer_tpu_torch.example_grid3d"])
+    rows = [ln for ln in out.splitlines() if ln.strip().startswith("src (")]
+    got = np.array([[float(v) for v in ln.split(":")[1].split()]
+                    for ln in rows])
+    assert got.shape == (3, 3), out
+    assert "engine pallas" in out and "on cuda" in out, out
+    # printed to 0.01 s: |printed - JAX| <= 0.005 + |port - JAX|
+    err = float(np.abs(got - np.asarray(JAX_EXAMPLE)).max())
+    assert err <= T_ATOL, (err, out)
+    solve_line = [ln for ln in out.splitlines() if "solve" in ln][0]
+    print(f"phase 12 example_grid3d: defaults on the card, "
+          f"'{solve_line.strip()}', table within {err:.3g} s of the root "
+          f"example's ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def main():
     faulthandler.dump_traceback_later(900, exit=True)
     t_start = time.perf_counter()
@@ -1021,11 +1315,13 @@ def main():
         for phase in (phase_build, lambda: phase_kernels(rec),
                       lambda: phase_jacobi_kernels(rec),
                       lambda: phase_wrapped_diag_kernels(rec),
+                      lambda: phase_sweep3d_kernel(rec),
                       lambda: phase_main_path(rec, tmp),
                       lambda: phase_cli(tmp), lambda: phase_twrapped(rec),
                       lambda: phase_stream(rec), lambda: phase_tables(rec),
                       lambda: phase_wrapped(rec, tmp),
-                      lambda: phase_diag(rec)):
+                      lambda: phase_diag(rec),
+                      lambda: phase_grid3d(rec), phase_example3d):
             t0 = time.perf_counter()
             phase()
             print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -1045,6 +1341,9 @@ def main():
         "diag": ("raytracer_tpu_torch/csrc/diag.cu",
                  "raytracer_tpu/ops/diag_circulant.py:230",
                  "auto 127x63 -> diag"),
+        "sweep3d": ("raytracer_tpu_torch/csrc/sweep3d.cu",
+                    "raytracer_tpu/ops/sweep3d.py:90",
+                    "solve3d auto 128x128x64 -> pallas"),
     }
     kernels_line = {"kernels": [{
         "name": name,
@@ -1070,7 +1369,10 @@ def main():
           f"{rec['wrapped_ms']:.2f} ms = {rec['wrapped_launches']} x "
           f"{rec['witer']['ms']:.4f} ms of witer + the rest, diag 127x63 "
           f"{rec['diag_ms']:.1f} ms = {rec['diag_launches']} x "
-          f"{rec['diag']['ms']:.4f} ms of diag + the rest)", flush=True)
+          f"{rec['diag']['ms']:.4f} ms of diag + the rest, 3-D "
+          f"128x128x64 {rec['grid3d_ms']:.2f} ms = {rec['grid3d_launches']} "
+          f"x {rec['sweep3d']['ms']:.4f} ms of sweep3d + the rest)",
+          flush=True)
     print(json.dumps(kernels_line))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

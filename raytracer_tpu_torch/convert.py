@@ -4,9 +4,9 @@ The solver has no weights: its parameters are the packed stencil tables.
 `tables_from_numpy` (the sweep's tables), `stencil_from_numpy` (a
 theta-major `TWStencil`, the Jacobi engines' tables),
 `stream_level_from_numpy` (one level's `StreamTables`/`LevelStatic`),
-`wrapped_from_numpy` (a slot-major `WrappedStencil`) and
-`diag_from_numpy` (a `DiagStencil`) take the JAX package's packed
-tables (as NumPy arrays or anything `np.asarray` reads) together with
+`wrapped_from_numpy` (a slot-major `WrappedStencil`),
+`diag_from_numpy` (a `DiagStencil`) and `packed3d_from_numpy` (the 3-D
+solve's `Packed3D`) take the JAX package's packed tables (as NumPy arrays or anything `np.asarray` reads) together with
 their static fields and return the port's own table types, so both
 packages can run on identical tables.
 Nothing here imports the JAX package: the inputs are read by field
@@ -19,12 +19,13 @@ from typing import Mapping
 
 import numpy as np
 
-from .ops.circulant import CirculantGraph, ColumnMap
+from .ops.circulant import CirculantGraph, ColumnMap, resolve_device
 from .ops.diag_circulant import DiagStencil
 from .ops.diag_wrapped import WrappedStencil
 from .ops.stream_t import LevelStatic, StreamTables
 from .ops.sweep_theta import RSweepStatic, SweepStatic, SweepTables
 from .ops.wrapped_t import TWStencil
+from .solvers.solve3d import Packed3D, _packed3d
 
 
 def _fields(obj) -> dict:
@@ -132,3 +133,16 @@ def diag_from_numpy(ds) -> DiagStencil:
     return DiagStencil(**{
         k.name: np.asarray(f[k.name]) if k.name in arrays else int(f[k.name])
         for k in dataclasses.fields(DiagStencil)})
+
+
+def packed3d_from_numpy(W_np, shape, shifts, device,
+                        block_rows: int = 1024) -> Packed3D:
+    """The port's `Packed3D` from the JAX package's shifted weights
+    (`Packed3D.W_np`, (n_shifts, n2, n1, n0)) with its `shape` and
+    `shifts`; the kernel plan (star 1) and the scan costs are rebuilt
+    from the same bits.  `device` is where the solves will run, checked
+    as `prepare3d` checks it; nothing is uploaded here."""
+    resolve_device(device)
+    shifts = tuple(tuple(int(v) for v in s) for s in shifts)
+    return _packed3d(np.ascontiguousarray(np.asarray(W_np)),
+                     tuple(int(n) for n in shape), shifts, block_rows)

@@ -81,6 +81,15 @@ _REFUSING_RUN = textwrap.dedent("""
         assert np.isfinite(s.solve(src, want_prev=False).dist).all()
     for model in ("ak135", "iasp91", "ak135-true"):
         assert len(pt.velocity_profile(model).r) > 100
+    g3 = pt.grid3d((1.4, 1.4, pt.R - 600.0), (1.7, 1.7, pt.R), (9, 6, 5))
+    prof = pt.velocity_profile()
+    U3 = pt.LinearInterpolation(prof.r, prof.Vp)(g3.r)
+    d3, it3 = pt.solve3d(g3, U3, [3, 100], device="cpu")
+    assert it3 > 0 and np.isfinite(d3).all()
+    p3 = pt.recover_prev3d(g3, U3, d3, [3, 100], device="cpu")
+    assert p3.shape == d3.shape
+    from raytracer_tpu_torch import example_grid3d
+    example_grid3d.main(["--n", "8", "8", "5", "--device", "cpu"])
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("ISOLATED", len(names))
@@ -134,10 +143,10 @@ def test_cuda_sources_include_no_pytorch_headers(path):
 
 
 def test_every_kernel_source_is_in_the_port():
-    """The five ported kernels build from the port's own csrc/."""
+    """The six ported kernels build from the port's own csrc/."""
     have = set(os.listdir(os.path.join(PKG, "csrc")))
     assert {"rsweep.cu", "titer.cu", "band.cu", "witer.cu",
-            "diag.cu"} <= have
+            "diag.cu", "sweep3d.cu"} <= have
 
 
 def test_port_has_its_own_velocity_tables():
