@@ -17,7 +17,11 @@ the exit code is non-zero):
      256x63 (S=2, dup 0); diag at 127x63 (dup 1) and at 183x63; (3c)
      sweep3d (T sweeps of the 26-tap 3-D stencil) in float32 at (7,5,4)
      S=1 and (130,6,3) S=3 (256 lanes), in float64 at (8,8,3), and at
-     the 3-D path's 128x128x64 at S=1 and S=7 (T=8);
+     the 3-D path's 128x128x64 at S=1 and S=7 (T=8); (3d) relax at
+     180x63 (S=1 and S=8, finite pad rows in the input), fused (the whole
+     solve in one cooperative launch) at 24x12 (S=2, T=3: ntheta 24 takes
+     the modular ring shifts) and at 180x63 (S=1), each with the same
+     iterations as its plain version;
   4. the main path through the user entry points: init_annulus_circulant
      (180, 63, 20) -> AnnulusSolver(method="auto") on cuda -> solve with
      prev -> receiver fan -> paths -> travel-time CSV, held against the
@@ -54,9 +58,19 @@ the exit code is non-zero):
      held to single-source solves (5e-3 s); recover_prev3d equal to the
      CPU recovery, three backtraces descending to the source;
  12. the port's example_grid3d CLI at its defaults on the card, its
-     table held to the root example's (JAX_EXAMPLE, 0.01 s).
+     table held to the root example's (JAX_EXAMPLE, 0.01 s);
+ 13. AnnulusSolver(method="pallas") (the relax kernel) and
+     AnnulusSolver(method="fused") (the fused kernel) at 180x63, through
+     the entry points of phase 4: the anchors, the JAX package's
+     iterations and spread from a tol=1e-5 twrapped solve (JAX_CONTRIB),
+     pallas within ENGINE_ATOL of the sweep field and fused within 2e-3 s
+     of the tight solve at every node, the prev tree equal to
+     recover_prev with as many receiver paths reaching the source
+     without a cycle as in the JAX package (ROADMAP C.9), a 48x12 solve
+     bit-equal to the same route on the CPU, an 8 x 150 table (S=8) with
+     three rows held to single solves.
 Every kernel-launch count is set to 0 just before each path (4, 6, 7,
-9, 10, 11) and read just after it.  Then one JSON line of kernel numbers, the
+9, 10, 11, 13) and read just after it.  Then one JSON line of kernel numbers, the
 card's name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -102,6 +116,16 @@ TIGHT_TOL = 1e-5
 # iterations of the engine, and its max |field - stream field| (s)
 JAX_SPREAD = {"wrapped 183x63": (108, 2.50244140625e-3),
               "diag 127x63": (92, 4.2724609375e-3)}
+# the JAX package's quarantined engines on the CPU at 180x63
+# (tools/jax_contrib_reference.py): iterations (-1: fused keeps its count
+# on the device) and the most the field sits above and below a twrapped
+# solve at tol=1e-5 (124 iterations).  pallas sits below it: its ring
+# scan's closed form rounds below the fixpoint (ROADMAP C.7).
+# The last figure: how many of the 150 receivers' predecessor walks
+# reach the source without a cycle (ROADMAP C.9).
+JAX_CONTRIB = {"pallas": (95, 0.002685546875, 0.004364013671875, 6),
+               "fused": (-1, 0.0008544921875, 0.0, 147),
+               "twrapped tight": 124}
 SPREAD_ATOL = 1e-6
 # The JAX package's 3x3 travel-time tables (s) on the CPU, float32, 3
 # surface sources x 3 surface receivers (tools/jax_grid3d_reference.py):
@@ -151,6 +175,7 @@ def _cuda_ms(fn, n: int) -> float:
 
 def _launch_counters():
     """name -> the wrapper whose `launches` counts that kernel."""
+    from raytracer_tpu_torch.contrib import fused_circulant, pallas_circulant
     from raytracer_tpu_torch.ops import (diag_circulant, diag_wrapped,
                                          stream_t, sweep3d, sweep_theta,
                                          wrapped_t)
@@ -158,7 +183,8 @@ def _launch_counters():
     return {"rsweep": sweep_theta.rsweep, "titer": wrapped_t.titer,
             "band": stream_t.band, "witer": diag_wrapped.witer,
             "diag": diag_circulant.diag_sweep,
-            "sweep3d": sweep3d.sweep3d_T}
+            "sweep3d": sweep3d.sweep3d_T, "relax": pallas_circulant.relax,
+            "fused": fused_circulant.fused}
 
 
 def _reset_counts():
@@ -179,6 +205,21 @@ def _max_err(got, want) -> float:
         return float("inf")
     fin = torch.isfinite(want)
     return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+
+
+def _reaching(prev, source, receivers) -> list:
+    """The receivers whose predecessor walk reaches `source` without
+    meeting a node twice.  A walk that meets a cycle never reaches it
+    (recontruct_path would walk n nodes and then append the source)."""
+    out = []
+    for r in receivers:
+        node, seen = r, set()
+        while node != source and node not in seen:
+            seen.add(node)
+            node = int(prev[node])
+        if node == source:
+            out.append(r)
+    return out
 
 
 def _steady_ms(solver, source, n):
@@ -406,6 +447,7 @@ def phase_main_path(rec: dict, tmp: str):
     assert abs(t150 - T150_REF) <= T_ATOL, t150
     for r, p in zip(receivers, paths):
         assert p[0] == r and p[-1] == source and len(p) > 1, (r, p[:3])
+    reach = _reaching(D.prev, source, receivers)
     with open(csv_path) as f:
         assert len(f.read().strip().splitlines()) == len(degs) + 1
 
@@ -430,7 +472,8 @@ def phase_main_path(rec: dict, tmp: str):
           f"method={solver.method} on {solver.device}, {rounds} rounds, "
           f"rsweep launches={launches}, t(60)={t60:.4f} s, "
           f"t(150)={t150:.4f} s, max |cuda - cpu| = {err_cpu:.3g} s, "
-          f"{len(paths)} paths end at the source; first solve+prev "
+          f"{len(paths)} paths end at the source, {len(reach)} of them "
+          f"without a cycle (ROADMAP C.9); first solve+prev "
           f"{t_first:.3f} s, steady solve median of 5 "
           f"{steady_ms:.2f} ms, prev recovery "
           f"{1e3 * t_prev:.2f} ms; launches on this path {counts}",
@@ -1303,6 +1346,264 @@ def phase_example3d():
           f"example's ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def _relax_work(ts, S, itemsize):
+    """(bytes, operations) of one relax sweep: the state read and written
+    once, idx, w, offs and u_of read once; one add and one min per finite
+    (k, lane) weight for every real theta row of every source."""
+    import numpy as np
+
+    nt = ts.ntheta
+    state = ts.T * S * (-(-nt // 8) * 8) * 128 * itemsize
+    nbytes = (2 * state + ts.idx.nbytes + ts.w.nbytes + ts.offs.nbytes
+              + ts.u_of.nbytes)
+    return nbytes, 2 * int(np.isfinite(ts.w).sum()) * nt * S
+
+
+def _fused_work(ts, tbl, S, iters, itemsize):
+    """(bytes, operations) of one fused solve of `iters` iterations (the
+    count the kernel returned for these inputs).  Bytes: the tables once,
+    the state and the centre in and out once.  Operations per iteration,
+    over the real theta rows only (pad rows never reach a real one): the
+    ring steps (a multiply, an add and two mins per element of a ring whose
+    hop cost is finite), the chain steps (an add and a min per finite jump
+    cost), the relaxation (an add and a min per finite weight), the fan (an
+    add and a min each way per finite fan weight) and the convergence
+    compare (one per element)."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.contrib.fused_circulant import RING_STEPS
+
+    nt = ts.ntheta
+    steps = sum(1 for k in range(RING_STEPS) if (1 << k) % nt)
+    ring = 4 * steps * int(np.isfinite(ts.ring_w).sum()) * nt
+    chain = 2 * int(torch.isfinite(tbl.pdn).sum()
+                    + torch.isfinite(tbl.pup).sum()) * nt
+    relax = 2 * int(np.isfinite(ts.w).sum()) * nt
+    fan = 4 * int(np.isfinite(ts.fan_w).sum()) * nt
+    compare = ts.T * 128 * nt
+    ops = iters * S * (ring + chain + relax + fan + compare)
+    state = ts.T * S * (-(-nt // 8) * 8) * 128 * itemsize
+    tables = sum(t.numel() * t.element_size() for t in tbl)
+    return tables + 2 * state + 2 * S * itemsize, ops
+
+
+def _lane_field(rng, ts, S):
+    """Random (T, S, ntp, 128) travel times, ~30 % +inf, with finite pad
+    rows (the fan writes such rows; a sweep must reset them to +inf)."""
+    import numpy as np
+    import torch
+
+    nt = ts.ntheta
+    ntp = -(-nt // 8) * 8
+    d = rng.uniform(0.0, 1500.0, (ts.T, S, ntp, 128)).astype(np.float32)
+    d[rng.random(d.shape) < 0.3] = np.inf
+    d[:, :, nt:] = rng.uniform(0.0, 1500.0, d[:, :, nt:].shape)
+    return torch.from_numpy(d).cuda()
+
+
+def phase_lane_gather_kernels(rec: dict):
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+    from raytracer_tpu_torch.contrib import fused_circulant as pfc
+    from raytracer_tpu_torch.contrib import pallas_circulant as ppc
+
+    rng = np.random.default_rng(8)
+    _, cg, _ = rt.init_annulus_circulant(180, 63, spacing=20.0)
+    ts = ppc.pack_tiled_stencil(cg, np.float32)
+    nt = ts.ntheta
+    ntp = -(-nt // 8) * 8
+    tb = ppc.device_pallas_tables(ts, "cuda")
+    relax_rows = []
+    for S in (1, 8):
+        x = _lane_field(rng, ts, S)
+        args = (tb.offs, tb.u_of, tb.idx, tb.w, ts.T, nt, S, ntp)
+        out_k = ppc.relax(x, *args)
+        out_r = ppc.relax_reference(x, *args)
+        torch.cuda.synchronize()
+        err = _max_err(out_k, out_r)
+        if not torch.equal(out_k, out_r):
+            raise AssertionError(f"relax kernel != plain version at 180x63 "
+                                 f"S={S}: max abs err {err}")
+        ms = _cuda_ms(lambda: ppc.relax(x, *args), 20)
+        plain = _cuda_ms(lambda: ppc.relax_reference(x, *args), 2)
+        nbytes, ops = _relax_work(ts, S, 4)
+        bound, by = _bound_ms(nbytes, ops)
+        dev = _kernel_split_ms(lambda: ppc.relax(x, *args), 5)
+        relax_rows.append(dict(
+            S=S, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+            bound_by=by, nbytes=nbytes, ops=ops,
+            device_ms=sum(v for k, v in dev.items() if "relax" in k)))
+
+    fused_rows = []
+    for ntheta, nr, spacing, degs in ((24, 12, 150.0, (0.0, 97.0)),
+                                      (180, 63, 20.0, (0.0,))):
+        gr, cgf, _ = rt.init_annulus_circulant(ntheta, nr, spacing=spacing)
+        tsf = ppc.pack_tiled_stencil(cgf, np.float32)
+        ntf = tsf.ntheta
+        ntpf = -(-ntf // 8) * 8
+        srcs = [rt.closest_point(gr, np.deg2rad(d), rt.R, system="polar")
+                for d in degs]
+        S = len(srcs)
+        d0, c0 = ppc.initial_state(cgf, srcs, tsf.T, ntpf, np.float32)
+        x0 = torch.from_numpy(d0.reshape(tsf.T, S * ntpf, 128)).cuda()
+        cen0 = torch.from_numpy(c0).cuda()
+        tbl = pfc.device_fused_tables(tsf, "cuda")
+        st = pfc.FusedStatic(tsf.T, ntf, ntpf, S)
+        x_k, c_k, it_k = pfc.fused(x0, cen0, tbl, st, 100_000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_r, c_r, it_r = pfc.fused_reference(x0, cen0, tbl, st, 100_000)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        it_k = int(it_k)
+        err = max(_max_err(x_k, x_r), _max_err(c_k, c_r))
+        if not (torch.equal(x_k, x_r) and torch.equal(c_k, c_r)
+                and it_k == it_r):
+            raise AssertionError(
+                f"fused kernel != plain version at {ntheta}x{nr} S={S}: max "
+                f"abs err {err}, iterations {it_k} and {it_r}")
+        ms = _cuda_ms(lambda: pfc.fused(x0, cen0, tbl, st, 100_000), 3)
+        nbytes, ops = _fused_work(tsf, tbl, S, it_k, 4)
+        bound, by = _bound_ms(nbytes, ops)
+        fused_rows.append(dict(
+            grid=f"{ntheta}x{nr}", S=S, T=tsf.T, iters=it_k, max_abs_err=err,
+            ms=ms, plain_ms=1e3 * t_plain, bound_ms=bound, bound_by=by,
+            nbytes=nbytes, ops=ops))
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    # times at the main paths' shapes (180x63, S=1), errors over every case
+    rec["relax"] = {k: relax_rows[0][k] for k in keys}
+    rec["relax"]["max_abs_err"] = max(r["max_abs_err"] for r in relax_rows)
+    rec["fused"] = {k: fused_rows[1][k] for k in keys}
+    rec["fused"]["max_abs_err"] = max(r["max_abs_err"] for r in fused_rows)
+    rec["fused_iters"] = fused_rows[1]["iters"]
+    print("phase 3d kernels: relax bit-equal to relax_reference at 180x63 "
+          f"(T={ts.T}, K_tot={ts.idx.shape[0]}, finite pad rows in): "
+          + "; ".join(f"S={r['S']}: kernel {r['ms']:.4f} ms (device "
+                      f"{r['device_ms']:.4f} ms, torch.profiler), plain "
+                      f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
+                      f"({r['bound_by']}, {r['nbytes'] / 1e6:.2f} MB, "
+                      f"{r['ops'] / 1e6:.1f} M ops)" for r in relax_rows)
+          + ". fused bit-equal to fused_reference, same iterations: "
+          + "; ".join(f"{r['grid']} S={r['S']} T={r['T']}: {r['iters']} "
+                      f"iterations, kernel {r['ms']:.3f} ms per solve "
+                      f"({1e3 * r['ms'] / r['iters']:.2f} us per iteration), "
+                      f"plain {r['plain_ms'] / 1e3:.2f} s, bound "
+                      f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
+                      f"{r['nbytes'] / 1e6:.2f} MB, {r['ops'] / 1e9:.3f} G "
+                      f"ops)" for r in fused_rows), flush=True)
+
+
+def phase_contrib(rec: dict):
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+
+    gr, cg, U, source, D_sweep, receivers, degs = rec["sweep_180"]
+    tight = rt.AnnulusSolver(gr, None, None, U,
+                             rt.SolverConfig(tol=TIGHT_TOL, max_iters=5000),
+                             method="twrapped", circulant=cg)
+    d_tight = tight.solve(source, want_prev=False).dist
+    assert tight.last_iterations == JAX_CONTRIB["twrapped tight"], \
+        tight.last_iterations
+    gs, cgs, Us = rt.init_annulus_circulant(48, 12, spacing=150.0)
+    src_s = rt.closest_point(gs, 0.0, rt.R, system="polar")
+    srcs = [rt.closest_point(gr, np.deg2rad(d), rt.R, system="polar")
+            for d in np.linspace(0.0, 315.0, TABLE_SOURCES)]
+    recs = np.asarray(receivers[:TABLE_RECEIVERS])
+    parts = []
+    for method, kernel in (("pallas", "relax"), ("fused", "fused")):
+        t_engine = time.perf_counter()
+        solver = rt.AnnulusSolver(gr, None, None, U, method=method,
+                                  circulant=cg)
+        _reset_counts()
+        t0 = time.perf_counter()
+        D = solver.solve(source)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        counts = _counts()
+        iters = solver.last_iterations
+        ref_iters, ref_above, ref_below, ref_reach = JAX_CONTRIB[method]
+        assert solver.method == method and iters == ref_iters, \
+            (solver.method, iters)
+        if method == "pallas":
+            assert counts["relax"] == iters, counts
+        else:
+            assert counts["fused"] == 1, counts
+        assert sum(counts.values()) == counts[kernel], counts
+        assert D.dist.shape == (gr.nnods,) and np.isfinite(D.dist).all()
+        tt = rt.travel_times(D, gr, receivers)
+        t60 = float(tt[np.argmin(np.abs(degs - 60.0))])
+        t150 = float(tt[np.argmin(np.abs(degs - 150.0))])
+        assert abs(t60 - T60_REF) <= T_ATOL, (method, t60)
+        assert abs(t150 - T150_REF) <= T_ATOL, (method, t150)
+        above = float((D.dist - d_tight).max())
+        below = float(-(D.dist - d_tight).min())
+        assert abs(above - ref_above) <= SPREAD_ATOL, (method, above)
+        assert abs(below - ref_below) <= SPREAD_ATOL, (method, below)
+        err_sweep = float(np.abs(D.dist - D_sweep.dist).max())
+        if method == "pallas":
+            assert err_sweep <= ENGINE_ATOL, err_sweep
+        else:
+            assert max(above, below) <= CPU_ATOL, (above, below)
+        reach = _reaching(D.prev, source, receivers)
+        assert len(reach) == ref_reach, (method, len(reach))
+        paths = [rt.recontruct_path(D.prev, source, r) for r in reach]
+        for r, p in zip(reach, paths):
+            assert p[0] == r and p[-1] == source and len(p) > 1, (r, p[:3])
+        prev = solver.recover_prev(D.dist)
+        prev[source] = source
+        assert np.array_equal(prev, D.prev)
+        # the same route on the CPU, bit for bit, at 48x12
+        t_small = time.perf_counter()
+        small = [rt.AnnulusSolver(gs, None, None, Us, method=method,
+                                  circulant=cgs, device=dev)
+                 for dev in ("cuda", "cpu")]
+        d_small = [s.solve(src_s, want_prev=False).dist for s in small]
+        t_small = time.perf_counter() - t_small
+        assert np.array_equal(d_small[0], d_small[1]), method
+        assert small[0].last_iterations == small[1].last_iterations
+        # 8 x 150 table (S = 8 on the kernel's rows), rows against singles
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = solver.travel_time_table(srcs, recs, batch=8)
+        torch.cuda.synchronize()
+        t_table = time.perf_counter() - t0
+        assert table.shape == (TABLE_SOURCES, TABLE_RECEIVERS)
+        assert np.isfinite(table).all()
+        rows = (0, 3, 7)
+        assert srcs[0] == source  # row 0 is D's
+        err_table = float(max(np.abs(
+            table[i] - (D.dist if i == 0 else solver.solve(
+                srcs[i], want_prev=False).dist)[recs]).max() for i in rows))
+        assert err_table <= CPU_ATOL, (method, err_table)
+        steady = _steady_ms(solver, source, 3)
+        rec[kernel]["launches"] = counts[kernel]
+        rec[f"{method}_ms"] = steady
+        parts.append(
+            f"{method}: {iters} iterations (the JAX package: {ref_iters}), "
+            f"{kernel} launches={counts[kernel]}, t(60)={t60:.4f} s, "
+            f"t(150)={t150:.4f} s; against twrapped at tol={TIGHT_TOL:g} "
+            f"{above:.6g} s above and {below:.6g} s below (the JAX package: "
+            f"{ref_above:.6g} and {ref_below:.6g}); max |{method} - sweep| = "
+            f"{err_sweep:.3g} s over every node; prev tree equal to "
+            f"recover_prev, {len(reach)} of {len(receivers)} receiver paths "
+            f"reach the source without a cycle (the JAX package: "
+            f"{ref_reach}); 48x12 bit-equal to the CPU "
+            f"route ({small[0].last_iterations} iterations, both solves "
+            f"{t_small:.1f} s); 8x150 table "
+            f"{1e3 * t_table:.1f} ms, rows {rows} within {err_table:.3g} s "
+            f"of single solves; first solve+prev {t_first:.3f} s, steady "
+            f"solve median of 3 {steady:.2f} ms "
+            f"({time.perf_counter() - t_engine:.1f} s)")
+    print(f"phase 13 pallas and fused: 180x63, {gr.nnods} nodes, twrapped at "
+          f"tol={TIGHT_TOL:g} {tight.last_iterations} iterations; "
+          + "; ".join(parts), flush=True)
+
+
 def main():
     faulthandler.dump_traceback_later(900, exit=True)
     t_start = time.perf_counter()
@@ -1316,12 +1617,14 @@ def main():
                       lambda: phase_jacobi_kernels(rec),
                       lambda: phase_wrapped_diag_kernels(rec),
                       lambda: phase_sweep3d_kernel(rec),
+                      lambda: phase_lane_gather_kernels(rec),
                       lambda: phase_main_path(rec, tmp),
                       lambda: phase_cli(tmp), lambda: phase_twrapped(rec),
                       lambda: phase_stream(rec), lambda: phase_tables(rec),
                       lambda: phase_wrapped(rec, tmp),
                       lambda: phase_diag(rec),
-                      lambda: phase_grid3d(rec), phase_example3d):
+                      lambda: phase_grid3d(rec), phase_example3d,
+                      lambda: phase_contrib(rec)):
             t0 = time.perf_counter()
             phase()
             print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -1344,6 +1647,12 @@ def main():
         "sweep3d": ("raytracer_tpu_torch/csrc/sweep3d.cu",
                     "raytracer_tpu/ops/sweep3d.py:90",
                     "solve3d auto 128x128x64 -> pallas"),
+        "relax": ("raytracer_tpu_torch/csrc/relax.cu",
+                  "raytracer_tpu/contrib/pallas_circulant.py:171",
+                  "pallas 180x63"),
+        "fused": ("raytracer_tpu_torch/csrc/fused.cu",
+                  "raytracer_tpu/contrib/fused_circulant.py:67",
+                  "fused 180x63"),
     }
     kernels_line = {"kernels": [{
         "name": name,
@@ -1371,7 +1680,11 @@ def main():
           f"{rec['diag_ms']:.1f} ms = {rec['diag_launches']} x "
           f"{rec['diag']['ms']:.4f} ms of diag + the rest, 3-D "
           f"128x128x64 {rec['grid3d_ms']:.2f} ms = {rec['grid3d_launches']} "
-          f"x {rec['sweep3d']['ms']:.4f} ms of sweep3d + the rest)",
+          f"x {rec['sweep3d']['ms']:.4f} ms of sweep3d + the rest, pallas "
+          f"180x63 {rec['pallas_ms']:.1f} ms = {rec['relax']['launches']} x "
+          f"{rec['relax']['ms']:.4f} ms of relax + the rest, fused 180x63 "
+          f"{rec['fused_ms']:.2f} ms = 1 launch of {rec['fused_iters']} "
+          f"iterations)",
           flush=True)
     print(json.dumps(kernels_line))
     print(_smi())

@@ -7,7 +7,9 @@ solver whose radial Gauss-Seidel sweep is the hand-written CUDA kernel
 `csrc/rsweep.cu`, the predecessor tree, ray paths and the travel-time
 CSV), the Jacobi engines 'twrapped' (kernel `csrc/titer.cu`), 'stream'
 (kernel `csrc/band.cu`), 'wrapped' (kernel `csrc/witer.cu`) and 'diag'
-(kernel `csrc/diag.cu`), and the plain 'circulant' oracle; and the 3-D
+(kernel `csrc/diag.cu`), the quarantined engines 'pallas' (kernel
+`csrc/relax.cu`) and 'fused' (kernel `csrc/fused.cu`), and the plain
+'circulant' oracle; and the 3-D
 spherical-shell solve (`grid3d` -> `prepare3d` -> `solve3d` ->
 `recover_prev3d`) whose kernel engine is `csrc/sweep3d.cu`.
 Entry points run on the card unless the caller passes `device="cpu"`.

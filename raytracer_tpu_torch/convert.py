@@ -5,7 +5,8 @@ The solver has no weights: its parameters are the packed stencil tables.
 theta-major `TWStencil`, the Jacobi engines' tables),
 `stream_level_from_numpy` (one level's `StreamTables`/`LevelStatic`),
 `wrapped_from_numpy` (a slot-major `WrappedStencil`),
-`diag_from_numpy` (a `DiagStencil`) and `packed3d_from_numpy` (the 3-D
+`diag_from_numpy` (a `DiagStencil`), `tiled_from_numpy` (the lane-gather
+engines' `TiledStencil`) and `packed3d_from_numpy` (the 3-D
 solve's `Packed3D`) take the JAX package's packed tables (as NumPy arrays or anything `np.asarray` reads) together with
 their static fields and return the port's own table types, so both
 packages can run on identical tables.
@@ -19,6 +20,7 @@ from typing import Mapping
 
 import numpy as np
 
+from .contrib.pallas_circulant import TiledStencil
 from .ops.circulant import CirculantGraph, ColumnMap, resolve_device
 from .ops.diag_circulant import DiagStencil
 from .ops.diag_wrapped import WrappedStencil
@@ -133,6 +135,18 @@ def diag_from_numpy(ds) -> DiagStencil:
     return DiagStencil(**{
         k.name: np.asarray(f[k.name]) if k.name in arrays else int(f[k.name])
         for k in dataclasses.fields(DiagStencil)})
+
+
+def tiled_from_numpy(ts) -> TiledStencil:
+    """The port's TiledStencil from the JAX package's packed one (fields
+    groups, idx, w, offs, u_of, ring_w, chain_w, fan_w, T, M, ntheta),
+    arrays as NumPy with their bits kept."""
+    f = _fields(ts)
+    arrays = ("idx", "w", "offs", "u_of", "ring_w", "chain_w", "fan_w")
+    out = {k.name: np.asarray(f[k.name]) if k.name in arrays
+           else int(f[k.name]) for k in dataclasses.fields(TiledStencil)
+           if k.name != "groups"}
+    return TiledStencil(**out, groups=_freeze(f["groups"]))
 
 
 def packed3d_from_numpy(W_np, shape, shifts, device,

@@ -11,6 +11,7 @@ sides), and writes the travel-time CSV and the npz archive to
 
     python -m raytracer_tpu_torch.main_annulus --ntheta 180 --nr 63
     python -m raytracer_tpu_torch.main_annulus --method wrapped
+    python -m raytracer_tpu_torch.main_annulus --nr 63 --method pallas
 """
 from __future__ import annotations
 

@@ -3,8 +3,10 @@
 `AnnulusSolver` packs the circulant graph once and then serves repeated
 solves on one explicit device.  This port carries the directional-sweep
 engine ('sweep', the JAX package's auto route on its accelerator), the
-Jacobi engines 'twrapped', 'stream', 'wrapped' and 'diag', and the plain
-Jacobi oracle 'circulant'; every other method raises
+Jacobi engines 'twrapped', 'stream', 'wrapped' and 'diag', the
+quarantined engines 'pallas' and 'fused' (explicit methods only, as in
+the JAX package), and the plain Jacobi oracle 'circulant'; every other
+method raises
 `NotImplementedError` naming the ROADMAP item that ports it.  Nothing
 falls back silently: no CPU run unless the caller asks for
 `device="cpu"`, no engine the JAX package would not route to.
@@ -17,6 +19,9 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
+from ..contrib.fused_circulant import solve_circulant_fused
+from ..contrib.pallas_circulant import (pack_tiled_stencil,
+                                        solve_circulant_pallas)
 from ..ops.circulant import (CirculantError, CirculantGraph,
                              build_circulant, recover_prev_device,
                              resolve_device, solve_circulant)
@@ -34,10 +39,9 @@ from .types import BellmanFordMoore
 _NOT_PORTED = {
     "ell": "ROADMAP A.6 (generic graphs)",
     "banded": "ROADMAP A.6 (generic graphs)",
-    "pallas": "ROADMAP A.11b (quarantined engines; kernel B.7)",
-    "fused": "ROADMAP A.11b (quarantined engines; kernel B.8)",
 }
-_PORTED = ("sweep", "twrapped", "stream", "wrapped", "diag", "circulant")
+_PORTED = ("sweep", "twrapped", "stream", "wrapped", "diag", "pallas",
+           "fused", "circulant")
 # the kernel engines that chunk a whole source list themselves
 _BATCHED = ("twrapped", "sweep", "stream", "wrapped")
 # the JAX package's auto re-route of grids without sweep support:
@@ -72,6 +76,18 @@ class AnnulusSolver:
                      one sweep per iteration as the CUDA kernel
                      csrc/diag.cu, the ring and chain scans in torch);
                      sources one after another, any ntheta
+      'pallas'    -> lane-gather Jacobi engine (contrib/pallas_circulant.py,
+                     one relaxation sweep per iteration as the CUDA kernel
+                     csrc/relax.cu, the ring and slot scans and the fan
+                     in torch); the sources of a call batched along the
+                     kernel's rows
+      'fused'     -> the whole Jacobi loop in one cooperative launch of
+                     the CUDA kernel csrc/fused.cu
+                     (contrib/fused_circulant.py); sources batched as
+                     for 'pallas'; `last_iterations` is -1, the count
+                     staying on the device, as in the JAX package
+      'pallas' and 'fused' are explicit methods only: no auto route
+      reaches them, as in the JAX package
       'circulant' -> plain Jacobi solve (ops/circulant.solve_circulant),
                      the oracle of the kernel engines
     cache_dir: a directory for the circulant stencil built from (A, halo)
@@ -105,6 +121,7 @@ class AnnulusSolver:
         self._twrapped_stencil = None
         self._wrapped_stencil = None
         self._diag_stencil = None
+        self._tiled_stencil = None
 
         was_auto = method == "auto"
         if was_auto:
@@ -215,6 +232,20 @@ class AnnulusSolver:
                 _packed=self._diag_stencil, _dcache=self._device_cache)
             self.last_iterations = iters
             return dist if receivers is None else dist[:, receivers]
+        if self._method in ("pallas", "fused"):
+            # every given source in one call, full rows on the host, as
+            # the JAX package's _dist_batch_full
+            if self._tiled_stencil is None:
+                self._tiled_stencil = pack_tiled_stencil(
+                    self.circulant, dtype=np.dtype(cfg.dtype))
+            solve = (solve_circulant_pallas if self._method == "pallas"
+                     else solve_circulant_fused)
+            dist, iters = solve(self.circulant, sources, cfg,
+                                device=self.device,
+                                _packed=self._tiled_stencil,
+                                _dcache=self._device_cache)
+            self.last_iterations = iters
+            return dist if receivers is None else dist[:, receivers]
         rows = []
         for s in sources:
             d, iters = solve_circulant(self.circulant, int(s), cfg,
@@ -236,8 +267,9 @@ class AnnulusSolver:
         """Single-source solve; dist as a host array, prev (int64) from
         the device argmin sweep when `want_prev`.  device_dist=True
         (kernel engines only) returns `dist` as a tensor on the solver's
-        device after the solve has converged; 'diag' and 'circulant'
-        return a host array all the same, as in the JAX package."""
+        device after the solve has converged; 'diag', 'pallas', 'fused'
+        and 'circulant' return a host array all the same, as in the JAX
+        package."""
         dist = self._dist_batch([source], device_out=device_dist)[0]
         if want_prev:
             prev = self.recover_prev(dist)
@@ -253,7 +285,8 @@ class AnnulusSolver:
 
         The kernel engines are handed the WHOLE source list at once and
         chunk it by `batch` themselves; only the receiver columns leave
-        the device.  'diag' and 'circulant' solve chunk by chunk.
+        the device.  'diag', 'pallas', 'fused' and 'circulant' solve
+        chunk by chunk, `batch` sources per call.
         """
         receivers = np.asarray(receivers)
         if self._method in _BATCHED:

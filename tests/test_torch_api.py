@@ -113,11 +113,10 @@ def test_cuda_default_raises_without_cuda(solved, monkeypatch):
         pt.AnnulusSolver(gr, None, None, U, circulant=cg)
 
 
-@pytest.mark.parametrize("method", ["ell", "banded", "pallas", "fused"])
+@pytest.mark.parametrize("method", ["ell", "banded"])
 def test_unported_methods_name_their_roadmap_item(solved, method):
     gr, cg, U, *_ = solved
-    item = "A.11b" if method in ("pallas", "fused") else "A.6"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
         pt.AnnulusSolver(gr, None, None, U, method=method, circulant=cg,
                          device="cpu")
 
@@ -125,6 +124,51 @@ def test_unported_methods_name_their_roadmap_item(solved, method):
 def _jax_solver(jgr, jcg, U, method):
     return rt.AnnulusSolver(jgr, None, None, U, JConfig(dtype="float32"),
                             method=method, circulant=jcg)
+
+
+@pytest.fixture
+def jax_fused_in_interpret_mode(monkeypatch):
+    """The JAX AnnulusSolver's 'fused' route calls solve_circulant_fused
+    without `interpret`, which raises on the CPU ("Only interpret mode is
+    supported on CPU backend"); run the same route with the Pallas kernel
+    in interpret mode, as its 'pallas' route does on the CPU."""
+    from raytracer_tpu.contrib import fused_circulant as jfc
+
+    orig = jfc.solve_circulant_fused
+    monkeypatch.setattr(jfc, "solve_circulant_fused",
+                        lambda *a, **k: orig(*a, interpret=True, **k))
+
+
+@pytest.mark.parametrize("method", ["pallas", "fused"])
+def test_lane_gather_methods_equal_jax(solved, method,
+                                       jax_fused_in_interpret_mode):
+    """'pallas' and 'fused' through AnnulusSolver: the JAX AnnulusSolver's
+    field and table bit for bit, the same last_iterations (-1 for fused,
+    whose count stays on the device), the prev tree of the field, and a
+    host array whatever device_dist says, as in the JAX package."""
+    gr, cg, U, jgr, jcg, _, src, D_sweep = solved
+    solver = pt.AnnulusSolver(gr, None, None, U, method=method, circulant=cg,
+                              device="cpu")
+    jsolver = _jax_solver(jgr, jcg, U, method)
+    D = solver.solve(src, device_dist=True)
+    Dj = jsolver.solve(src, want_prev=False)
+    assert solver.method == jsolver.method == method
+    assert isinstance(D.dist, np.ndarray)
+    np.testing.assert_array_equal(D.dist, Dj.dist)
+    assert solver.last_iterations == jsolver.last_iterations
+    assert (solver.last_iterations == -1) == (method == "fused")
+    want = j_prev(jcg, D.dist)
+    want[src] = src
+    np.testing.assert_array_equal(D.prev, want)
+    np.testing.assert_allclose(D.dist, D_sweep.dist, rtol=0, atol=TOL)
+    srcs = [pt.closest_point(gr, np.deg2rad(d), pt.R, system="polar")
+            for d in (0.0, 100.0, 250.0)] + [cg.cmap.center]
+    recs = [pt.closest_point(gr, np.deg2rad(d), pt.R, system="polar")
+            for d in (10.0, 60.0, 150.0, 200.0)] + [cg.cmap.center]
+    table = solver.travel_time_table(srcs, recs, batch=2)
+    np.testing.assert_array_equal(
+        table, jsolver.travel_time_table(srcs, recs, batch=2))
+    assert solver.last_iterations == jsolver.last_iterations
 
 
 @pytest.mark.parametrize("method", ["twrapped", "stream", "wrapped", "diag",
@@ -336,7 +380,7 @@ def test_main_annulus_cli_on_cpu(tmp_path, capsys):
 def test_main_annulus_cli_method_on_cpu(tmp_path, capsys):
     """--method takes the JAX driver's choices: a ported engine runs, an
     unported one raises naming its ROADMAP item."""
-    for method in ("twrapped", "wrapped", "diag"):
+    for method in ("twrapped", "wrapped", "diag", "pallas", "fused"):
         prefix = tmp_path / method
         main_annulus.main(["--ntheta", "48", "--nr", "12", "--spacing", "150",
                            "--method", method, "--device", "cpu",
@@ -346,9 +390,9 @@ def test_main_annulus_cli_method_on_cpu(tmp_path, capsys):
         assert "iterations" in out
         assert len((tmp_path / f"{method}_travel_times.csv").read_text()
                    .splitlines()) == 151
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
         main_annulus.main(["--ntheta", "48", "--nr", "12", "--spacing",
-                           "150", "--method", "pallas", "--device", "cpu",
+                           "150", "--method", "ell", "--device", "cpu",
                            "--out-prefix", str(tmp_path / "p")])
 
 
