@@ -11,13 +11,19 @@ the exit code is non-zero):
   3. every kernel against its plain PyTorch version on the card, with
      both timed, at the shapes of the paths below (bit equality: each
      candidate is one f32 add followed by a min, and the scans keep the
-     TPU kernels' span schedules): rsweep at 180x63; titer at 180x63
+     TPU kernels' span schedules): rsweep at 180x63 (S=1 and 4 both
+     directions, two lane blocks, and one 1,280-lane block, which takes
+     the kernel's device-memory route), with its microseconds per row;
+     titer at 180x63
      (S=1 and S=2, dup 4) and at 176x40 (S=2, dup 0); band at 1080x300
      (S=1 and S=2); (3b) witer at 183x63 (S=1 and S=2, dup 73) and at
      256x63 (S=2, dup 0); diag at 127x63 (dup 1) and at 183x63; (3c)
      sweep3d (T sweeps of the 26-tap 3-D stencil) in float32 at (7,5,4)
-     S=1 and (130,6,3) S=3 (256 lanes), in float64 at (8,8,3), and at
-     the 3-D path's 128x128x64 at S=1 and S=7 (T=8); (3d) relax at
+     S=1 and (130,6,3) S=3 (256 lanes), in float64 at (8,8,3) and at
+     (600,4,3) S=8 (640 lanes in chunks of 128), and at
+     the 3-D path's 128x128x64 at S=1 and S=7 (T=8), with the bytes a
+     call reads from device memory in this design (13 weights a node a
+     sweep) and in one that reads all 26 each sweep; (3d) relax at
      180x63 (S=1 and S=8, finite pad rows in the input), fused (the whole
      solve in one cooperative launch) at 24x12 (S=2, T=3: ntheta 24 takes
      the modular ring shifts) and at 180x63 (S=1), each with the same
@@ -25,12 +31,16 @@ the exit code is non-zero):
   4. the main path through the user entry points: init_annulus_circulant
      (180, 63, 20) -> AnnulusSolver(method="auto") on cuda -> solve with
      prev -> receiver fan -> paths -> travel-time CSV, held against the
-     JAX package's anchors and the same solve on the CPU;
+     JAX package's anchors and the same solve on the CPU; the device time
+     of three steady solves by kernel (torch.profiler) and the device's
+     busy and idle share of the steady solve;
   5. the port's main_annulus CLI on the 180x63 grid into a temporary
      directory;
   6. AnnulusSolver(method="twrapped") at 180x63 (the titer kernel),
      held to the anchors and to phase 4's sweep field at every node;
-  7. AnnulusSolver(method="stream") at 1080x300 with warm level 1 (the
+  7. rsweep at the 1080x300 sweep solve's tables (S=1, both directions)
+     against its plain version, timed; then AnnulusSolver(method=
+     "stream") at 1080x300 with warm level 1 (the
      band kernel), held to the same solve on the CPU at every node, and
      to the sweep solve of the same grid at the surface receivers
      (2e-3 s) and at every node (ENGINE_ATOL, see there);
@@ -340,12 +350,36 @@ def _rsweep_work(wtab, rst, nt, S, upward):
     return nbytes, 2 * finite * nt * S, finite
 
 
-def phase_kernels(rec: dict):
-    import numpy as np
+def _rsweep_check(rng, cases, nt, wdn, wup) -> float:
+    """Each (statics, S, upward) case through the kernel and the plain
+    version on the same random field; raises unless bit-equal.  Returns
+    the largest abs difference (0.0)."""
     import torch
 
+    from raytracer_tpu_torch.ops.sweep_theta import rsweep, rsweep_reference
+
+    max_err = 0.0
+    for st, S, up in cases:
+        buf = _rsweep_buffer(rng, st, nt, S, up)
+        wtab = wup if up else wdn
+        out_k = rsweep(buf.clone(), wtab, st, up)
+        out_r = rsweep_reference(buf.clone(), wtab, st, up)
+        torch.cuda.synchronize()
+        err = _max_err(out_k, out_r)
+        max_err = max(max_err, err)
+        if not torch.equal(out_k, out_r):
+            raise AssertionError(
+                f"rsweep kernel != plain version (S={S}, upward={up}, "
+                f"NTB={st.NTB}/{st.NTL}): max abs err {err}")
+    return max_err
+
+
+def phase_kernels(rec: dict):
+    import numpy as np
+
     from raytracer_tpu_torch.models.fast_annulus import init_annulus_circulant
-    from raytracer_tpu_torch.ops.sweep_theta import (device_tables, rsweep,
+    from raytracer_tpu_torch.ops.sweep_theta import (_kernel_tables,
+                                                     device_tables, rsweep,
                                                      rsweep_reference)
     from raytracer_tpu_torch.ops.wrapped_t import pack_twrapped_stencil
 
@@ -354,25 +388,17 @@ def phase_kernels(rec: dict):
     _, static, wdn, wup, rst = device_tables(ws, cg, np.float32, "cuda")
     nt = static.nt
     blocked = rst._replace(NTB=rst.NTL // 2)
+    # the same taps on one 1,280-lane block: the ring would not fit in
+    # shared memory, so the kernel takes its device-memory route
+    wide = rst._replace(NTL=1280, NTB=1280)
     rng = np.random.default_rng(0)
     cases = [(rst, 1, False), (rst, 1, True), (rst, 4, False),
-             (rst, 4, True), (blocked, 2, False), (blocked, 2, True)]
-    max_err = 0.0
-    for st, S, up in cases:
-        buf = _rsweep_buffer(rng, st, nt, S, up)
-        wtab = wup if up else wdn
-        out_k = rsweep(buf.clone(), wtab, st, up)
-        out_r = rsweep_reference(buf.clone(), wtab, st, up)
-        torch.cuda.synchronize()
-        same_inf = torch.equal(torch.isinf(out_k), torch.isinf(out_r))
-        fin = torch.isfinite(out_r)
-        err = float((out_k[fin] - out_r[fin]).abs().max()) if fin.any() else 0.0
-        max_err = max(max_err, err if same_inf else float("inf"))
-        if not torch.equal(out_k, out_r):
-            raise AssertionError(
-                f"rsweep kernel != plain version (S={S}, upward={up}, "
-                f"NTB={st.NTB}/{st.NTL}): max abs err {err}, "
-                f"inf pattern equal {same_inf}")
+             (rst, 4, True), (blocked, 2, False), (blocked, 2, True),
+             (wide, 1, False), (wide, 1, True)]
+    max_err = _rsweep_check(rng, cases, nt, wdn, wup)
+    routes = sorted({"shared" if _kernel_tables(wup if up else wdn, st,
+                                                up)[0].shared else "global"
+                     for st, _, up in cases})
     times = {"ms": [], "plain_ms": [], "bound_ms": [], "bound_by": [],
              "finite": []}
     for up in (False, True):
@@ -397,11 +423,14 @@ def phase_kernels(rec: dict):
     }
     print(f"phase 3 kernels: rsweep bit-equal to rsweep_reference in "
           f"{len(cases)} cases (S=1,4 both directions; lane-blocked "
-          f"NTB={blocked.NTB}<NTL={rst.NTL}); at S=1 (MT={rst.MT}, "
+          f"NTB={blocked.NTB}<NTL={rst.NTL}; one {wide.NTB}-lane block, "
+          f"both directions; routes {routes}); at S=1 (MT={rst.MT}, "
           f"K8={rst.K8}, NTL={rst.NTL}, {len(rst.taps_dn)}+"
           f"{len(rst.taps_up)} taps, {times['finite'][0]}/"
           f"{times['finite'][1]} finite (row, tap) weights) kernel down/up "
-          f"{times['ms'][0]:.4f}/{times['ms'][1]:.4f} ms, plain "
+          f"{times['ms'][0]:.4f}/{times['ms'][1]:.4f} ms = "
+          f"{1e3 * times['ms'][0] / rst.MT:.3f}/"
+          f"{1e3 * times['ms'][1] / rst.MT:.3f} us per row, plain "
           f"{times['plain_ms'][0]:.1f}/{times['plain_ms'][1]:.1f} ms, "
           f"bound {times['bound_ms'][0]:.5f}/{times['bound_ms'][1]:.5f} ms "
           f"({times['bound_by'][0]}); kernel at S=4 down {ms4:.4f} ms",
@@ -458,6 +487,11 @@ def phase_main_path(rec: dict, tmp: str):
     assert err_cpu <= CPU_ATOL, err_cpu
 
     steady_ms = _steady_ms(solver, source, 5)
+    # device time of a steady solve by kernel, and the device's busy share
+    split = _kernel_split_ms(lambda: solver.solve(source, want_prev=False),
+                             3)
+    busy = sum(split.values())
+    top = sorted(split.items(), key=lambda kv: -kv[1])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     prev = solver.recover_prev(D.dist)
@@ -467,6 +501,7 @@ def phase_main_path(rec: dict, tmp: str):
     assert np.array_equal(prev, D.prev)
 
     rec["rsweep"]["launches"] = launches
+    rec["sweep_ms"] = steady_ms
     rec["sweep_180"] = (gr, cg, U, source, D, receivers, degs)
     print(f"phase 4 main path: {gr.nnods} nodes (grid {t_build:.2f} s), "
           f"method={solver.method} on {solver.device}, {rounds} rounds, "
@@ -476,7 +511,12 @@ def phase_main_path(rec: dict, tmp: str):
           f"without a cycle (ROADMAP C.9); first solve+prev "
           f"{t_first:.3f} s, steady solve median of 5 "
           f"{steady_ms:.2f} ms, prev recovery "
-          f"{1e3 * t_prev:.2f} ms; launches on this path {counts}",
+          f"{1e3 * t_prev:.2f} ms; launches on this path {counts}; device "
+          f"ms per steady solve (torch.profiler, 3 solves) {busy:.3f} = "
+          f"{100 * busy / steady_ms:.1f} % of the steady solve (idle "
+          f"{100 * (1 - busy / steady_ms):.1f} %), by kernel: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in top[:8])
+          + f" and {len(top) - 8} more" * (len(top) > 8),
           flush=True)
 
 
@@ -667,12 +707,29 @@ def phase_stream(rec: dict):
     import raytracer_tpu_torch as rt
     from raytracer_tpu_torch.main_annulus import receiver_degrees
     from raytracer_tpu_torch.ops.stream_t import auto_warm_levels
+    from raytracer_tpu_torch.ops.sweep_theta import (_kernel_tables,
+                                                     device_tables, rsweep)
 
     gr, cg, U = rt.init_annulus_circulant(1080, 300, spacing=20.0)
     source = rt.closest_point(gr, 0.0, rt.R, system="polar")
     sweep = rt.AnnulusSolver(gr, None, None, U, method="sweep", circulant=cg)
     d_sweep = sweep.solve(source, want_prev=False).dist
     rounds = sweep.last_iterations
+    # the radial kernel at this grid's tables, against its plain version
+    _, st7, wdn, wup, rst7 = device_tables(sweep._packed(sweep=True), cg,
+                                           np.float32, "cuda")
+    rng = np.random.default_rng(3)
+    err7 = _rsweep_check(rng, [(rst7, 1, False), (rst7, 1, True)], st7.nt,
+                         wdn, wup)
+    rs7 = []
+    for up in (False, True):
+        wtab = wup if up else wdn
+        buf = _rsweep_buffer(rng, rst7, st7.nt, 1, up)
+        nbytes, ops, _ = _rsweep_work(wtab, rst7, st7.nt, 1, up)
+        rs7.append((_cuda_ms(lambda: rsweep(buf, wtab, rst7, up), 10),
+                    _kernel_tables(wtab, rst7, up)[0].shared,
+                    *_bound_ms(nbytes, ops)))
+    rec["rsweep"]["max_abs_err"] = max(rec["rsweep"]["max_abs_err"], err7)
     solver = rt.AnnulusSolver(gr, None, None, U, method="stream",
                               circulant=cg)
     assert auto_warm_levels(cg.ntheta) == 1 and solver.config.warm_levels \
@@ -723,6 +780,15 @@ def phase_stream(rec: dict):
         assert -CPU_ATOL <= a <= ENGINE_ATOL, (name, a)
     rec["band"]["launches"] = counts["band"]
     rec["stream_ms"] = 1e3 * steady
+    print(f"phase 7 rsweep at 1080x300 (MT={rst7.MT}, K8={rst7.K8}, "
+          f"NTL={rst7.NTL}, {len(rst7.taps_dn)}+{len(rst7.taps_up)} taps): "
+          f"bit-equal to rsweep_reference at S=1 both directions; kernel "
+          f"down/up " + "/".join(f"{r[0]:.4f}" for r in rs7) + " ms = "
+          + "/".join(f"{1e3 * r[0] / rst7.MT:.3f}" for r in rs7)
+          + " us per row, bound " + "/".join(f"{r[2]:.5f}" for r in rs7)
+          + f" ms ({rs7[0][3]}), "
+          + ("shared-memory" if rs7[0][1] else "device-memory") + " route",
+          flush=True)
     print(f"phase 7 stream: 1080x300, {gr.nnods} nodes, warm level 1, "
           f"{iters} iterations over both levels, band launches="
           f"{counts['band']} (path counts {counts}); max |cuda - cpu| = "
@@ -1102,19 +1168,22 @@ def _wedge3d(dims, lo_deg, hi_deg, depth):
 
 
 def _sweep3d_work(W4, S, T, itemsize):
-    """(bytes, operations, streamed bytes) of one sweep3d call of T
-    sweeps.  The bound's bytes read each input once and write each output
-    once: the weights and the S fields in, the S fields out.  One add and
-    one min per finite weight per field per sweep.  The streamed bytes
-    are the floor of this kernel's design, which reads the weights again
-    in every sweep (at 1M nodes they exceed the 50 MB L2)."""
+    """(bytes, operations, streamed bytes of a 26-weight design, streamed
+    bytes of this design) of one sweep3d call of T sweeps.  The bound's
+    bytes read each input once and write each output once: the weights
+    and the S fields in, the S fields out.  One add and one min per
+    finite weight per field per sweep.  The streamed bytes are the floor
+    of a design that reads the weights from device memory in every sweep
+    (at 1M nodes they exceed the 50 MB L2): all 26 a node in a kernel
+    that reads W4, the 13 of the mirrored layout in this one."""
     import torch
 
     finite = int(torch.isfinite(W4).sum())
     field = W4.shape[0] * W4.shape[2] * W4.shape[3]
     nbytes = itemsize * (W4.numel() + 2 * S * field)
     streamed = itemsize * (T * W4.numel() + 2 * S * field)
-    return nbytes, 2 * finite * S * T, streamed
+    mirrored = itemsize * (T * W4.numel() // 2 + 2 * S * field)
+    return nbytes, 2 * finite * S * T, streamed, mirrored
 
 
 def _field3d(rng, plan, S, dtype):
@@ -1141,9 +1210,12 @@ def phase_sweep3d_kernel(rec: dict):
     rng = np.random.default_rng(7)
     max_err = 0.0
     small = []
+    # the last case's four plane tiles of 8 float64 fields do not fit
+    # with all 640 lanes: the kernel takes lane chunks of 128
     for dims, dtype, S, block_rows in (((7, 5, 4), np.float32, 1, 32),
                                        ((130, 6, 3), np.float32, 3, 32),
-                                       ((8, 8, 3), np.float64, 1, 1024)):
+                                       ((8, 8, 3), np.float64, 1, 1024),
+                                       ((600, 4, 3), np.float64, 8, 1024)):
         g, U = _wedge3d(dims, 80.0, 100.0, 600.0)
         plan = sweep3d.plan_sweep3d(_shifted_weights(g, U, dtype), block_rows)
         W4 = torch.from_numpy(plan.W4).cuda()
@@ -1184,12 +1256,14 @@ def phase_sweep3d_kernel(rec: dict):
                                  f"{WEDGE_DIMS} S={S}: max abs err {err}")
         ms = _cuda_ms(lambda: sweep3d.sweep3d_T_batched(f, *args), 10)
         plain = _cuda_ms(lambda: sweep3d.sweep3d_reference(f, *args), 2)
-        nbytes, ops, streamed = _sweep3d_work(W4, S, T, 4)
+        nbytes, ops, streamed, mirrored = _sweep3d_work(W4, S, T, 4)
         bound, by = _bound_ms(nbytes, ops)
         rows.append(dict(S=S, ms=ms, plain_ms=plain, bound_ms=bound,
                          bound_by=by, nbytes=nbytes, ops=ops,
                          stream_ms=_bound_ms(streamed, ops)[0],
-                         streamed=streamed))
+                         streamed=streamed,
+                         mirror_ms=_bound_ms(mirrored, ops)[0],
+                         mirrored=mirrored))
     rec["sweep3d"] = {k: rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by")}
     rec["sweep3d"]["max_abs_err"] = max_err
@@ -1201,9 +1275,13 @@ def phase_sweep3d_kernel(rec: dict):
               f"S={r['S']}: kernel {r['ms']:.4f} ms per call, plain "
               f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}, {r['nbytes'] / 1e6:.1f} MB, "
-              f"{r['ops'] / 1e9:.3f} G ops), floor of the weight stream "
-              f"per sweep {r['stream_ms']:.5f} ms ({r['streamed'] / 1e6:.1f} "
-              f"MB)" for r in rows)
+              f"{r['ops'] / 1e9:.3f} G ops); bytes from device memory per "
+              f"call of this design (13 weights a node a sweep, the mirror "
+              f"reads in L2) {r['mirrored'] / 1e6:.1f} MB, floor "
+              f"{r['mirror_ms']:.5f} ms; of a design that reads all 26 a "
+              f"sweep "
+              f"{r['streamed'] / 1e6:.1f} MB, floor {r['stream_ms']:.5f} ms"
+              for r in rows)
           + f"; grid {t_grid:.2f} s, prepare3d {t_prep:.2f} s", flush=True)
 
 

@@ -18,6 +18,12 @@ Every candidate is one add and the minimum does not depend on order, so
 kernel and twin give the same floats as the Pallas kernel.
 `sweep3d_T.launches` counts the kernel's calls through either wrapper.
 
+The kernel reads the weights in a mirrored 13-tap layout (`M13`): the
+edge weights are symmetric, so tap 25 - s at p is tap s at p - s.
+`mirror_weights` derives it from W4 once per tensor and checks, bit for
+bit, that the 26 weights it implies (`expand_mirrored`) are W4's, and
+`sweep3d_mirrored_reference` evaluates the sweeps in that form.
+
 The weight packing (`plan_sweep3d`) is NumPy, a copy of the JAX
 package's.
 """
@@ -131,6 +137,118 @@ def sweep3d_reference(dist_flat: torch.Tensor, W4: torch.Tensor, n1: int,
     return cur
 
 
+# ----------------------------------------------------------------------
+# the mirrored 13-tap layout the kernel reads
+# ----------------------------------------------------------------------
+
+HALF = 13   # taps 0..12 of SHIFTS3; tap 25 - s is -SHIFTS3[s]
+
+
+def _flat_taps(W4: torch.Tensor) -> torch.Tensor:
+    """(NB, 26, BR, L0) -> (26, NB*BR, L0)."""
+    NB, NT, BR, L0 = W4.shape
+    return W4.permute(1, 0, 2, 3).reshape(NT, NB * BR, L0)
+
+
+def expand_mirrored(M13: torch.Tensor, n1: int) -> torch.Tensor:
+    """The (26, P, L0) weights the kernel uses from the (13, P, L0)
+    mirrored layout: tap s < 13 is M13[s] at p, or +inf where its
+    neighbour leaves [0, n1) in j (the kernel reads +inf there); tap
+    25 - s is M13[s] at p - s (lanes mod L0), or +inf where p - s leaves
+    [0, n1) in j or the rows [0, P)."""
+    _, P, L0 = M13.shape
+    dev = M13.device
+    row = torch.arange(P, device=dev)
+    j = row % n1
+    inf = torch.tensor(float("inf"), dtype=M13.dtype, device=dev)
+    out = torch.empty((len(SHIFTS3), P, L0), dtype=M13.dtype, device=dev)
+    for s, (dk, dj, di) in enumerate(SHIFTS3[:HALF]):
+        own = (j + dj >= 0) & (j + dj < n1)
+        out[s] = torch.where(own[:, None], M13[s], inf)
+        src = row - dk * n1 - dj
+        live = (j - dj >= 0) & (j - dj < n1) & (src >= 0) & (src < P)
+        moved = torch.roll(M13[s][src.clamp(0, P - 1)], di, dims=1)
+        out[len(SHIFTS3) - 1 - s] = torch.where(live[:, None], moved, inf)
+    return out
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def mirror_weights(W4: torch.Tensor, n1: int) -> torch.Tensor:
+    """The kernel's (13, NB*BR, L0) weights of W4 (NB, 26, BR, L0), on
+    W4's device: a copy of its taps 0..12.  Derived once per tensor (kept
+    on it, derived again if W4 is modified in place) and checked there:
+    the 26 weights they imply must equal W4 bit for bit, +inf at the box
+    faces, the lane wrap and the padding included; otherwise ValueError."""
+    cache = getattr(W4, "_sweep3d_m13", None)
+    if cache is not None and cache[0] == (W4._version, n1):
+        return cache[1]
+    NB, _, BR, L0 = W4.shape
+    M13 = torch.empty((HALF, NB * BR, L0), dtype=W4.dtype, device=W4.device)
+    M13.view(HALF, NB, BR, L0).copy_(W4[:, :HALF].permute(1, 0, 2, 3))
+    if not torch.equal(_bits(expand_mirrored(M13, n1)),
+                       _bits(_flat_taps(W4))):
+        raise ValueError(
+            "the weights are not mirror-symmetric (tap -s at p must equal "
+            "tap s at p - s bit for bit, +inf where either leaves the box): "
+            "the sweep3d kernel cannot read them in its 13-tap layout")
+    W4._sweep3d_m13 = ((W4._version, n1), M13)
+    return M13
+
+
+def sweep3d_mirrored_reference(dist_flat: torch.Tensor, M13: torch.Tensor,
+                               n1: int, T: int) -> torch.Tensor:
+    """Plain PyTorch evaluation of T sweeps in the kernel's form: a
+    neighbour read that leaves [0, n1) in j or the rows reads +inf, and
+    the 26 weights come from the 13-tap layout (`expand_mirrored`).
+    dist_flat (S, P, L0); returns a new field."""
+    S, P, L0 = dist_flat.shape
+    W = expand_mirrored(M13, n1)
+    row = torch.arange(P, device=dist_flat.device)
+    j = row % n1
+    cur = dist_flat
+    for _ in range(T):
+        acc = cur
+        for s, (dk, dj, di) in enumerate(SHIFTS3):
+            src = row + dk * n1 + dj
+            live = (j + dj >= 0) & (j + dj < n1) & (src >= 0) & (src < P)
+            cand = cur[:, src.clamp(0, P - 1)]
+            cand = torch.where(live[None, :, None], cand, float("inf"))
+            if di:
+                cand = torch.roll(cand, -di, dims=2)
+            acc = torch.minimum(acc, cand + W[s])
+        cur = acc
+    return cur
+
+
+_SMEM_CTA = 227 * 1024   # shared memory one CTA may use on an H100
+
+
+def sweep3d_tiling(n1: int, L0: int, S: int, itemsize: int, planes: int,
+                   sms: int = 132):
+    """(lc, tj, kc, sc, smem bytes) of the kernel: a CTA walks kc k-planes
+    of tj j-rows x lc lanes, sc fields at a time, with a ring of 4 plane
+    tiles (one-row halo in j, the neighbouring lane each side) in shared
+    memory.  tj = 8, lc = L0 and all S fields at once where they fit,
+    else fewer rows, then narrower lane chunks (multiples of 128 dividing
+    L0), then fewer fields; kc so that there is about one CTA per SM (the
+    fastest of the tilings timed on an H100 at 128x128x64, S = 1 and 7)."""
+    def smem(lc, tj, sc):
+        return 4 * sc * (tj + 2) * (lc + 8) * itemsize
+
+    lc, tj, sc = L0, min(8, n1), S
+    while tj > 1 and smem(lc, tj, sc) > _SMEM_CTA:
+        tj //= 2
+    while lc > LANES and smem(lc, tj, sc) > _SMEM_CTA:
+        lc = max(d for d in range(LANES, lc, LANES) if L0 % d == 0)
+    while smem(lc, tj, sc) > _SMEM_CTA:
+        sc -= 1
+    blocks = planes * -(-n1 // tj) * (L0 // lc)
+    return lc, tj, max(1, -(-blocks // sms)), sc, smem(lc, tj, sc)
+
+
 def _check_args(dist_flat, W4, n1, BR, NB, L0, H8, T):
     if T < 1:
         raise ValueError("needs at least one sweep (T >= 1)")
@@ -155,7 +273,7 @@ def _sweep3d_lib() -> ctypes.CDLL:
     fn = lib.sweep3d_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p]
     return lib
 
@@ -168,8 +286,11 @@ def sweep3d_T_batched(dist_flat: torch.Tensor, W4: torch.Tensor, n1: int,
     untouched.
 
     A CUDA tensor goes to the hand-written kernel `csrc/sweep3d.cu`
-    (float32 or float64; `sweep3d_T.launches` counts its calls); a CPU
-    tensor goes to `sweep3d_reference`.  Any other device raises.
+    (float32 or float64; `sweep3d_T.launches` counts its calls), which
+    reads W4 in the 13-tap layout of `mirror_weights` (derived and
+    checked once per W4 tensor; a W4 whose weights are not symmetric
+    raises); a CPU tensor goes to `sweep3d_reference`.  Any other device
+    raises.
     `interpret` is accepted for parity with the JAX package, whose Pallas
     interpreter it selects; the port has no interpreter on the card, so
     `interpret=True` with a CUDA tensor raises.
@@ -188,13 +309,18 @@ def sweep3d_T_batched(dist_flat: torch.Tensor, W4: torch.Tensor, n1: int,
                         f"{dist_flat.dtype}")
     if not (dist_flat.is_contiguous() and W4.is_contiguous()):
         raise ValueError("sweep3d takes contiguous tensors")
+    M13 = mirror_weights(W4, n1)
     S = dist_flat.shape[0]
+    sms = torch.cuda.get_device_properties(
+        dist_flat.device).multi_processor_count
+    lc, tj, kc, sc, _ = sweep3d_tiling(n1, L0, S, dist_flat.element_size(),
+                                       -(-NB * BR // n1), sms)
     out = torch.empty_like(dist_flat)
     scratch = torch.empty_like(dist_flat) if T > 1 else out
     stream = torch.cuda.current_stream(dist_flat.device).cuda_stream
     rc = _sweep3d_lib().sweep3d_launch(
-        dist_flat.data_ptr(), W4.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), S, n1, BR, NB, L0, T,
+        dist_flat.data_ptr(), M13.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), S, n1, NB * BR, L0, T, lc, tj, kc, sc,
         int(dist_flat.dtype == torch.float64), stream)
     if rc != 0:
         raise RuntimeError(f"sweep3d kernel launch failed: CUDA error {rc}")

@@ -12,9 +12,12 @@ and rounds repeat until no distance improves by more than
 `SolverConfig.tol` (typically 3-4 rounds at any grid size).  The radial
 sweeps are the only sequential piece: each runs as the hand-written CUDA
 kernel `csrc/rsweep.cu` through the wrapper `rsweep`, whose plain twin
-`rsweep_reference` runs for tensors on the CPU.  Everything else is
-plain tensor code, op for op the JAX package's arithmetic, so the
-fields and round counts follow the JAX solver's.
+`rsweep_reference` runs for tensors on the CPU; the kernel reads the
+taps as `plan_rsweep` packs them (the finite far taps per row, a dense
+near table per 8-row block), whose plain evaluation is
+`rsweep_packed_reference`.  Everything else is plain tensor code, op for
+op the JAX package's arithmetic, so the fields and round counts follow
+the JAX solver's.
 
 Host table building (`pack_sweep_tables`, `pack_rsweep_tables`) stays
 NumPy, a copy of the JAX package's; the tables become tensors once, on
@@ -30,7 +33,6 @@ is relaxed at least once per round.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -437,9 +439,220 @@ def rsweep_reference(buf: torch.Tensor, wtab: torch.Tensor,
     return buf
 
 
-@functools.lru_cache(maxsize=None)
-def _taps_tensor(taps: Tuple[Tuple[int, int, int], ...], device: str):
-    return torch.tensor(taps, dtype=torch.int32, device=device).contiguous()
+# ----------------------------------------------------------------------
+# the kernel's packed tap lists (host) and their plain evaluation
+# ----------------------------------------------------------------------
+
+RSWEEP_BLOCK = 8        # rows per block: the TPU kernel's macro-block
+_RSWEEP_INFO = 20       # ints per block in RSweepPlan.binfo
+_RSWEEP_NEAR = 248      # floats per block of RSweepPlan.near (7 x 7 x 5, padded)
+_RSWEEP_HALO = 4        # lanes each side of a shared-memory ring row
+RSWEEP_THREADS = 1024
+# dynamic shared memory one CTA may use on an H100 (227 KB)
+RSWEEP_SMEM_LIMIT = 232448
+
+
+class RSweepPlan(NamedTuple):
+    """The taps of one radial sweep as `csrc/rsweep.cu` reads them.
+
+    The rows are visited in 8-row blocks.  A row's far taps (source row
+    outside the row's block: final before the block starts) are packed
+    per row, only those whose weight is finite (a +inf weight never wins
+    the min), in tap order; blocks follow in sweep order.  The near taps
+    (source inside the block) sit in a dense per-block table.
+
+    shared   : the route - True: the field rows a block reads sit in a
+               shared-memory ring of K8+16 rows; False: they are read in
+               device memory (the ring and tap buffers would exceed
+               RSWEEP_SMEM_LIMIT)
+    threads  : threads per CTA
+    far_lanes, near_lanes : lanes of one row per thread in the far pass
+               and in the near chain (a warp takes 32 x that many)
+    ent_cap  : the most far entries of one block
+    smem_bytes : the shared route's dynamic shared memory
+    ent   : (E, 2) int32 far taps - x = ring offset ((r + dm) mod (K8+16))
+            * (NTB + 8) + 4 + dc on the shared route, (dm << 3) | (dc + 2)
+            on the global route; the weight's float32 bits
+    binfo : (MT/8, 20) int32 per block g (sweep order): start and count
+            of its entries, the offset of row b+j's entries from the
+            block's start (j = 0..7), then row b+j's count
+    near  : (MT/8, 248) float32 per block: the weight of the tap from the
+            row at sweep position u (0 = visited first) into the row at
+            position u + d, lane shift dc, at (u * 7 + d - 1) * 5 + dc + 2;
+            +inf where that tap is absent or its weight is +inf
+    dm, dc, w : (E,) the far entries' taps and weights, unencoded (read
+            by `rsweep_packed_reference` and the tests, not by the kernel)
+    """
+
+    shared: bool
+    threads: int
+    far_lanes: int
+    near_lanes: int
+    ent_cap: int
+    smem_bytes: int
+    ent: np.ndarray
+    binfo: np.ndarray
+    near: np.ndarray
+    dm: np.ndarray
+    dc: np.ndarray
+    w: np.ndarray
+
+
+def rsweep_lanes(ntb: int) -> Tuple[int, int]:
+    """(far_lanes, near_lanes) per thread for NTB lanes: the far pass
+    splits 8 rows x NTB lanes over the CTA's 32 warps, 32 x far_lanes
+    lanes of one row per warp; the near chain gives each warp one
+    32 x near_lanes lane group of a row (1, 2 or 4 lanes a thread)."""
+    warps = RSWEEP_THREADS // 32
+    far = 4 if RSWEEP_BLOCK * ntb // 128 >= warps // 2 else (
+        2 if RSWEEP_BLOCK * ntb // 64 >= warps // 2 else 1)
+    near = next((n for n in (1, 2) if ntb // (32 * n) <= warps), 4)
+    return far, near
+
+
+def rsweep_smem_bytes(rst: RSweepStatic, ent_cap: int) -> int:
+    """Shared memory of the ring route: K8+16 rows of NTB + 8 lanes, two
+    buffers of ent_cap far entries, two near tables and two info rows."""
+    return (4 * (rst.K8 + 2 * RSWEEP_BLOCK) * (rst.NTB + 2 * _RSWEEP_HALO)
+            + 2 * 8 * ent_cap + 2 * 4 * _RSWEEP_NEAR + 2 * 4 * _RSWEEP_INFO)
+
+
+def rsweep_block_rows(rst: RSweepStatic, upward: bool) -> np.ndarray:
+    """First buffer row of each 8-row block, in sweep order."""
+    nblk = rst.MT // RSWEEP_BLOCK
+    g = np.arange(nblk)
+    if upward:
+        return rst.K8 + RSWEEP_BLOCK * g
+    return rst.MT - RSWEEP_BLOCK - RSWEEP_BLOCK * g
+
+
+def _sweep_position(j, upward: bool):
+    """Sweep position (0 = visited first) of local row j of a block."""
+    return j if upward else RSWEEP_BLOCK - 1 - j
+
+
+def plan_rsweep(wtab: np.ndarray, rst: RSweepStatic,
+                upward: bool) -> RSweepPlan:
+    """Pack the finite taps of `wtab` ((MT+K8, D) float32, host) for the
+    kernel, and choose its route from the shapes."""
+    taps = rst.taps_up if upward else rst.taps_dn
+    B = RSWEEP_BLOCK
+    if max(abs(dc) for _, dc, _ in taps) > 2:
+        raise ValueError("rsweep takes lane shifts |dc| <= 2")
+    t_dm = np.array([dm for dm, _, _ in taps], np.int64)
+    t_dc = np.array([dc for _, dc, _ in taps], np.int64)
+    t_iw = np.array([iw for _, _, iw in taps], np.int64)
+    starts = rsweep_block_rows(rst, upward)
+    nblk = len(starts)
+    rows = (starts[:, None] + np.arange(B)[None, :]).ravel()   # visit blocks
+    W = np.asarray(wtab, np.float32)[rows][:, t_iw]            # (N, T)
+    blk = np.repeat(starts, B)
+    src = rows[:, None] + t_dm[None, :]
+    near = (src >= blk[:, None]) & (src < blk[:, None] + B)
+    fin = np.isfinite(W)
+    # far taps: finite, packed per row in tap order
+    ri, ti = np.nonzero(fin & ~near)
+    N = len(rows)
+    count = np.bincount(ri, minlength=N)
+    row_start = np.concatenate([[0], np.cumsum(count)])
+    binfo = np.zeros((nblk, _RSWEEP_INFO), np.int32)
+    b_start = row_start[:-1:B]
+    binfo[:, 0] = b_start
+    binfo[:, 1] = count.reshape(nblk, B).sum(axis=1)
+    binfo[:, 2:2 + B] = row_start[:-1].reshape(nblk, B) - b_start[:, None]
+    binfo[:, 2 + B:2 + 2 * B] = count.reshape(nblk, B)
+    # near taps: dense (u, d, dc) per block, +inf where absent
+    near_t = np.full((nblk, _RSWEEP_NEAR), np.inf, np.float32)
+    rn, tn = np.nonzero(near)
+    j_dst = rows[rn] - blk[rn]
+    u_dst = _sweep_position(j_dst, upward)
+    u_src = _sweep_position(j_dst + t_dm[tn], upward)
+    d = u_dst - u_src
+    if (d < 1).any():
+        raise ValueError("a near tap does not point back in sweep order")
+    near_t[rn // B, (u_src * (B - 1) + d - 1) * 5 + t_dc[tn] + 2] = W[rn, tn]
+    ent_cap = max(1, int(binfo[:, 1].max(initial=0)))
+    smem = rsweep_smem_bytes(rst, ent_cap)
+    shared = smem <= RSWEEP_SMEM_LIMIT
+    dm, dc = t_dm[ti], t_dc[ti]
+    if shared:
+        R, stride = rst.K8 + 2 * B, rst.NTB + 2 * _RSWEEP_HALO
+        x = ((rows[ri] + dm) % R) * stride + _RSWEEP_HALO + dc
+    else:
+        x = dm * 8 + (dc + 2)
+    w = W[ri, ti]
+    ent = np.stack([x, w.view(np.int32).astype(np.int64)], axis=1)
+    far_l, near_l = rsweep_lanes(rst.NTB)
+    return RSweepPlan(shared=shared, threads=RSWEEP_THREADS,
+                      far_lanes=far_l, near_lanes=near_l, ent_cap=ent_cap,
+                      smem_bytes=smem, ent=ent.astype(np.int32), binfo=binfo,
+                      near=near_t, dm=dm.astype(np.int32),
+                      dc=dc.astype(np.int32), w=w)
+
+
+def rsweep_packed_reference(buf: torch.Tensor, plan: RSweepPlan,
+                            rst: RSweepStatic, upward: bool) -> torch.Tensor:
+    """Plain PyTorch evaluation of the packed form, in place on `buf`, in
+    the kernel's order: per block, the far taps of its 8 rows, then the
+    near table row by row in sweep order.  Same floats as
+    `rsweep_reference` (each candidate is one add, min is order-free and
+    a dropped or +inf weight never wins)."""
+    S, _, NTL = buf.shape
+    NTB, B = rst.NTB, RSWEEP_BLOCK
+    nb = NTL // NTB
+    dev = buf.device
+    lane = torch.arange(NTB, device=dev)
+    dm_all = torch.as_tensor(plan.dm.astype(np.int64), device=dev)
+    dc_all = torch.as_tensor(plan.dc.astype(np.int64), device=dev)
+    w_all = torch.as_tensor(plan.w, device=dev)
+    near = torch.as_tensor(plan.near, device=dev)
+
+    def relax(r, rows, dc, w):
+        """buf[:, r] = min(buf[:, r], buf[:, rows[e], lane + dc[e]] + w[e])."""
+        if len(rows) == 0:
+            return
+        src = buf.index_select(1, rows).reshape(S, len(rows), nb, NTB)
+        sl = lane[None, :] + dc[:, None]                     # (E, NTB)
+        cand = torch.gather(src, 3, (sl % NTB)[None, :, None, :].expand(
+            S, len(rows), nb, NTB))
+        if NTB < NTL:
+            bad = (sl < 0) | (sl >= NTB)
+            cand = torch.where(bad[None, :, None, :], float("inf"), cand)
+        cand = (cand + w[:, None, None]).amin(dim=1)
+        buf[:, r, :] = torch.minimum(buf[:, r, :], cand.reshape(S, NTL))
+
+    dcs = torch.arange(-2, 3, device=dev)
+    for g, b in enumerate(rsweep_block_rows(rst, upward).tolist()):
+        info = plan.binfo[g]
+        for j in range(B):
+            lo = int(info[0] + info[2 + j])
+            hi = lo + int(info[2 + B + j])
+            relax(b + j, b + j + dm_all[lo:hi], dc_all[lo:hi], w_all[lo:hi])
+        for u in range(1, B):
+            j = _sweep_position(u, upward)
+            for us in range(u):
+                k = (us * (B - 1) + u - us - 1) * 5
+                src = torch.full((5,), b + _sweep_position(us, upward),
+                                 device=dev)
+                relax(b + j, src, dcs, near[g, k:k + 5])
+    return buf
+
+
+def _kernel_tables(wtab: torch.Tensor, rst: RSweepStatic, upward: bool):
+    """(plan, ent, binfo, near) of `wtab` for the kernel, the three
+    arrays on wtab's device.  Packed once per (layout, direction) and kept on the
+    tensor itself (repacked if it is modified in place)."""
+    cache = getattr(wtab, "_rsweep_plans", None)
+    if cache is None or cache[0] != wtab._version:
+        cache = (wtab._version, {})
+        wtab._rsweep_plans = cache
+    key = (rst, upward)
+    if key not in cache[1]:
+        plan = plan_rsweep(wtab.detach().cpu().numpy(), rst, upward)
+        cache[1][key] = (plan,) + tuple(
+            torch.as_tensor(a, device=wtab.device).contiguous()
+            for a in (plan.ent, plan.binfo, plan.near))
+    return cache[1][key]
 
 
 def _rsweep_lib() -> ctypes.CDLL:
@@ -447,7 +660,7 @@ def _rsweep_lib() -> ctypes.CDLL:
     fn = lib.rsweep_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
                        + [ctypes.c_void_p])
     return lib
 
@@ -460,24 +673,24 @@ def rsweep(buf: torch.Tensor, wtab: torch.Tensor, rst: RSweepStatic,
 
     A CUDA tensor goes to the hand-written kernel `csrc/rsweep.cu`
     (launched on the current stream; `rsweep.launches` counts the
-    launches); a CPU tensor goes to `rsweep_reference`.  Any other
-    device raises.
+    launches) with the finite taps of `wtab` packed by `plan_rsweep`
+    (once per table, `_kernel_tables`); a CPU tensor goes to
+    `rsweep_reference`.  Any other device raises.
     """
     _check_rsweep_args(buf, wtab, rst, upward)
     if buf.device.type == "cpu":
         return rsweep_reference(buf, wtab, rst, upward)
     if buf.device.type != "cuda":
         raise ValueError(f"rsweep runs on cuda or cpu, not {buf.device}")
-    taps = rst.taps_up if upward else rst.taps_dn
-    taps_t = _taps_tensor(taps, str(buf.device))
-    if 3 * len(taps) * 4 > 48 * 1024:
-        raise ValueError(f"{len(taps)} taps exceed the kernel's shared "
-                         "memory tap table")
+    if buf.data_ptr() % 16:
+        raise ValueError("rsweep takes a 16-byte aligned buffer")
+    plan, ent, binfo, near = _kernel_tables(wtab, rst, upward)
     stream = torch.cuda.current_stream(buf.device).cuda_stream
     rc = _rsweep_lib().rsweep_launch(
-        buf.data_ptr(), wtab.data_ptr(), taps_t.data_ptr(), len(taps),
-        buf.shape[0], rst.MT, rst.K8, rst.NTL, rst.NTB, wtab.shape[1],
-        int(upward), stream)
+        buf.data_ptr(), ent.data_ptr(), binfo.data_ptr(), near.data_ptr(),
+        buf.shape[0],
+        rst.MT, rst.K8, rst.NTL, rst.NTB, int(upward), int(plan.shared),
+        plan.ent_cap, plan.threads, plan.far_lanes, plan.near_lanes, stream)
     if rc != 0:
         raise RuntimeError(f"rsweep kernel launch failed: CUDA error {rc}")
     rsweep.launches += 1
@@ -658,6 +871,10 @@ def device_tables(ws: TWStencil, cg: CirculantGraph, dtype, device):
             tables_to_device(tbl, device),
             torch.tensor(wdn, device=device),
             torch.tensor(wup, device=device))
+        if torch.device(device).type == "cuda":
+            # the kernel's packed taps, once per upload
+            _kernel_tables(ws.dcache[key][1], rst, False)
+            _kernel_tables(ws.dcache[key][2], rst, True)
     tbl_t, wdn_t, wup_t = ws.dcache[key]
     return tbl_t, static, wdn_t, wup_t, rst
 

@@ -38,7 +38,8 @@ from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
 from ..models.grid3d import Grid3D
 from ..ops.circulant import _safe_weight, resolve_device
 from ..ops.diag_circulant import _sum_min_scan
-from ..ops.sweep3d import Sweep3DPlan, plan_sweep3d, sweep3d_T_batched
+from ..ops.sweep3d import (Sweep3DPlan, mirror_weights, plan_sweep3d,
+                           sweep3d_T_batched)
 
 # the kernel engine's fast-memory budget of the JAX package (see
 # _kernel_vmem_bytes)
@@ -328,7 +329,11 @@ def _device_key(device: torch.device) -> str:
 def _device_layout(packed: Packed3D, name: str, device: torch.device):
     """`name` ('W', 'W4' or 'scan') of `packed` on `device`, uploaded on
     first use and kept in `packed.dcache` (keyed by `_device_key`, so
-    'cuda' and 'cuda:0' share one upload)."""
+    'cuda' and 'cuda:0' share one upload).  On a CUDA device the upload of
+    'W4' also derives the kernel's 13-tap mirrored weights and checks
+    them against W4 bit for bit (`ops.sweep3d.mirror_weights`, which
+    keeps them on the tensor and raises if the weights are not
+    symmetric)."""
     # NOTE: not dcache.setdefault(key, upload(...)) - setdefault evaluates
     # its default EAGERLY, which would upload the ~109 MB weights on every
     # call and discard them; in the JAX package that exact bug cost 6x on
@@ -339,7 +344,10 @@ def _device_layout(packed: Packed3D, name: str, device: torch.device):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
         if name == "W4":
-            packed.dcache[key] = up(packed.plan.W4)
+            W4 = up(packed.plan.W4)
+            if W4.device.type == "cuda":
+                mirror_weights(W4, packed.plan.n1)
+            packed.dcache[key] = W4
         elif name == "W":
             packed.dcache[key] = up(packed.W_np)
         else:

@@ -251,3 +251,121 @@ def test_axis_scan_is_bit_equal(axis):
     for (a, b), (c, e) in zip(pc, js._scan_costs_of(W)):
         np.testing.assert_array_equal(a, c)
         np.testing.assert_array_equal(b, e)
+
+
+# ----------------------------------------------------------------------
+# the kernel's mirrored 13-tap layout (mirror_weights) and its plain
+# evaluation
+# ----------------------------------------------------------------------
+
+MIRROR_CASES = {
+    # dims, block_rows: padded lanes (n0 < L0), several row blocks with
+    # padded rows, two lane groups, the example's grid
+    "7x5x4": ((7, 5, 4), 32),
+    "8x8x3": ((8, 8, 3), 1024),
+    "130x6x3": ((130, 6, 3), 32),
+    "24x24x16": ((24, 24, 16), 1024),
+    "7x5x9-blocks": ((7, 5, 9), 16),
+}
+
+
+def _plan_of(dims, dtype, block_rows):
+    gj, _, U = _grids(dims)
+    return pk.plan_sweep3d(js._shifted_weights(gj, U, dtype), block_rows)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", sorted(MIRROR_CASES))
+def test_mirror_layout_rebuilds_w4(case, dtype):
+    """The 26 weights the kernel reads from the 13-tap layout are W4's bit
+    for bit, +inf at the box faces, the lane wrap and the padding."""
+    dims, block_rows = MIRROR_CASES[case]
+    plan = _plan_of(dims, dtype, block_rows)
+    W4 = torch.from_numpy(plan.W4)
+    M13 = pk.mirror_weights(W4, plan.n1)
+    assert tuple(M13.shape) == (pk.HALF, plan.NB * plan.BR, plan.L0)
+    assert M13.dtype == W4.dtype
+    full = pk.expand_mirrored(M13, plan.n1)
+    flat = W4.permute(1, 0, 2, 3).reshape(26, plan.NB * plan.BR, plan.L0)
+    assert torch.equal(pk._bits(full), pk._bits(flat))
+    assert torch.isinf(flat).any() and torch.isfinite(flat).any()
+    assert pk.SHIFTS3[:pk.HALF] == tuple(
+        tuple(-x for x in s) for s in pk.SHIFTS3[pk.HALF:][::-1])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", sorted(MIRROR_CASES))
+def test_mirrored_reference_equals_reference(case, dtype):
+    dims, block_rows = MIRROR_CASES[case]
+    plan = _plan_of(dims, dtype, block_rows)
+    rng = np.random.default_rng(11)
+    d0 = rng.uniform(0.0, 50.0, (2,) + plan.shape).astype(dtype)
+    d0[rng.random(d0.shape) < 0.3] = np.inf
+    flat = pk.pack_field(torch.from_numpy(d0), plan)
+    W4 = torch.from_numpy(plan.W4)
+    want = pk.sweep3d_reference(flat, W4, *_statics(plan), 3)
+    got = pk.sweep3d_mirrored_reference(
+        flat, pk.mirror_weights(W4, plan.n1), plan.n1, 3)
+    assert torch.equal(got, want)
+    assert not torch.equal(want, flat)
+
+
+def test_mirror_weights_refuse_asymmetric_weights():
+    plan = _plan_of((7, 5, 4), np.float32, 32)
+    W4 = torch.from_numpy(plan.W4.copy())
+    k, s, r, i = np.argwhere(np.isfinite(plan.W4))[0]
+    W4[k, s, r, i] = W4[k, s, r, i] * 2
+    with pytest.raises(ValueError, match="not mirror-symmetric"):
+        pk.mirror_weights(W4, plan.n1)
+
+
+def test_mirror_weights_derived_once_per_tensor():
+    """Derived and checked once per W4 tensor and kept on it; an in-place
+    change derives (and checks) them again."""
+    plan = _plan_of((8, 8, 3), np.float32, 1024)
+    W4 = torch.from_numpy(plan.W4.copy())
+    M13 = pk.mirror_weights(W4, plan.n1)
+    assert pk.mirror_weights(W4, plan.n1) is M13
+    W4.mul_(2.0)            # still symmetric
+    M2 = pk.mirror_weights(W4, plan.n1)
+    assert M2 is not M13 and torch.equal(M2, 2.0 * M13)
+    k, s, r, i = np.argwhere(np.isfinite(plan.W4))[0]
+    W4[k, s, r, i] += 1.0
+    with pytest.raises(ValueError, match="not mirror-symmetric"):
+        pk.mirror_weights(W4, plan.n1)
+
+
+def test_sweep3d_tiling():
+    """One CTA per SM over kc k-planes of 8 j-rows and all lanes; fewer
+    rows, then narrower lane chunks, then fewer fields where the four
+    plane tiles would not fit 227 KB."""
+    assert pk.sweep3d_tiling(128, 128, 1, 4, 64) == (128, 8, 8, 1, 21760)
+    assert pk.sweep3d_tiling(128, 128, 7, 4, 64) == (128, 8, 8, 7, 152320)
+    assert pk.sweep3d_tiling(128, 128, 8, 8, 64) == (128, 4, 16, 8, 208896)
+    assert pk.sweep3d_tiling(5, 128, 1, 4, 5) == (128, 5, 1, 1, 15232)
+    for n1, L0, S, size in ((6, 2048, 8, 8), (6, 8192, 1, 8),
+                            (3, 384, 8, 8)):
+        lc, tj, kc, sc, smem = pk.sweep3d_tiling(n1, L0, S, size, 3)
+        assert smem <= 227 * 1024 and tj >= 1
+        assert lc % 128 == 0 and L0 % lc == 0 and 1 <= sc <= S
+        assert smem == 4 * sc * (tj + 2) * (lc + 8) * size
+    assert pk.sweep3d_tiling(6, 2048, 8, 8, 3)[0] < 2048
+    assert pk.sweep3d_tiling(600, 640, 8, 8, 3)[:2] == (128, 1)
+    assert pk.sweep3d_tiling(6, 2048, 8, 8, 3)[3] == 8
+
+
+def test_kernel_source_interface():
+    """The CUDA source exposes the plain C launch function the wrapper
+    binds with ctypes, names the TPU kernel it replaces and reads the
+    mirrored weights."""
+    from raytracer_tpu_torch import kernels
+
+    with open(kernels.source_path("sweep3d")) as f:
+        src = f.read()
+    assert 'extern "C" int sweep3d_launch(' in src
+    assert "cudaGetLastError()" in src
+    assert "torch/extension.h" not in src
+    assert "_make_sweep3d_kernel" in src
+    assert "mirror_weights" in src
