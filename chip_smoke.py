@@ -15,9 +15,13 @@ the exit code is non-zero):
      directions, two lane blocks, and one 1,280-lane block, which takes
      the kernel's device-memory route), with its microseconds per row;
      titer at 180x63
-     (S=1 and S=2, dup 4) and at 176x40 (S=2, dup 0); band at 1080x300
-     (S=1 and S=2); (3b) witer at 183x63 (S=1 and S=2, dup 73) and at
-     256x63 (S=2, dup 0); diag at 127x63 (dup 1) and at 183x63; (3c)
+     (S=1 and S=2, dup 4) and at 176x40 (S=2, dup 0); band, which takes
+     the field and rolls theta itself, against its plain version on the
+     5 rolled pages at 1080x300 (S=1 and S=2), at the warm level's
+     coarse grid (540 theta rows) and on 5 theta rows, where the wrap
+     folds the rows onto each other; (3b) witer at 183x63 (S=1 and S=2,
+     dup 73) and at 256x63 (S=2, dup 0); diag at 127x63 (dup 1) and at
+     183x63; (3c)
      sweep3d (T sweeps of the 26-tap 3-D stencil) in float32 at (7,5,4)
      S=1 and (130,6,3) S=3 (256 lanes), in float64 at (8,8,3) and at
      (600,4,3) S=8 (640 lanes in chunks of 128), and at
@@ -26,8 +30,9 @@ the exit code is non-zero):
      sweep) and in one that reads all 26 each sweep; (3d) relax at
      180x63 (S=1 and S=8, finite pad rows in the input), fused (the whole
      solve in one cooperative launch) at 24x12 (S=2, T=3: ntheta 24 takes
-     the modular ring shifts) and at 180x63 (S=1), each with the same
-     iterations as its plain version;
+     the modular ring shifts; float32 and float64), at 48x12 and 180x63
+     with S=8 (the table's width) and at 180x63 with S=1, each with the
+     same iterations as its plain version;
   4. the main path through the user entry points: init_annulus_circulant
      (180, 63, 20) -> AnnulusSolver(method="auto") on cuda -> solve with
      prev -> receiver fan -> paths -> travel-time CSV, held against the
@@ -564,13 +569,14 @@ def _titer_work(ws, st, S, iters):
 
 
 def _band_work(wrows, maxdm, S, nt, ML):
-    """(bytes, operations) of one band launch: the 5-page stack read
-    once, the output written once, the weight rows read once; one add
-    and one min per finite weight entry per (source, theta row)."""
+    """(bytes, operations) of one band sweep in the field form the kernel
+    takes: the field read once, the output written once, the weight rows
+    read once; one add and one min per finite weight entry per (source,
+    theta row)."""
     import numpy as np
 
     w = wrows.cpu().numpy()[: (2 * maxdm + 1) * 5]
-    nbytes = 4 * (5 * S * nt * ML + S * nt * ML + wrows.numel())
+    nbytes = 4 * (2 * S * nt * ML + wrows.numel())
     return nbytes, 2 * S * nt * int(np.isfinite(w).sum())
 
 
@@ -624,26 +630,32 @@ def phase_jacobi_kernels(rec: dict):
     _, cg, _ = init_annulus_circulant(1080, 300, spacing=20.0)
     ws = wrapped_t.pack_twrapped_stencil(cg, dtype=np.float32,
                                          band_closure=1)
-    wrows = torch.tensor(ws.wrows, device="cuda")
-    for S in (1, 2):
-        v = _random_field(rng, (S, ws.nt, ws.ML), ws.Mp)
-        stack = torch.stack([torch.roll(v, -dc, dims=1)
-                             for dc in range(-2, 3)])
-        out_k = stream_t.band(stack, wrows, ws.maxdm)
-        out_r = stream_t.band_reference(stack, wrows, ws.maxdm)
+    coarse = stream_t._warm_stencils(ws, cg, np.float32, 1, 1)[0]
+    # the stream path's levels (the fine grid at S=1 and 2, the warm
+    # level's coarse grid) and 5 theta rows, where the wrap folds the
+    # rows dc = -2..2 onto each other
+    for name, w_, S, nt in (("1080x300", ws, 1, ws.nt),
+                            ("1080x300", ws, 2, ws.nt),
+                            ("1080x300 coarse", coarse, 1, coarse.nt),
+                            ("1080x300, 5 rows", ws, 2, 5)):
+        wrows = torch.tensor(w_.wrows, device="cuda")
+        v = _random_field(rng, (S, nt, w_.ML), w_.Mp)
+        out_k = stream_t.band(v, wrows, w_.maxdm)
+        out_r = stream_t.band_reference(stream_t._band_stack(v), wrows,
+                                        w_.maxdm)
         torch.cuda.synchronize()
         err = _max_err(out_k, out_r)
         if not torch.equal(out_k, out_r):
-            raise AssertionError(f"band kernel != plain version at 1080x300 "
+            raise AssertionError(f"band kernel != plain version at {name} "
                                  f"S={S}: max abs err {err}")
-        ms = _cuda_ms(lambda: stream_t.band(stack, wrows, ws.maxdm), 50)
-        plain = _cuda_ms(lambda: stream_t.band_reference(stack, wrows,
-                                                         ws.maxdm), 3)
-        nbytes, ops = _band_work(wrows, ws.maxdm, S, ws.nt, ws.ML)
+        ms = _cuda_ms(lambda: stream_t.band(v, wrows, w_.maxdm), 50)
+        plain = _cuda_ms(lambda: stream_t.band_reference(
+            stream_t._band_stack(v), wrows, w_.maxdm), 3)
+        nbytes, ops = _band_work(wrows, w_.maxdm, S, nt, w_.ML)
         bound, by = _bound_ms(nbytes, ops)
         band_rows.append(dict(
-            grid="1080x300", S=S, max_abs_err=err, ms=ms, plain_ms=plain,
-            bound_ms=bound, bound_by=by, nbytes=nbytes))
+            grid=name, S=S, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=bound, bound_by=by, nbytes=nbytes, ops=ops))
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     for name, rows in (("titer", titer_rows), ("band", band_rows)):
         # times at the main paths' shape (S=1), errors over every case
@@ -654,11 +666,13 @@ def phase_jacobi_kernels(rec: dict):
                       f"{r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, "
                       f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
                       f"{r['ops'] / 1e9:.3f} G ops)" for r in titer_rows)
-          + ". band bit-equal to band_reference: "
+          + ". band (field form) bit-equal to band_reference on the "
+          "rolled stack: "
           + "; ".join(f"{r['grid']} S={r['S']}: kernel {r['ms']:.4f} ms, "
                       f"plain {r['plain_ms']:.2f} ms, bound "
                       f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
-                      f"{r['nbytes'] / 1e6:.2f} MB)" for r in band_rows),
+                      f"{r['nbytes'] / 1e6:.2f} MB, {r['ops'] / 1e6:.1f} M "
+                      f"ops)" for r in band_rows),
           flush=True)
 
 
@@ -1515,28 +1529,49 @@ def phase_lane_gather_kernels(rec: dict):
             bound_by=by, nbytes=nbytes, ops=ops,
             device_ms=sum(v for k, v in dev.items() if "relax" in k)))
 
-    fused_rows = []
-    for ntheta, nr, spacing, degs in ((24, 12, 150.0, (0.0, 97.0)),
-                                      (180, 63, 20.0, (0.0,))):
+    fused_rows, cuts = [], []
+    eight = tuple(np.linspace(0.0, 360.0, 8, endpoint=False))
+    # the modular ring shifts (24x12, S=2, also in float64), the table's
+    # width (48x12 and 180x63, S=8) and the solve (180x63, S=1)
+    for ntheta, nr, spacing, degs, dtype in (
+            (24, 12, 150.0, (0.0, 97.0), np.float32),
+            (24, 12, 150.0, (0.0, 97.0), np.float64),
+            (48, 12, 150.0, eight, np.float32),
+            (180, 63, 20.0, (0.0,), np.float32),
+            (180, 63, 20.0, eight, np.float32)):
         gr, cgf, _ = rt.init_annulus_circulant(ntheta, nr, spacing=spacing)
-        tsf = ppc.pack_tiled_stencil(cgf, np.float32)
+        tsf = ppc.pack_tiled_stencil(cgf, dtype)
         ntf = tsf.ntheta
         ntpf = -(-ntf // 8) * 8
         srcs = [rt.closest_point(gr, np.deg2rad(d), rt.R, system="polar")
                 for d in degs]
         S = len(srcs)
-        d0, c0 = ppc.initial_state(cgf, srcs, tsf.T, ntpf, np.float32)
+        d0, c0 = ppc.initial_state(cgf, srcs, tsf.T, ntpf, dtype)
         x0 = torch.from_numpy(d0.reshape(tsf.T, S * ntpf, 128)).cuda()
         cen0 = torch.from_numpy(c0).cuda()
         tbl = pfc.device_fused_tables(tsf, "cuda")
         st = pfc.FusedStatic(tsf.T, ntf, ntpf, S)
+        name = f"{ntheta}x{nr}" + ("" if dtype == np.float32 else " f64")
+        # the loop cut at max_iters: no iteration, and three (the last
+        # fan and the snapshot's copy back at the cut)
+        for m in ((0, 3) if ntheta == 24 else ()):
+            x_k, c_k, it_k = pfc.fused(x0, cen0, tbl, st, m)
+            x_r, c_r, it_r = pfc.fused_reference(x0, cen0, tbl, st, m)
+            torch.cuda.synchronize()
+            if not (torch.equal(x_k, x_r) and torch.equal(c_k, c_r)
+                    and int(it_k) == it_r):
+                raise AssertionError(
+                    f"fused kernel != plain version at {name} S={S} cut at "
+                    f"max_iters={m}: max abs err "
+                    f"{max(_max_err(x_k, x_r), _max_err(c_k, c_r))}, "
+                    f"iterations {int(it_k)} and {it_r}")
+            cuts.append(f"{name} S={S} max_iters={m}: {it_r} iterations")
         x_k, c_k, it_k = pfc.fused(x0, cen0, tbl, st, 100_000)
-        torch.cuda.synchronize()
+        it_k = int(it_k)
         t0 = time.perf_counter()
         x_r, c_r, it_r = pfc.fused_reference(x0, cen0, tbl, st, 100_000)
         torch.cuda.synchronize()
         t_plain = time.perf_counter() - t0
-        it_k = int(it_k)
         err = max(_max_err(x_k, x_r), _max_err(c_k, c_r))
         if not (torch.equal(x_k, x_r) and torch.equal(c_k, c_r)
                 and it_k == it_r):
@@ -1544,19 +1579,21 @@ def phase_lane_gather_kernels(rec: dict):
                 f"fused kernel != plain version at {ntheta}x{nr} S={S}: max "
                 f"abs err {err}, iterations {it_k} and {it_r}")
         ms = _cuda_ms(lambda: pfc.fused(x0, cen0, tbl, st, 100_000), 3)
-        nbytes, ops = _fused_work(tsf, tbl, S, it_k, 4)
+        nbytes, ops = _fused_work(tsf, tbl, S, it_k,
+                                  np.dtype(dtype).itemsize)
         bound, by = _bound_ms(nbytes, ops)
         fused_rows.append(dict(
-            grid=f"{ntheta}x{nr}", S=S, T=tsf.T, iters=it_k, max_abs_err=err,
-            ms=ms, plain_ms=1e3 * t_plain, bound_ms=bound, bound_by=by,
-            nbytes=nbytes, ops=ops))
+            grid=name, S=S, T=tsf.T, iters=it_k, max_abs_err=err,
+            ms=ms, plain_ms=1e3 * t_plain,
+            bound_ms=bound, bound_by=by, nbytes=nbytes, ops=ops,
+            chunks=int(tbl.ck_info.shape[0])))
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     # times at the main paths' shapes (180x63, S=1), errors over every case
     rec["relax"] = {k: relax_rows[0][k] for k in keys}
     rec["relax"]["max_abs_err"] = max(r["max_abs_err"] for r in relax_rows)
-    rec["fused"] = {k: fused_rows[1][k] for k in keys}
+    rec["fused"] = {k: fused_rows[3][k] for k in keys}
     rec["fused"]["max_abs_err"] = max(r["max_abs_err"] for r in fused_rows)
-    rec["fused_iters"] = fused_rows[1]["iters"]
+    rec["fused_iters"] = fused_rows[3]["iters"]
     print("phase 3d kernels: relax bit-equal to relax_reference at 180x63 "
           f"(T={ts.T}, K_tot={ts.idx.shape[0]}, finite pad rows in): "
           + "; ".join(f"S={r['S']}: kernel {r['ms']:.4f} ms (device "
@@ -1566,12 +1603,15 @@ def phase_lane_gather_kernels(rec: dict):
                       f"{r['ops'] / 1e6:.1f} M ops)" for r in relax_rows)
           + ". fused bit-equal to fused_reference, same iterations: "
           + "; ".join(f"{r['grid']} S={r['S']} T={r['T']}: {r['iters']} "
-                      f"iterations, kernel {r['ms']:.3f} ms per solve "
+                      f"iterations, {r['chunks']} chunks, kernel "
+                      f"{r['ms']:.3f} ms per solve "
                       f"({1e3 * r['ms'] / r['iters']:.2f} us per iteration), "
                       f"plain {r['plain_ms'] / 1e3:.2f} s, bound "
                       f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
                       f"{r['nbytes'] / 1e6:.2f} MB, {r['ops'] / 1e9:.3f} G "
-                      f"ops)" for r in fused_rows), flush=True)
+                      f"ops)" for r in fused_rows)
+          + ". fused cut at max_iters, bit-equal: " + "; ".join(cuts),
+          flush=True)
 
 
 def phase_contrib(rec: dict):

@@ -16,7 +16,8 @@ centre one value per source.  Each iteration of the loop
   6. goes on while any value or the centre of source 0 fell.
 
 `fused` runs the loop: on a CUDA tensor as one cooperative launch of the
-hand-written kernel `csrc/fused.cu`; on a CPU tensor as its plain twin
+hand-written kernel `csrc/fused.cu`, which reads the stencil as chunk
+tables (`relax_chunks`); on a CPU tensor as its plain twin
 `fused_reference`, torch ops in the Pallas kernel's order.  The scans
 only relax real graph edges, so truncating them moves the iteration
 count, never the fixpoint.
@@ -65,8 +66,116 @@ def _chain_jump_tables(chain_w: np.ndarray,
     return p_dn, p_up
 
 
+# csrc/fused.cu's relaxation (kChunk, kSlab, kWarps, kRowBlock there): a
+# chunk holds at most CHUNK stencil rows of one SLAB-lane slab; a block
+# of WARPS warps takes an item of ROW_BLOCK theta rows
+CHUNK = 32
+SLAB = 32
+WARPS = 8
+ROW_BLOCK = 64
+
+
+class RelaxChunks(NamedTuple):
+    """The relaxation's stencil rows in chunks (NumPy, from
+    `relax_chunks`).  Chunk j holds n_j <= CHUNK rows k of one tile t,
+    one 32-lane slab g and one source tile: the rows whose weight is
+    finite for some lane of the slab, its z_j rows of dc = 0 first (the
+    only ones a pad row takes); a (t, g, source tile)'s rows are cut
+    into chunks of sizes that differ by at most one, and the chunks go
+    by source tile, longest first.  Rows past n_j hold +inf weights.
+
+    info : (n_chunks, 2) int32, (t * 4 + g | source tile << 16,
+           n_j | z_j << 16)
+    row  : (n_chunks, CHUNK) int32, source tile | (dc + 2) << 16
+    idx  : (n_chunks, CHUNK, SLAB) int32 source lane
+    w    : (n_chunks, CHUNK, SLAB) weight
+    """
+
+    info: np.ndarray
+    row: np.ndarray
+    idx: np.ndarray
+    w: np.ndarray
+
+
+def relax_chunks(ts: TiledStencil) -> RelaxChunks:
+    """Chunk tables of the packed stencil `ts` for csrc/fused.cu."""
+    T = ts.T
+    slabs = LANES // SLAB
+    if T * slabs > 0xFFFF:  # info packs t * slabs + g in 16 bits
+        raise ValueError(f"relax_chunks takes at most {0xFFFF // slabs} "
+                         f"tiles, not {T}")
+    finite = np.isfinite(ts.w).reshape(-1, slabs, SLAB).any(axis=2)
+    src_tile = ts.u_of % T
+    info, rows = [], []
+    for t in range(T):
+        for g in range(slabs):
+            ks = ts.offs[t] + np.flatnonzero(
+                finite[ts.offs[t]:ts.offs[t + 1], g])
+            for st in np.unique(src_tile[ks]):
+                kst = ks[src_tile[ks] == st]
+                for part in np.array_split(kst, -(-len(kst) // CHUNK)):
+                    dc0 = ts.u_of[part] // T == _DC_RANGE
+                    part = np.concatenate([part[dc0], part[~dc0]])
+                    info.append((t * slabs + g | int(st) << 16,
+                                 len(part) | int(dc0.sum()) << 16))
+                    rows.append((g, part))
+    # by source tile, so that a kernel block's run of items mostly reads
+    # one source window; longest first within it
+    order = sorted(range(len(info)),
+                   key=lambda j: (info[j][0] >> 16, -(info[j][1] & 0xFFFF)))
+    info = [info[j] for j in order]
+    rows = [rows[j] for j in order]
+    n = len(info)
+    row = np.zeros((n, CHUNK), np.int32)
+    idx = np.zeros((n, CHUNK, SLAB), np.int32)
+    w = np.full((n, CHUNK, SLAB), np.inf, dtype=ts.w.dtype)
+    for j, (g, ks) in enumerate(rows):
+        u = ts.u_of[ks]
+        row[j, :len(ks)] = (u % T) | ((u // T) << 16)
+        idx[j, :len(ks)] = ts.idx[ks, g * SLAB:(g + 1) * SLAB]
+        w[j, :len(ks)] = ts.w[ks, g * SLAB:(g + 1) * SLAB]
+    return RelaxChunks(np.asarray(info, np.int32).reshape(n, 2), row, idx, w)
+
+
+def relax_chunks_reference(x: torch.Tensor, tbl: "FusedTables",
+                           st: "FusedStatic") -> torch.Tensor:
+    """Plain evaluation of the relaxation through the chunk tables, as
+    csrc/fused.cu reads them: the (T, S*ntp, 128) state with 2 wrapped
+    theta rows above and below each source's real rows, then for every
+    chunk the minimum over its rows of source + weight, a real row c
+    reading row c + 2 + dc of the haloed copy and a pad row only its own
+    row at dc = 0.  Returns the relaxed state (the minimum with x)."""
+    T, nt, ntp, S = st
+    x4 = x.view(T, S, ntp, LANES)
+    halo = torch.cat([x4[:, :, nt - 2:nt], x4[:, :, :nt], x4[:, :, :2],
+                      x4[:, :, nt:]], dim=2)            # (T, S, ntp + 4, 128)
+    out = x4.clone()
+    c = torch.arange(ntp, device=x.device)
+    real = c < nt
+    for (tg, n), row, idx, w in zip(tbl.ck_info.tolist(), tbl.ck_row,
+                                    tbl.ck_idx, tbl.ck_w):
+        t, g = divmod(tg & 0xFFFF, LANES // SLAB)
+        n &= 0xFFFF
+        row, idx, w = row[:n].long(), idx[:n].long(), w[:n]
+        src_t, dc = row & 0xFFFF, (row >> 16) - 2
+        q = torch.where(real[None, :], c[None, :] + 2 + dc[:, None],
+                        c[None, :] + 4)                 # (n, ntp)
+        keep = real[None, :] | (dc[:, None] == 0)
+        h = halo[src_t]                                 # (n, S, ntp+4, 128)
+        rows = torch.gather(h, 2, q[:, None, :, None].expand(-1, S, -1,
+                                                             LANES))
+        g_ = torch.gather(rows, 3, idx[:, None, None, :].expand(-1, S, ntp,
+                                                                -1))
+        cand = torch.where(keep[:, None, :, None], g_ + w[:, None, None, :],
+                           torch.full((), float("inf"), dtype=x.dtype))
+        sl = slice(g * SLAB, (g + 1) * SLAB)
+        out[t, :, :, sl] = torch.minimum(out[t, :, :, sl], cand.amin(dim=0))
+    return out.reshape(T, S * ntp, LANES)
+
+
 class FusedTables(NamedTuple):
-    """The fused loop's tables on one device."""
+    """The fused loop's tables on one device: the packed stencil as
+    `fused_reference` reads it, and its chunks as the kernel reads them."""
 
     offs: torch.Tensor     # (T+1,) int32
     u_of: torch.Tensor     # (K_tot,) int32
@@ -76,6 +185,10 @@ class FusedTables(NamedTuple):
     pdn: torch.Tensor      # (CHAIN_STEPS, T * 128)
     pup: torch.Tensor      # (CHAIN_STEPS, T * 128)
     fan_w: torch.Tensor    # (T, 128)
+    ck_info: torch.Tensor  # RelaxChunks.info
+    ck_row: torch.Tensor   # RelaxChunks.row
+    ck_idx: torch.Tensor   # RelaxChunks.idx
+    ck_w: torch.Tensor     # RelaxChunks.w
 
 
 def device_fused_tables(ts: TiledStencil, device) -> FusedTables:
@@ -84,7 +197,7 @@ def device_fused_tables(ts: TiledStencil, device) -> FusedTables:
     dtype = ts.w.dtype
     return FusedTables(*(torch.tensor(a, device=device) for a in (
         ts.offs, ts.u_of, ts.idx, ts.w, ts.ring_w, pdn.astype(dtype),
-        pup.astype(dtype), ts.fan_w)))
+        pup.astype(dtype), ts.fan_w, *relax_chunks(ts))))
 
 
 class FusedStatic(NamedTuple):
@@ -92,6 +205,23 @@ class FusedStatic(NamedTuple):
     nt: int
     ntp: int
     S: int
+
+
+def _relax_reference(x: torch.Tensor, tbl: "FusedTables",
+                     st: "FusedStatic") -> torch.Tensor:
+    """The Pallas kernel's relaxation of the (T, S*ntp, 128) state: its 5
+    theta-rolled copies (the dc = 0 copy is the state itself, pad rows and
+    all; the others +inf on pad rows) and its min-gather loop."""
+    T, nt, ntp, S = st
+    x4 = x.view(T, S, ntp, LANES)
+    body = x4[:, :, :nt]
+    rowpad = torch.full((T, S, ntp - nt, LANES), float("inf"),
+                        dtype=x.dtype, device=x.device)
+    copies = [x4 if d == 0 else
+              torch.cat([torch.roll(body, -d, dims=2), rowpad], dim=2)
+              for d in range(-_DC_RANGE, _DC_RANGE + 1)]
+    R = torch.stack(copies, dim=0).reshape(5 * T, S * ntp, LANES)
+    return _gather_min(R, x, tbl.offs, tbl.u_of, tbl.idx, tbl.w)
 
 
 def fused_reference(state: torch.Tensor, cen: torch.Tensor,
@@ -107,8 +237,6 @@ def fused_reference(state: torch.Tensor, cen: torch.Tensor,
     cen = cen.clone()
     cost = tbl.ring_w[:, None, None, :]
     fan = tbl.fan_w[:, None, :]
-    rowpad = torch.full((T, S, ntp - nt, LANES), inf, dtype=x.dtype,
-                        device=x.device)
     it, changed = 0, True
     while changed and it < max_iters:
         old, old_cen0 = x, cen[0]
@@ -138,18 +266,7 @@ def fused_reference(state: torch.Tensor, cen: torch.Tensor,
             flat = torch.minimum(flat, up + tbl.pup[k])
         x = flat.reshape(SR, T, LANES).permute(1, 0, 2).contiguous()
 
-        # rolled copies (the dc = 0 copy is the state, pad rows and all)
-        x4 = x.view(T, S, ntp, LANES)
-        body = x4[:, :, :nt]
-        copies = []
-        for d in range(-_DC_RANGE, _DC_RANGE + 1):
-            if d == 0:
-                copies.append(x4)
-            else:
-                copies.append(torch.cat([torch.roll(body, -d, dims=2),
-                                         rowpad], dim=2))
-        R = torch.stack(copies, dim=0).reshape(5 * T, SR, LANES)
-        x = _gather_min(R, x, tbl.offs, tbl.u_of, tbl.idx, tbl.w)
+        x = _relax_reference(x, tbl, st)
 
         # centre fan: the new centre from the real rows, then every row
         cand = (x + fan).amin(dim=2).amin(dim=0).view(S, ntp)[:, :nt]
@@ -176,25 +293,53 @@ def _check_fused_args(state, cen, tbl: FusedTables, st: FusedStatic):
             "w": (K, LANES), "ring_w": (T, LANES),
             "pdn": (CHAIN_STEPS, T * LANES), "pup": (CHAIN_STEPS, T * LANES),
             "fan_w": (T, LANES)}
+    n = tbl.ck_info.shape[0]
+    want.update(ck_info=(n, 2), ck_row=(n, CHUNK), ck_idx=(n, CHUNK, SLAB),
+                ck_w=(n, CHUNK, SLAB))
     for name, shape in want.items():
         t = getattr(tbl, name)
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
         if t.device != state.device:
             raise ValueError(f"fused tensors on {t.device} and {state.device}")
-    for t in (cen, tbl.w, tbl.ring_w, tbl.pdn, tbl.pup, tbl.fan_w):
+    for t in (cen, tbl.w, tbl.ring_w, tbl.pdn, tbl.pup, tbl.fan_w, tbl.ck_w):
         if t.dtype != state.dtype:
             raise TypeError(f"fused tensors of {t.dtype} and {state.dtype}")
 
 
-def _fused_lib() -> ctypes.CDLL:
-    lib = kernels.load("fused")
+def _fused_lib(lib: Optional[ctypes.CDLL] = None) -> ctypes.CDLL:
+    """The kernel library (or `lib`, a build of the same interface) with
+    the launch function's argument types set."""
+    lib = kernels.load("fused") if lib is None else lib
     fn = lib.fused_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
     return lib
+
+
+def _fused_launch(x: torch.Tensor, c: torch.Tensor, tbl: FusedTables,
+                  st: FusedStatic, max_iters: int,
+                  lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """One launch of the kernel (or of `lib`'s fused_launch) on (x, c) in
+    place; returns the iteration count as an int32 device scalar."""
+    T, nt, ntp, S = st
+    old = torch.empty_like(x)
+    src = torch.empty((T, S, ntp + 4, LANES), dtype=x.dtype, device=x.device)
+    flags = torch.zeros(2, dtype=torch.int32, device=x.device)
+    iters = torch.zeros((), dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _fused_lib(lib).fused_launch(
+        x.data_ptr(), c.data_ptr(), old.data_ptr(), src.data_ptr(),
+        tbl.ring_w.data_ptr(), tbl.pdn.data_ptr(), tbl.pup.data_ptr(),
+        tbl.fan_w.data_ptr(), tbl.ck_info.data_ptr(), tbl.ck_row.data_ptr(),
+        tbl.ck_idx.data_ptr(), tbl.ck_w.data_ptr(), flags.data_ptr(),
+        iters.data_ptr(), T, nt, ntp, S, tbl.ck_info.shape[0], max_iters,
+        int(x.dtype == torch.float64), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused kernel launch failed: CUDA error {rc}")
+    return iters
 
 
 def fused(state: torch.Tensor, cen: torch.Tensor, tbl: FusedTables,
@@ -217,27 +362,16 @@ def fused(state: torch.Tensor, cen: torch.Tensor, tbl: FusedTables,
     if state.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the fused kernel takes float32 or float64, not "
                         f"{state.dtype}")
-    if any(t.dtype != torch.int32 for t in (tbl.offs, tbl.u_of, tbl.idx)):
-        raise TypeError("the fused kernel takes int32 offs, u_of and idx")
+    if any(t.dtype != torch.int32 for t in (tbl.offs, tbl.u_of, tbl.idx,
+                                            tbl.ck_info, tbl.ck_row,
+                                            tbl.ck_idx)):
+        raise TypeError("the fused kernel takes int32 offs, u_of, idx and "
+                        "chunk tables")
     if not all(t.is_contiguous() for t in (state, cen, *tbl)):
         raise ValueError("fused takes contiguous tensors")
-    T, nt, ntp, S = st
     x = state.clone()
     c = cen.clone()
-    old = torch.empty_like(x)
-    src = torch.empty_like(x)
-    flags = torch.zeros(2, dtype=torch.int32, device=x.device)
-    iters = torch.zeros((), dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _fused_lib().fused_launch(
-        x.data_ptr(), c.data_ptr(), old.data_ptr(), src.data_ptr(),
-        tbl.offs.data_ptr(), tbl.u_of.data_ptr(), tbl.idx.data_ptr(),
-        tbl.w.data_ptr(), tbl.ring_w.data_ptr(), tbl.pdn.data_ptr(),
-        tbl.pup.data_ptr(), tbl.fan_w.data_ptr(), flags.data_ptr(),
-        iters.data_ptr(), T, nt, ntp, S, max_iters,
-        int(x.dtype == torch.float64), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused kernel launch failed: CUDA error {rc}")
+    iters = _fused_launch(x, c, tbl, st, max_iters)
     fused.launches += 1
     return x, c, iters
 

@@ -1,7 +1,9 @@
 // Band sweep of the theta-major Jacobi engines: one output point.
 //
-// Shared by csrc/band.cu (the 'stream' engine's band kernel) and
-// csrc/titer.cu (the band phase of the 'twrapped' engine's iterations).
+// Used by csrc/titer.cu (the band phase of the 'twrapped' engine's
+// iterations).  csrc/band.cu (the 'stream' engine) computes the same
+// point from the field itself, its rows theta-rolled in the index
+// arithmetic, with a shared-memory design of its own.
 //
 // The TPU kernels run the band sweep in a moving frame: the accumulator
 // is rolled one lane per trip over the 2*maxdm+1 slot offsets while the

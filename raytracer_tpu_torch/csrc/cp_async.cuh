@@ -1,0 +1,33 @@
+// cp.async helpers (global -> shared copies that bypass the registers),
+// shared by rsweep.cu, sweep3d.cu, band.cu and fused.cu.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, through L2 only
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+
+template <int N>  // 4 or 8 bytes, through L1
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "n"(N));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+}  // namespace

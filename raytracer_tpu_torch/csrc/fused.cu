@@ -7,9 +7,10 @@
 // fused_reference).
 //
 // What it computes.  The state is (T, SR, 128) with SR = S * ntp rows
-// (csrc/lane_gather.cuh), the centre one value per source.  Until no
-// value falls (or max_iters), each iteration
-//   1. snapshots the state into `old` and source 0's centre;
+// (row s * ntp + c: theta column c of source s; rows c >= nt pad ntp to
+// a multiple of 8), the centre one value per source.  Until no value
+// falls (or max_iters), each iteration
+//   1. snapshots the state and source 0's centre;
 //   2. ring scan: for every (tile, source, lane) ring of nt theta rows
 //      and shift = 1, 2, 4, ... 128 with sh = shift mod nt != 0,
 //        v[c] = min(v[c], min(v[(c+sh) mod nt], v[(c-sh) mod nt])
@@ -18,63 +19,116 @@
 //   3. chain scan along the flat slot m = t*128 + lane of every row, for
 //      s = 1, 2, ... 64: v[m] = min(v[m], v[m-s] + pdn[k][m]), then
 //      v[m] = min(v[m], v[m+s] + pup[k][m]), +inf past either end, each a
-//      Jacobi step; the result goes to `src`;
-//   4. lane-gather relaxation of `src` into the state (the dc = 0 copy is
-//      `src` itself, pad rows included);
+//      Jacobi step;
+//   4. lane-gather relaxation: every row takes the minimum of itself and
+//      src[u, (c + dc) mod nt, idx[k, l]] + w[k, l] over the stencil rows
+//      k of its tile (a pad row only over the dc = 0 rows, from its own
+//      pad row);
 //   5. centre fan: cen[s] = min(cen[s], min over real rows and lanes of
 //      state + fan_w), then state = min(state, cen[s] + fan_w) on all
 //      ntp rows of source s;
 //   6. changed = cen[0] < old cen[0] or any(state < old).
 // Every add is __fadd_rn / __dadd_rn and the one multiply __fmul_rn /
 // __dmul_rn (by a power of two, so exact), nothing for nvcc to contract;
-// minima do not depend on order.  So the result is the plain version's
-// and the Pallas kernel's to the bit, float32 or float64.
+// minima do not depend on order, and rounding is monotone, so
+// min(a, b) + f == min(a + f, b + f) to the bit.  So the result is the
+// plain version's and the Pallas kernel's to the bit, float32 or
+// float64, with the same iteration count.
 //
-// Design.  The TPU kernel kept the state in VMEM for the whole loop.
-// Here one cooperative launch (grid = resident blocks per SM x SMs, from
-// the occupancy calculator) runs the loop; every phase is a grid-stride
-// loop and a grid sync separates dependent phases (4 per iteration:
-// the snapshot rides on the ring phase and the fan's reduction on the
-// relaxation).  The state, the snapshot and the relaxation's source
-// live in device memory and stay in the 50 MB L2 (0.66 MB each per
-// source at 180x63).  A ring tile (nt rows x up to 32 lanes) and a
-// row's T*128 chain slots run their steps in shared memory with block
-// barriers.  The centre's grid-wide minimum is an atomicMin on the bits
-// of non-negative floats (their order is the integers'), exact and
-// order-free.  The changed flag is double-buffered: iteration i sets
-// flags[i & 1] and clears flags[(i + 1) & 1] after its first grid sync,
-// when every block has read the previous iteration's flag.
+// What bounds it on an H100.  The work is an add and a min for each of
+// the 24.6 M candidates whose weight is finite per iteration at 180x63,
+// S = 1 (0.15 ms for 170 iterations at 67 TFLOP/s f32), so the bound is
+// operations.  What held the first design (0.66 ms an iteration on an
+// NVIDIA H100 80GB HBM3 at a 700 W power limit) was latency: a thread
+// walked all 220-579 stencil rows of its tile as a chain of dependent
+// L2 loads, on 41 k threads, and the relaxation took 0.56 ms of the
+// iteration, the ring scan on 28 blocks 0.077 ms, a grid sync 1.6 us
+// (tools/chip_kernel_ab.py --breakdown).  This design takes 31 us an
+// iteration there (5.3 ms a solve): the relaxation, now about half of
+// it, is held by the shared-memory loads and the block's item runs, the
+// ring and chain scans by their block barriers, and three grid syncs.
 //
-// What bounds it on an H100.  Per iteration at 180x63, S = 1: an add
-// and a min for each of the 24.6 M candidates whose weight is finite (of
-// 64 M), plus the scans over 0.16 M values (8 + 14 steps): operations
-// bound it (the solve's bytes are the tables and the state once).
-// chip_smoke.py computes the bound from its run's inputs and the
-// iteration count the kernel returns.
+// Design.  One cooperative launch (grid = resident blocks per SM x SMs,
+// from the occupancy calculator) runs the loop in three phases with a
+// grid sync after each:
+//   A. fan of the previous iteration (state = min(state, cen + fan_w)),
+//      its changed flag against the snapshot, the new snapshot, and the
+//      ring scan.  A ring item is (tile, source, group of lg lanes), lg
+//      a power of two chosen so that there are about as many items as
+//      blocks; the ring runs its steps in shared memory.  The loop stops
+//      after this phase when the flag of the previous iteration is clear
+//      (or max_iters iterations ran): the snapshot then holds the result.
+//   B. chain scan of each row in shared memory, the jump costs staged
+//      there once per block; the result goes to the state and, with 2
+//      wrapped theta rows above and below each source's nt real rows, to
+//      `src` ((T, S, ntp + 4, 128)), so the relaxation's theta roll needs
+//      no wrap; the real rows fold state + fan_w into the centre.
+//   C. relaxation.  The host packs each (tile, 32-lane slab, source
+//      tile)'s stencil rows whose slab has a finite weight (59 % of the
+//      rows at 180x63) into chunks of at most 32 rows, balanced in size,
+//      dc = 0 rows first.  An item is (source, block of 64 theta rows,
+//      chunk); block b takes an equal run of the item list.  Its 256
+//      threads take an item as 8 warps x 32 lanes, 8 rows a thread, so
+//      a weight and an index serve 8 gathers, each at a constant offset.
+//      The item's source window (68 rows of `src`) and chunk tables come
+//      into shared memory by cp.async, double buffered; the window is
+//      reloaded only when it changes along the run, and the first
+//      chunk's tables (constant) are fetched at the start of the
+//      iteration.  Items of one tile combine by atomicMin on the bits of
+//      non-negative floats (their order is the integers'), and fold
+//      partial minima + fan_w into the centre the same way: exact and
+//      order-free.
+// The changed flag is double-buffered: phase A at loop index i sets
+// flags[i & 1] and block 0 clears flags[(i + 1) & 1] after the grid
+// sync that follows it, when every block has read the older flag.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "lane_gather.cuh"
 
 namespace cg = cooperative_groups;
+
+// Timing hook: tools/chip_kernel_ab.py --breakdown pre-includes a header
+// that defines FUSED_SPLIT(k) to stamp block 0's %globaltimer after grid
+// sync k of an iteration (k = -1: the start); empty in the package's
+// build.
+#ifndef FUSED_SPLIT
+#define FUSED_SPLIT(k)
+#endif
 
 namespace {
 
 using lane_gather::add_rn;
 using lane_gather::is_inf;
 using lane_gather::kLanes;
-using lane_gather::kRows;
 using lane_gather::pos_inf;
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kRingSteps = 8;
 constexpr int kChainSteps = 7;
+// the chunk tables' format and the relaxation's work partition:
+// fused_circulant.SLAB, CHUNK, WARPS and ROW_BLOCK hold the same values
+constexpr int kSlab = 32;           // lanes of a relaxation item (a warp)
+constexpr int kSlabs = kLanes / kSlab;
+constexpr int kChunk = 32;          // most stencil rows in a chunk
+constexpr int kRowsPerThread = 8;   // theta rows of a thread in an item
+constexpr int kRowBlock = kWarps * kRowsPerThread;
+constexpr int kHalo = 2;            // wrapped theta rows each side in src
+constexpr int kMinRingLanes = 4;
 constexpr size_t kRingSmemTarget = 48 * 1024;
 constexpr size_t kSmemBudget = 227 * 1024;
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+// the minimum (the values are non-negative or +inf, never -0, so it is
+// the same bits whichever operand comes first); a NaN operand, which
+// only a stale shared-memory row the relaxation discards can make,
+// gives the other one
+__device__ __forceinline__ float min_of(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double min_of(double a, double b) { return fmin(a, b); }
 
 // min of non-negative floats (+0 .. +inf): their bit patterns order as
 // unsigned integers
@@ -85,194 +139,405 @@ __device__ __forceinline__ void atomic_min_nonneg(double* a, double v) {
   atomicMin(reinterpret_cast<unsigned long long*>(a),
             static_cast<unsigned long long>(__double_as_longlong(v)));
 }
+template <typename T>
+__device__ __forceinline__ T warp_min(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = min_of(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
 
 template <typename T>
 struct FusedArgs {
   T* state;  // (T, SR, 128) in: the initial state, out: the solution
   T* cen;    // (S,) in: initial centre values, out: the solution
-  T* old;    // (T, SR, 128) scratch: the iteration's snapshot
-  T* src;    // (T, SR, 128) scratch: the scanned state, relaxation source
-  const int* offs;
-  const int* u_of;
-  const int* idx;
-  const T* w;
-  const T* ring_w;  // (T, 128)
-  const T* pdn;     // (7, T*128)
-  const T* pup;     // (7, T*128)
-  const T* fan_w;   // (T, 128)
+  T* old;    // (T, SR, 128) scratch: the snapshot
+  T* src;    // (T, S, ntp + 4, 128) scratch: the scanned state with halos
+  const T* ring_w;   // (T, 128)
+  const T* pdn;      // (7, T*128)
+  const T* pup;      // (7, T*128)
+  const T* fan_w;    // (T, 128)
+  const int* ck_info;  // (n_chunks, 2): tile * 4 + slab | source tile << 16,
+                       // rows | rows of dc = 0 (they come first) << 16
+  const int* ck_row;   // (n_chunks, 32): source tile | (dc + 2) << 16
+  const int* ck_idx;   // (n_chunks, 32, 32): source lane
+  const T* ck_w;       // (n_chunks, 32, 32): weight (+inf: no edge)
   int* flags;       // (2,) zero on entry
   int* iters;       // () out: iterations run
-  int t_tiles, nt, ntp, s_count, max_iters, lg;
+  int t_tiles, nt, ntp, s_count, n_chunks, max_iters, lgs;
 };
 
-// 1 + 2: snapshot every row into `old`, ring-scan the real rows in place
+// a relaxation item's staging: the source window (kRowBlock + 2 * kHalo
+// rows of the haloed src) and the chunk's indices, rows and weights
 template <typename T>
-__device__ void ring_phase(const FusedArgs<T>& a, T* sm, int sr) {
-  const int lg = a.lg, nt = a.nt, ntp = a.ntp;
-  const int ngroups = kLanes / lg;
-  const int items = a.t_tiles * a.s_count * ngroups;
+__host__ __device__ constexpr int window_bytes() {
+  return (kRowBlock + 2 * kHalo) * kLanes * static_cast<int>(sizeof(T));
+}
+template <typename T>
+__host__ __device__ constexpr int chunk_bytes() {
+  return kChunk * kSlab * 4 + kChunk * 4 + kChunk * kSlab * static_cast<int>(sizeof(T));
+}
+// the shared memory of a block: the ring, chain or window region, then
+// two chunk buffers
+template <typename T>
+__host__ __device__ constexpr size_t region_bytes(int nt, int lg, int t_tiles) {
+  const size_t ring = 2 * static_cast<size_t>(nt) * lg * sizeof(T);
+  const size_t chain = (2 + 2 * kChainSteps) * static_cast<size_t>(t_tiles) * kLanes * sizeof(T);
+  const size_t win = 2 * static_cast<size_t>(window_bytes<T>());
+  const size_t most = ring > chain ? (ring > win ? ring : win) : (chain > win ? chain : win);
+  return (most + 15) / 16 * 16;
+}
+
+// A: fan of the previous iteration (unless `first`), its changed flag,
+// the snapshot, and the ring scan of the real rows in place
+template <typename T>
+__device__ void ring_phase(const FusedArgs<T>& a, T* sm, int sr, bool first, int* flag) {
+  const int nt = a.nt, ntp = a.ntp, lgs = a.lgs, lg = 1 << lgs;
+  const int gshift = 7 - lgs;  // log2 of the lane groups of a tile
+  const int items = (a.t_tiles * a.s_count) << gshift;
   const size_t tile = static_cast<size_t>(sr) * kLanes;
+  bool fell = false;
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int g = item % ngroups;
-    const int s = (item / ngroups) % a.s_count;
-    const int t = item / (ngroups * a.s_count);
-    const int lane0 = g * lg;
+    const int g = item & ((1 << gshift) - 1);
+    const int ts = item >> gshift;
+    const int s = ts % a.s_count;
+    const int t = ts / a.s_count;
+    const int lane0 = g << lgs;
     const size_t base = t * tile + static_cast<size_t>(s) * ntp * kLanes + lane0;
+    // a thread's lane in the group is the same for all its elements
+    // (blockDim.x is a multiple of lg)
+    const int l = threadIdx.x & (lg - 1);
+    const T rw = a.ring_w[t * kLanes + lane0 + l];
+    const T f = first ? pos_inf<T>() : add_rn(__ldcg(a.cen + s), a.fan_w[t * kLanes + lane0 + l]);
     T* A = sm;
     T* B = sm + nt * lg;
     for (int e = threadIdx.x; e < ntp * lg; e += blockDim.x) {
-      const int c = e / lg;
-      const size_t gi = base + static_cast<size_t>(c) * kLanes + (e - c * lg);
-      const T v = a.state[gi];
+      const int c = e >> lgs;
+      const size_t gi = base + static_cast<size_t>(c) * kLanes + l;
+      T v = a.state[gi];
+      if (!first) {
+        v = min_of(v, f);
+        fell |= v < a.old[gi];
+      }
       a.old[gi] = v;
       if (c < nt) A[e] = v;
+      else a.state[gi] = v;
     }
     __syncthreads();
     int shift = 1;
     for (int k = 0; k < kRingSteps; ++k, shift *= 2) {
       const int sh = shift % nt;
       if (sh == 0) continue;  // a whole-ring shift is a no-op
+      const T cost = mul_rn(rw, static_cast<T>(shift));
       for (int e = threadIdx.x; e < nt * lg; e += blockDim.x) {
-        const int c = e / lg;
-        const int l = e - c * lg;
+        const int c = e >> lgs;
         const int cf = c + sh >= nt ? c + sh - nt : c + sh;
         const int cb = c - sh < 0 ? c - sh + nt : c - sh;
-        const T f = A[cf * lg + l];
-        const T b = A[cb * lg + l];
-        const T cand = add_rn(f < b ? f : b,
-                              mul_rn(a.ring_w[t * kLanes + lane0 + l], static_cast<T>(shift)));
-        const T v = A[e];
-        B[e] = cand < v ? cand : v;
+        B[e] = min_of(A[e], add_rn(min_of(A[(cf << lgs) + l], A[(cb << lgs) + l]), cost));
       }
       __syncthreads();
       T* tmp = A;
       A = B;
       B = tmp;
     }
-    for (int e = threadIdx.x; e < nt * lg; e += blockDim.x) {
-      const int c = e / lg;
-      a.state[base + static_cast<size_t>(c) * kLanes + (e - c * lg)] = A[e];
-    }
+    for (int e = threadIdx.x; e < nt * lg; e += blockDim.x)
+      a.state[base + static_cast<size_t>(e >> lgs) * kLanes + (e & (lg - 1))] = A[e];
     __syncthreads();  // the next item reuses the tile
   }
-}
-
-// 3: chain-scan every row (pad rows too) from the state into `src`
-template <typename T>
-__device__ void chain_phase(const FusedArgs<T>& a, T* sm, int sr) {
-  const int n = a.t_tiles * kLanes;
-  const size_t tile = static_cast<size_t>(sr) * kLanes;
-  for (int r = blockIdx.x; r < sr; r += gridDim.x) {
-    T* A = sm;
-    T* B = sm + n;
-    for (int e = threadIdx.x; e < n; e += blockDim.x)
-      A[e] = a.state[(e / kLanes) * tile + static_cast<size_t>(r) * kLanes + e % kLanes];
-    __syncthreads();
-    for (int k = 0; k < kChainSteps; ++k) {
-      const int s = 1 << k;
-      for (int e = threadIdx.x; e < n; e += blockDim.x) {
-        const T cand = add_rn(e >= s ? A[e - s] : pos_inf<T>(), a.pdn[k * n + e]);
-        const T v = A[e];
-        B[e] = cand < v ? cand : v;
-      }
-      __syncthreads();
-      for (int e = threadIdx.x; e < n; e += blockDim.x) {
-        const T cand = add_rn(e + s < n ? B[e + s] : pos_inf<T>(), a.pup[k * n + e]);
-        const T v = B[e];
-        A[e] = cand < v ? cand : v;
-      }
-      __syncthreads();
-    }
-    for (int e = threadIdx.x; e < n; e += blockDim.x)
-      a.src[(e / kLanes) * tile + static_cast<size_t>(r) * kLanes + e % kLanes] = A[e];
-    __syncthreads();
-  }
-}
-
-// 4 + 5a: relax `src` into the state; fold the real rows' fan candidates
-// into cen
-template <typename T>
-__device__ void relax_phase(const FusedArgs<T>& a, int sr) {
-  const int groups = sr / kRows;
-  const size_t tile = static_cast<size_t>(sr) * kLanes;
-  const long long total = static_cast<long long>(a.t_tiles) * groups * kLanes;
-  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int lane = static_cast<int>(e % kLanes);
-    const long long rest = e / kLanes;
-    const int r0 = static_cast<int>(rest % groups) * kRows;
-    const int t = static_cast<int>(rest / groups);
-    T acc[kRows];
-    lane_gather::relax_rows<T, true>(a.src, a.offs, a.u_of, a.idx, a.w, t, r0, lane,
-                                     a.t_tiles, a.nt, a.ntp, sr, acc);
-    const T fw = a.fan_w[t * kLanes + lane];
-    const int s = r0 / a.ntp;
-    const int c0 = r0 - s * a.ntp;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      a.state[t * tile + static_cast<size_t>(r0 + i) * kLanes + lane] = acc[i];
-      if (c0 + i < a.nt && !is_inf(fw)) {
-        const T cand = add_rn(acc[i], fw);
-        if (cand < __ldcg(a.cen + s)) atomic_min_nonneg(a.cen + s, cand);
-      }
-    }
-  }
-}
-
-// 5b + 6: state = min(state, cen + fan_w) on every row; raise the flag
-// where a value fell below the snapshot
-template <typename T>
-__device__ void fan_phase(const FusedArgs<T>& a, int sr, int* flag, T old_cen0) {
-  const long long total = static_cast<long long>(a.t_tiles) * sr * kLanes;
-  bool fell = false;
-  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int lane = static_cast<int>(e % kLanes);
-    const int r = static_cast<int>((e / kLanes) % sr);
-    const int t = static_cast<int>(e / (static_cast<long long>(kLanes) * sr));
-    const T cand = add_rn(__ldcg(a.cen + r / a.ntp), a.fan_w[t * kLanes + lane]);
-    const T v = a.state[e];
-    const T nv = cand < v ? cand : v;
-    a.state[e] = nv;
-    fell |= nv < a.old[e];
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0 && __ldcg(a.cen) < old_cen0) fell = true;
   if (fell) *reinterpret_cast<volatile int*>(flag) = 1;
+}
+
+// B: chain-scan every row (pad rows too) into the state and the haloed
+// `src`; fold the real rows' state + fan_w into the centre.  The jump
+// costs pdn and pup come into shared memory once per block, with each
+// row, by cp.async.
+template <typename T>
+__device__ void chain_phase(const FusedArgs<T>& a, unsigned char* smem, int sr) {
+  const int n = a.t_tiles * kLanes;
+  const int nt = a.nt, ntp = a.ntp, nth = a.ntp + 2 * kHalo;
+  const size_t tile = static_cast<size_t>(sr) * kLanes;
+  const size_t tileh = static_cast<size_t>(a.s_count) * nth * kLanes;
+  constexpr int kVec = 16 / sizeof(T);  // values in a 16-byte copy
+  T* A = reinterpret_cast<T*>(smem);
+  T* B = A + n;
+  T* P = B + n;  // pdn (kChainSteps x n), then pup
+  for (int r = blockIdx.x; r < sr; r += gridDim.x) {
+    if (r == static_cast<int>(blockIdx.x)) {
+      for (int i = threadIdx.x; i < kChainSteps * n / kVec; i += blockDim.x) {
+        cp_async16(P + kVec * i, a.pdn + kVec * i);
+        cp_async16(P + kChainSteps * n + kVec * i, a.pup + kVec * i);
+      }
+    }
+    for (int i = threadIdx.x; i < n / kVec; i += blockDim.x) {
+      const int e = kVec * i;
+      cp_async16(A + e, a.state + (e / kLanes) * tile + static_cast<size_t>(r) * kLanes +
+                            e % kLanes);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    const int s = r / ntp;
+    const int c = r - s * ntp;
+    for (int k = 0; k < kChainSteps; ++k) {
+      const int st = 1 << k;
+      const T* pd = P + k * n;
+      const T* pu = P + (kChainSteps + k) * n;
+      for (int e = threadIdx.x; e < n; e += blockDim.x)
+        B[e] = min_of(A[e], add_rn(e >= st ? A[e - st] : pos_inf<T>(), pd[e]));
+      __syncthreads();
+      for (int e = threadIdx.x; e < n; e += blockDim.x)
+        A[e] = min_of(B[e], add_rn(e + st < n ? B[e + st] : pos_inf<T>(), pu[e]));
+      __syncthreads();
+    }
+    // src row of this row, and its wrapped copies for the rows within
+    // kHalo of either end of the ring
+    const size_t q0 = static_cast<size_t>(s) * nth;
+    const size_t own = q0 + (c < nt ? c + kHalo : c + 2 * kHalo);
+    const bool below = c < kHalo;                 // row c also at nt + 2 + c
+    const bool above = c >= nt - kHalo && c < nt;  // row c also at c - nt + 2
+    T cmin = pos_inf<T>();
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const T v = A[e];
+      const int t = e / kLanes;
+      const int l = e % kLanes;
+      a.state[t * tile + static_cast<size_t>(r) * kLanes + l] = v;
+      T* row = a.src + t * tileh + l;
+      row[own * kLanes] = v;
+      if (below) row[(q0 + nt + kHalo + c) * kLanes] = v;
+      if (above) row[(q0 + c - nt + kHalo) * kLanes] = v;
+      if (c < nt) {
+        const T fw = a.fan_w[e];
+        if (!is_inf(fw)) cmin = min_of(cmin, add_rn(v, fw));
+      }
+    }
+    cmin = warp_min(cmin);
+    if ((threadIdx.x & 31) == 0 && !is_inf(cmin)) atomic_min_nonneg(a.cen + s, cmin);
+    __syncthreads();
+  }
+}
+
+// relaxation item -> (chunk, source, row block): the chunk runs fastest,
+// so a block's run of items mostly shares one source window (the host
+// orders the chunks by source tile)
+struct Item {
+  int ch, s, rb;
+};
+__device__ __forceinline__ Item decode_item(int item, int n_chunks, int nrb) {
+  const int rest = item / n_chunks;
+  return {item - rest * n_chunks, rest / nrb, rest % nrb};
+}
+
+// cp.async chunk ch's indices, rows and weights into `buf` (no commit)
+template <typename T>
+__device__ __forceinline__ void stage_chunk(const FusedArgs<T>& a, int ch, unsigned char* buf) {
+  int* si = reinterpret_cast<int*>(buf);
+  int* sr = si + kChunk * kSlab;
+  unsigned char* sw = reinterpret_cast<unsigned char*>(sr + kChunk);
+  const int* gi = a.ck_idx + static_cast<size_t>(ch) * kChunk * kSlab;
+  const int* gr = a.ck_row + static_cast<size_t>(ch) * kChunk;
+  const unsigned char* gw = reinterpret_cast<const unsigned char*>(
+      a.ck_w + static_cast<size_t>(ch) * kChunk * kSlab);
+  for (int i = threadIdx.x; i < kChunk * kSlab / 4; i += blockDim.x)
+    cp_async16(si + 4 * i, gi + 4 * i);
+  if (threadIdx.x < kChunk / 4) cp_async16(sr + 4 * threadIdx.x, gr + 4 * threadIdx.x);
+  constexpr int wv = kChunk * kSlab * static_cast<int>(sizeof(T)) / 16;
+  for (int i = threadIdx.x; i < wv; i += blockDim.x) cp_async16(sw + 16 * i, gw + 16 * i);
+}
+
+// the source window of item `it`: source tile, source, row block
+template <typename T>
+__device__ __forceinline__ int window_key(const FusedArgs<T>& a, Item it, int nrb) {
+  return ((__ldg(a.ck_info + 2 * it.ch) >> 16) * a.s_count + it.s) * nrb + it.rb;
+}
+
+// cp.async item `it`'s source window into `buf` (no commit)
+template <typename T>
+__device__ __forceinline__ void stage_window(const FusedArgs<T>& a, Item it, unsigned char* buf,
+                                             size_t tileh, int nth) {
+  const int st = __ldg(a.ck_info + 2 * it.ch) >> 16;
+  const int q0 = it.rb * kRowBlock;
+  const int rows = min(kRowBlock + 2 * kHalo, nth - q0);
+  const unsigned char* gs = reinterpret_cast<const unsigned char*>(
+      a.src + st * tileh + (static_cast<size_t>(it.s) * nth + q0) * kLanes);
+  const int nw = rows * kLanes * static_cast<int>(sizeof(T)) / 16;
+  for (int i = threadIdx.x; i < nw; i += blockDim.x) cp_async16(buf + 16 * i, gs + 16 * i);
+}
+
+// block b takes items [item_run(items, b), item_run(items, b + 1)): an
+// equal share of the list
+__device__ __forceinline__ int item_run(int items, int b) {
+  return static_cast<int>(static_cast<long long>(items) * b / gridDim.x);
+}
+
+__device__ __forceinline__ int relax_items(int n_chunks, int s_count, int ntp) {
+  return n_chunks * s_count * ((ntp + kRowBlock - 1) / kRowBlock);
+}
+
+// C: relax `src` into the state by chunk items; fold the real rows'
+// partial minima + fan_w into the centre.  The block's first chunk came
+// in at the start of the iteration (prefetch_first_chunk); `region`
+// holds two windows, `chunks` two chunk buffers.
+template <typename T>
+__device__ void relax_phase(const FusedArgs<T>& a, unsigned char* region, unsigned char* chunks,
+                            int sr) {
+  const int nt = a.nt, ntp = a.ntp, nth = a.ntp + 2 * kHalo;
+  const int nrb = (ntp + kRowBlock - 1) / kRowBlock;
+  const int items = relax_items(a.n_chunks, a.s_count, ntp);
+  const size_t tile = static_cast<size_t>(sr) * kLanes;
+  const size_t tileh = static_cast<size_t>(a.s_count) * nth * kLanes;
+  const int ls = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lo = item_run(items, blockIdx.x);
+  const int hi = item_run(items, blockIdx.x + 1);
+  // two window buffers; a block restages only when the window changes
+  int cur = 0, cur_key = -1, other_key = -1;
+  if (lo < hi) {
+    const Item f = decode_item(lo, a.n_chunks, nrb);
+    cur_key = window_key(a, f, nrb);
+    stage_window(a, f, region, tileh, nth);
+    cp_async_commit();
+  }
+  for (int item = lo, j = 0; item < hi; ++item, ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // this item's window and chunk are in; the last item is done
+    int nxt = cur;
+    if (item + 1 < hi) {
+      const Item nx = decode_item(item + 1, a.n_chunks, nrb);
+      const int nkey = window_key(a, nx, nrb);
+      if (nkey != cur_key) {
+        nxt = cur ^ 1;
+        other_key = nkey;
+        stage_window(a, nx, region + nxt * window_bytes<T>(), tileh, nth);
+      }
+      stage_chunk(a, nx.ch, chunks + ((j + 1) & 1) * chunk_bytes<T>());
+      cp_async_commit();
+    }
+    const T* win = reinterpret_cast<const T*>(region + cur * window_bytes<T>());
+    if (nxt != cur) {
+      const int k = cur_key;
+      cur_key = other_key;
+      other_key = k;
+      cur = nxt;
+    }
+    const int* si = reinterpret_cast<const int*>(chunks + (j & 1) * chunk_bytes<T>());
+    const int* srow = si + kChunk * kSlab;
+    const T* sw = reinterpret_cast<const T*>(srow + kChunk);
+
+    const Item it = decode_item(item, a.n_chunks, nrb);
+    const int s = it.s;
+    const int tg = __ldg(a.ck_info + 2 * it.ch) & 0xffff;
+    const int nz = __ldg(a.ck_info + 2 * it.ch + 1);
+    const int nk = nz & 0xffff;  // rows; the first nz >> 16 have dc = 0
+    const int t = tg / kSlabs;
+    const int lane = (tg % kSlabs) * kSlab + ls;
+    const int q0 = it.rb * kRowBlock;
+    const int c0 = q0 + warp;  // rows c0 + kWarps * i
+    // real rows: row c, copy dc sits at window row c - q0 + kHalo + dc,
+    // so row i is a constant offset from row 0.  Every row is read (the
+    // window holds kRowBlock + 2 * kHalo rows); rows past nt, which may
+    // read stale window rows, are redone below.
+    T acc[kRowsPerThread];
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) acc[i] = pos_inf<T>();
+    const T* wrow = win + (warp + kHalo) * kLanes;
+    for (int k = 0; k < nk; ++k) {
+      const T wv = sw[k * kSlab + ls];
+      const T* base = wrow + ((srow[k] >> 16) - kHalo) * kLanes + si[k * kSlab + ls];
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+        acc[i] = min_of(acc[i], add_rn(base[i * kWarps * kLanes], wv));
+    }
+    // pad rows (nt <= c < ntp) take only the dc = 0 rows, from their own
+    // row, which sits 2 * kHalo down in src
+    bool pad = false;  // the same for the whole warp
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const int c = c0 + kWarps * i;
+      if (c >= nt) acc[i] = pos_inf<T>();
+      pad |= c >= nt && c < ntp;
+    }
+    if (pad) {
+      for (int k = 0; k < (nz >> 16); ++k) {
+        const T wv = sw[k * kSlab + ls];
+        const T* base = win + (warp + 2 * kHalo) * kLanes + si[k * kSlab + ls];
+#pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i) {
+          const int c = c0 + kWarps * i;
+          if (c >= nt && c < ntp)
+            acc[i] = min_of(acc[i], add_rn(base[i * kWarps * kLanes], wv));
+        }
+      }
+    }
+    const T fw = a.fan_w[t * kLanes + lane];
+    T cmin = pos_inf<T>();
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const int c = c0 + kWarps * i;
+      if (c < ntp && !is_inf(acc[i])) {
+        atomic_min_nonneg(a.state + t * tile + (static_cast<size_t>(s) * ntp + c) * kLanes + lane, acc[i]);
+        if (c < nt && !is_inf(fw)) cmin = min_of(cmin, add_rn(acc[i], fw));
+      }
+    }
+    cmin = warp_min(cmin);
+    if (ls == 0 && !is_inf(cmin)) atomic_min_nonneg(a.cen + s, cmin);
+  }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs<T> a) {
   cg::grid_group grid = cg::this_grid();
+  FUSED_SPLIT(-1);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int sr = a.s_count * a.ntp;
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  const int nrb = (a.ntp + kRowBlock - 1) / kRowBlock;
+  const int n_items = relax_items(a.n_chunks, a.s_count, a.ntp);
+  const int first = item_run(n_items, blockIdx.x);
+  const bool has_items = first < item_run(n_items, blockIdx.x + 1);
+  unsigned char* chunks = smem_raw + region_bytes<T>(a.nt, 1 << a.lgs, a.t_tiles);
+  T cen0 = 0;  // lead: source 0's centre at the start of the iteration
   int it = 0;
-  while (it < a.max_iters) {
+  for (;;) {
     int* flag = a.flags + (it & 1);
-    const T old_cen0 = __ldcg(a.cen);
-    ring_phase(a, sm, sr);
+    if (lead) {
+      const T c = __ldcg(a.cen);
+      if (it > 0 && c < cen0) *reinterpret_cast<volatile int*>(flag) = 1;
+      cen0 = c;
+    }
+    if (has_items) {  // the first chunk's tables are constant: ahead of the phases
+      stage_chunk(a, decode_item(first, a.n_chunks, nrb).ch, chunks);
+      cp_async_commit();
+    }
+    ring_phase(a, sm, sr, it == 0, flag);
     grid.sync();
-    if (blockIdx.x == 0 && threadIdx.x == 0) a.flags[(it + 1) & 1] = 0;
-    chain_phase(a, sm, sr);
+    FUSED_SPLIT(0);
+    // the snapshot holds iteration it - 1's result
+    if (it > 0 && *reinterpret_cast<volatile int*>(flag) == 0) break;
+    if (it == a.max_iters) break;
+    if (lead) a.flags[(it + 1) & 1] = 0;
+    chain_phase(a, smem_raw, sr);
     grid.sync();
-    relax_phase(a, sr);
+    FUSED_SPLIT(1);
+    relax_phase(a, smem_raw, chunks, sr);
     grid.sync();
-    fan_phase(a, sr, flag, old_cen0);
-    grid.sync();
+    FUSED_SPLIT(2);
     ++it;
-    if (*reinterpret_cast<volatile int*>(flag) == 0) break;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *a.iters = it;
+  cp_async_wait_all();  // the chunk prefetched for an iteration that did not run
+  const size_t n = static_cast<size_t>(a.t_tiles) * sr * kLanes;
+  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < n;
+       e += static_cast<size_t>(gridDim.x) * blockDim.x)
+    a.state[e] = a.old[e];
+  if (lead) *a.iters = it;
 }
 
 template <typename T>
 int run(FusedArgs<T> a, cudaStream_t st) {
-  int lg = 32;
-  while (lg > 1 && 2 * static_cast<size_t>(a.nt) * lg * sizeof(T) > kRingSmemTarget) lg /= 2;
-  a.lg = lg;
-  const size_t ring = 2 * static_cast<size_t>(a.nt) * lg;
-  const size_t chain = 2 * static_cast<size_t>(a.t_tiles) * kLanes;
-  const size_t smem = (ring > chain ? ring : chain) * sizeof(T);
+  int lg_max = 32;
+  while (lg_max > 1 && 2 * static_cast<size_t>(a.nt) * lg_max * sizeof(T) > kRingSmemTarget)
+    lg_max /= 2;
+  // the ring region shrinks with lg below, so the chunk buffers still fit
+  const size_t smem = region_bytes<T>(a.nt, lg_max, a.t_tiles) + 2 * chunk_bytes<T>();
   if (smem > kSmemBudget) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -286,9 +551,15 @@ int run(FusedArgs<T> a, cudaStream_t st) {
   if (e != cudaSuccess) return static_cast<int>(e);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const int grid = per_sm * sms;
+  // ring lane groups: as many ring items as blocks, down to 4 lanes
+  int lg = lg_max;
+  while (lg > kMinRingLanes && a.t_tiles * a.s_count * (kLanes / lg) < grid) lg /= 2;
+  a.lgs = 0;
+  while ((1 << a.lgs) < lg) ++a.lgs;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fused_kernel<T>),
-                                  dim3(per_sm * sms), dim3(kThreads), args, smem, st);
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fused_kernel<T>), dim3(grid),
+                                  dim3(kThreads), args, smem, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -298,41 +569,44 @@ int run(FusedArgs<T> a, cudaStream_t st) {
 // The whole solve on `stream`, one cooperative launch; returns the CUDA
 // error of the launch as an int (0 when accepted).  state (t_tiles,
 // s_count * ntp, 128) and cen (s_count,) hold the initial values and
-// receive the solution (updated in place); old and src are scratch of
-// the state's size; offs, u_of, idx and w as for relax_launch
-// (csrc/relax.cu); ring_w and fan_w (t_tiles, 128), pdn and pup
-// (7, t_tiles * 128); flags (2,) int32 zeroed; iters () int32 receives
-// the iteration count.  Values are float32 (is_double == 0) or float64,
-// non-negative or +inf; all contiguous device memory of the current
-// device.
+// receive the solution (updated in place); old is scratch of the
+// state's size, src scratch of (t_tiles, s_count, ntp + 4, 128); ring_w
+// and fan_w (t_tiles, 128), pdn and pup (7, t_tiles * 128); the chunk
+// tables of fused_circulant.relax_chunks: ck_info (n_chunks, 2), ck_row
+// (n_chunks, 32), ck_idx and ck_w (n_chunks, 32, 32); flags (2,) int32
+// zeroed; iters () int32 receives the iteration count.  Values are
+// float32 (is_double == 0) or float64, non-negative or +inf; all
+// contiguous device memory of the current device.
 extern "C" int fused_launch(void* state, void* cen, void* old, void* src,
-                            const void* offs, const void* u_of, const void* idx,
-                            const void* w, const void* ring_w, const void* pdn,
-                            const void* pup, const void* fan_w, void* flags,
+                            const void* ring_w, const void* pdn, const void* pup,
+                            const void* fan_w, const void* ck_info, const void* ck_row,
+                            const void* ck_idx, const void* ck_w, void* flags,
                             void* iters, int t_tiles, int nt, int ntp, int s_count,
-                            int max_iters, int is_double, void* stream) {
-  if (t_tiles < 1 || s_count < 1 || nt < 3 || nt > ntp || ntp % 8 != 0 ||
-      static_cast<long long>(t_tiles) * s_count * ntp * kLanes > (1LL << 31))
+                            int n_chunks, int max_iters, int is_double, void* stream) {
+  // ck_info packs t * kSlabs + slab and the source tile in 16 bits each
+  if (t_tiles < 1 || t_tiles * kSlabs > 0xffff || s_count < 1 || nt < 3 || nt > ntp ||
+      ntp % 8 != 0 || n_chunks < 0 || max_iters < 0 ||
+      static_cast<long long>(t_tiles) * s_count * (ntp + 2 * kHalo) * kLanes > (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_double) {
     FusedArgs<double> a{static_cast<double*>(state), static_cast<double*>(cen),
                         static_cast<double*>(old), static_cast<double*>(src),
-                        static_cast<const int*>(offs), static_cast<const int*>(u_of),
-                        static_cast<const int*>(idx), static_cast<const double*>(w),
                         static_cast<const double*>(ring_w), static_cast<const double*>(pdn),
                         static_cast<const double*>(pup), static_cast<const double*>(fan_w),
+                        static_cast<const int*>(ck_info), static_cast<const int*>(ck_row),
+                        static_cast<const int*>(ck_idx), static_cast<const double*>(ck_w),
                         static_cast<int*>(flags), static_cast<int*>(iters),
-                        t_tiles, nt, ntp, s_count, max_iters, 0};
+                        t_tiles, nt, ntp, s_count, n_chunks, max_iters, 0};
     return run<double>(a, st);
   }
   FusedArgs<float> a{static_cast<float*>(state), static_cast<float*>(cen),
                      static_cast<float*>(old), static_cast<float*>(src),
-                     static_cast<const int*>(offs), static_cast<const int*>(u_of),
-                     static_cast<const int*>(idx), static_cast<const float*>(w),
                      static_cast<const float*>(ring_w), static_cast<const float*>(pdn),
                      static_cast<const float*>(pup), static_cast<const float*>(fan_w),
+                     static_cast<const int*>(ck_info), static_cast<const int*>(ck_row),
+                     static_cast<const int*>(ck_idx), static_cast<const float*>(ck_w),
                      static_cast<int*>(flags), static_cast<int*>(iters),
-                     t_tiles, nt, ntp, s_count, max_iters, 0};
+                     t_tiles, nt, ntp, s_count, n_chunks, max_iters, 0};
   return run<float>(a, st);
 }

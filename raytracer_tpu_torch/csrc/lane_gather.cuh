@@ -1,6 +1,7 @@
-// The lane-gather relaxation of the circulant stencil, shared by
-// csrc/relax.cu (one sweep per launch, the 'pallas' engine) and
-// csrc/fused.cu (the whole solve in one launch, the 'fused' engine).
+// The lane-gather relaxation of the circulant stencil, used by
+// csrc/relax.cu (one sweep per launch, the 'pallas' engine).  csrc/fused.cu
+// (the 'fused' engine) takes only its constants and arithmetic helpers;
+// its relaxation reads chunk tables of its own.
 //
 // The state is (T, SR, 128) with SR = S * ntp rows, source-major: row
 // r = s * ntp + c holds theta column c of source s, and rows c >= nt
@@ -16,10 +17,7 @@
 // which is the TPU kernel's gather from its 5 theta-rolled copies with
 // the roll done in the index arithmetic (a roll moves values, it does no
 // arithmetic, so the bits are the same).  Pad rows read +inf from every
-// rolled copy: in the 'pallas' sweep their accumulator starts at +inf
-// and stays there; the 'fused' loop's dc = 0 copy is its state itself,
-// pad rows included, so there a pad row starts at its own value and
-// gathers from the pad row of its dc = 0 source tiles (kPadRowsFromDc0).
+// rolled copy, so their accumulator starts at +inf and stays there.
 //
 // Each candidate is one add (__fadd_rn / __dadd_rn: nothing for nvcc to
 // contract) and the minimum does not depend on order, so the result is
@@ -50,10 +48,8 @@ __device__ __forceinline__ double pos_inf<double>() {
   return __longlong_as_double(0x7ff0000000000000LL);
 }
 
-// acc[i] for rows r0 + i, i < kRows, of tile t at lane `lane`.
-// `src` carries no __restrict__: the fused kernel writes it between
-// relaxations, so its loads must not take the read-only cache path.
-template <typename T, bool kPadRowsFromDc0>
+// acc[i] for rows r0 + i, i < kRows, of tile t at lane `lane`
+template <typename T>
 __device__ __forceinline__ void relax_rows(
     const T* src, const int* __restrict__ offs,
     const int* __restrict__ u_of, const int* __restrict__ idx,
@@ -64,10 +60,9 @@ __device__ __forceinline__ void relax_rows(
   const size_t tile = static_cast<size_t>(sr) * kLanes;
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
-    acc[i] = (c0 + i < nt || kPadRowsFromDc0)
-                 ? src[t * tile + static_cast<size_t>(r0 + i) * kLanes + lane]
-                 : pos_inf<T>();
-  if (c0 >= nt && !kPadRowsFromDc0) return;  // all pad: +inf
+    acc[i] = c0 + i < nt ? src[t * tile + static_cast<size_t>(r0 + i) * kLanes + lane]
+                         : pos_inf<T>();
+  if (c0 >= nt) return;  // all pad: +inf
   const int k1 = offs[t + 1];
   for (int k = offs[t]; k < k1; ++k) {
     const T wv = w[static_cast<size_t>(k) * kLanes + lane];
@@ -80,16 +75,10 @@ __device__ __forceinline__ void relax_rows(
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int c = c0 + i;
-      int row;
-      if (c < nt) {
-        int cc = c + dc;  // |dc| <= 2 < nt: one wrap at most
-        cc = cc < 0 ? cc + nt : (cc >= nt ? cc - nt : cc);
-        row = s0 + cc;
-      } else if (kPadRowsFromDc0 && dc == 0) {
-        row = s0 + c;
-      } else {
-        continue;
-      }
+      if (c >= nt) continue;
+      int cc = c + dc;  // |dc| <= 2 < nt: one wrap at most
+      cc = cc < 0 ? cc + nt : (cc >= nt ? cc - nt : cc);
+      const int row = s0 + cc;
       const T cand = add_rn(base[static_cast<size_t>(row) * kLanes], wv);
       acc[i] = cand < acc[i] ? cand : acc[i];
     }

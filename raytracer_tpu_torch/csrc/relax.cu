@@ -50,8 +50,8 @@ relax_kernel(const T* __restrict__ dist, const int* __restrict__ offs,
   const int r0 = g * kRows;
   if (r0 >= sr) return;
   T acc[kRows];
-  lane_gather::relax_rows<T, false>(dist, offs, u_of, idx, w, t, r0, lane,
-                                    t_tiles, nt, ntp, sr, acc);
+  lane_gather::relax_rows<T>(dist, offs, u_of, idx, w, t, r0, lane, t_tiles, nt, ntp,
+                             sr, acc);
   T* o = out + static_cast<size_t>(t) * sr * kLanes +
          static_cast<size_t>(r0) * kLanes + lane;
 #pragma unroll

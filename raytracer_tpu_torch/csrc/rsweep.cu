@@ -55,30 +55,14 @@
 
 #include <climits>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kB = 8;          // rows per block, the TPU kernel's macro-block
 constexpr int kInfo = 20;      // ints per block: start, count, far offset x 8, far count x 8, pad
 constexpr int kNear = 248;     // floats per block of the near table: (7 u, 7 d, 5 dc), padded
 constexpr int kHalo = 4;       // lanes each side of a ring row (2 used; 16-byte aligned rows)
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // row[c] = v in a ring row (row points at lane 0), with the wrapped copy
 // in the halo when the lane axis is one block
@@ -151,7 +135,7 @@ rsweep_shared(float* buf, const int2* __restrict__ ent,
   // original rows into their ring slots
   auto prefetch = [&](int g, int start, int n) {
     int2* dst = ebuf + (g & 1) * ent_cap;
-    for (int i = tid; i < n; i += nth) cp_async8(dst + i, ent + start + i);
+    for (int i = tid; i < n; i += nth) cp_async_ca<8>(dst + i, ent + start + i);
     for (int i = tid; i < kNear / 4; i += nth)
       cp_async16(nbuf + (g & 1) * kNear + 4 * i,
                  near + static_cast<size_t>(g) * kNear + 4 * i);

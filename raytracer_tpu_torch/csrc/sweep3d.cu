@@ -53,6 +53,8 @@
 
 #include <climits>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -65,25 +67,6 @@ __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(
 // travel times non-negative or +inf), so fmin is the twin's torch.minimum
 __device__ __forceinline__ float min_of(float a, float b) { return fminf(a, b); }
 __device__ __forceinline__ double min_of(double a, double b) { return fmin(a, b); }
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src));
-}
-
-template <int N>  // 4 or 8 bytes
-__device__ __forceinline__ void cp_async_n(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "n"(N));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 template <typename T>
 __device__ __forceinline__ T inf_of();
@@ -149,8 +132,8 @@ sweep3d_march(const T* __restrict__ in, const T* __restrict__ m13,
           const T* src = in + (q0 + q) * page + static_cast<size_t>(row) * l0;
           if (v < vecs) cp_async16(dst + kVec * v, src + c0 + kVec * v);
           else if (v == vecs)
-            cp_async_n<sizeof(T)>(dst - 1, src + (kChunk ? (c0 + l0 - 1) % l0 : l0 - 1));
-          else cp_async_n<sizeof(T)>(dst + lc, src + (kChunk ? (c0 + lc) % l0 : 0));
+            cp_async_ca<sizeof(T)>(dst - 1, src + (kChunk ? (c0 + l0 - 1) % l0 : l0 - 1));
+          else cp_async_ca<sizeof(T)>(dst + lc, src + (kChunk ? (c0 + lc) % l0 : 0));
         } else if (v < vecs) {
 #pragma unroll
           for (int e = 0; e < kVec; ++e) dst[kVec * v + e] = inf;

@@ -9,9 +9,10 @@ exact `torch.roll`.  One iteration is
 
 where the ring and chain scans are log-doubling min-plus scans in plain
 tensor code, and the band sweep - (2*maxdm+1)*5 add+min taps per point,
-the dominant cost - takes the 5 theta-rolled pages and runs as the
-hand-written CUDA kernel `csrc/band.cu` through the wrapper `band` (its
-plain twin `band_reference` serves CPU tensors).  Iterations repeat
+the dominant cost - runs as the hand-written CUDA kernel `csrc/band.cu`
+through the wrapper `band`, which takes the field and rolls theta in its
+index arithmetic (its plain twin `band_reference` takes the TPU kernel's
+5 theta-rolled pages and serves CPU tensors).  Iterations repeat
 until no distance improves by more than `SolverConfig.tol`.
 
 COARSE-TO-FINE WARM START (`warm_levels`): level l solves a
@@ -265,39 +266,46 @@ def _band_lib() -> ctypes.CDLL:
     return lib
 
 
-def band(stack: torch.Tensor, wrows: torch.Tensor,
-         maxdm: int) -> torch.Tensor:
-    """Band sweep of the pre-rolled pages: stack (5, S, nt, ML), page u
-    the field rolled by dc = u-2 theta rows, wrows (R8, ML) the
-    moving-frame weight rows -> (S, nt, ML).
+def _band_stack(v: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's input: the 5 theta-rolled pages of v (S, nt, ML),
+    page u = v rolled by dc = u-2 rows (exact wrap) -> (5, S, nt, ML)."""
+    return torch.stack([torch.roll(v, -dc, dims=1)
+                        for dc in range(-_DC_RANGE, _DC_RANGE + 1)])
 
-    A CUDA tensor goes to the hand-written kernel `csrc/band.cu` (on the
-    current stream; `band.launches` counts its launches); a CPU tensor
-    goes to `band_reference`.  Any other device raises.
+
+def band(v: torch.Tensor, wrows: torch.Tensor, maxdm: int) -> torch.Tensor:
+    """Band sweep of the field v (S, nt, ML) with wrows (R8, ML), the
+    moving-frame weight rows -> (S, nt, ML): what the TPU kernel computes
+    on the 5 pages v rolled by dc = -2..2 theta rows.
+
+    A CUDA tensor goes to the hand-written kernel `csrc/band.cu`, which
+    rolls theta in its index arithmetic (on the current stream;
+    `band.launches` counts its launches); a CPU tensor goes to
+    `band_reference` on the stack of rolled pages.  Any other device
+    raises.
     """
-    if stack.dim() != 4 or stack.shape[0] != NDC:
-        raise ValueError(f"stack must be ({NDC}, S, nt, ML), got "
-                         f"{tuple(stack.shape)}")
-    ML = stack.shape[-1]
+    if v.dim() != 3:
+        raise ValueError(f"v must be (S, nt, ML), got {tuple(v.shape)}")
+    ML = v.shape[-1]
     if wrows.dim() != 2 or wrows.shape[1] != ML \
             or wrows.shape[0] < (2 * maxdm + 1) * NDC or not 0 <= maxdm < ML:
         raise ValueError(f"wrows of shape {tuple(wrows.shape)} does not fit "
                          f"maxdm={maxdm} and ML={ML}")
-    if stack.device != wrows.device or stack.dtype != wrows.dtype:
-        raise ValueError(f"stack ({stack.device}, {stack.dtype}) and wrows "
+    if v.device != wrows.device or v.dtype != wrows.dtype:
+        raise ValueError(f"v ({v.device}, {v.dtype}) and wrows "
                          f"({wrows.device}, {wrows.dtype}) differ")
-    if stack.device.type == "cpu":
-        return band_reference(stack, wrows, maxdm)
-    if stack.device.type != "cuda":
-        raise ValueError(f"band runs on cuda or cpu, not {stack.device}")
-    if stack.dtype != torch.float32:
-        raise TypeError(f"the band kernel takes float32, got {stack.dtype}")
-    if not (stack.is_contiguous() and wrows.is_contiguous()):
+    if v.device.type == "cpu":
+        return band_reference(_band_stack(v), wrows, maxdm)
+    if v.device.type != "cuda":
+        raise ValueError(f"band runs on cuda or cpu, not {v.device}")
+    if v.dtype != torch.float32:
+        raise TypeError(f"the band kernel takes float32, got {v.dtype}")
+    if not (v.is_contiguous() and wrows.is_contiguous()):
         raise ValueError("band takes contiguous tensors")
-    _, S, nt, _ = stack.shape
-    out = torch.empty(stack.shape[1:], dtype=stack.dtype, device=stack.device)
-    stream = torch.cuda.current_stream(stack.device).cuda_stream
-    rc = _band_lib().band_launch(stack.data_ptr(), wrows.data_ptr(),
+    S, nt, _ = v.shape
+    out = torch.empty_like(v)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    rc = _band_lib().band_launch(v.data_ptr(), wrows.data_ptr(),
                                  out.data_ptr(), S, nt, ML, maxdm, stream)
     if rc != 0:
         raise RuntimeError(f"band kernel launch failed: CUDA error {rc}")
@@ -347,16 +355,10 @@ def _run_level(dist0, cen0, it0: int, tbl: StreamTables, st: LevelStatic,
             v = torch.minimum(v, torch.roll(v, -s, dims=2) + cbp[k])
         return v
 
-    def band_step(v):
-        # exact theta wrap in plain tensor code; the kernel sweeps rows
-        stack = torch.stack([torch.roll(v, -dc, dims=1)
-                             for dc in range(-_DC_RANGE, _DC_RANGE + 1)])
-        return band(stack, wrows, maxdm)
-
     v, cen, it, changed = dist0, cen0, it0, True
     while changed and it < max_iters:
         v_old, cen_old = v, cen
-        v = band_step(chain_scan(ring_scan(v)))
+        v = band(chain_scan(ring_scan(v)), wrows, maxdm)
         cen = torch.minimum(cen, (v + fan).amin(dim=(1, 2)))
         v = torch.minimum(v, cen[:, None, None] + fan)
         changed = bool(((v < v_old - tol).any()

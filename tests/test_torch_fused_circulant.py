@@ -10,6 +10,9 @@ and min does not depend on order.  So its final state - pad rows
 included - and centre equal the Pallas kernel's in interpret mode bit for
 bit, with the loop run to its end and cut at `max_iters`, and the solve
 equals the JAX package's and returns -1 iterations as it does.  The CUDA
+kernel reads the stencil as chunk tables (`relax_chunks`): their plain
+evaluation equals the twin's relaxation bit for bit, and a NumPy replay
+of the kernel's work partition takes every candidate exactly once.  The
 kernel runs only on the card; chip_smoke.py holds it to the twin there.
 """
 import numpy as np
@@ -30,7 +33,8 @@ from raytracer_tpu_torch.contrib import pallas_circulant as ppc
 JF32, PF32 = JConfig(dtype="float32"), PConfig(dtype="float32")
 # 21x6 has theta pad rows (ntheta 21 -> 24 rows) and a second slot tile
 GRIDS = {"16x4": (16, 4, 400.0), "21x6": (21, 6, 300.0),
-         "24x12": (24, 12, 150.0), "180x63": (180, 63, 20.0)}
+         "24x12": (24, 12, 150.0), "48x12": (48, 12, 150.0),
+         "180x63": (180, 63, 20.0)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -185,3 +189,122 @@ def test_fused_refuses_bad_arguments():
                                          device="meta") for t in tbl))
     with pytest.raises(ValueError, match="cuda or cpu"):
         pfc.fused(x.to("meta"), c.to("meta"), mtbl, st, 10)
+
+
+# csrc/fused.cu's relaxation: a block of WARPS warps takes an item
+# (source, block of ROW_BLOCK theta rows, chunk; the chunk runs fastest);
+# warp w, lane l of the chunk's slab, takes rows q0 + w + WARPS * i
+WARPS = pfc.WARPS
+ROW_BLOCK = pfc.ROW_BLOCK
+# (grid, S): pad rows (21x6), the modular ring (24x12), the solve's width
+# (180x63, S=1) and the table's (48x12, S=8)
+RELAX_CASES = [("21x6", 2), ("24x12", 2), ("180x63", 1), ("48x12", 8)]
+
+
+def _relax_case(grid, S):
+    _, cg, _ = _grids(grid)
+    ts = ppc.pack_tiled_stencil(cg)
+    nt = ts.ntheta
+    ntp = -(-nt // 8) * 8
+    return ts, pfc.FusedStatic(ts.T, nt, ntp, S)
+
+
+def _signature(count, total, t, s, c, lane, u, idx, w):
+    """Add each candidate (dst tile t, source s, row c, lane; from rolled
+    tile u, source lane idx, weight w) to a count and to a sum that
+    tells the candidates apart."""
+    np.add.at(count, (t, s, c, lane), 1)
+    np.add.at(total, (t, s, c, lane),
+              w.astype(np.float64) * (1.0 + idx + 128.0 * u))
+
+
+@pytest.mark.parametrize("grid,S", RELAX_CASES)
+def test_relax_items_cover_every_candidate_once(grid, S):
+    """The kernel's work partition replayed in NumPy: every (tile,
+    stencil row, lane, theta row) candidate with a finite weight is taken
+    by exactly one (item, warp, lane, row), each item reads only its
+    source window, and a (tile, slab, source tile)'s chunks differ in
+    size by at most one row."""
+    ts, st = _relax_case(grid, S)
+    T, nt, ntp, _ = st
+    ck = pfc.relax_chunks(ts)
+    shape = (T, S, ntp, 128)
+    want_n, want_sum = np.zeros(shape, np.int64), np.zeros(shape)
+    got_n, got_sum = np.zeros(shape, np.int64), np.zeros(shape)
+
+    for t in range(T):
+        for k in range(ts.offs[t], ts.offs[t + 1]):
+            lanes = np.flatnonzero(np.isfinite(ts.w[k]))
+            u = int(ts.u_of[k])
+            rows = np.arange(ntp if u // T == 2 else nt)
+            s_, c_, l_ = np.meshgrid(np.arange(S), rows, lanes, indexing="ij")
+            _signature(want_n, want_sum, t, s_, c_, l_, u,
+                       ts.idx[k, l_], ts.w[k, l_])
+
+    sizes = {}
+    n_rows = ck.info[:, 1] & 0xFFFF
+    for (tg, nz), n, row in zip(ck.info, n_rows, ck.row):
+        sizes.setdefault(int(tg), []).append(int(n))
+        assert (row[:n] & 0xFFFF == tg >> 16).all()  # one source tile
+        dc0 = row[:n] >> 16 == 2                      # dc = 0 rows first
+        assert dc0.sum() == nz >> 16 and dc0[:nz >> 16].all()
+    assert all(max(v) - min(v) <= 1 and max(v) <= pfc.CHUNK
+               for v in sizes.values())
+    assert (ck.w[np.arange(pfc.CHUNK)[None, :] >= n_rows[:, None]]
+            == np.inf).all()
+
+    nrb = -(-ntp // ROW_BLOCK)
+    nth = ntp + 4
+    rows_per_thread = ROW_BLOCK // WARPS
+    for item in range(len(ck.info) * S * nrb):
+        rest, ch = divmod(item, len(ck.info))
+        s, rb = divmod(rest, nrb)
+        tg, n = int(ck.info[ch, 0]), int(n_rows[ch])
+        t, g = divmod(tg & 0xFFFF, 128 // pfc.SLAB)
+        q0 = rb * ROW_BLOCK
+        c = q0 + np.arange(WARPS)[:, None] + WARPS * np.arange(
+            rows_per_thread)[None, :]                    # (warp, i)
+        for k in range(n):
+            u = int(ck.row[ch, k] >> 16) * T + int(ck.row[ch, k] & 0xFFFF)
+            dc = u // T - 2
+            live = np.flatnonzero(np.isfinite(ck.w[ch, k]))
+            # pad rows: the chunk's first z rows (those of dc = 0)
+            take = (c < nt) | ((c < ntp) & (k < ck.info[ch, 1] >> 16))
+            q = np.where(c < nt, c + 2 + dc, c + 4)[take]
+            assert ((q >= q0) & (q < min(q0 + ROW_BLOCK + 4, nth))).all()
+            cc = c[take]
+            s_, c_, l_ = np.meshgrid([s], cc, live, indexing="ij")
+            _signature(got_n, got_sum, t, s_, c_, g * pfc.SLAB + l_, u,
+                       ck.idx[ch, k][l_], ck.w[ch, k][l_])
+    np.testing.assert_array_equal(got_n, want_n)
+    np.testing.assert_array_equal(got_sum, want_sum)
+    assert want_n.sum() > 0
+
+
+@pytest.mark.parametrize("grid,S", RELAX_CASES)
+def test_relax_chunks_reference_equals_the_reference_relaxation(grid, S):
+    """The chunk tables, evaluated as the kernel reads them (haloed
+    source rows, pad rows from dc = 0 only), relax a state with +inf
+    cells and finite pad rows to fused_reference's relaxation, bit for
+    bit."""
+    ts, st = _relax_case(grid, S)
+    T, nt, ntp, _ = st
+    tbl = pfc.device_fused_tables(ts, "cpu")
+    rng = np.random.default_rng(S + nt)
+    x = rng.uniform(0.0, 1500.0, (T, S * ntp, 128)).astype(np.float32)
+    x[rng.random(x.shape) < 0.3] = np.inf
+    x = torch.from_numpy(x)
+    got = pfc.relax_chunks_reference(x, tbl, st)
+    want = pfc._relax_reference(x, tbl, st)
+    assert torch.equal(got, want)
+    assert int(torch.isfinite(want).sum()) > int(torch.isfinite(x).sum())
+
+
+def test_relax_chunks_refuses_more_tiles_than_the_format_packs():
+    """The chunk info packs t * 4 + slab in 16 bits: a stencil of more
+    tiles than that holds is refused, not packed wrong."""
+    import dataclasses
+
+    ts, _ = _relax_case("24x12", 1)
+    with pytest.raises(ValueError, match="tiles"):
+        pfc.relax_chunks(dataclasses.replace(ts, T=0xFFFF // 4 + 1))

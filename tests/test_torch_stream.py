@@ -212,3 +212,75 @@ def test_stream_level_tables_carried_from_jax():
                                            device="cpu")
     np.testing.assert_array_equal(d_j, d_p)
     assert it_j == it_p
+
+
+def _band_case(name):
+    """(wrows, maxdm, Mp, nt) of a band sweep: the 16x4 weights on fields
+    of 3 and 5 theta rows (the wrap folds rows dc = -2..2 onto each
+    other), a 30x4 stencil, and the 1080x300 warm level's coarse weights
+    on a cut of 24 of its 540 theta rows."""
+    if name == "coarse 1080x300, 24 rows":
+        _, cg, _ = pt.init_annulus_circulant(1080, 300, 20.0)
+        ws = pwt.pack_twrapped_stencil(cg, dtype=np.float32, band_closure=1)
+        ws = pst._warm_stencils(ws, cg, np.float32, 1, 1)[0]
+        return ws.wrows, ws.maxdm, ws.Mp, 24
+    ntheta, nt = {"16x4, 3 rows": (16, 3), "16x4, 5 rows": (16, 5),
+                  "30x4": (30, 30)}[name]
+    _, jcg, _ = rt.init_annulus_circulant(ntheta, 4, 400.0)
+    ws = jwt.pack_twrapped_stencil(jcg, dtype=np.float32, band_closure=1)
+    return ws.wrows, ws.maxdm, ws.Mp, nt
+
+
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("name", ["16x4, 3 rows", "16x4, 5 rows", "30x4",
+                                  "coarse 1080x300, 24 rows"])
+def test_band_field_form_equals_stack_form_and_pallas(name, S):
+    """`band` takes the field and rolls theta itself (on the CPU through
+    its plain version); it equals `band_reference` on the explicit stack
+    of 5 rolled pages and the JAX Pallas kernel in interpret mode, bit for
+    bit, with the theta wrap exact at any row count."""
+    wrows, maxdm, Mp, nt = _band_case(name)
+    ML = wrows.shape[1]
+    rng = np.random.default_rng(7 * nt + S)
+    v = rng.uniform(0.0, 800.0, (S, nt, ML)).astype(np.float32)
+    v[rng.random(v.shape) < 0.4] = np.inf
+    v[..., Mp:] = np.inf
+    stack = np.stack([np.roll(v, -dc, axis=1) for dc in range(-2, 3)])
+    TB = 8
+    NTB = -(-nt // TB) * TB
+    padded = np.pad(stack, ((0, 0), (0, 0), (0, NTB - nt), (0, 0)),
+                    constant_values=np.inf)
+    want = np.asarray(jst._band_call(jnp.asarray(padded), jnp.asarray(wrows),
+                                     maxdm, TB, True))[:, :nt]
+    w = torch.from_numpy(np.ascontiguousarray(wrows))
+    got = pst.band(torch.from_numpy(v), w, maxdm)
+    ref = pst.band_reference(torch.from_numpy(stack), w, maxdm)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(ref.numpy(), want)
+    assert np.isfinite(want).sum() > np.isfinite(v).sum()
+
+
+@pytest.mark.parametrize("ntheta", [20, 30])
+def test_run_level_with_the_field_form_band_equals_jax(ntheta):
+    """One level's loop, two sources, the band sweep taking the field:
+    the same field and iteration count as the JAX level loop."""
+    gr, cg, jcg = _grids(ntheta)
+    jws = jwt.pack_twrapped_stencil(jcg, dtype=np.float32, band_closure=1)
+    jtbl, jstatic = jst._stream_tables(jws, np.float32)
+    tbl, static = pst._stream_tables(
+        pwt.pack_twrapped_stencil(cg, dtype=np.float32, band_closure=1),
+        np.float32)
+    d0 = np.full((2, static.nt, static.ML), np.inf, np.float32)
+    for b, deg in enumerate((30.0, 200.0)):
+        src = _src(gr, deg)
+        d0[b, int(cg.cmap.c_of[src]), int(cg.cmap.m_of[src])] = 0.0
+    c0 = np.full(2, np.inf, np.float32)
+    tol = np.float32(1e-3)
+    want = jst._run_level(jnp.asarray(d0), jnp.asarray(c0),
+                          jnp.zeros((), jnp.int32), jtbl, jstatic,
+                          jnp.asarray(tol), 10_000, True)
+    got = pst._run_level(torch.from_numpy(d0), torch.from_numpy(c0), 0,
+                         pst.StreamTables(*(torch.tensor(a) for a in tbl)),
+                         static, torch.tensor(tol), 10_000)
+    np.testing.assert_array_equal(got.dist.numpy(), np.asarray(want.dist))
+    assert got.it == int(want.it) > 1

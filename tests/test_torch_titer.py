@@ -97,9 +97,9 @@ def test_wrappers_take_the_twin_on_cpu_and_count_no_launch():
     d1, c1 = pwt.titer(st, dist, cen, tbl, 2)
     d2, c2 = pwt.titer_reference(st, dist, cen, tbl, 2)
     assert torch.equal(d1, d2) and torch.equal(c1, c2)
-    stack = torch.stack([torch.roll(dist.view(2, ws.NTT, ws.ML), -dc, 1)
-                         for dc in range(-2, 3)])
-    assert torch.equal(pst.band(stack, tbl.wrows, ws.maxdm),
+    v = dist.view(2, ws.NTT, ws.ML)
+    stack = torch.stack([torch.roll(v, -dc, 1) for dc in range(-2, 3)])
+    assert torch.equal(pst.band(v, tbl.wrows, ws.maxdm),
                        pst.band_reference(stack, tbl.wrows, ws.maxdm))
     assert (pwt.titer.launches, pst.band.launches) == (n_titer, n_band)
 
@@ -114,21 +114,19 @@ def test_wrappers_refuse_bad_arguments():
     with pytest.raises(ValueError, match="cen must be"):
         pwt.titer(st, torch.zeros((2 * ws.NTT, ws.ML)), torch.zeros(1),
                   tbl, 1)
-    with pytest.raises(ValueError, match="stack must be"):
-        pst.band(torch.zeros((4, 1, ws.nt, ws.ML)), tbl.wrows, ws.maxdm)
+    with pytest.raises(ValueError, match="v must be"):
+        pst.band(torch.zeros((5, 1, ws.nt, ws.ML)), tbl.wrows, ws.maxdm)
     with pytest.raises(ValueError, match="does not fit"):
-        pst.band(torch.zeros((5, 1, ws.nt, ws.ML)), tbl.wrows[:5],
-                 ws.maxdm)
+        pst.band(torch.zeros((1, ws.nt, ws.ML)), tbl.wrows[:5], ws.maxdm)
 
 
 def test_meta_device_raises():
     """A device that is neither the CPU nor CUDA is refused, never
     replaced by the CPU."""
     ws = stencil_from_numpy(_jax_stencil(16))
-    stack = torch.zeros((5, 1, ws.nt, ws.ML), device="meta")
+    v = torch.zeros((1, ws.nt, ws.ML), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
-        pst.band(stack, torch.zeros(ws.wrows.shape, device="meta"),
-                 ws.maxdm)
+        pst.band(v, torch.zeros(ws.wrows.shape, device="meta"), ws.maxdm)
 
 
 def test_port_packing_equals_jax():
