@@ -20,7 +20,12 @@ the exit code is non-zero):
      5 rolled pages at 1080x300 (S=1 and S=2), at the warm level's
      coarse grid (540 theta rows) and on 5 theta rows, where the wrap
      folds the rows onto each other; (3b) witer at 183x63 (S=1 and S=2,
-     dup 73) and at 256x63 (S=2, dup 0); diag at 127x63 (dup 1) and at
+     dup 73), at 256x63 (S=2, dup 0) and in float64 at 183x63 (S=1),
+     with its device time by kernel, at 128x100 and 1080x300 (S=1),
+     where a chain column or a ring row spans several warps, and in
+     float64 at 1080x300, 47x63 (the band's 32-lane tile) and 31x63 (its
+     taps read from global memory); diag at
+     127x63 (dup 1) and at
      183x63; (3c)
      sweep3d (T sweeps of the 26-tap 3-D stencil) in float32 at (7,5,4)
      S=1 and (130,6,3) S=3 (256 lanes), in float64 at (8,8,3) and at
@@ -28,7 +33,8 @@ the exit code is non-zero):
      the 3-D path's 128x128x64 at S=1 and S=7 (T=8), with the bytes a
      call reads from device memory in this design (13 weights a node a
      sweep) and in one that reads all 26 each sweep; (3d) relax at
-     180x63 (S=1 and S=8, finite pad rows in the input), fused (the whole
+     180x63 (S=1 and S=8, finite pad rows in the input) and in float64
+     at 24x12 (S=2), fused (the whole
      solve in one cooperative launch) at 24x12 (S=2, T=3: ntheta 24 takes
      the modular ring shifts; float32 and float64), at 48x12 and 180x63
      with S=8 (the table's width) and at 180x63 with S=1, each with the
@@ -269,13 +275,19 @@ def _kernel_split_ms(fn, n: int) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
+    # a window now and then comes back without device events (seen on
+    # the card for a phase's first profile): take the next one
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if any(e.device_time_total > 0 for e in events):
+            break
     out = {}
-    for e in prof.key_averages():
+    for e in events:
         t = e.device_time_total
         if t > 0 and e.device_type != DeviceType.CPU:
             name = e.key.replace("(anonymous namespace)::", "")
@@ -580,13 +592,14 @@ def _band_work(wrows, maxdm, S, nt, ML):
     return nbytes, 2 * S * nt * int(np.isfinite(w).sum())
 
 
-def _random_field(rng, shape, Mp):
+def _random_field(rng, shape, Mp, dtype=None):
     """Finite travel times with ~half +inf cells and +inf pad lanes
-    [Mp, ML), the invariant the kernels' tables keep."""
+    [Mp, ML), the invariant the kernels' tables keep (float32 unless
+    `dtype` says otherwise)."""
     import numpy as np
     import torch
 
-    v = rng.uniform(0.0, 1500.0, shape).astype(np.float32)
+    v = rng.uniform(0.0, 1500.0, shape).astype(dtype or np.float32)
     v[rng.random(shape) < 0.5] = np.inf
     v[..., Mp:] = np.inf
     return torch.from_numpy(v).cuda()
@@ -853,14 +866,16 @@ def phase_tables(rec: dict):
 
 def _witer_work(ws, S, iters):
     """(bytes, operations) of one witer launch: the field and the centre
-    values read and written once, the tables read once; one add and one
-    min per candidate - ring and chain steps over the whole field, band
-    taps only where a diagonal's weight is finite (one band per lane;
-    the duplicate merge is one min per merged lane), the fan's reduce
-    and broadcast."""
+    values read and written once, the tables read once (the band's taps
+    as the kernel's per-row lists); one add and one min per candidate -
+    ring and chain steps over the whole field, band taps only where a
+    diagonal's weight is finite (one band per lane; the duplicate merge
+    is one min per merged lane), the fan's reduce and broadcast."""
     import numpy as np
 
-    from raytracer_tpu_torch.ops.diag_wrapped import _chain_plan, _ring_plan
+    from raytracer_tpu_torch.ops.diag_wrapped import (_chain_plan,
+                                                      _ring_plan,
+                                                      wrapped_tap_lists)
 
     ring_statics, n_ring = _ring_plan(ws.NTL)
     chain_statics, _, n_chain = _chain_plan(ws.Mp)
@@ -874,9 +889,11 @@ def _witer_work(ws, S, iters):
     merge = 2 * dup * Mp * S
     fan = 2 * 2 * Mp * NTLT
     ops = iters * (ring + chain + band + merge + fan)
-    tables = (2 * ws.D + ws.D * Mp + ws.ring_f.size + ws.ring_b.size
-              + ws.cfl.size + ws.cbl.size + ws.fan_w.size)
-    return 4 * (2 * Mp * NTLT + 2 * S + tables), ops
+    item = ws.wpT.dtype.itemsize
+    taps = sum(a.nbytes for a in wrapped_tap_lists(ws))
+    tables = item * (ws.ring_f.size + ws.ring_b.size + ws.cfl.size
+                     + ws.cbl.size + ws.fan_w.size)
+    return item * (2 * Mp * NTLT + 2 * S) + tables + taps, ops
 
 
 def _diag_work(ds):
@@ -899,25 +916,38 @@ def phase_wrapped_diag_kernels(rec: dict):
 
     rng = np.random.default_rng(6)
     witer_rows = []
-    for ntheta, S in ((183, 1), (183, 2), (256, 2)):
-        _, cg, _ = init_annulus_circulant(ntheta, 63, spacing=20.0)
-        ws = diag_wrapped.pack_wrapped_stencil(cg, dtype=np.float32)
+    # the path's shape (183x63, S=1) first; 128x100 (1,328 slots) and
+    # 1080x300 (1,152 lanes) spread a chain column and a ring row over
+    # several warps of a block; in float64 the band's coarse-theta tiles:
+    # 47x63 with 32 lanes, 31x63 with its taps read from global memory
+    for ntheta, nr, S, dtype in ((183, 63, 1, np.float32),
+                                 (183, 63, 2, np.float32),
+                                 (256, 63, 2, np.float32),
+                                 (183, 63, 1, np.float64),
+                                 (128, 100, 1, np.float32),
+                                 (1080, 300, 1, np.float32),
+                                 (1080, 300, 1, np.float64),
+                                 (47, 63, 1, np.float64),
+                                 (31, 63, 1, np.float64)):
+        _, cg, _ = init_annulus_circulant(ntheta, nr, spacing=20.0)
+        ws = diag_wrapped.pack_wrapped_stencil(cg, dtype=dtype)
         st = diag_wrapped.WStatic(ws.rho_starts, ws.Mp, ws.NTL, ws.pad2,
                                   ws.nt)
         tbl = diag_wrapped.device_wrapped_tables(ws, "cuda")
         # every lane of the wrapped cover is real data: no +inf pad lanes
-        dist = _random_field(rng, (ws.Mp, S * ws.NTL), S * ws.NTL)
-        cen = torch.tensor(rng.uniform(0.0, 1500.0, S).astype(np.float32),
+        dist = _random_field(rng, (ws.Mp, S * ws.NTL), S * ws.NTL, dtype)
+        cen = torch.tensor(rng.uniform(0.0, 1500.0, S).astype(dtype),
                            device="cuda")
+        name = f"{ntheta}x{nr}" + ("" if dtype == np.float32 else " f64")
         d_k, c_k = diag_wrapped.witer(st, dist, cen, tbl, 4)
         d_r, c_r = diag_wrapped.witer_reference(st, dist, cen, tbl, 4)
         torch.cuda.synchronize()
         err = max(_max_err(d_k, d_r), _max_err(c_k, c_r))
         if not (torch.equal(d_k, d_r) and torch.equal(c_k, c_r)):
             raise AssertionError(
-                f"witer kernel != plain version at {ntheta}x63 S={S} "
+                f"witer kernel != plain version at {name} S={S} "
                 f"(dup {ws.NTL - ws.nt}): max abs err {err}")
-        ms = _cuda_ms(lambda: diag_wrapped.witer(st, dist, cen, tbl, 4), 10)
+        ms = _cuda_ms(lambda: diag_wrapped.witer(st, dist, cen, tbl, 4), 20)
         plain = _cuda_ms(lambda: diag_wrapped.witer_reference(
             st, dist, cen, tbl, 4), 1)
         if not witer_rows:  # the phase split at the path's shape (S=1)
@@ -925,8 +955,12 @@ def phase_wrapped_diag_kernels(rec: dict):
                 lambda: diag_wrapped.witer(st, dist, cen, tbl, 4), 5)
         nbytes, ops = _witer_work(ws, S, 4)
         bound, by = _bound_ms(nbytes, ops)
+        lanes, staged = diag_wrapped.witer_launch_plan(
+            st, np.dtype(dtype).itemsize,
+            diag_wrapped.band_block_taps(tbl.tap_ptr.cpu().numpy()))
         witer_rows.append(dict(
-            grid=f"{ntheta}x63", S=S, dup=ws.NTL - ws.nt, max_abs_err=err,
+            grid=name, S=S, dup=ws.NTL - ws.nt, max_abs_err=err,
+            tile=f"{lanes} lanes, taps in {'shared' if staged else 'global'}",
             ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, ops=ops))
     diag_rows = []
     for ntheta in (127, 183):
@@ -960,7 +994,8 @@ def phase_wrapped_diag_kernels(rec: dict):
         rec[name]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     rec["witer_rows"], rec["diag_rows"] = witer_rows, diag_rows
     print("phase 3b kernels: witer (T=4) bit-equal to witer_reference: "
-          + "; ".join(f"{r['grid']} S={r['S']} dup={r['dup']}: kernel "
+          + "; ".join(f"{r['grid']} S={r['S']} dup={r['dup']} "
+                      f"(band {r['tile']}): kernel "
                       f"{r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, "
                       f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
                       f"{r['ops'] / 1e9:.3f} G ops)" for r in witer_rows)
@@ -971,8 +1006,9 @@ def phase_wrapped_diag_kernels(rec: dict):
                       f"{r['nbytes'] / 1e6:.2f} MB, {r['ops'] / 1e6:.1f} M "
                       f"ops)" for r in diag_rows)
           + ". witer at 183x63 S=1 by phase (torch.profiler, device ms per "
-          "launch): " + ", ".join(f"{k} {v:.4f}" for k, v in
-                                  rec["witer_split"].items()),
+          "launch; ring_kernel also merges the duplicate lanes and applies "
+          "the fan, band_kernel folds the centre): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in rec["witer_split"].items()),
           flush=True)
 
 
@@ -1438,23 +1474,36 @@ def phase_example3d():
           f"example's ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def _stencil_bytes(ts):
+    """Bytes of the lane-gather stencil that a sweep must read: one weight
+    and one source lane for each finite (k, lane) weight, each row's
+    source (u_of) and each tile's first row (offs), not the kernels'
+    padded forms of it."""
+    import numpy as np
+
+    finite = int(np.isfinite(ts.w).sum())
+    return (4 + ts.w.dtype.itemsize) * finite + 4 * (ts.u_of.size
+                                                    + ts.offs.size)
+
+
 def _relax_work(ts, S, itemsize):
     """(bytes, operations) of one relax sweep: the state read and written
-    once, idx, w, offs and u_of read once; one add and one min per finite
-    (k, lane) weight for every real theta row of every source."""
+    once, the stencil's finite weights once (`_stencil_bytes`); one add
+    and one min per finite (k, lane) weight for every real theta row of
+    every source."""
     import numpy as np
 
     nt = ts.ntheta
     state = ts.T * S * (-(-nt // 8) * 8) * 128 * itemsize
-    nbytes = (2 * state + ts.idx.nbytes + ts.w.nbytes + ts.offs.nbytes
-              + ts.u_of.nbytes)
+    nbytes = 2 * state + _stencil_bytes(ts)
     return nbytes, 2 * int(np.isfinite(ts.w).sum()) * nt * S
 
 
 def _fused_work(ts, tbl, S, iters, itemsize):
     """(bytes, operations) of one fused solve of `iters` iterations (the
-    count the kernel returned for these inputs).  Bytes: the tables once,
-    the state and the centre in and out once.  Operations per iteration,
+    count the kernel returned for these inputs).  Bytes: the stencil's
+    finite weights (`_stencil_bytes`) and the ring, chain and fan weights
+    once, the state and the centre in and out once.  Operations per iteration,
     over the real theta rows only (pad rows never reach a real one): the
     ring steps (a multiply, an add and two mins per element of a ring whose
     hop cost is finite), the chain steps (an add and a min per finite jump
@@ -1476,19 +1525,22 @@ def _fused_work(ts, tbl, S, iters, itemsize):
     compare = ts.T * 128 * nt
     ops = iters * S * (ring + chain + relax + fan + compare)
     state = ts.T * S * (-(-nt // 8) * 8) * 128 * itemsize
-    tables = sum(t.numel() * t.element_size() for t in tbl)
+    tables = _stencil_bytes(ts) + sum(
+        t.numel() * t.element_size()
+        for t in (tbl.ring_w, tbl.pdn, tbl.pup, tbl.fan_w))
     return tables + 2 * state + 2 * S * itemsize, ops
 
 
 def _lane_field(rng, ts, S):
-    """Random (T, S, ntp, 128) travel times, ~30 % +inf, with finite pad
-    rows (the fan writes such rows; a sweep must reset them to +inf)."""
+    """Random (T, S, ntp, 128) travel times in the stencil's dtype, ~30 %
+    +inf, with finite pad rows (the fan writes such rows; a sweep must
+    reset them to +inf)."""
     import numpy as np
     import torch
 
     nt = ts.ntheta
     ntp = -(-nt // 8) * 8
-    d = rng.uniform(0.0, 1500.0, (ts.T, S, ntp, 128)).astype(np.float32)
+    d = rng.uniform(0.0, 1500.0, (ts.T, S, ntp, 128)).astype(ts.w.dtype)
     d[rng.random(d.shape) < 0.3] = np.inf
     d[:, :, nt:] = rng.uniform(0.0, 1500.0, d[:, :, nt:].shape)
     return torch.from_numpy(d).cuda()
@@ -1503,13 +1555,17 @@ def phase_lane_gather_kernels(rec: dict):
     from raytracer_tpu_torch.contrib import pallas_circulant as ppc
 
     rng = np.random.default_rng(8)
-    _, cg, _ = rt.init_annulus_circulant(180, 63, spacing=20.0)
-    ts = ppc.pack_tiled_stencil(cg, np.float32)
-    nt = ts.ntheta
-    ntp = -(-nt // 8) * 8
-    tb = ppc.device_pallas_tables(ts, "cuda")
     relax_rows = []
-    for S in (1, 8):
+    # the path's shapes (180x63, S=1; the table's S=8) and float64 at 24x12
+    for (ntheta, nr, spacing), S, dtype in (
+            ((180, 63, 20.0), 1, np.float32), ((180, 63, 20.0), 8, np.float32),
+            ((24, 12, 150.0), 2, np.float64)):
+        _, cg, _ = rt.init_annulus_circulant(ntheta, nr, spacing=spacing)
+        ts = ppc.pack_tiled_stencil(cg, dtype)
+        nt = ts.ntheta
+        ntp = -(-nt // 8) * 8
+        tb = ppc.device_pallas_tables(ts, "cuda")
+        name = f"{ntheta}x{nr}" + ("" if dtype == np.float32 else " f64")
         x = _lane_field(rng, ts, S)
         args = (tb.offs, tb.u_of, tb.idx, tb.w, ts.T, nt, S, ntp)
         out_k = ppc.relax(x, *args)
@@ -1517,17 +1573,19 @@ def phase_lane_gather_kernels(rec: dict):
         torch.cuda.synchronize()
         err = _max_err(out_k, out_r)
         if not torch.equal(out_k, out_r):
-            raise AssertionError(f"relax kernel != plain version at 180x63 "
+            raise AssertionError(f"relax kernel != plain version at {name} "
                                  f"S={S}: max abs err {err}")
-        ms = _cuda_ms(lambda: ppc.relax(x, *args), 20)
+        ms = _cuda_ms(lambda: ppc.relax(x, *args, ), 50)
         plain = _cuda_ms(lambda: ppc.relax_reference(x, *args), 2)
-        nbytes, ops = _relax_work(ts, S, 4)
+        nbytes, ops = _relax_work(ts, S, np.dtype(dtype).itemsize)
         bound, by = _bound_ms(nbytes, ops)
         dev = _kernel_split_ms(lambda: ppc.relax(x, *args), 5)
+        chunks = ppc._kernel_chunks(*args[:5])[0].shape[0]
         relax_rows.append(dict(
-            S=S, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-            bound_by=by, nbytes=nbytes, ops=ops,
-            device_ms=sum(v for k, v in dev.items() if "relax" in k)))
+            grid=name, S=S, T=ts.T, K=ts.idx.shape[0],
+            chunks=int(chunks), max_abs_err=err, ms=ms,
+            plain_ms=plain, bound_ms=bound, bound_by=by, nbytes=nbytes,
+            ops=ops, device_ms=dev))
 
     fused_rows, cuts = [], []
     eight = tuple(np.linspace(0.0, 360.0, 8, endpoint=False))
@@ -1594,13 +1652,17 @@ def phase_lane_gather_kernels(rec: dict):
     rec["fused"] = {k: fused_rows[3][k] for k in keys}
     rec["fused"]["max_abs_err"] = max(r["max_abs_err"] for r in fused_rows)
     rec["fused_iters"] = fused_rows[3]["iters"]
-    print("phase 3d kernels: relax bit-equal to relax_reference at 180x63 "
-          f"(T={ts.T}, K_tot={ts.idx.shape[0]}, finite pad rows in): "
-          + "; ".join(f"S={r['S']}: kernel {r['ms']:.4f} ms (device "
-                      f"{r['device_ms']:.4f} ms, torch.profiler), plain "
-                      f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
-                      f"({r['bound_by']}, {r['nbytes'] / 1e6:.2f} MB, "
-                      f"{r['ops'] / 1e6:.1f} M ops)" for r in relax_rows)
+    print("phase 3d kernels: relax bit-equal to relax_reference (finite pad "
+          "rows in): "
+          + "; ".join(f"{r['grid']} S={r['S']} (T={r['T']}, K_tot={r['K']}, "
+                      f"{r['chunks']} chunks): kernel {r['ms']:.4f} ms (device "
+                      "ms by kernel, torch.profiler: "
+                      + ", ".join(f"{k} {v:.4f}"
+                                  for k, v in r['device_ms'].items())
+                      + f"), plain {r['plain_ms']:.2f} ms, bound "
+                      f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
+                      f"{r['nbytes'] / 1e6:.2f} MB, {r['ops'] / 1e6:.1f} M "
+                      f"ops)" for r in relax_rows)
           + ". fused bit-equal to fused_reference, same iterations: "
           + "; ".join(f"{r['grid']} S={r['S']} T={r['T']}: {r['iters']} "
                       f"iterations, {r['chunks']} chunks, kernel "

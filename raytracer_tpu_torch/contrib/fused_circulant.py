@@ -17,7 +17,9 @@ centre one value per source.  Each iteration of the loop
 
 `fused` runs the loop: on a CUDA tensor as one cooperative launch of the
 hand-written kernel `csrc/fused.cu`, which reads the stencil as chunk
-tables (`relax_chunks`); on a CPU tensor as its plain twin
+tables (`pallas_circulant.relax_chunks`, the relaxation of
+`csrc/lane_gather.cuh` that `relax` shares); on a CPU tensor as its
+plain twin
 `fused_reference`, torch ops in the Pallas kernel's order.  The scans
 only relax real graph edges, so truncating them moves the iteration
 count, never the fixpoint.
@@ -33,9 +35,13 @@ import torch
 from .. import kernels
 from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
 from ..ops.circulant import CirculantGraph, _DC_RANGE, resolve_device
-from .pallas_circulant import (LANES, ROW_PAD, TiledStencil, _gather_min,
+# the chunk tables and their constants live beside `relax`, which reads
+# them too; CHUNK, SLAB, WARPS and ROW_BLOCK stay importable from here
+from .pallas_circulant import (CHUNK, LANES, ROW_BLOCK, ROW_PAD,  # noqa: F401
+                               SLAB, WARPS, TiledStencil, _gather_min,
                                _round_up, check_tiled_stencil, extract,
-                               initial_state, pack_tiled_stencil)
+                               initial_state, pack_tiled_stencil,
+                               relax_chunks)
 
 RING_STEPS = 8    # theta shifts 1..128 columns per iteration
 CHAIN_STEPS = 7   # slot shifts 1..64 (within the adjacent lane tile)
@@ -64,77 +70,6 @@ def _chain_jump_tables(chain_w: np.ndarray,
         shifted[:-s] = prev_u[s:]
         p_up[k] = shifted + prev_u
     return p_dn, p_up
-
-
-# csrc/fused.cu's relaxation (kChunk, kSlab, kWarps, kRowBlock there): a
-# chunk holds at most CHUNK stencil rows of one SLAB-lane slab; a block
-# of WARPS warps takes an item of ROW_BLOCK theta rows
-CHUNK = 32
-SLAB = 32
-WARPS = 8
-ROW_BLOCK = 64
-
-
-class RelaxChunks(NamedTuple):
-    """The relaxation's stencil rows in chunks (NumPy, from
-    `relax_chunks`).  Chunk j holds n_j <= CHUNK rows k of one tile t,
-    one 32-lane slab g and one source tile: the rows whose weight is
-    finite for some lane of the slab, its z_j rows of dc = 0 first (the
-    only ones a pad row takes); a (t, g, source tile)'s rows are cut
-    into chunks of sizes that differ by at most one, and the chunks go
-    by source tile, longest first.  Rows past n_j hold +inf weights.
-
-    info : (n_chunks, 2) int32, (t * 4 + g | source tile << 16,
-           n_j | z_j << 16)
-    row  : (n_chunks, CHUNK) int32, source tile | (dc + 2) << 16
-    idx  : (n_chunks, CHUNK, SLAB) int32 source lane
-    w    : (n_chunks, CHUNK, SLAB) weight
-    """
-
-    info: np.ndarray
-    row: np.ndarray
-    idx: np.ndarray
-    w: np.ndarray
-
-
-def relax_chunks(ts: TiledStencil) -> RelaxChunks:
-    """Chunk tables of the packed stencil `ts` for csrc/fused.cu."""
-    T = ts.T
-    slabs = LANES // SLAB
-    if T * slabs > 0xFFFF:  # info packs t * slabs + g in 16 bits
-        raise ValueError(f"relax_chunks takes at most {0xFFFF // slabs} "
-                         f"tiles, not {T}")
-    finite = np.isfinite(ts.w).reshape(-1, slabs, SLAB).any(axis=2)
-    src_tile = ts.u_of % T
-    info, rows = [], []
-    for t in range(T):
-        for g in range(slabs):
-            ks = ts.offs[t] + np.flatnonzero(
-                finite[ts.offs[t]:ts.offs[t + 1], g])
-            for st in np.unique(src_tile[ks]):
-                kst = ks[src_tile[ks] == st]
-                for part in np.array_split(kst, -(-len(kst) // CHUNK)):
-                    dc0 = ts.u_of[part] // T == _DC_RANGE
-                    part = np.concatenate([part[dc0], part[~dc0]])
-                    info.append((t * slabs + g | int(st) << 16,
-                                 len(part) | int(dc0.sum()) << 16))
-                    rows.append((g, part))
-    # by source tile, so that a kernel block's run of items mostly reads
-    # one source window; longest first within it
-    order = sorted(range(len(info)),
-                   key=lambda j: (info[j][0] >> 16, -(info[j][1] & 0xFFFF)))
-    info = [info[j] for j in order]
-    rows = [rows[j] for j in order]
-    n = len(info)
-    row = np.zeros((n, CHUNK), np.int32)
-    idx = np.zeros((n, CHUNK, SLAB), np.int32)
-    w = np.full((n, CHUNK, SLAB), np.inf, dtype=ts.w.dtype)
-    for j, (g, ks) in enumerate(rows):
-        u = ts.u_of[ks]
-        row[j, :len(ks)] = (u % T) | ((u // T) << 16)
-        idx[j, :len(ks)] = ts.idx[ks, g * SLAB:(g + 1) * SLAB]
-        w[j, :len(ks)] = ts.w[ks, g * SLAB:(g + 1) * SLAB]
-    return RelaxChunks(np.asarray(info, np.int32).reshape(n, 2), row, idx, w)
 
 
 def relax_chunks_reference(x: torch.Tensor, tbl: "FusedTables",

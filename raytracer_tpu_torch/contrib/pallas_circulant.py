@@ -9,7 +9,8 @@ padded to a multiple of 8) x slot lanes.  One relaxation sweep is
 
 with dc_k = u_k // T - 2 and pad rows (c >= nt) at +inf.  `relax` runs
 one sweep: on a CUDA tensor as the hand-written kernel `csrc/relax.cu`,
-which rolls theta in its index arithmetic; on a CPU tensor as its plain
+which reads the stencil as chunk tables (`relax_chunks`) and rolls theta
+while it stages each item's source window; on a CPU tensor as its plain
 twin `relax_reference`, which builds the TPU kernel's 5 theta-rolled
 copies and runs its min-gather loop.  Around it, as plain torch ops in
 the JAX package's order of floating-point operations: the ring scan (an
@@ -158,6 +159,82 @@ def pack_tiled_stencil(cg: CirculantGraph, dtype=np.float32) -> TiledStencil:
     )
 
 
+# the chunk relaxation of csrc/lane_gather.cuh, which csrc/relax.cu and
+# csrc/fused.cu share (kChunk, kSlab, kWarps, kRowBlock there): a chunk
+# holds at most CHUNK stencil rows of one SLAB-lane slab; a block of WARPS
+# warps takes an item of ROW_BLOCK theta rows
+CHUNK = 32
+SLAB = 32
+WARPS = 8
+ROW_BLOCK = 64
+
+
+class RelaxChunks(NamedTuple):
+    """The relaxation's stencil rows in chunks (NumPy, from
+    `relax_chunks`).  Chunk j holds n_j <= CHUNK rows k of one tile t,
+    one 32-lane slab g and one source tile: the rows whose weight is
+    finite for some lane of the slab, its z_j rows of dc = 0 first (the
+    only ones a pad row takes); a (t, g, source tile)'s rows are cut
+    into chunks of sizes that differ by at most one, and the chunks go
+    by source tile, longest first.  Rows past n_j hold +inf weights.
+
+    info : (n_chunks, 2) int32, (t * 4 + g | source tile << 16,
+           n_j | z_j << 16)
+    row  : (n_chunks, CHUNK) int32, source tile | (dc + 2) << 16
+    idx  : (n_chunks, CHUNK, SLAB) int32 source lane
+    w    : (n_chunks, CHUNK, SLAB) weight
+    """
+
+    info: np.ndarray
+    row: np.ndarray
+    idx: np.ndarray
+    w: np.ndarray
+
+
+def relax_chunks(ts: TiledStencil) -> RelaxChunks:
+    """Chunk tables of the packed stencil `ts` for csrc/relax.cu and
+    csrc/fused.cu."""
+    return _pack_chunks(ts.T, ts.offs, ts.u_of, ts.idx, ts.w)
+
+
+def _pack_chunks(T, offs, u_of, idx, w) -> RelaxChunks:
+    slabs = LANES // SLAB
+    if T * slabs > 0xFFFF:  # info packs t * slabs + g in 16 bits
+        raise ValueError(f"relax_chunks takes at most {0xFFFF // slabs} "
+                         f"tiles, not {T}")
+    finite = np.isfinite(w).reshape(-1, slabs, SLAB).any(axis=2)
+    src_tile = u_of % T
+    info, rows = [], []
+    for t in range(T):
+        for g in range(slabs):
+            ks = offs[t] + np.flatnonzero(finite[offs[t]:offs[t + 1], g])
+            for st in np.unique(src_tile[ks]):
+                kst = ks[src_tile[ks] == st]
+                for part in np.array_split(kst, -(-len(kst) // CHUNK)):
+                    dc0 = u_of[part] // T == _DC_RANGE
+                    part = np.concatenate([part[dc0], part[~dc0]])
+                    info.append((t * slabs + g | int(st) << 16,
+                                 len(part) | int(dc0.sum()) << 16))
+                    rows.append((g, part))
+    # by source tile, so that a kernel block's run of items mostly reads
+    # one source window; longest first within it
+    order = sorted(range(len(info)),
+                   key=lambda j: (info[j][0] >> 16, -(info[j][1] & 0xFFFF)))
+    info = [info[j] for j in order]
+    rows = [rows[j] for j in order]
+    n = len(info)
+    ck_row = np.zeros((n, CHUNK), np.int32)
+    ck_idx = np.zeros((n, CHUNK, SLAB), np.int32)
+    ck_w = np.full((n, CHUNK, SLAB), np.inf, dtype=w.dtype)
+    for j, (g, ks) in enumerate(rows):
+        u = u_of[ks]
+        ck_row[j, :len(ks)] = (u % T) | ((u // T) << 16)
+        ck_idx[j, :len(ks)] = idx[ks, g * SLAB:(g + 1) * SLAB]
+        ck_w[j, :len(ks)] = w[ks, g * SLAB:(g + 1) * SLAB]
+    return RelaxChunks(np.asarray(info, np.int32).reshape(n, 2), ck_row,
+                       ck_idx, ck_w)
+
+
 # ----------------------------------------------------------------------
 # one relaxation sweep: CUDA kernel wrapper + plain twin
 # ----------------------------------------------------------------------
@@ -205,6 +282,51 @@ def relax_reference(dist: torch.Tensor, offs: torch.Tensor,
     return out.reshape(T, S, ntp, LANES)
 
 
+def relax_items_reference(dist: torch.Tensor, chunks, T: int, nt: int,
+                          S: int, ntp: int) -> torch.Tensor:
+    """csrc/relax.cu's work partition in plain torch ops: the same floats
+    as `relax_reference` by another route.  `chunks` = (ck_info, ck_row,
+    ck_idx, ck_w) of `relax_chunks`.  The output starts as the input's
+    real rows and +inf pad rows; then each item (source, block of
+    ROW_BLOCK theta rows, chunk), in the kernel's order, stages its
+    ROW_BLOCK + 4 row window of the source tile with the theta wrap done
+    in the staging (window row j stands for state row (q0 + j - 2) mod nt
+    of the source, q0 the block's first row), reads a real row c's copy
+    dc at window row c - q0 + 2 + dc, and takes the minimum of its rows'
+    candidates into the output."""
+    ck_info, ck_row, ck_idx, ck_w = chunks
+    x4 = dist.view(T, S, ntp, LANES)
+    out = dist.clone().view(T, S, ntp, LANES)
+    out[:, :, nt:] = float("inf")
+    nth = ntp + 2 * _DC_RANGE
+    h = torch.arange(nth, device=dist.device)
+    h_row = torch.where(h < 2, nt - 2 + h, torch.where(
+        h < nt + 2, h - 2, torch.where(h < nt + 4, h - nt - 2, h - 4)))
+    nrb = -(-ntp // ROW_BLOCK)
+    info = ck_info.tolist()
+    n_chunks = len(info)
+    for item in range(n_chunks * S * nrb):
+        rest, ch = divmod(item, n_chunks)
+        s, rb = divmod(rest, nrb)
+        tg, nz = info[ch]
+        t, g = divmod(tg & 0xFFFF, LANES // SLAB)
+        n = nz & 0xFFFF
+        q0 = rb * ROW_BLOCK
+        c = torch.arange(q0, min(q0 + ROW_BLOCK, nt), device=dist.device)
+        if n == 0 or len(c) == 0:
+            continue
+        win = x4[tg >> 16, s][h_row[q0:q0 + ROW_BLOCK + 4]]   # staged window
+        dc = (ck_row[ch, :n].long() >> 16) - _DC_RANGE
+        q = (c - q0)[None, :] + _DC_RANGE + dc[:, None]        # (n, rows)
+        idx = ck_idx[ch, :n].long()
+        vals = torch.gather(win[q], 2, idx[:, None, :].expand(-1, len(c), -1))
+        cand = (vals + ck_w[ch, :n][:, None, :]).amin(dim=0)
+        sl = out[t, s, q0:q0 + len(c), g * SLAB:(g + 1) * SLAB]
+        out[t, s, q0:q0 + len(c), g * SLAB:(g + 1) * SLAB] = \
+            torch.minimum(sl, cand)
+    return out
+
+
 def _check_relax_args(dist, offs, u_of, idx, w, T, nt, S, ntp):
     if not (3 <= nt <= ntp and ntp % ROW_PAD == 0):
         raise ValueError(f"need 3 <= nt <= ntp and ntp % {ROW_PAD} == 0, "
@@ -229,9 +351,26 @@ def _relax_lib() -> ctypes.CDLL:
     fn = lib.relax_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
     return lib
+
+
+def _kernel_chunks(offs: torch.Tensor, u_of: torch.Tensor,
+                   idx: torch.Tensor, w: torch.Tensor, T: int):
+    """(ck_info, ck_row, ck_idx, ck_w): `relax_chunks`' tables of the
+    stencil (offs, u_of, idx, w) on w's device, the form the kernel reads.
+    Packed once and kept on `w` (repacked if one of the four tensors is
+    another or was modified in place)."""
+    key = (T,) + tuple((t.data_ptr(), t._version) for t in (offs, u_of, idx, w))
+    cache = getattr(w, "_relax_chunks", None)
+    if cache is None or cache[0] != key:
+        ck = _pack_chunks(T, *(t.detach().cpu().numpy()
+                               for t in (offs, u_of, idx, w)))
+        cache = (key, tuple(torch.as_tensor(a, device=w.device).contiguous()
+                            for a in ck))
+        w._relax_chunks = cache
+    return cache[1]
 
 
 def relax(dist: torch.Tensor, offs: torch.Tensor, u_of: torch.Tensor,
@@ -241,8 +380,9 @@ def relax(dist: torch.Tensor, offs: torch.Tensor, u_of: torch.Tensor,
     returns a new state with pad rows at +inf, the input untouched.
 
     A CUDA tensor goes to the hand-written kernel `csrc/relax.cu`
-    (`relax.launches` counts its launches); a CPU tensor goes to
-    `relax_reference`.  Any other device raises.
+    (`relax.launches` counts its launches), which reads the stencil as
+    chunk tables (packed once per stencil, `_kernel_chunks`); a CPU
+    tensor goes to `relax_reference`.  Any other device raises.
     """
     _check_relax_args(dist, offs, u_of, idx, w, T, nt, S, ntp)
     if dist.device.type == "cpu":
@@ -252,16 +392,15 @@ def relax(dist: torch.Tensor, offs: torch.Tensor, u_of: torch.Tensor,
     if dist.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the relax kernel takes float32 or float64, not "
                         f"{dist.dtype}")
-    if any(t.dtype != torch.int32 for t in (offs, u_of, idx)):
-        raise TypeError("the relax kernel takes int32 offs, u_of and idx")
-    if not all(t.is_contiguous() for t in (dist, offs, u_of, idx, w)):
-        raise ValueError("relax takes contiguous tensors")
+    if not dist.is_contiguous():
+        raise ValueError("relax takes a contiguous state")
+    chunks = _kernel_chunks(offs, u_of, idx, w, T)
     out = torch.empty_like(dist)
     stream = torch.cuda.current_stream(dist.device).cuda_stream
     rc = _relax_lib().relax_launch(
-        dist.data_ptr(), offs.data_ptr(), u_of.data_ptr(), idx.data_ptr(),
-        w.data_ptr(), out.data_ptr(), T, nt, S, ntp,
-        int(dist.dtype == torch.float64), stream)
+        dist.data_ptr(), *(t.data_ptr() for t in chunks), out.data_ptr(), T,
+        nt, S, ntp, chunks[0].shape[0], int(dist.dtype == torch.float64),
+        stream)
     if rc != 0:
         raise RuntimeError(f"relax kernel launch failed: CUDA error {rc}")
     relax.launches += 1

@@ -63,7 +63,8 @@
 //      wrapped theta rows above and below each source's nt real rows, to
 //      `src` ((T, S, ntp + 4, 128)), so the relaxation's theta roll needs
 //      no wrap; the real rows fold state + fan_w into the centre.
-//   C. relaxation.  The host packs each (tile, 32-lane slab, source
+//   C. relaxation (csrc/lane_gather.cuh's relax_run, which csrc/relax.cu
+//      shares).  The host packs each (tile, 32-lane slab, source
 //      tile)'s stencil rows whose slab has a finite weight (59 % of the
 //      rows at 180x63) into chunks of at most 32 rows, balanced in size,
 //      dc = 0 rows first.  An item is (source, block of 64 theta rows,
@@ -100,54 +101,28 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using lane_gather::add_rn;
-using lane_gather::is_inf;
+using lane_gather::kHalo;
 using lane_gather::kLanes;
-using lane_gather::pos_inf;
+using lane_gather::kThreads;
+using lane_gather::window_bytes;
+using lane_gather::chunk_bytes;
+using minplus::add_rn;
+using minplus::atomic_min_nonneg;
+using minplus::is_inf;
+using minplus::min_of;
+using minplus::mul_rn;
+using minplus::pos_inf;
+using minplus::warp_min;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kRingSteps = 8;
 constexpr int kChainSteps = 7;
-// the chunk tables' format and the relaxation's work partition:
-// fused_circulant.SLAB, CHUNK, WARPS and ROW_BLOCK hold the same values
-constexpr int kSlab = 32;           // lanes of a relaxation item (a warp)
-constexpr int kSlabs = kLanes / kSlab;
-constexpr int kChunk = 32;          // most stencil rows in a chunk
-constexpr int kRowsPerThread = 8;   // theta rows of a thread in an item
-constexpr int kRowBlock = kWarps * kRowsPerThread;
-constexpr int kHalo = 2;            // wrapped theta rows each side in src
 constexpr int kMinRingLanes = 4;
 constexpr size_t kRingSmemTarget = 48 * 1024;
 constexpr size_t kSmemBudget = 227 * 1024;
 
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-// the minimum (the values are non-negative or +inf, never -0, so it is
-// the same bits whichever operand comes first); a NaN operand, which
-// only a stale shared-memory row the relaxation discards can make,
-// gives the other one
-__device__ __forceinline__ float min_of(float a, float b) { return fminf(a, b); }
-__device__ __forceinline__ double min_of(double a, double b) { return fmin(a, b); }
-
-// min of non-negative floats (+0 .. +inf): their bit patterns order as
-// unsigned integers
-__device__ __forceinline__ void atomic_min_nonneg(float* a, float v) {
-  atomicMin(reinterpret_cast<unsigned int*>(a), __float_as_uint(v));
-}
-__device__ __forceinline__ void atomic_min_nonneg(double* a, double v) {
-  atomicMin(reinterpret_cast<unsigned long long*>(a),
-            static_cast<unsigned long long>(__double_as_longlong(v)));
-}
-template <typename T>
-__device__ __forceinline__ T warp_min(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min_of(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 template <typename T>
 struct FusedArgs {
+  static constexpr bool kFused = true;  // lane_gather::relax_run's fused form
   T* state;  // (T, SR, 128) in: the initial state, out: the solution
   T* cen;    // (S,) in: initial centre values, out: the solution
   T* old;    // (T, SR, 128) scratch: the snapshot
@@ -166,16 +141,6 @@ struct FusedArgs {
   int t_tiles, nt, ntp, s_count, n_chunks, max_iters, lgs;
 };
 
-// a relaxation item's staging: the source window (kRowBlock + 2 * kHalo
-// rows of the haloed src) and the chunk's indices, rows and weights
-template <typename T>
-__host__ __device__ constexpr int window_bytes() {
-  return (kRowBlock + 2 * kHalo) * kLanes * static_cast<int>(sizeof(T));
-}
-template <typename T>
-__host__ __device__ constexpr int chunk_bytes() {
-  return kChunk * kSlab * 4 + kChunk * 4 + kChunk * kSlab * static_cast<int>(sizeof(T));
-}
 // the shared memory of a block: the ring, chain or window region, then
 // two chunk buffers
 template <typename T>
@@ -315,173 +280,6 @@ __device__ void chain_phase(const FusedArgs<T>& a, unsigned char* smem, int sr) 
   }
 }
 
-// relaxation item -> (chunk, source, row block): the chunk runs fastest,
-// so a block's run of items mostly shares one source window (the host
-// orders the chunks by source tile)
-struct Item {
-  int ch, s, rb;
-};
-__device__ __forceinline__ Item decode_item(int item, int n_chunks, int nrb) {
-  const int rest = item / n_chunks;
-  return {item - rest * n_chunks, rest / nrb, rest % nrb};
-}
-
-// cp.async chunk ch's indices, rows and weights into `buf` (no commit)
-template <typename T>
-__device__ __forceinline__ void stage_chunk(const FusedArgs<T>& a, int ch, unsigned char* buf) {
-  int* si = reinterpret_cast<int*>(buf);
-  int* sr = si + kChunk * kSlab;
-  unsigned char* sw = reinterpret_cast<unsigned char*>(sr + kChunk);
-  const int* gi = a.ck_idx + static_cast<size_t>(ch) * kChunk * kSlab;
-  const int* gr = a.ck_row + static_cast<size_t>(ch) * kChunk;
-  const unsigned char* gw = reinterpret_cast<const unsigned char*>(
-      a.ck_w + static_cast<size_t>(ch) * kChunk * kSlab);
-  for (int i = threadIdx.x; i < kChunk * kSlab / 4; i += blockDim.x)
-    cp_async16(si + 4 * i, gi + 4 * i);
-  if (threadIdx.x < kChunk / 4) cp_async16(sr + 4 * threadIdx.x, gr + 4 * threadIdx.x);
-  constexpr int wv = kChunk * kSlab * static_cast<int>(sizeof(T)) / 16;
-  for (int i = threadIdx.x; i < wv; i += blockDim.x) cp_async16(sw + 16 * i, gw + 16 * i);
-}
-
-// the source window of item `it`: source tile, source, row block
-template <typename T>
-__device__ __forceinline__ int window_key(const FusedArgs<T>& a, Item it, int nrb) {
-  return ((__ldg(a.ck_info + 2 * it.ch) >> 16) * a.s_count + it.s) * nrb + it.rb;
-}
-
-// cp.async item `it`'s source window into `buf` (no commit)
-template <typename T>
-__device__ __forceinline__ void stage_window(const FusedArgs<T>& a, Item it, unsigned char* buf,
-                                             size_t tileh, int nth) {
-  const int st = __ldg(a.ck_info + 2 * it.ch) >> 16;
-  const int q0 = it.rb * kRowBlock;
-  const int rows = min(kRowBlock + 2 * kHalo, nth - q0);
-  const unsigned char* gs = reinterpret_cast<const unsigned char*>(
-      a.src + st * tileh + (static_cast<size_t>(it.s) * nth + q0) * kLanes);
-  const int nw = rows * kLanes * static_cast<int>(sizeof(T)) / 16;
-  for (int i = threadIdx.x; i < nw; i += blockDim.x) cp_async16(buf + 16 * i, gs + 16 * i);
-}
-
-// block b takes items [item_run(items, b), item_run(items, b + 1)): an
-// equal share of the list
-__device__ __forceinline__ int item_run(int items, int b) {
-  return static_cast<int>(static_cast<long long>(items) * b / gridDim.x);
-}
-
-__device__ __forceinline__ int relax_items(int n_chunks, int s_count, int ntp) {
-  return n_chunks * s_count * ((ntp + kRowBlock - 1) / kRowBlock);
-}
-
-// C: relax `src` into the state by chunk items; fold the real rows'
-// partial minima + fan_w into the centre.  The block's first chunk came
-// in at the start of the iteration (prefetch_first_chunk); `region`
-// holds two windows, `chunks` two chunk buffers.
-template <typename T>
-__device__ void relax_phase(const FusedArgs<T>& a, unsigned char* region, unsigned char* chunks,
-                            int sr) {
-  const int nt = a.nt, ntp = a.ntp, nth = a.ntp + 2 * kHalo;
-  const int nrb = (ntp + kRowBlock - 1) / kRowBlock;
-  const int items = relax_items(a.n_chunks, a.s_count, ntp);
-  const size_t tile = static_cast<size_t>(sr) * kLanes;
-  const size_t tileh = static_cast<size_t>(a.s_count) * nth * kLanes;
-  const int ls = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int lo = item_run(items, blockIdx.x);
-  const int hi = item_run(items, blockIdx.x + 1);
-  // two window buffers; a block restages only when the window changes
-  int cur = 0, cur_key = -1, other_key = -1;
-  if (lo < hi) {
-    const Item f = decode_item(lo, a.n_chunks, nrb);
-    cur_key = window_key(a, f, nrb);
-    stage_window(a, f, region, tileh, nth);
-    cp_async_commit();
-  }
-  for (int item = lo, j = 0; item < hi; ++item, ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // this item's window and chunk are in; the last item is done
-    int nxt = cur;
-    if (item + 1 < hi) {
-      const Item nx = decode_item(item + 1, a.n_chunks, nrb);
-      const int nkey = window_key(a, nx, nrb);
-      if (nkey != cur_key) {
-        nxt = cur ^ 1;
-        other_key = nkey;
-        stage_window(a, nx, region + nxt * window_bytes<T>(), tileh, nth);
-      }
-      stage_chunk(a, nx.ch, chunks + ((j + 1) & 1) * chunk_bytes<T>());
-      cp_async_commit();
-    }
-    const T* win = reinterpret_cast<const T*>(region + cur * window_bytes<T>());
-    if (nxt != cur) {
-      const int k = cur_key;
-      cur_key = other_key;
-      other_key = k;
-      cur = nxt;
-    }
-    const int* si = reinterpret_cast<const int*>(chunks + (j & 1) * chunk_bytes<T>());
-    const int* srow = si + kChunk * kSlab;
-    const T* sw = reinterpret_cast<const T*>(srow + kChunk);
-
-    const Item it = decode_item(item, a.n_chunks, nrb);
-    const int s = it.s;
-    const int tg = __ldg(a.ck_info + 2 * it.ch) & 0xffff;
-    const int nz = __ldg(a.ck_info + 2 * it.ch + 1);
-    const int nk = nz & 0xffff;  // rows; the first nz >> 16 have dc = 0
-    const int t = tg / kSlabs;
-    const int lane = (tg % kSlabs) * kSlab + ls;
-    const int q0 = it.rb * kRowBlock;
-    const int c0 = q0 + warp;  // rows c0 + kWarps * i
-    // real rows: row c, copy dc sits at window row c - q0 + kHalo + dc,
-    // so row i is a constant offset from row 0.  Every row is read (the
-    // window holds kRowBlock + 2 * kHalo rows); rows past nt, which may
-    // read stale window rows, are redone below.
-    T acc[kRowsPerThread];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) acc[i] = pos_inf<T>();
-    const T* wrow = win + (warp + kHalo) * kLanes;
-    for (int k = 0; k < nk; ++k) {
-      const T wv = sw[k * kSlab + ls];
-      const T* base = wrow + ((srow[k] >> 16) - kHalo) * kLanes + si[k * kSlab + ls];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        acc[i] = min_of(acc[i], add_rn(base[i * kWarps * kLanes], wv));
-    }
-    // pad rows (nt <= c < ntp) take only the dc = 0 rows, from their own
-    // row, which sits 2 * kHalo down in src
-    bool pad = false;  // the same for the whole warp
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int c = c0 + kWarps * i;
-      if (c >= nt) acc[i] = pos_inf<T>();
-      pad |= c >= nt && c < ntp;
-    }
-    if (pad) {
-      for (int k = 0; k < (nz >> 16); ++k) {
-        const T wv = sw[k * kSlab + ls];
-        const T* base = win + (warp + 2 * kHalo) * kLanes + si[k * kSlab + ls];
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) {
-          const int c = c0 + kWarps * i;
-          if (c >= nt && c < ntp)
-            acc[i] = min_of(acc[i], add_rn(base[i * kWarps * kLanes], wv));
-        }
-      }
-    }
-    const T fw = a.fan_w[t * kLanes + lane];
-    T cmin = pos_inf<T>();
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int c = c0 + kWarps * i;
-      if (c < ntp && !is_inf(acc[i])) {
-        atomic_min_nonneg(a.state + t * tile + (static_cast<size_t>(s) * ntp + c) * kLanes + lane, acc[i]);
-        if (c < nt && !is_inf(fw)) cmin = min_of(cmin, add_rn(acc[i], fw));
-      }
-    }
-    cmin = warp_min(cmin);
-    if (ls == 0 && !is_inf(cmin)) atomic_min_nonneg(a.cen + s, cmin);
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs<T> a) {
   cg::grid_group grid = cg::this_grid();
@@ -490,10 +288,10 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs<T> a) {
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int sr = a.s_count * a.ntp;
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
-  const int nrb = (a.ntp + kRowBlock - 1) / kRowBlock;
-  const int n_items = relax_items(a.n_chunks, a.s_count, a.ntp);
-  const int first = item_run(n_items, blockIdx.x);
-  const bool has_items = first < item_run(n_items, blockIdx.x + 1);
+  const int nrb = (a.ntp + lane_gather::kRowBlock - 1) / lane_gather::kRowBlock;
+  const int n_items = lane_gather::relax_items(a.n_chunks, a.s_count, a.ntp);
+  const int first = lane_gather::item_run(n_items, blockIdx.x);
+  const bool has_items = first < lane_gather::item_run(n_items, blockIdx.x + 1);
   unsigned char* chunks = smem_raw + region_bytes<T>(a.nt, 1 << a.lgs, a.t_tiles);
   T cen0 = 0;  // lead: source 0's centre at the start of the iteration
   int it = 0;
@@ -505,7 +303,8 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs<T> a) {
       cen0 = c;
     }
     if (has_items) {  // the first chunk's tables are constant: ahead of the phases
-      stage_chunk(a, decode_item(first, a.n_chunks, nrb).ch, chunks);
+      lane_gather::stage_chunk<T>(a, lane_gather::decode_item(first, a.n_chunks, nrb).ch,
+                                  chunks);
       cp_async_commit();
     }
     ring_phase(a, sm, sr, it == 0, flag);
@@ -518,7 +317,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs<T> a) {
     chain_phase(a, smem_raw, sr);
     grid.sync();
     FUSED_SPLIT(1);
-    relax_phase(a, smem_raw, chunks, sr);
+    lane_gather::relax_run<T>(a, a.state, smem_raw, chunks, true);
     grid.sync();
     FUSED_SPLIT(2);
     ++it;
@@ -584,7 +383,7 @@ extern "C" int fused_launch(void* state, void* cen, void* old, void* src,
                             void* iters, int t_tiles, int nt, int ntp, int s_count,
                             int n_chunks, int max_iters, int is_double, void* stream) {
   // ck_info packs t * kSlabs + slab and the source tile in 16 bits each
-  if (t_tiles < 1 || t_tiles * kSlabs > 0xffff || s_count < 1 || nt < 3 || nt > ntp ||
+  if (t_tiles < 1 || t_tiles * lane_gather::kSlabs > 0xffff || s_count < 1 || nt < 3 || nt > ntp ||
       ntp % 8 != 0 || n_chunks < 0 || max_iters < 0 ||
       static_cast<long long>(t_tiles) * s_count * (ntp + 2 * kHalo) * kLanes > (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);

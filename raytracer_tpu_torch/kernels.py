@@ -86,6 +86,14 @@ def build(name: str) -> float:
     return time.perf_counter() - t0
 
 
+def require_float32(name: str, dtype) -> None:
+    """Refuse anything but float32 for a kernel that has no float64 build
+    yet (ROADMAP C.10); the plain version on the CPU takes both."""
+    if str(dtype) not in ("torch.float32", "float32"):
+        raise TypeError(f"the {name} kernel takes float32, got {dtype}: its "
+                        f"float64 build is queued (ROADMAP C.10)")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built on first use."""
     lib = _LIBS.get(name)

@@ -306,8 +306,9 @@ def diag_sweep(st: DiagStatic, dist: torch.Tensor,
         return diag_sweep_reference(st, dist, tbl)
     if dist.device.type != "cuda":
         raise ValueError(f"diag_sweep runs on cuda or cpu, not {dist.device}")
-    if dist.dtype != torch.float32 or tbl.taps.dtype != torch.int32:
-        raise TypeError("the diag kernel takes a float32 field and int32 taps")
+    kernels.require_float32("diag", dist.dtype)
+    if tbl.taps.dtype != torch.int32:
+        raise TypeError("the diag kernel takes int32 taps")
     if not all(t.is_contiguous() for t in (dist, tbl.taps, tbl.wT)):
         raise ValueError("diag_sweep takes contiguous tensors")
     D, Mp, NTL, pad, nt = st

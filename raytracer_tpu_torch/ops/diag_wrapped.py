@@ -16,7 +16,8 @@ NTL - nt).  One Jacobi iteration is
 
 and `witer` runs `iters` of them per call: on a CUDA tensor as the
 hand-written kernel `csrc/witer.cu` (one launch function that enqueues
-one kernel per phase), on a CPU tensor as its plain twin
+three kernels an iteration; the band reads per-row tap lists,
+`wrapped_tap_lists`), on a CPU tensor as its plain twin
 `witer_reference`, which follows the Pallas body op for op.  Theta
 shifts that cross a block's lane edge (the |dc| "defect" lanes) read
 +inf and are recovered by the duplicate merge, so the fixpoint is exact.
@@ -338,18 +339,21 @@ class WStatic(NamedTuple):
 
 
 class WTables(NamedTuple):
-    """The kernel's tables as tensors on one device.  `offs` is the TPU
-    kernel's form of the diagonals (read by the twin), `taps` the CUDA
-    kernel's (the same diagonals); both read the weights from `wpT`."""
+    """The kernel's tables as tensors on one device.  `offs` and `wpT` are
+    the TPU kernel's form of the diagonals (read by the twin); tap_ptr,
+    tap_dmdc and tap_w the CUDA kernel's (`wrapped_tap_lists`: the same
+    diagonals' finite weights, listed per row)."""
 
-    offs: torch.Tensor    # (Dp,) int32
-    taps: torch.Tensor    # (Dp, 2) int32 (dm, dc) of each diagonal
-    wpT: torch.Tensor     # (Dp8, Mp128)
-    ring_f: torch.Tensor  # (Mp, 1)
-    ring_b: torch.Tensor  # (Mp, 1)
-    cfl: torch.Tensor     # (L, Mp, 1)
-    cbl: torch.Tensor     # (L, Mp, 1)
-    fan_w: torch.Tensor   # (Mp, 1)
+    offs: torch.Tensor      # (Dp,) int32
+    wpT: torch.Tensor       # (Dp8, Mp128)
+    ring_f: torch.Tensor    # (Mp, 1)
+    ring_b: torch.Tensor    # (Mp, 1)
+    cfl: torch.Tensor       # (L, Mp, 1)
+    cbl: torch.Tensor       # (L, Mp, 1)
+    fan_w: torch.Tensor     # (Mp, 1)
+    tap_ptr: torch.Tensor   # (Mp+1,) int32
+    tap_dmdc: torch.Tensor  # (E,) int32
+    tap_w: torch.Tensor     # (E,)
 
 
 def wrapped_taps(ws: WrappedStencil) -> np.ndarray:
@@ -366,6 +370,104 @@ def wrapped_taps(ws: WrappedStencil) -> np.ndarray:
     return np.stack([dm, dc], axis=1).astype(np.int32)
 
 
+# csrc/witer.cu's band tile: BAND_ROWS slot rows x BAND_LANES lanes a block,
+# or 32 lanes where the window and the block's taps do not fit in
+# BLOCK_SMEM bytes (kBandRows, 32 * kBandLpt, kLaneHalo and kSmemBudget
+# there; `witer_launch_plan` makes the kernel's choice)
+BAND_ROWS = 8
+BAND_LANES = 64
+BAND_LANE_HALO = 4  # window lanes each side of a tile
+BLOCK_SMEM = 227 * 1024  # shared memory an H100 block may have
+
+
+class TapLists(NamedTuple):
+    """The band's finite taps listed per row, as csrc/witer.cu reads them
+    (`wrapped_tap_lists`).  Row m's entries are [ptr[m], ptr[m+1]); an
+    entry is a diagonal (dm, dc) whose weight w for row m is finite and
+    whose source row m + dm lies in [0, Mp) (any other tap reads +inf):
+    at most Dp entries a row."""
+
+    ptr: np.ndarray    # (Mp+1,) int32
+    dmdc: np.ndarray   # (E,) int32, dm << 16 | (dc & 0xffff)
+    w: np.ndarray      # (E,) the stencil's dtype
+
+
+def wrapped_tap_lists(ws: WrappedStencil) -> TapLists:
+    """Per-row lists of the grouped diagonals' finite weights (the
+    diagonals' (dm, dc) from `wrapped_taps`), by row, then diagonal."""
+    Mp = ws.Mp
+    taps = wrapped_taps(ws).astype(np.int64)
+    W = ws.wpT[:ws.D, :Mp]
+    m, j = np.nonzero(np.isfinite(W).T)             # row-major: by row
+    dm, dc = taps[j, 0], taps[j, 1]
+    keep = (m + dm >= 0) & (m + dm < Mp)
+    m, j, dm, dc = m[keep], j[keep], dm[keep], dc[keep]
+    if len(dm) and (np.abs(dm).max() > ws.pad2 - SUB
+                    or np.abs(dc).max() > _DC_RANGE):
+        raise ValueError("a tap reaches past the stencil's row padding or "
+                         "two theta lanes")
+    ptr = np.zeros(Mp + 1, np.int64)
+    np.cumsum(np.bincount(m, minlength=Mp), out=ptr[1:])
+    dmdc = (dm << 16) | (dc & 0xFFFF)
+    return TapLists(ptr.astype(np.int32), dmdc.astype(np.int32), W[j, m])
+
+
+def band_block_taps(tap_ptr: np.ndarray) -> int:
+    """The most taps a band block reads: the entries of BAND_ROWS
+    consecutive rows from a multiple of BAND_ROWS."""
+    ptr = np.asarray(tap_ptr, np.int64)
+    m0 = np.arange(0, len(ptr) - 1, BAND_ROWS)
+    ends = np.minimum(m0 + BAND_ROWS, len(ptr) - 1)
+    return int((ptr[ends] - ptr[m0]).max(initial=0))
+
+
+def witer_launch_plan(st: WStatic, itemsize: int, block_taps: int):
+    """(band lanes a block, taps staged in shared memory): the band tile
+    csrc/witer.cu's launch function takes for this geometry and dtype -
+    BAND_LANES lanes with the block's taps beside the window, else 32,
+    else the taps read from global memory.  Raises ValueError where one
+    of the launch's kernels would need more than an H100 block may have
+    (BLOCK_SMEM bytes of shared memory, 32 warps); the kernel refuses
+    such a launch too."""
+    rho_starts, Mp, NTL, pad2, nt = st
+    halo = pad2 - SUB
+    tap = 8 if itemsize == 4 else 16            # sizeof(Tap<T>) there
+    if NTL > 32 * 32 * (4 if NTL % 256 else 8):
+        raise ValueError(f"the witer kernel's ring takes rows of at most "
+                         f"8192 lanes (4096 if not a multiple of 256), "
+                         f"not {NTL}")
+    chain_nw = -(-Mp // 1024)
+    chain = (2 * chain_nw * 32 + _round_up(Mp * (4 if chain_nw == 1 else 1),
+                                           2)) * itemsize
+    if chain_nw > 32 or chain > BLOCK_SMEM:
+        raise ValueError(f"the witer kernel's chain holds a column of "
+                         f"{Mp} slots in one block: more than 32 warps or "
+                         f"{BLOCK_SMEM // 1024} KB of shared memory")
+
+    def smem(lanes, taps):
+        window = (BAND_ROWS + 2 * halo) * (lanes + 2 * BAND_LANE_HALO)
+        return _round_up(window * itemsize, 16) + taps * tap
+
+    for staged in (True, False):
+        for lanes in (BAND_LANES, 32):
+            if smem(lanes, block_taps if staged else 0) <= BLOCK_SMEM:
+                return lanes, staged
+    raise ValueError(f"the witer kernel's band window of {BAND_ROWS} + 2 x "
+                     f"{halo} rows x 40 lanes needs {smem(32, 0)} bytes of "
+                     f"shared memory, more than the {BLOCK_SMEM // 1024} KB "
+                     f"an H100 block may have")
+
+
+def _block_taps(tap_ptr: torch.Tensor) -> int:
+    """`band_block_taps` of the tensor, computed once and kept on it
+    (again if it is modified in place)."""
+    cache = getattr(tap_ptr, "_witer_block_taps", None)
+    if cache is None or cache[0] != tap_ptr._version:
+        cache = (tap_ptr._version, band_block_taps(tap_ptr.cpu().numpy()))
+        tap_ptr._witer_block_taps = cache
+    return cache[1]
+
+
 def _ring_plan(NTL: int):
     """(ring statics, n_ring): the TPU kernel's ring-scan span schedule."""
     return _pow2_below(RING_REPEAT), -(-(NTL - RING_REPEAT) // RING_REPEAT)
@@ -378,28 +480,16 @@ def _chain_plan(Mp: int):
     return chain_statics, chain_rep, max(0, -(-(Mp - chain_rep) // chain_rep))
 
 
-def witer_reference(st: WStatic, dist: torch.Tensor, cen: torch.Tensor,
-                    tbl: WTables, iters: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of `witer`: `iters` full iterations of the
-    (Mp, S*NTL) field, op for op the TPU kernel's body
-    (`_make_iter_kernel` of the JAX package, weights read as rows of
-    wpT).  cen (S,) holds each source block's centre distance.  Returns
-    new (dist, cen)."""
+def _witer_scans(st: WStatic, tbl: WTables, NTLT: int, dtype, dev):
+    """The ring and chain scans of one iteration of the (Mp, NTLT) field,
+    op for op the TPU kernel's (shared by both plain versions)."""
     rho_starts, Mp, NTL, pad2, nt = st
-    NTLT = dist.shape[1]
-    S = NTLT // NTL
-    rows5 = Mp + 2 * pad2
-    dup = NTL - nt
     ring_statics, n_ring = _ring_plan(NTL)
     chain_statics, chain_rep, n_chain = _chain_plan(Mp)
-    dev, dtype = dist.device, dist.dtype
     lane_full = (torch.arange(NTLT, device=dev) % NTL)[None, :]
     inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
-    rf, rb, fan = tbl.ring_f, tbl.ring_b, tbl.fan_w
+    rf, rb = tbl.ring_f, tbl.ring_b
     cfl, cbl = tbl.cfl, tbl.cbl
-    offs = tbl.offs.tolist()
-    wcols = tbl.wpT[:, :Mp, None]   # row j as an (Mp, 1) column
 
     def ring_scan(v):
         # forward: lane l improves from lane l-s (theta - s) at cost s*c
@@ -435,6 +525,30 @@ def witer_reference(st: WStatic, dist: torch.Tensor, cen: torch.Tensor,
             v = torch.minimum(v, torch.roll(v, Mp - chain_rep, dims=0)
                               + cbl[L])
         return v
+
+    return ring_scan, chain_scan
+
+
+def witer_reference(st: WStatic, dist: torch.Tensor, cen: torch.Tensor,
+                    tbl: WTables, iters: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of `witer`: `iters` full iterations of the
+    (Mp, S*NTL) field, op for op the TPU kernel's body
+    (`_make_iter_kernel` of the JAX package, weights read as rows of
+    wpT).  cen (S,) holds each source block's centre distance.  Returns
+    new (dist, cen)."""
+    rho_starts, Mp, NTL, pad2, nt = st
+    NTLT = dist.shape[1]
+    S = NTLT // NTL
+    rows5 = Mp + 2 * pad2
+    dup = NTL - nt
+    dev, dtype = dist.device, dist.dtype
+    ring_scan, chain_scan = _witer_scans(st, tbl, NTLT, dtype, dev)
+    lane_full = (torch.arange(NTLT, device=dev) % NTL)[None, :]
+    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    fan = tbl.fan_w
+    offs = tbl.offs.tolist()
+    wcols = tbl.wpT[:, :Mp, None]   # row j as an (Mp, 1) column
 
     def band_sweep(cur):
         # 5 theta-rolled dc pages with +inf row padding; defect lanes
@@ -483,6 +597,93 @@ def witer_reference(st: WStatic, dist: torch.Tensor, cen: torch.Tensor,
     return v, cen
 
 
+def witer_tiles_reference(st: WStatic, dist: torch.Tensor, cen: torch.Tensor,
+                          tbl: WTables, iters: int,
+                          lanes: int = BAND_LANES
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """csrc/witer.cu's band in plain torch ops: the same floats as
+    `witer_reference` by another route.  Each tile of BAND_ROWS rows x
+    `lanes` lanes of a source block (BAND_LANES or 32, the kernel's two
+    tiles) reads a flat window of BAND_ROWS +
+    2 * halo rows (halo = pad2 - 8; rows outside [0, Mp) +inf) by
+    lanes + 8 (the BAND_LANE_HALO lanes past either edge of the
+    block +inf when dup > 0, the block's wrapped lanes when dup == 0),
+    and each row's tap list (`tap_ptr`, `tap_dmdc`, `tap_w`) at the
+    offset dm * width + dc from the row's own point.  The centre takes
+    its minimum from the band's output before the duplicate merge, which
+    runs with the fan at the start of the next pass, as in the kernel.
+    The ring and chain scans are `witer_reference`'s."""
+    rho_starts, Mp, NTL, pad2, nt = st
+    NTLT = dist.shape[1]
+    S = NTLT // NTL
+    dup = NTL - nt
+    R, H, LH = BAND_ROWS, pad2 - SUB, BAND_LANE_HALO
+    WW = lanes + 2 * LH
+    dev, dtype = dist.device, dist.dtype
+    ring_scan, chain_scan = _witer_scans(st, tbl, NTLT, dtype, dev)
+    inf = float("inf")
+    fan = tbl.fan_w[:, 0]
+    n_rt = -(-Mp // R)
+    # every tap's row, window-row offset and tap offset
+    cnt = (tbl.tap_ptr[1:] - tbl.tap_ptr[:-1]).long()
+    m_e = torch.repeat_interleave(torch.arange(Mp, device=dev), cnt)
+    code = tbl.tap_dmdc.long()
+    dm_e = code >> 16
+    dc_e = ((code & 0xFFFF) ^ 0x8000) - 0x8000
+    off_e = dm_e * WW + dc_e
+    centre_e = (H + m_e % R) * WW + LH                    # the row's lane 0
+    tile_e = m_e // R
+    rows_w = (torch.arange(n_rt, device=dev)[:, None] * R - H
+              + torch.arange(R + 2 * H, device=dev)[None, :])  # (n_rt, R+2H)
+    row_ok = (rows_w >= 0) & (rows_w < Mp)
+    lane_j = torch.arange(lanes, device=dev)
+
+    def band(x):
+        """(Mp, NTLT) band output, unmerged."""
+        y = torch.empty_like(x)
+        for b in range(S):
+            xb = x[:, b * NTL:(b + 1) * NTL]
+            for l0 in range(0, NTL, lanes):
+                lp = torch.arange(l0 - LH, l0 + lanes + LH, device=dev)
+                lane_ok = (lp >= 0) & (lp < NTL)
+                if dup == 0:
+                    lp, lane_ok = lp % NTL, torch.ones_like(lane_ok)
+                src = xb[rows_w.clamp(0, Mp - 1)][:, :, lp.clamp(0, NTL - 1)]
+                ok = row_ok[:, :, None] & lane_ok[None, None, :]
+                win = torch.where(ok, src, inf).reshape(-1)     # flat tiles
+                at = tile_e * ((R + 2 * H) * WW) + centre_e + off_e
+                cand = win[at[:, None] + lane_j[None, :]] + tbl.tap_w[:, None]
+                acc = xb[:, l0:l0 + lanes].clone()
+                acc.scatter_reduce_(0, m_e[:, None].expand(-1, lanes), cand,
+                                    "amin")
+                y[:, b * NTL + l0:b * NTL + l0 + lanes] = acc
+        return y
+
+    def merge_and_fan(y, c):
+        y3 = y.view(Mp, S, NTL)
+        if dup:
+            fwd = torch.full_like(y3, inf)
+            bwd = torch.full_like(y3, inf)
+            fwd[:, :, :dup] = y3[:, :, nt:]
+            bwd[:, :, nt:] = y3[:, :, :dup]
+            y3 = torch.minimum(y3, torch.minimum(fwd, bwd))
+        return torch.minimum(y3, c[None, :, None] + fan[:, None, None]
+                             ).reshape(Mp, NTLT)
+
+    v = dist
+    for it in range(iters):
+        if it:
+            v = merge_and_fan(v, cen)
+        y = band(chain_scan(ring_scan(v)))
+        # each row with a finite fan weight folds min(y + fan) into cen
+        fin = torch.isfinite(fan)
+        part = (y.view(Mp, S, NTL)[fin] + fan[fin][:, None, None])
+        cen = torch.minimum(cen, part.amin(dim=(0, 2)) if part.numel()
+                            else cen)
+        v = y
+    return (merge_and_fan(v, cen) if iters else v.clone()), cen.clone()
+
+
 def _check_witer_args(st: WStatic, dist: torch.Tensor, cen: torch.Tensor,
                       tbl: WTables):
     rho_starts, Mp, NTL, pad2, nt = st
@@ -494,10 +695,12 @@ def _check_witer_args(st: WStatic, dist: torch.Tensor, cen: torch.Tensor,
         raise ValueError(f"cen must be ({S},), got {tuple(cen.shape)}")
     Dp = rho_starts[-1]
     L = len(_chain_spans(Mp))
-    want = {"offs": (Dp,), "taps": (Dp, 2),
+    E = tbl.tap_w.shape[0]
+    want = {"offs": (Dp,),
             "wpT": (_round_up(Dp, SUB), _round_up(Mp, LANES)),
             "ring_f": (Mp, 1), "ring_b": (Mp, 1), "cfl": (L, Mp, 1),
-            "cbl": (L, Mp, 1), "fan_w": (Mp, 1)}
+            "cbl": (L, Mp, 1), "fan_w": (Mp, 1), "tap_ptr": (Mp + 1,),
+            "tap_dmdc": (E,), "tap_w": (E,)}
     for name, shape in want.items():
         t = getattr(tbl, name)
         if tuple(t.shape) != shape:
@@ -505,7 +708,7 @@ def _check_witer_args(st: WStatic, dist: torch.Tensor, cen: torch.Tensor,
         if t.device != dist.device:
             raise ValueError(f"witer tensors on {t.device} and {dist.device}")
     for t in (cen, tbl.wpT, tbl.ring_f, tbl.ring_b, tbl.cfl, tbl.cbl,
-              tbl.fan_w):
+              tbl.fan_w, tbl.tap_w):
         if t.dtype != dist.dtype:
             raise TypeError(f"witer tensors of {t.dtype} and {dist.dtype}")
 
@@ -515,7 +718,7 @@ def _witer_lib() -> ctypes.CDLL:
     fn = lib.witer_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 12
                        + [ctypes.c_void_p])
     return lib
 
@@ -525,24 +728,29 @@ def witer(st: WStatic, dist: torch.Tensor, cen: torch.Tensor,
     """`iters` full iterations of the (Mp, S*NTL) slot-major field;
     returns new (dist, cen), the inputs untouched.
 
-    A CUDA tensor goes to the hand-written kernel `csrc/witer.cu`: one
-    launch function that enqueues one kernel per phase on the current
-    stream (`witer.launches` counts its calls).  A CPU tensor goes to
-    `witer_reference`.  Any other device raises.
+    A CUDA tensor goes to the hand-written kernel `csrc/witer.cu`
+    (float32 or float64): one launch function that enqueues three
+    kernels an iteration and one more on the current stream
+    (`witer.launches` counts its calls); a grid whose kernels would not
+    fit an H100 block raises ValueError (`witer_launch_plan`).  A CPU
+    tensor goes to `witer_reference`.  Any other device raises.
     """
     _check_witer_args(st, dist, cen, tbl)
     if dist.device.type == "cpu":
         return witer_reference(st, dist, cen, tbl, iters)
     if dist.device.type != "cuda":
         raise ValueError(f"witer runs on cuda or cpu, not {dist.device}")
-    if dist.dtype != torch.float32 or tbl.taps.dtype != torch.int32:
-        raise TypeError("the witer kernel takes float32 fields and int32 "
-                        "taps")
-    tensors = (dist, cen, tbl.taps, tbl.wpT, tbl.ring_f, tbl.ring_b,
-               tbl.cfl, tbl.cbl, tbl.fan_w)
+    if dist.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the witer kernel takes float32 or float64, not "
+                        f"{dist.dtype}")
+    if tbl.tap_ptr.dtype != torch.int32 or tbl.tap_dmdc.dtype != torch.int32:
+        raise TypeError("the witer kernel takes int32 tap lists")
+    tensors = (dist, cen) + tuple(tbl)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("witer takes contiguous tensors")
     rho_starts, Mp, NTL, pad2, nt = st
+    block_taps = _block_taps(tbl.tap_ptr)
+    witer_launch_plan(st, dist.element_size(), block_taps)
     S = dist.shape[1] // NTL
     _, n_ring = _ring_plan(NTL)
     chain_statics, chain_rep, n_chain = _chain_plan(Mp)
@@ -551,12 +759,13 @@ def witer(st: WStatic, dist: torch.Tensor, cen: torch.Tensor,
     cen_out = torch.empty_like(cen)
     stream = torch.cuda.current_stream(dist.device).cuda_stream
     rc = _witer_lib().witer_launch(
-        dist.data_ptr(), cen.data_ptr(), tbl.taps.data_ptr(),
-        tbl.wpT.data_ptr(), tbl.ring_f.data_ptr(), tbl.ring_b.data_ptr(),
-        tbl.cfl.data_ptr(), tbl.cbl.data_ptr(), tbl.fan_w.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), cen_out.data_ptr(),
-        S, Mp, NTL, nt, rho_starts[-1], tbl.wpT.shape[1], n_ring,
-        len(chain_statics), chain_rep, n_chain, int(iters), stream)
+        dist.data_ptr(), cen.data_ptr(), tbl.tap_ptr.data_ptr(),
+        tbl.tap_dmdc.data_ptr(), tbl.tap_w.data_ptr(),
+        tbl.ring_f.data_ptr(), tbl.ring_b.data_ptr(), tbl.cfl.data_ptr(),
+        tbl.cbl.data_ptr(), tbl.fan_w.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), cen_out.data_ptr(), S, Mp, NTL, nt, pad2 - SUB,
+        block_taps, n_ring, len(chain_statics), chain_rep,
+        n_chain, int(iters), int(dist.dtype == torch.float64), stream)
     if rc != 0:
         raise RuntimeError(f"witer kernel launch failed: CUDA error {rc}")
     witer.launches += 1
@@ -611,14 +820,27 @@ def _wextract(dist2d: torch.Tensor, cen: torch.Tensor, it: int, m_idx,
     return torch.cat([vals, itcol], dim=1)
 
 
+def check_chain_wrap(ws: WrappedStencil):
+    """Raise unless every chain window cost that a wrapping roll meets is
+    +inf (cfl[k][m] for m < span k, cbl[k][m] for m >= Mp - span k): the
+    CUDA kernel reads +inf past the slot axis's ends instead of wrapping,
+    which gives the same floats only then."""
+    for k, span in enumerate(_chain_spans(ws.Mp)):
+        if np.isfinite(ws.cfl[k, :span]).any() or \
+                np.isfinite(ws.cbl[k, ws.Mp - span:]).any():
+            raise ValueError(f"chain window costs of span {span} are finite "
+                             f"where the scan wraps")
+
+
 def device_wrapped_tables(ws: WrappedStencil, device) -> WTables:
     """The stencil's tables on `device`, cached in its dcache."""
     key = ("wrapped_device", str(device))
     if key not in ws.dcache:
+        check_chain_wrap(ws)
         ws.dcache[key] = WTables(*(
             torch.tensor(a, device=device)
-            for a in (ws.offs, wrapped_taps(ws), ws.wpT, ws.ring_f,
-                      ws.ring_b, ws.cfl, ws.cbl, ws.fan_w)))
+            for a in (ws.offs, ws.wpT, ws.ring_f, ws.ring_b, ws.cfl, ws.cbl,
+                      ws.fan_w, *wrapped_tap_lists(ws))))
     return ws.dcache[key]
 
 

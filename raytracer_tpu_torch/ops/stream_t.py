@@ -298,8 +298,7 @@ def band(v: torch.Tensor, wrows: torch.Tensor, maxdm: int) -> torch.Tensor:
         return band_reference(_band_stack(v), wrows, maxdm)
     if v.device.type != "cuda":
         raise ValueError(f"band runs on cuda or cpu, not {v.device}")
-    if v.dtype != torch.float32:
-        raise TypeError(f"the band kernel takes float32, got {v.dtype}")
+    kernels.require_float32("band", v.dtype)
     if not (v.is_contiguous() and wrows.is_contiguous()):
         raise ValueError("band takes contiguous tensors")
     S, nt, _ = v.shape

@@ -372,9 +372,8 @@ def _check_rsweep_args(buf: torch.Tensor, wtab: torch.Tensor,
                        rst: RSweepStatic, upward: bool):
     taps = rst.taps_up if upward else rst.taps_dn
     MTK = rst.MT + rst.K8
-    if buf.dtype != torch.float32 or wtab.dtype != torch.float32:
-        raise TypeError(f"rsweep takes float32 tensors, got {buf.dtype} "
-                        f"and {wtab.dtype}")
+    if buf.dtype != wtab.dtype:
+        raise TypeError(f"rsweep tensors of {buf.dtype} and {wtab.dtype}")
     if buf.dim() != 3 or tuple(buf.shape[1:]) != (MTK, rst.NTL):
         raise ValueError(f"buf must be (S, {MTK}, {rst.NTL}), got "
                          f"{tuple(buf.shape)}")
@@ -535,6 +534,7 @@ def plan_rsweep(wtab: np.ndarray, rst: RSweepStatic,
                 upward: bool) -> RSweepPlan:
     """Pack the finite taps of `wtab` ((MT+K8, D) float32, host) for the
     kernel, and choose its route from the shapes."""
+    kernels.require_float32("rsweep", np.asarray(wtab).dtype)
     taps = rst.taps_up if upward else rst.taps_dn
     B = RSWEEP_BLOCK
     if max(abs(dc) for _, dc, _ in taps) > 2:
@@ -545,7 +545,7 @@ def plan_rsweep(wtab: np.ndarray, rst: RSweepStatic,
     starts = rsweep_block_rows(rst, upward)
     nblk = len(starts)
     rows = (starts[:, None] + np.arange(B)[None, :]).ravel()   # visit blocks
-    W = np.asarray(wtab, np.float32)[rows][:, t_iw]            # (N, T)
+    W = np.asarray(wtab)[rows][:, t_iw]                        # (N, T)
     blk = np.repeat(starts, B)
     src = rows[:, None] + t_dm[None, :]
     near = (src >= blk[:, None]) & (src < blk[:, None] + B)
@@ -682,6 +682,7 @@ def rsweep(buf: torch.Tensor, wtab: torch.Tensor, rst: RSweepStatic,
         return rsweep_reference(buf, wtab, rst, upward)
     if buf.device.type != "cuda":
         raise ValueError(f"rsweep runs on cuda or cpu, not {buf.device}")
+    kernels.require_float32("rsweep", buf.dtype)
     if buf.data_ptr() % 16:
         raise ValueError("rsweep takes a 16-byte aligned buffer")
     plan, ent, binfo, near = _kernel_tables(wtab, rst, upward)
@@ -871,7 +872,7 @@ def device_tables(ws: TWStencil, cg: CirculantGraph, dtype, device):
             tables_to_device(tbl, device),
             torch.tensor(wdn, device=device),
             torch.tensor(wup, device=device))
-        if torch.device(device).type == "cuda":
+        if torch.device(device).type == "cuda" and wdn.dtype == np.float32:
             # the kernel's packed taps, once per upload
             _kernel_tables(ws.dcache[key][1], rst, False)
             _kernel_tables(ws.dcache[key][2], rst, True)

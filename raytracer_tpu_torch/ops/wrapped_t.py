@@ -429,8 +429,7 @@ def titer(st: TWStatic, dist: torch.Tensor, cen: torch.Tensor,
         return titer_reference(st, dist, cen, tbl, iters)
     if dist.device.type != "cuda":
         raise ValueError(f"titer runs on cuda or cpu, not {dist.device}")
-    if dist.dtype != torch.float32:
-        raise TypeError(f"the titer kernel takes float32, got {dist.dtype}")
+    kernels.require_float32("titer", dist.dtype)
     tensors = (dist, cen) + tuple(tbl)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("titer takes contiguous tensors")

@@ -1,39 +1,35 @@
 """Time two versions of the port's kernels in turns on one NVIDIA GPU: the
 sources in the package's csrc/ and an earlier copy.
 
-    python3 tools/chip_kernel_ab.py --old DIR [--kernels fused,band]
-        [--reps N] [--breakdown] [--ptxas] [--tiles]
+    python3 tools/chip_kernel_ab.py --old DIR [--kernels witer,relax,fused]
+        [--reps N] [--breakdown] [--ptxas]
 
 DIR holds the earlier sources, unpacked from an earlier commit (e.g.
 `git archive <commit> raytracer_tpu_torch/csrc`) into a directory that
 .gitignore lists.  --kernels picks among
+  witer   the wrapped engine's 4 iterations at 183x63 S=1 and S=2 and
+          256x63 S=2, per launch, and the new kernel alone in float64 at
+          183x63 S=1 (the earlier witer.cu with witer_launch(dist, cen,
+          taps, wpT, ring_f, ring_b, cfl, cbl, fan, out, scratch, cen_out,
+          s, mp, ntl, nt, dp, wstride, n_ring, n_chain_statics, chain_rep,
+          n_chain, iters, stream); with --breakdown both versions' device
+          time by kernel at 183x63 S=1, torch.profiler);
+  relax   one lane-gather sweep at 180x63 S=1 and S=8 and 24x12 S=2
+          float64 (the earlier relax.cu with relax_launch(dist, offs,
+          u_of, idx, w, out, t_tiles, nt, s_count, ntp, is_double,
+          stream));
   fused   the whole-solve kernel at 180x63 S=1, 24x12 S=2 and 180x63
-          S=8, per solve (the earlier fused.cu with the launch interface
-          fused_launch(state, cen, old, src, offs, u_of, idx, w, ring_w,
-          pdn, pup, fan_w, flags, iters, t_tiles, nt, ntp, s_count,
-          max_iters, is_double, stream));
-  band    the stream engine's band sweep at 1080x300 S=1 and S=2 and at
-          its warm level's coarse grid (the earlier band.cu with
-          band_launch(stack, wrows, out, s, nt, ml, maxdm, stream), timed
-          with the 5-page stack its caller built);
-  rsweep  at 180x63 and 1080x300, S=1, both directions, and
-  sweep3d at 128x128x64 (T=8) at S=1 and S=7 (the earlier interfaces
-          rsweep_launch(buf, wtab, taps, n_taps, s, mt, k8, ntl, ntb, d,
-          upward, stream) and sweep3d_launch(in, w4, out, scratch, s, n1,
-          br, nb, l0, t, is_double, stream); with --tiles the new sweep3d
-          at other tile shapes).
+          S=8, per solve (both with the package's launch interface).
 Both versions are built with the package's nvcc flags into a temporary
 directory, run on the same inputs and held bit-equal to the plain
 versions (fused with the same iterations); then each shape is timed
 with CUDA events in the order old, new, new, old, and the script prints
 one JSON object per shape and the card's name and power limit.
-`--breakdown` splits the fused kernel's iteration by phase, for both
-versions at 180x63 S=1 and 24x12 S=2: builds with a pre-included header
-that defines fused.cu's timing hook FUSED_SPLIT (block 0 stamps
-%globaltimer after every grid sync; an earlier source without the hook
-gets it after each grid sync), and a kernel of grid syncs alone at the
-fused kernel's grid for their own cost (timing only); with rsweep, it
-times the new rsweep at 180x63 without its near or far taps.
+With fused, `--breakdown` splits the kernel's iteration by phase, for
+both versions at 180x63 S=1 and 24x12 S=2: builds with a pre-included
+header that defines fused.cu's timing hook FUSED_SPLIT (block 0 stamps
+%globaltimer after every grid sync), and a kernel of grid syncs alone
+at the fused kernel's grid for their own cost (timing only).
 `--ptxas` prints the register and shared-memory use of the new kernels
 (nvcc -Xptxas -v).  Imports torch and the port, never JAX.
 """
@@ -53,11 +49,9 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+import chip_smoke  # noqa: E402
 from raytracer_tpu_torch import kernels  # noqa: E402
 import raytracer_tpu_torch as rt  # noqa: E402
-from raytracer_tpu_torch.ops import sweep3d, sweep_theta  # noqa: E402
-from raytracer_tpu_torch.ops.wrapped_t import pack_twrapped_stencil  # noqa: E402
-from raytracer_tpu_torch.solvers.solve3d import prepare3d  # noqa: E402
 
 
 def _smi() -> str:
@@ -101,188 +95,12 @@ def _turns(old, new, reps):
     return [a, d], [b, c]
 
 
-def _rsweep_field(rng, rst, nt, upward):
-    buf = np.full((1, rst.MT + rst.K8, rst.NTL), np.inf, np.float32)
-    vals = rng.uniform(0.0, 1500.0, (1, rst.MT, nt)).astype(np.float32)
-    vals[rng.random(vals.shape) < 0.3] = np.inf
-    off = rst.K8 if upward else 0
-    buf[:, off: off + rst.MT, :nt] = vals
-    return torch.from_numpy(buf).cuda()
-
-
-def rsweep_ab(lib_old, reps, rows):
-    fn = lib_old.rsweep_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    rng = np.random.default_rng(0)
-    for nth, nr in ((180, 63), (1080, 300)):
-        _, cg, _ = rt.init_annulus_circulant(nth, nr, spacing=20.0)
-        ws = pack_twrapped_stencil(cg, dtype=np.float32, band_closure=0)
-        _, static, wdn, wup, rst = sweep_theta.device_tables(
-            ws, cg, np.float32, "cuda")
-        for up in (False, True):
-            wtab = wup if up else wdn
-            taps = rst.taps_up if up else rst.taps_dn
-            taps_t = torch.tensor(taps, dtype=torch.int32, device="cuda")
-            buf = _rsweep_field(rng, rst, static.nt, up)
-            stream = torch.cuda.current_stream().cuda_stream
-
-            def old(b=buf):
-                rc = fn(b.data_ptr(), wtab.data_ptr(), taps_t.data_ptr(),
-                        len(taps), 1, rst.MT, rst.K8, rst.NTL, rst.NTB,
-                        wtab.shape[1], int(up), stream)
-                assert rc == 0, rc
-
-            def new(b=buf):
-                sweep_theta.rsweep(b, wtab, rst, up)
-
-            want = sweep_theta.rsweep_reference(buf.clone(), wtab, rst, up)
-            for f in (old, new):
-                b = buf.clone()
-                f(b)
-                torch.cuda.synchronize()
-                assert torch.equal(b, want), (nth, nr, up, f.__name__)
-            plan = sweep_theta._kernel_tables(wtab, rst, up)[0]
-            o, n = _turns(old, new, reps)
-            rows.append(dict(kernel="rsweep", grid=f"{nth}x{nr}", S=1,
-                             upward=up, MT=rst.MT, K8=rst.K8, NTL=rst.NTL,
-                             route="shared" if plan.shared else "global",
-                             threads=plan.threads, entries=len(plan.ent),
-                             old_ms=o, new_ms=n,
-                             new_us_per_row=1e3 * min(n) / rst.MT,
-                             bit_equal=True))
-            print(json.dumps(rows[-1]), flush=True)
-
-
-def sweep3d_ab(lib_old, reps, rows, tiles):
-    fn = lib_old.sweep3d_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    g = rt.grid3d((np.deg2rad(60.0), np.deg2rad(60.0), rt.R - 2500.0),
-                  (np.deg2rad(120.0), np.deg2rad(120.0), rt.R),
-                  (128, 128, 64))
-    prof = rt.velocity_profile("ak135")
-    U = rt.LinearInterpolation(prof.r, prof.Vp)(g.r)
-    plan = prepare3d(g, U, rt.SolverConfig(dtype="float32")).plan
-    W4 = torch.from_numpy(plan.W4).cuda()
-    M13 = sweep3d.mirror_weights(W4, plan.n1)
-    rng = np.random.default_rng(7)
-    T = 8
-    args = (W4, plan.n1, plan.BR, plan.NB, plan.L0, plan.H8, T)
-    lib_new = sweep3d._sweep3d_lib()
-    for S in (1, 7):
-        v = rng.uniform(0.0, 1500.0, (S,) + plan.shape)
-        v[rng.random(v.shape) < 0.3] = np.inf
-        f = sweep3d.pack_field(torch.from_numpy(v.astype(np.float32)).cuda(),
-                               plan)
-        out = torch.empty_like(f)
-        scr = torch.empty_like(f)
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def old():
-            rc = fn(f.data_ptr(), W4.data_ptr(), out.data_ptr(),
-                    scr.data_ptr(), S, plan.n1, plan.BR, plan.NB, plan.L0, T,
-                    0, stream)
-            assert rc == 0, rc
-
-        def new_at(tj, kc, sc, lc=plan.L0):
-            def run():
-                rc = lib_new.sweep3d_launch(
-                    f.data_ptr(), M13.data_ptr(), out.data_ptr(),
-                    scr.data_ptr(), S, plan.n1, plan.NB * plan.BR, plan.L0,
-                    T, lc, tj, kc, sc, 0, stream)
-                assert rc == 0, rc
-            return run
-
-        planes = -(-plan.NB * plan.BR // plan.n1)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        lc, tj, kc, sc, smem = sweep3d.sweep3d_tiling(plan.n1, plan.L0, S,
-                                                      4, planes, sms)
-        new = new_at(tj, kc, sc)
-        want = sweep3d.sweep3d_reference(f, *args)
-        for run in (old, new):
-            run()
-            torch.cuda.synchronize()
-            assert torch.equal(out, want), (S, run.__name__)
-        assert torch.equal(sweep3d.sweep3d_T_batched(f, *args), want)
-        o, n = _turns(old, new, reps)
-        rows.append(dict(kernel="sweep3d", grid="128x128x64", S=S, T=T,
-                         tj=tj, kc=kc, sc=sc, smem=smem, old_ms=o, new_ms=n,
-                         bit_equal=True))
-        print(json.dumps(rows[-1]), flush=True)
-        if tiles:
-            for tj2 in (2, 4, 8, 16):
-                for kc2 in (1, 2, 4, 8, 16):
-                    need = 4 * S * (tj2 + 2) * (plan.L0 + 8) * 4
-                    if need > 227 * 1024:
-                        continue
-                    run = new_at(tj2, kc2, S)
-                    run()
-                    torch.cuda.synchronize()
-                    assert torch.equal(out, want), (S, tj2, kc2)
-                    print(json.dumps(dict(kernel="sweep3d", S=S, tj=tj2,
-                                          kc=kc2, smem=need,
-                                          new_ms=_ms(run, reps))), flush=True)
-
-
-# text edits of the new rsweep source that leave out one pass (timing
-# only: the results are not the sweep's)
-_RSWEEP_PARTS = {
-    "far pass and the chain's barriers": [(
-        "        for (int d = 1; u + d < kB; ++d) {",
-        "        for (int d = 1; u + d < 0; ++d) {")],
-    "near chain and the far pass's barriers": [(
-        "  for (int t = 0; t < n; ++t) {\n    const int2 q = e[t];",
-        "  for (int t = 0; t < 0; ++t) {\n    const int2 q = e[t];")],
-}
-
-
-def rsweep_breakdown(tmp, reps, rows):
-    """The new rsweep at 180x63 (down, S=1) with the far taps or the near
-    taps left out, beside the whole kernel: how the time splits."""
-    _, cg, _ = rt.init_annulus_circulant(180, 63, spacing=20.0)
-    ws = pack_twrapped_stencil(cg, dtype=np.float32, band_closure=0)
-    _, static, wdn, _, rst = sweep_theta.device_tables(ws, cg, np.float32,
-                                                       "cuda")
-    plan, ent, binfo, near = sweep_theta._kernel_tables(wdn, rst, False)
-    buf = _rsweep_field(np.random.default_rng(1), rst, static.nt, False)
-    stream = torch.cuda.current_stream().cuda_stream
-    with open(kernels.source_path("rsweep")) as f:
-        src = f.read()
-    out = {}
-    for name, edits in [("whole", [])] + list(_RSWEEP_PARTS.items()):
-        text = src
-        for old, new in edits:
-            assert old in text, name
-            text = text.replace(old, new)
-        path = os.path.join(tmp, f"rsweep_{len(out)}.cu")
-        with open(path, "w") as f:
-            f.write(text)
-        fn = _build(path, tmp, f"rsweep_{len(out)}", "-I",
-                    kernels.CSRC_DIR).rsweep_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
-            ctypes.c_void_p]
-
-        def run(fn=fn):
-            rc = fn(buf.data_ptr(), ent.data_ptr(), binfo.data_ptr(),
-                    near.data_ptr(), 1, rst.MT, rst.K8, rst.NTL, rst.NTB, 0,
-                    int(plan.shared), plan.ent_cap, plan.threads,
-                    plan.far_lanes, plan.near_lanes, stream)
-            assert rc == 0, rc
-        out[name] = _ms(run, reps)
-    rows.append(dict(kernel="rsweep", grid="180x63", S=1, upward=False,
-                     breakdown_ms=out))
-    print(json.dumps(rows[-1]), flush=True)
-
-
 # The fused kernel's phase split.  A header pre-included by the build
 # (nvcc -include) defines the timing hook FUSED_SPLIT(k) of csrc/fused.cu:
 # block 0 stamps %globaltimer after grid sync k of an iteration and adds
 # the time since the last stamp to slot k (the package's build defines
-# the hook empty).  An earlier source without the hook (the four-sync
-# loop) gets it after each of its grid syncs.  The header also brings a kernel that
-# runs grid syncs alone at the fused kernel's grid, for their own cost.
+# the hook empty).  The header also brings a kernel that runs grid syncs
+# alone at the fused kernel's grid, for their own cost.
 _SPLIT_HEADER = r"""
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -324,41 +142,20 @@ extern "C" int fused_split_syncs(int blocks, int threads, int n) {
   return static_cast<int>(e);
 }
 """
-# the phases between grid syncs: with the hook (one sync fewer; the first
-# phase runs once more than the iterations) and in the earlier four-sync
-# loop
-_SPLIT_NAMES = {
-    True: ("fan+flag+snapshot+ring", "chain", "relax"),
-    False: ("ring+snapshot", "chain", "relax+fan-reduce", "fan+flag"),
-}
+# the phases between grid syncs (the first runs once more than the
+# iterations)
+_SPLIT_NAMES = ("fan+flag+snapshot+ring", "chain", "relax")
 
 
 def _split_build(tmp, label, csrc):
-    """The fused.cu of `csrc` built with the timing header; returns the
-    library and its phase names."""
+    """The fused.cu of `csrc` built with the timing header."""
     header = os.path.join(tmp, "fused_split.cuh")
     with open(header, "w") as f:
         f.write(_SPLIT_HEADER)
-    path = os.path.join(csrc, "fused.cu")
-    with open(path) as f:
-        text = f.read()
-    hooked = "FUSED_SPLIT(" in text
-    if not hooked:
-        head, tail = text.split("cg::grid_group grid = cg::this_grid();", 1)
-        parts = tail.split("grid.sync();")
-        tail = "".join(p + f"grid.sync(); FUSED_SPLIT({i});"
-                       for i, p in enumerate(parts[:-1])) + parts[-1]
-        path = os.path.join(tmp, f"fused_split_{label}.cu")
-        with open(path, "w") as f:
-            f.write(head + "cg::grid_group grid = cg::this_grid(); "
-                    "FUSED_SPLIT(-1);" + tail)
-    names = _SPLIT_NAMES[hooked]
-    if not hooked:
-        assert len(parts) == len(names) + 1, (len(parts), names)
-    lib = _build(path, tmp, f"fused_split_{label}", "-I", csrc,
-                 "-include", header)
+    lib = _build(os.path.join(csrc, "fused.cu"), tmp, f"fused_split_{label}",
+                 "-I", csrc, "-include", header)
     lib.fused_split_syncs.argtypes = [ctypes.c_int] * 3
-    return lib, names
+    return lib
 
 
 _FUSED_GRIDS = {"180x63": (180, 63, 20.0), "24x12": (24, 12, 150.0)}
@@ -384,37 +181,14 @@ def _fused_case(grid, S):
     return x0, cen0, tbl, pfc.FusedStatic(T, nt, ntp, S), ts
 
 
-def _fused_launcher(lib, label, tbl, st):
+def _fused_launcher(lib, tbl, st):
     """launch(x0, c0, max_iters, reps) -> iterations of the last of
-    `reps` solves from (x0, c0); the result stays in launch.out.  The
-    "old" build takes the earlier interface fused_launch(state, cen, old,
-    src, offs, u_of, idx, w, ring_w, pdn, pup, fan_w, flags, iters,
-    t_tiles, nt, ntp, s_count, max_iters, is_double, stream); any other
-    the package's (fused_circulant._fused_launch)."""
+    `reps` solves from (x0, c0) by the build `lib` of a fused.cu
+    (fused_circulant._fused_launch); the result stays in launch.out."""
     from raytracer_tpu_torch.contrib import fused_circulant as pfc
 
-    T, nt, ntp, S = st
-    if label == "old":
-        fn = lib.fused_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
-
     def once(x, c, max_iters):
-        if label != "old":
-            return pfc._fused_launch(x, c, tbl, st, max_iters, lib)
-        old = torch.empty_like(x)
-        src = torch.empty_like(x)
-        flags = torch.zeros(2, dtype=torch.int32, device="cuda")
-        iters = torch.zeros((), dtype=torch.int32, device="cuda")
-        rc = fn(x.data_ptr(), c.data_ptr(), old.data_ptr(), src.data_ptr(),
-                tbl.offs.data_ptr(), tbl.u_of.data_ptr(), tbl.idx.data_ptr(),
-                tbl.w.data_ptr(), tbl.ring_w.data_ptr(), tbl.pdn.data_ptr(),
-                tbl.pup.data_ptr(), tbl.fan_w.data_ptr(), flags.data_ptr(),
-                iters.data_ptr(), T, nt, ntp, S, max_iters, 0,
-                torch.cuda.current_stream().cuda_stream)
-        assert rc == 0, rc
-        return iters
+        return pfc._fused_launch(x, c, tbl, st, max_iters, lib)
 
     def launch(x0, c0, max_iters, reps=1):
         for _ in range(reps):
@@ -436,10 +210,11 @@ def fused_breakdown(tmp, csrc_dirs, reps, rows):
     the kernel's grid, at 180x63 S=1 and 24x12 S=2."""
     libs = {label: _split_build(tmp, label, csrc)
             for label, csrc in csrc_dirs.items()}
+    names = _SPLIT_NAMES
     for grid, S in (("180x63", 1), ("24x12", 2)):
         x0, c0, tbl, st, _ = _fused_case(grid, S)
-        for label, (lib, names) in libs.items():
-            launch = _fused_launcher(lib, label, tbl, st)
+        for label, lib in libs.items():
+            launch = _fused_launcher(lib, tbl, st)
             buf = (ctypes.c_ulonglong * 16)()
             iters = launch(x0, c0, 100_000, reps=1)
             assert lib.fused_split_clear() == 0
@@ -471,7 +246,7 @@ def fused_ab(lib_old, reps, rows):
     for grid, S in (("180x63", 1), ("24x12", 2), ("180x63", 8)):
         x0, c0, tbl, st, ts = _fused_case(grid, S)
         x_r, c_r, it_r = pfc.fused_reference(x0, c0, tbl, st, 100_000)
-        old = _fused_launcher(lib_old, "old", tbl, st)
+        old = _fused_launcher(lib_old, tbl, st)
         it_o = old(x0, c0, 100_000)
         assert it_o == it_r and all(map(torch.equal, old.out, (x_r, c_r))), \
             ("old", grid, S)
@@ -489,50 +264,143 @@ def fused_ab(lib_old, reps, rows):
         print(json.dumps(rows[-1]), flush=True)
 
 
-def band_ab(lib_old, reps, rows):
-    """The earlier band kernel with the 5-page stack its caller built, and
-    the package's field-form kernel, in turns at 1080x300 S=1 and S=2 and
-    at the warm level's coarse grid (S=1), both held bit-equal to
-    band_reference first."""
-    from raytracer_tpu_torch.ops import stream_t
-    from raytracer_tpu_torch.ops.wrapped_t import pack_twrapped_stencil
+def _witer_case(ntheta, S, dtype, rng):
+    """Tables, static, field and centre values of a witer launch at
+    ntheta x 63 (phase 3b of chip_smoke.py)."""
+    from raytracer_tpu_torch.ops import diag_wrapped as pdw
 
-    fn = lib_old.band_launch
+    _, cg, _ = rt.init_annulus_circulant(ntheta, 63, spacing=20.0)
+    ws = pdw.pack_wrapped_stencil(cg, dtype=dtype)
+    st = pdw.WStatic(ws.rho_starts, ws.Mp, ws.NTL, ws.pad2, ws.nt)
+    tbl = pdw.device_wrapped_tables(ws, "cuda")
+    d = rng.uniform(0.0, 1500.0, (ws.Mp, S * ws.NTL))
+    d[rng.random(d.shape) < 0.3] = np.inf
+    cen = rng.uniform(0.0, 1500.0, S)
+    return (ws, st, tbl, torch.from_numpy(d.astype(dtype)).cuda(),
+            torch.from_numpy(cen.astype(dtype)).cuda())
+
+
+def _witer_old(lib_old, ws, st, tbl, S):
+    """run(dist, cen) of the earlier witer.cu, launch interface
+    witer_launch(dist, cen, taps, wpT, ring_f, ring_b, cfl, cbl, fan, out,
+    scratch, cen_out, s, mp, ntl, nt, dp, wstride, n_ring,
+    n_chain_statics, chain_rep, n_chain, iters, stream): float32, the
+    diagonals as (Dp, 2) int32 (dm, dc) and the weights as rows of wpT."""
+    from raytracer_tpu_torch.ops import diag_wrapped as pdw
+
+    fn = lib_old.witer_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [
         ctypes.c_void_p]
-    _, cg, _ = rt.init_annulus_circulant(1080, 300, spacing=20.0)
-    ws = pack_twrapped_stencil(cg, dtype=np.float32, band_closure=1)
-    coarse = stream_t._warm_stencils(ws, cg, np.float32, 1, 1)[0]
-    rng = np.random.default_rng(4)
-    for name, w_, S in (("1080x300", ws, 1), ("1080x300", ws, 2),
-                        ("1080x300 coarse", coarse, 1)):
-        wrows = torch.tensor(w_.wrows, device="cuda")
-        v = rng.uniform(0.0, 1500.0, (S, w_.nt, w_.ML)).astype(np.float32)
-        v[rng.random(v.shape) < 0.5] = np.inf
-        v[..., w_.Mp:] = np.inf
-        v = torch.from_numpy(v).cuda()
-        out = torch.empty_like(v)
+    taps = torch.tensor(pdw.wrapped_taps(ws), device="cuda")
+    _, n_ring = pdw._ring_plan(ws.NTL)
+    statics, rep, n_chain = pdw._chain_plan(ws.Mp)
+
+    def run(dist, cen, iters=4):
+        out = torch.empty_like(dist)
+        scratch = torch.empty_like(dist)
+        cen_out = torch.empty_like(cen)
+        rc = fn(dist.data_ptr(), cen.data_ptr(), taps.data_ptr(),
+                tbl.wpT.data_ptr(), tbl.ring_f.data_ptr(),
+                tbl.ring_b.data_ptr(), tbl.cfl.data_ptr(), tbl.cbl.data_ptr(),
+                tbl.fan_w.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                cen_out.data_ptr(), S, ws.Mp, ws.NTL, ws.nt, ws.D,
+                tbl.wpT.shape[1], n_ring, len(statics), rep, n_chain, iters,
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        return out, cen_out
+    return run
+
+
+def witer_ab(lib_old, reps, rows, breakdown):
+    """The earlier witer kernel and the package's, in turns, per launch of
+    4 iterations at 183x63 S=1 and S=2 and 256x63 S=2 (dup 0), both held
+    bit-equal to witer_reference first; the package's in float64 at
+    183x63 S=1 (the earlier one has no float64 build).  With
+    `breakdown`, each version's device time by kernel (torch.profiler)."""
+    from raytracer_tpu_torch.ops import diag_wrapped as pdw
+
+    rng = np.random.default_rng(6)
+    for ntheta, S, dtype in ((183, 1, np.float32), (183, 2, np.float32),
+                             (256, 2, np.float32), (183, 1, np.float64)):
+        ws, st, tbl, dist, cen = _witer_case(ntheta, S, dtype, rng)
+        want = pdw.witer_reference(st, dist, cen, tbl, 4)
+
+        def new():
+            return pdw.witer(st, dist, cen, tbl, 4)
+
+        got = new()
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, got, want)), ("new", ntheta, S, dtype)
+        row = dict(kernel="witer", grid=f"{ntheta}x63", S=S,
+                   dtype=np.dtype(dtype).name, dup=ws.NTL - ws.nt,
+                   bit_equal=True)
+        if dtype == np.float32:
+            old_run = _witer_old(lib_old, ws, st, tbl, S)
+
+            def old():
+                return old_run(dist, cen)
+
+            got = old()
+            torch.cuda.synchronize()
+            assert all(map(torch.equal, got, want)), ("old", ntheta, S)
+            row["old_ms"], row["new_ms"] = _turns(old, new, reps)
+            if breakdown and ntheta == 183 and S == 1:
+                row["old_split_ms"] = chip_smoke._kernel_split_ms(old, 5)
+                row["new_split_ms"] = chip_smoke._kernel_split_ms(new, 5)
+        else:
+            row["new_ms"] = [_ms(new, reps), _ms(new, reps)]
+        rows.append(row)
+        print(json.dumps(rows[-1]), flush=True)
+
+
+def relax_ab(lib_old, reps, rows):
+    """The earlier relax kernel and the package's, in turns, per sweep at
+    180x63 S=1 and S=8 (float32) and 24x12 S=2 (float64), both held
+    bit-equal to relax_reference first.  The earlier source takes
+    relax_launch(dist, offs, u_of, idx, w, out, t_tiles, nt, s_count, ntp,
+    is_double, stream)."""
+    from raytracer_tpu_torch.contrib import pallas_circulant as ppc
+
+    fn = lib_old.relax_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    rng = np.random.default_rng(8)
+    for (nth, nr, spacing), S, dtype in (((180, 63, 20.0), 1, np.float32),
+                                         ((180, 63, 20.0), 8, np.float32),
+                                         ((24, 12, 150.0), 2, np.float64)):
+        _, cg, _ = rt.init_annulus_circulant(nth, nr, spacing=spacing)
+        ts = ppc.pack_tiled_stencil(cg, dtype)
+        tb = ppc.device_pallas_tables(ts, "cuda")
+        nt = ts.ntheta
+        ntp = -(-nt // 8) * 8
+        d = rng.uniform(0.0, 1500.0, (ts.T, S, ntp, 128))
+        d[rng.random(d.shape) < 0.3] = np.inf
+        x = torch.from_numpy(d.astype(dtype)).cuda()
+        args = (tb.offs, tb.u_of, tb.idx, tb.w, ts.T, nt, S, ntp)
+        out = torch.empty_like(x)
 
         def old():
-            stack = stream_t._band_stack(v)
-            rc = fn(stack.data_ptr(), wrows.data_ptr(), out.data_ptr(), S,
-                    w_.nt, w_.ML, w_.maxdm,
+            rc = fn(x.data_ptr(), tb.offs.data_ptr(), tb.u_of.data_ptr(),
+                    tb.idx.data_ptr(), tb.w.data_ptr(), out.data_ptr(), ts.T,
+                    nt, S, ntp, int(dtype == np.float64),
                     torch.cuda.current_stream().cuda_stream)
             assert rc == 0, rc
 
         def new():
-            return stream_t.band(v, wrows, w_.maxdm)
+            return ppc.relax(x, *args)
 
-        want = stream_t.band_reference(stream_t._band_stack(v), wrows,
-                                       w_.maxdm)
+        want = ppc.relax_reference(x, *args)
         old()
         torch.cuda.synchronize()
-        assert torch.equal(out, want), ("old", name, S)
-        assert torch.equal(new(), want), ("new", name, S)
+        assert torch.equal(out, want), ("old", nth, S)
+        assert torch.equal(new(), want), ("new", nth, S)
         o, n = _turns(old, new, reps)
-        rows.append(dict(kernel="band", grid=name, S=S, nt=w_.nt, ML=w_.ML,
-                         maxdm=w_.maxdm, old_with_stack_ms=o, new_ms=n,
+        rows.append(dict(kernel="relax", grid=f"{nth}x{nr}", S=S,
+                         dtype=np.dtype(dtype).name, T=ts.T,
+                         chunks=int(ppc._kernel_chunks(*args[:5])[0].shape[0]),
+                         old_ms=o, new_ms=n,
                          bit_equal=True))
         print(json.dumps(rows[-1]), flush=True)
 
@@ -541,11 +409,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", required=True,
                     help="directory with the earlier kernel sources")
-    ap.add_argument("--kernels", default="fused,band",
-                    help="comma-separated: rsweep, sweep3d, fused, band")
+    ap.add_argument("--kernels", default="witer,relax",
+                    help="comma-separated: witer, relax, fused")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--tiles", action="store_true")
     ap.add_argument("--breakdown", action="store_true")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -561,18 +428,13 @@ def main(argv=None):
     rows: list = []
     want = set(a.kernels.split(","))
     with tempfile.TemporaryDirectory() as tmp:
-        if "rsweep" in want:
-            rsweep_ab(_old_lib(a.old, "rsweep", tmp), a.reps, rows)
-        if "sweep3d" in want:
-            sweep3d_ab(_old_lib(a.old, "sweep3d", tmp), max(1, a.reps // 2),
-                       rows, a.tiles)
         if "fused" in want:
-            fused_ab(_old_lib(a.old, "fused", tmp), max(1, a.reps // 4),
-                     rows)
-        if "band" in want:
-            band_ab(_old_lib(a.old, "band", tmp), a.reps, rows)
-        if a.breakdown and "rsweep" in want:
-            rsweep_breakdown(tmp, a.reps, rows)
+            fused_ab(_old_lib(a.old, "fused", tmp), max(1, a.reps // 4), rows)
+        if "witer" in want:
+            witer_ab(_old_lib(a.old, "witer", tmp), a.reps, rows,
+                     a.breakdown)
+        if "relax" in want:
+            relax_ab(_old_lib(a.old, "relax", tmp), a.reps, rows)
         if a.breakdown and "fused" in want:
             fused_breakdown(tmp, {"old": a.old, "new": kernels.CSRC_DIR},
                             max(1, a.reps // 4), rows)
