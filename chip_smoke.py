@@ -15,7 +15,9 @@ the exit code is non-zero):
      directions, two lane blocks, and one 1,280-lane block, which takes
      the kernel's device-memory route), with its microseconds per row;
      titer at 180x63
-     (S=1 and S=2, dup 4) and at 176x40 (S=2, dup 0); band, which takes
+     (S=1 and S=2, dup 4) and at 176x40 (S=2, dup 0), in float32 and
+     (180x63 S=1, 176x40 S=2) float64, with its device time by kernel;
+     band, which takes
      the field and rolls theta itself, against its plain version on the
      5 rolled pages at 1080x300 (S=1 and S=2), at the warm level's
      coarse grid (540 theta rows) and on 5 theta rows, where the wrap
@@ -25,8 +27,10 @@ the exit code is non-zero):
      where a chain column or a ring row spans several warps, and in
      float64 at 1080x300, 47x63 (the band's 32-lane tile) and 31x63 (its
      taps read from global memory); diag at
-     127x63 (dup 1) and at
-     183x63; (3c)
+     127x63 (dup 1) and at 183x63 in float32 and float64, alone and as
+     diag_step (the fan and the changed flag), and the diag engine's
+     ring and chain scans at 127x63 (float32, float64) and on its first
+     1,031 rows (an odd count); (3c)
      sweep3d (T sweeps of the 26-tap 3-D stencil) in float32 at (7,5,4)
      S=1 and (130,6,3) S=3 (256 lanes), in float64 at (8,8,3) and at
      (600,4,3) S=8 (640 lanes in chunks of 128), and at
@@ -48,7 +52,8 @@ the exit code is non-zero):
   5. the port's main_annulus CLI on the 180x63 grid into a temporary
      directory;
   6. AnnulusSolver(method="twrapped") at 180x63 (the titer kernel),
-     held to the anchors and to phase 4's sweep field at every node;
+     held to the anchors and to phase 4's sweep field at every node; a
+     float64 twrapped solve at 48x12 equal to the same solve on the CPU;
   7. rsweep at the 1080x300 sweep solve's tables (S=1, both directions)
      against its plain version, timed; then AnnulusSolver(method=
      "stream") at 1080x300 with warm level 1 (the
@@ -65,10 +70,12 @@ the exit code is non-zero):
      and to the sweep field at every node; an 8 x 150 table; a
      device-resident result through the travel-time CSV and the npz;
  10. AnnulusSolver(method="auto") at 127x63, which routes to 'diag' (the
-     diag kernel), held to the JAX package's iteration count and spread
-     from 'stream', and to 'stream' and a tol=1e-5 stream solve at every
-     node (ENGINE_ATOL); explicit 'diag' at 180x63 held to the anchors
-     and to the sweep field (ENGINE_ATOL);
+     diag kernel and its scans, an iteration in one launch call), held
+     to the JAX package's iteration count and spread from 'stream', and
+     to 'stream' and a tol=1e-5 stream solve at every node
+     (ENGINE_ATOL); a float64 diag solve at 47x6 equal to the same solve
+     on the CPU; explicit 'diag' at 180x63 held to the anchors and to
+     the sweep field (ENGINE_ATOL);
  11. the 3-D path at 128x128x64 (1,048,576 nodes) on the chip-campaign
      wedge of benchmarks/chip_dsweep3d.py: grid3d -> prepare3d ->
      solve3d(engine="auto"), which takes the kernel engine (the sweep3d
@@ -101,6 +108,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import faulthandler
 import json
 import os
@@ -204,6 +212,8 @@ def _launch_counters():
     return {"rsweep": sweep_theta.rsweep, "titer": wrapped_t.titer,
             "band": stream_t.band, "witer": diag_wrapped.witer,
             "diag": diag_circulant.diag_sweep,
+            "ring_scan": diag_circulant.ring_scan,
+            "chain_scan": diag_circulant.chain_scan,
             "sweep3d": sweep3d.sweep3d_T, "relax": pallas_circulant.relax,
             "fused": fused_circulant.fused}
 
@@ -554,11 +564,13 @@ def phase_cli(tmp: str):
 
 def _titer_work(ws, st, S, iters):
     """(bytes, operations) of one titer launch: the field and the centre
-    values read and written once, the tables read once; one add and one
-    min per candidate - ring and chain steps over the whole page, band
-    taps only where the weight row is finite (an +inf weight is no work
-    a kernel must do), the duplicate rows' merged band rows, the fan's
-    reduce and broadcast."""
+    values read and written once, the tables read once (the band's
+    weights as the stencil's finite ones, each with an int32 index, in
+    the tables' dtype); one add and one min per candidate - ring and
+    chain steps over the whole page, band taps only where the weight is
+    finite (an +inf weight is no work a kernel must do), one band a row,
+    the duplicate merge one min per merged lane, the fan's reduce and
+    broadcast."""
     import numpy as np
 
     from raytracer_tpu_torch.ops.wrapped_t import _scan_plan
@@ -571,12 +583,14 @@ def _titer_work(ws, st, S, iters):
     chain = 2 * rows * ML * (len(chain_statics) + n_chain) * 2
     finite = int(np.isfinite(ws.wrows[:n_dm5]).sum())
     dup = NTT - st.nt
-    band = 2 * S * (NTT + 2 * dup) * finite
+    band = 2 * S * NTT * finite
+    merge = 2 * dup * ML * S
     fan = 2 * 2 * rows * ML
-    ops = iters * (ring + chain + band + fan)
-    tables = sum(a.size for a in (ws.wrows, ws.ring_f, ws.ring_b, ws.cfl,
-                                  ws.cbl, ws.fan_w))
-    nbytes = 4 * (2 * rows * ML + 2 * S + tables)
+    ops = iters * (ring + chain + band + merge + fan)
+    item = ws.wrows.dtype.itemsize
+    tables = item * sum(a.size for a in (ws.ring_f, ws.ring_b, ws.cfl,
+                                         ws.cbl, ws.fan_w))
+    nbytes = item * (2 * rows * ML + 2 * S) + tables + (item + 4) * finite
     return nbytes, ops
 
 
@@ -614,30 +628,39 @@ def phase_jacobi_kernels(rec: dict):
 
     rng = np.random.default_rng(5)
     titer_rows = []
-    for ntheta, nr, S in ((180, 63, 1), (180, 63, 2), (176, 40, 2)):
+    # the path's shape (180x63, S=1) first; S=2 and a dup-0 grid (176x40);
+    # float64 at both shapes
+    for ntheta, nr, S, dtype in ((180, 63, 1, np.float32),
+                                 (180, 63, 2, np.float32),
+                                 (176, 40, 2, np.float32),
+                                 (180, 63, 1, np.float64),
+                                 (176, 40, 2, np.float64)):
         _, cg, _ = init_annulus_circulant(ntheta, nr, spacing=20.0)
-        ws = wrapped_t.pack_twrapped_stencil(cg, dtype=np.float32,
-                                             band_closure=1)
+        ws = wrapped_t.pack_twrapped_stencil(cg, dtype=dtype, band_closure=1)
         st = wrapped_t.TWStatic(ws.Mp, ws.ML, ws.NTT, ws.nt, ws.maxdm)
         tbl = wrapped_t.device_twrapped_tables(ws, "cuda")
-        dist = _random_field(rng, (S * ws.NTT, ws.ML), ws.Mp)
-        cen = torch.tensor(rng.uniform(0.0, 1500.0, S).astype(np.float32),
+        dist = _random_field(rng, (S * ws.NTT, ws.ML), ws.Mp, dtype)
+        cen = torch.tensor(rng.uniform(0.0, 1500.0, S).astype(dtype),
                            device="cuda")
+        name = f"{ntheta}x{nr}" + ("" if dtype == np.float32 else " f64")
         d_k, c_k = wrapped_t.titer(st, dist, cen, tbl, 4)
         d_r, c_r = wrapped_t.titer_reference(st, dist, cen, tbl, 4)
         torch.cuda.synchronize()
         err = max(_max_err(d_k, d_r), _max_err(c_k, c_r))
         if not (torch.equal(d_k, d_r) and torch.equal(c_k, c_r)):
             raise AssertionError(
-                f"titer kernel != plain version at {ntheta}x{nr} S={S} "
+                f"titer kernel != plain version at {name} S={S} "
                 f"(dup {ws.NTT - ws.nt}): max abs err {err}")
         ms = _cuda_ms(lambda: wrapped_t.titer(st, dist, cen, tbl, 4), 20)
         plain = _cuda_ms(lambda: wrapped_t.titer_reference(st, dist, cen,
                                                            tbl, 4), 2)
+        if not titer_rows:  # the phase split at the path's shape (S=1)
+            rec["titer_split"] = _kernel_split_ms(
+                lambda: wrapped_t.titer(st, dist, cen, tbl, 4), 5)
         nbytes, ops = _titer_work(ws, st, S, 4)
         bound, by = _bound_ms(nbytes, ops)
         titer_rows.append(dict(
-            grid=f"{ntheta}x{nr}", S=S, dup=ws.NTT - ws.nt, max_abs_err=err,
+            grid=name, S=S, dup=ws.NTT - ws.nt, max_abs_err=err,
             ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, ops=ops))
     band_rows = []
     _, cg, _ = init_annulus_circulant(1080, 300, spacing=20.0)
@@ -679,6 +702,10 @@ def phase_jacobi_kernels(rec: dict):
                       f"{r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, "
                       f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
                       f"{r['ops'] / 1e9:.3f} G ops)" for r in titer_rows)
+          + ". titer at 180x63 S=1 by kernel (torch.profiler, device ms per "
+          "launch; ring_kernel also merges the duplicate rows and applies "
+          "the fan, band_kernel folds the centre): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in rec["titer_split"].items())
           + ". band (field form) bit-equal to band_reference on the "
           "rolled stack: "
           + "; ".join(f"{r['grid']} S={r['S']}: kernel {r['ms']:.4f} ms, "
@@ -719,12 +746,37 @@ def phase_twrapped(rec: dict):
     rec["titer"]["launches"] = counts["titer"]
     rec["twrapped_solver"] = solver
     rec["twrapped_ms"] = _steady_ms(solver, source, 3)
+    f64 = _f64_against_cpu(rt, "twrapped", 48, 12, 150.0)
     print(f"phase 6 twrapped: {gr.nnods} nodes, method={solver.method}, "
           f"{iters} iterations, titer launches={counts['titer']} "
           f"(path counts {counts}), t(60)={t60:.4f} s, t(150)={t150:.4f} s,"
           f" max |twrapped - sweep| = {err:.3g} s over every node; first "
           f"solve {t_first:.3f} s, steady solve median of 3 "
-          f"{rec['twrapped_ms']:.2f} ms", flush=True)
+          f"{rec['twrapped_ms']:.2f} ms; {f64}", flush=True)
+
+
+def _f64_against_cpu(rt, method, ntheta, nr, spacing):
+    """A float64 solve of `method` on the card equal to the same solve on
+    the CPU (the plain versions), node for node, with the same
+    iterations; returns a line that says so."""
+    import numpy as np
+
+    gr, cg, U = rt.init_annulus_circulant(ntheta, nr, spacing,
+                                          dtype=np.float64)
+    source = rt.closest_point(gr, 0.0, rt.R, system="polar")
+    out = []
+    for device in ("cuda", "cpu"):
+        solver = rt.AnnulusSolver(gr, None, None, U,
+                                  rt.SolverConfig(dtype="float64"),
+                                  method=method, circulant=cg, device=device)
+        d = solver.solve(source, want_prev=False).dist
+        assert solver.method == method and d.dtype == np.float64
+        out.append((d, solver.last_iterations))
+    (d_k, it_k), (d_c, it_c) = out
+    assert it_k == it_c and np.array_equal(d_k, d_c), (method, it_k, it_c)
+    return (f"float64 {method} at {ntheta}x{nr} on the card equals the CPU "
+            f"route ({it_k} iterations, largest time "
+            f"{np.max(d_k[np.isfinite(d_k)]):.6f} s)")
 
 
 def phase_stream(rec: dict):
@@ -898,13 +950,36 @@ def _witer_work(ws, S, iters):
 
 def _diag_work(ds):
     """(bytes, operations) of one diag sweep: the field read and written
-    once, the (dm, dc) taps and the (D, Mp) weights read once; one add
-    and one min per theta lane for every finite (row, diagonal) weight."""
-    import numpy as np
+    once, the stencil's finite (row, diagonal) weights that a row reads
+    (source row in [0, Mp)) with their indices (the per-row tap lists)
+    read once, in the stencil's dtype; one add and one min per theta
+    lane for every such weight."""
+    from raytracer_tpu_torch.ops.diag_circulant import diag_tap_lists
 
-    finite = int(np.isfinite(ds.wp).sum())
-    nbytes = 4 * (2 * ds.Mp * ds.NTL + 2 * ds.D + ds.D * ds.Mp)
-    return nbytes, 2 * ds.ntheta * finite
+    tl = diag_tap_lists(ds)
+    item = ds.wp.dtype.itemsize
+    nbytes = item * 2 * ds.Mp * ds.NTL + sum(a.nbytes for a in tl)
+    return nbytes, 2 * ds.ntheta * len(tl.w)
+
+
+def _ring_scan_work(Mp, NTL, nt, itemsize):
+    """(bytes, operations) of one ring scan: the field read and written
+    once, the two hop costs a row; per theta lane and direction a
+    product, a difference, two cumulative minima, three sums and two
+    minima."""
+    return itemsize * (2 * Mp * NTL + 2 * Mp), 2 * 9 * Mp * nt
+
+
+def _chain_scan_work(Mp, NTL, itemsize):
+    """(bytes, operations) of one chain scan: the field read and written
+    once, the two chain costs a row; per lane an add and a min for each
+    pair up the recursion's levels and each even value down them, both
+    directions, and the final two minima."""
+    pairs, n = 0, Mp
+    while n >= 2:
+        pairs += n // 2 + (n - 1) // 2
+        n >>= 1
+    return itemsize * (2 * Mp * NTL + 2 * Mp), 2 * (2 * pairs + Mp) * NTL
 
 
 def phase_wrapped_diag_kernels(rec: dict):
@@ -963,33 +1038,103 @@ def phase_wrapped_diag_kernels(rec: dict):
             tile=f"{lanes} lanes, taps in {'shared' if staged else 'global'}",
             ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, ops=ops))
     diag_rows = []
-    for ntheta in (127, 183):
+    for ntheta, dtype in ((127, np.float32), (183, np.float32),
+                          (127, np.float64), (183, np.float64)):
         _, cg, _ = init_annulus_circulant(ntheta, 63, spacing=20.0)
-        ds = diag_circulant.pack_diag_stencil(cg, dtype=np.float32)
+        ds = diag_circulant.pack_diag_stencil(cg, dtype=dtype)
         st = diag_circulant.DiagStatic(ds.D, ds.Mp, ds.NTL, ds.pad,
                                        ds.ntheta)
         tbl = diag_circulant.device_diag_tables(ds, "cuda")
-        dist = _random_field(rng, (ds.Mp, ds.NTL), ds.NTL)
+        dist = _random_field(rng, (ds.Mp, ds.NTL), ds.NTL, dtype)
+        name = f"{ntheta}x63" + ("" if dtype == np.float32 else " f64")
         out_k = diag_circulant.diag_sweep(st, dist, tbl)
         out_r = diag_circulant.diag_sweep_reference(st, dist, tbl)
         torch.cuda.synchronize()
         err = _max_err(out_k, out_r)
         if not torch.equal(out_k, out_r):
-            raise AssertionError(f"diag kernel != plain version at "
-                                 f"{ntheta}x63: max abs err {err}")
+            raise AssertionError(f"diag kernel != plain version at {name}: "
+                                 f"max abs err {err}")
         ms = _cuda_ms(lambda: diag_circulant.diag_sweep(st, dist, tbl), 50)
         plain = _cuda_ms(lambda: diag_circulant.diag_sweep_reference(
             st, dist, tbl), 3)
+        # the sweep with the fan and the changed test: a changed and an
+        # unchanged iteration
+        sc = diag_circulant.device_diag_scan_tables(ds, "cuda")
+        tol = torch.tensor(1e-3, dtype=dist.dtype, device="cuda")
+        dcen = torch.tensor(300.0, dtype=dist.dtype, device="cuda")
+        step = []
+        for old in (dist, None):
+            if old is None:  # the last step's own output: unchanged
+                old, dcen = step[-1][0], step[-1][1]
+            got = diag_circulant.diag_step(st, dist, tbl, sc, old, dcen, tol)
+            want = diag_circulant.diag_step_reference(st, dist, tbl, sc, old,
+                                                      dcen, tol)
+            torch.cuda.synchronize()
+            err = max(err, _max_err(got[0], want[0]),
+                      _max_err(got[1], want[1]))
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])
+                    and bool(got[2]) == bool(want[2])):
+                raise AssertionError(f"diag_step != plain version at {name} "
+                                     f"(changed {bool(want[2])})")
+            step.append(want)
+        assert bool(step[0][2]) and not bool(step[1][2]), "changed flags"
         nbytes, ops = _diag_work(ds)
         bound, by = _bound_ms(nbytes, ops)
+        lanes, staged = diag_circulant.diag_launch_plan(
+            st, np.dtype(dtype).itemsize,
+            diag_circulant.band_block_taps(tbl.tap_ptr.cpu().numpy()))
         diag_rows.append(dict(
-            grid=f"{ntheta}x63", dup=ds.NTL - ds.ntheta, D=ds.D,
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-            bound_by=by, nbytes=nbytes, ops=ops))
+            grid=name, dup=ds.NTL - ds.ntheta, D=ds.D, max_abs_err=err,
+            tile=f"{lanes} lanes, taps in {'shared' if staged else 'global'}",
+            ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, nbytes=nbytes,
+            ops=ops))
+    # the scans at 127x63, and on its first 1,031 rows (an odd number of
+    # slots: every level of the chain's recursion has an odd length then)
+    scan_rows = []
+    _, cg, _ = init_annulus_circulant(127, 63, spacing=20.0)
+    for dtype, rows in ((np.float32, None), (np.float64, None),
+                        (np.float32, 1031)):
+        ds = diag_circulant.pack_diag_stencil(cg, dtype=dtype)
+        if rows is not None:
+            cut = dict(ring_f=ds.ring_f[:rows], ring_b=ds.ring_b[:rows],
+                       chain_f=ds.chain_f[:rows], chain_b=ds.chain_b[:rows],
+                       fan_w=ds.fan_w[:rows], Mp=rows)
+            ds = dataclasses.replace(ds, **cut)
+        sc = diag_circulant.device_diag_scan_tables(ds, "cuda")
+        x = _random_field(rng, (ds.Mp, ds.NTL), ds.NTL, dtype)
+        name = (f"127x63" + ("" if rows is None else f" first {rows} rows")
+                + ("" if dtype == np.float32 else " f64"))
+        for kname, kern, plain_fn, work in (
+                ("ring_scan",
+                 lambda: diag_circulant.ring_scan(x, sc, ds.ntheta),
+                 lambda: diag_circulant._ring_scan(x, sc.ring_f, sc.ring_b,
+                                                   ds.ntheta),
+                 _ring_scan_work(ds.Mp, ds.NTL, ds.ntheta,
+                                 np.dtype(dtype).itemsize)),
+                ("chain_scan", lambda: diag_circulant.chain_scan(x, sc),
+                 lambda: diag_circulant._chain_scan(x, sc.chain_f,
+                                                    sc.chain_b),
+                 _chain_scan_work(ds.Mp, ds.NTL, np.dtype(dtype).itemsize))):
+            got, want = kern(), plain_fn()
+            torch.cuda.synchronize()
+            err = _max_err(got, want)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{kname} kernel != plain version at "
+                                     f"{name}: max abs err {err}")
+            bound, by = _bound_ms(*work)
+            scan_rows.append(dict(
+                kernel=kname, grid=name, max_abs_err=err,
+                ms=_cuda_ms(kern, 50), plain_ms=_cuda_ms(plain_fn, 5),
+                bound_ms=bound, bound_by=by))
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
-    for name, rows in (("witer", witer_rows), ("diag", diag_rows)):
-        # times at the main paths' shapes (S=1; 127x63 for diag), errors
-        # over every case
+    for name, rows in (("witer", witer_rows), ("diag", diag_rows),
+                       ("ring_scan", [r for r in scan_rows
+                                      if r["kernel"] == "ring_scan"]),
+                       ("chain_scan", [r for r in scan_rows
+                                       if r["kernel"] == "chain_scan"])):
+        # times at the main paths' shapes (S=1; 127x63 for diag and the
+        # scans), errors over every case
         rec[name] = {k: rows[0][k] for k in keys}
         rec[name]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     rec["witer_rows"], rec["diag_rows"] = witer_rows, diag_rows
@@ -999,12 +1144,20 @@ def phase_wrapped_diag_kernels(rec: dict):
                       f"{r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, "
                       f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
                       f"{r['ops'] / 1e9:.3f} G ops)" for r in witer_rows)
-          + ". diag bit-equal to diag_sweep_reference: "
-          + "; ".join(f"{r['grid']} dup={r['dup']} D={r['D']}: kernel "
+          + ". diag bit-equal to diag_sweep_reference, and with the fan and "
+          "changed test (diag_step, a changed and an unchanged iteration) "
+          "to diag_step_reference: "
+          + "; ".join(f"{r['grid']} dup={r['dup']} D={r['D']} "
+                      f"({r['tile']}): kernel "
                       f"{r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, "
                       f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
                       f"{r['nbytes'] / 1e6:.2f} MB, {r['ops'] / 1e6:.1f} M "
                       f"ops)" for r in diag_rows)
+          + ". the diag scans bit-equal to _ring_scan and _chain_scan: "
+          + "; ".join(f"{r['kernel']} {r['grid']}: kernel {r['ms']:.4f} ms, "
+                      f"plain {r['plain_ms']:.3f} ms, bound "
+                      f"{r['bound_ms']:.5f} ms ({r['bound_by']})"
+                      for r in scan_rows)
           + ". witer at 183x63 S=1 by phase (torch.profiler, device ms per "
           "launch; ring_kernel also merges the duplicate lanes and applies "
           "the fan, band_kernel folds the centre): "
@@ -1166,21 +1319,29 @@ def phase_diag(rec: dict):
     assert abs(chk["all"] - ref_spread) <= SPREAD_ATOL, chk["all"]
     assert chk["all"] <= ENGINE_ATOL, chk
     assert -ENGINE_ATOL <= chk["below"] and chk["above"] <= ENGINE_ATOL, chk
-    steady = _steady_ms(solver, source, 1)
-    # the per-iteration torch glue: the scans on a converged field
+    assert counts["ring_scan"] == counts["chain_scan"] == iters, counts
+    steady = _steady_ms(solver, source, 3)
+    # an iteration's scans on the converged field, and the whole
+    # iteration
     from raytracer_tpu_torch.ops import diag_circulant as pdc
 
     ds = pdc.pack_diag_stencil(cg, dtype=np.float32)
+    st = pdc.DiagStatic(ds.D, ds.Mp, ds.NTL, ds.pad, ds.ntheta)
+    tbl = pdc.device_diag_tables(ds, "cuda")
     sc = pdc.device_diag_scan_tables(ds, "cuda")
     x = torch.full((ds.Mp, ds.NTL), float("inf"), device="cuda")
     valid = cg.cmap.m_of >= 0
     x[torch.as_tensor(cg.cmap.m_of[valid], device="cuda"),
       torch.as_tensor(cg.cmap.c_of[valid], device="cuda")] = torch.as_tensor(
         D.dist[valid], device="cuda")
-    ring_ms = _cuda_ms(lambda: pdc._ring_scan(x, sc.ring_f, sc.ring_b,
-                                              ds.ntheta), 20)
-    chain_ms = _cuda_ms(lambda: pdc._chain_scan(x, sc.chain_f, sc.chain_b),
-                        20)
+    ring_ms = _cuda_ms(lambda: pdc.ring_scan(x, sc, ds.ntheta), 20)
+    chain_ms = _cuda_ms(lambda: pdc.chain_scan(x, sc), 20)
+    tol = torch.tensor(1e-3, device="cuda")
+    dcen = torch.tensor(float(D.dist[cg.cmap.center]) if cg.cmap.center >= 0
+                        else float("inf"), device="cuda")
+    step_ms = _cuda_ms(lambda: pdc.diag_step(st, x, tbl, sc, x, dcen, tol,
+                                             True), 20)
+    f64 = _f64_against_cpu(rt, "diag", 47, 6, 400.0)
 
     gr180, cg180, U180, source180, D_sweep, receivers180, degs = \
         rec["sweep_180"]
@@ -1189,16 +1350,20 @@ def phase_diag(rec: dict):
     t60, t150, d180 = _anchors(rt, d180s, receivers180, degs, source180)
     err_sweep = float(np.abs(d180 - D_sweep.dist).max())
     assert err_sweep <= ENGINE_ATOL, err_sweep
-    rec["diag"]["launches"] = counts["diag"]
+    for name in ("diag", "ring_scan", "chain_scan"):
+        rec[name]["launches"] = counts[name]
     rec["diag_ms"] = steady
     rec["diag_launches"] = counts["diag"]
     print(f"phase 10 diag: 127x63, {gr.nnods} nodes, auto -> "
           f"{solver.method}, {iters} iterations (the JAX package: "
-          f"{ref_iters}), diag launches={counts['diag']} (path counts "
-          f"{counts}); first solve {t_first:.3f} s, steady solve "
-          f"{steady:.1f} ms, of it per iteration the ring scan "
-          f"{ring_ms:.3f} ms and the chain scan {chain_ms:.3f} ms (CUDA "
-          f"events around the torch ops); explicit diag at 180x63 "
+          f"{ref_iters}), diag launches={counts['diag']}, ring_scan "
+          f"{counts['ring_scan']}, chain_scan {counts['chain_scan']} (path "
+          f"counts {counts}); first solve {t_first:.3f} s, steady solve "
+          f"median of 3 {steady:.2f} ms, of it per iteration the ring scan "
+          f"{ring_ms:.4f} ms and the chain scan {chain_ms:.4f} ms each "
+          f"alone, the whole iteration in one diag_step call (the scans, the "
+          f"sweep, the fan and the changed test) {step_ms:.4f} ms (CUDA "
+          f"events); {f64}; explicit diag at 180x63 "
           f"({d180s.last_iterations} iterations): t(60)={t60:.4f} s, "
           f"t(150)={t150:.4f} s, max |diag - sweep| = {err_sweep:.3g} s "
           f"over every node", flush=True)
@@ -1824,6 +1989,12 @@ def main():
         "diag": ("raytracer_tpu_torch/csrc/diag.cu",
                  "raytracer_tpu/ops/diag_circulant.py:230",
                  "auto 127x63 -> diag"),
+        "ring_scan": ("raytracer_tpu_torch/csrc/diag_scans.cuh",
+                      "raytracer_tpu/ops/diag_circulant.py:284",
+                      "auto 127x63 -> diag"),
+        "chain_scan": ("raytracer_tpu_torch/csrc/diag_scans.cuh",
+                       "raytracer_tpu/ops/diag_circulant.py:316",
+                       "auto 127x63 -> diag"),
         "sweep3d": ("raytracer_tpu_torch/csrc/sweep3d.cu",
                     "raytracer_tpu/ops/sweep3d.py:90",
                     "solve3d auto 128x128x64 -> pallas"),
@@ -1857,8 +2028,10 @@ def main():
           f"steady solve {rec['stream_ms']:.1f} ms, wrapped 183x63 "
           f"{rec['wrapped_ms']:.2f} ms = {rec['wrapped_launches']} x "
           f"{rec['witer']['ms']:.4f} ms of witer + the rest, diag 127x63 "
-          f"{rec['diag_ms']:.1f} ms = {rec['diag_launches']} x "
-          f"{rec['diag']['ms']:.4f} ms of diag + the rest, 3-D "
+          f"{rec['diag_ms']:.2f} ms = {rec['diag_launches']} x "
+          f"({rec['diag']['ms']:.4f} ms of diag + "
+          f"{rec['ring_scan']['ms']:.4f} of ring_scan + "
+          f"{rec['chain_scan']['ms']:.4f} of chain_scan) + the rest, 3-D "
           f"128x128x64 {rec['grid3d_ms']:.2f} ms = {rec['grid3d_launches']} "
           f"x {rec['sweep3d']['ms']:.4f} ms of sweep3d + the rest, pallas "
           f"180x63 {rec['pallas_ms']:.1f} ms = {rec['relax']['launches']} x "

@@ -294,9 +294,7 @@ def fused(state: torch.Tensor, cen: torch.Tensor, tbl: FusedTables,
         return fused_reference(state, cen, tbl, st, max_iters)
     if state.device.type != "cuda":
         raise ValueError(f"fused runs on cuda or cpu, not {state.device}")
-    if state.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the fused kernel takes float32 or float64, not "
-                        f"{state.dtype}")
+    kernels.require_float("fused", state.dtype)
     if any(t.dtype != torch.int32 for t in (tbl.offs, tbl.u_of, tbl.idx,
                                             tbl.ck_info, tbl.ck_row,
                                             tbl.ck_idx)):

@@ -389,9 +389,7 @@ def relax(dist: torch.Tensor, offs: torch.Tensor, u_of: torch.Tensor,
         return relax_reference(dist, offs, u_of, idx, w, T, nt, S, ntp)
     if dist.device.type != "cuda":
         raise ValueError(f"relax runs on cuda or cpu, not {dist.device}")
-    if dist.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the relax kernel takes float32 or float64, not "
-                        f"{dist.dtype}")
+    kernels.require_float("relax", dist.dtype)
     if not dist.is_contiguous():
         raise ValueError("relax takes a contiguous state")
     chunks = _kernel_chunks(offs, u_of, idx, w, T)

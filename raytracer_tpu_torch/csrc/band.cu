@@ -14,7 +14,7 @@
 //
 // which is what the TPU kernel computes on its 5 theta-rolled pages
 // (page u = v rolled by dc = u - 2 rows), with the roll done in the
-// index arithmetic, as csrc/band.cuh's band_point does on pages.  Each
+// index arithmetic, as csrc/titer.cu's band_kernel does.  Each
 // candidate is one __fadd_rn and min does not depend on order, so the
 // floats are the TPU kernel's and the plain version's to the bit.
 //

@@ -1,7 +1,9 @@
 // Min-plus arithmetic of the port's kernels on non-negative travel times:
-// one add a candidate that nvcc cannot contract (__fadd_rn / __dadd_rn),
+// one add a candidate that nvcc cannot contract (__fadd_rn / __dadd_rn;
+// products and differences likewise),
 // the minimum, +inf, and the minimum across a warp or into memory.  Used
-// by witer.cu, fused.cu and relax.cu (through lane_gather.cuh).
+// by witer.cu, titer.cu, diag.cu (with diag_scans.cuh), fused.cu and relax.cu
+// (through lane_gather.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,6 +14,8 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ bool is_inf(float v) { return isinf(v); }
 __device__ __forceinline__ bool is_inf(double v) { return isinf(v); }
 

@@ -473,7 +473,7 @@ int run(const T* dist, const T* cen, const int* tap_ptr, const int* tap_dmdc, co
   const size_t chain_smem = chain_base + (chain_stage ? chain_costs : 0);
   // lanes a band thread (kBandLpt), fewer where the window and the
   // block's taps would not fit; where they do not at one lane either, the
-  // taps stay in global memory (diag_wrapped.band_tile mirrors this)
+  // taps stay in global memory (diag_circulant.band_tile mirrors this)
   int lpt = kBandLpt;
   int tap_cap = block_taps;
   while (lpt > 1 && band_smem<T>(lpt, halo, tap_cap) > kSmemBudget) lpt /= 2;

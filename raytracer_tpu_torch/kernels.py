@@ -87,11 +87,20 @@ def build(name: str) -> float:
 
 
 def require_float32(name: str, dtype) -> None:
-    """Refuse anything but float32 for a kernel that has no float64 build
-    yet (ROADMAP C.10); the plain version on the CPU takes both."""
+    """Refuse anything but float32 for a kernel whose float64 build is
+    queued (ROADMAP C.11: rsweep and band); the plain version on the CPU
+    takes both."""
     if str(dtype) not in ("torch.float32", "float32"):
         raise TypeError(f"the {name} kernel takes float32, got {dtype}: its "
-                        f"float64 build is queued (ROADMAP C.10)")
+                        f"float64 build is queued (ROADMAP C.11)")
+
+
+def require_float(name: str, dtype) -> None:
+    """Refuse anything but float32 or float64 for a kernel that has
+    builds of both."""
+    if str(dtype) not in ("torch.float32", "torch.float64"):
+        raise TypeError(f"the {name} kernel takes float32 or float64, not "
+                        f"{dtype}")
 
 
 def load(name: str) -> ctypes.CDLL:

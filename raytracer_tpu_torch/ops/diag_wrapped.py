@@ -36,7 +36,10 @@ import torch
 from .. import kernels
 from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
 from .circulant import CirculantGraph, _DC_RANGE, resolve_device
-from .diag_circulant import LANES, SUB, _round_up, decompose_diagonals
+from .diag_circulant import (BAND_LANE_HALO, BAND_LANES, BAND_ROWS,
+                             BLOCK_SMEM, LANES, SUB, TapLists, _block_taps,
+                             _round_up, band_block_taps, band_tile,
+                             decompose_diagonals, row_tap_lists)
 
 RING_REPEAT = 16   # fixed span of the ring scan (statics cover 1..15)
 CHAIN_REPEAT = 32  # repeat span of the chain scan (statics cover 1..31)
@@ -370,68 +373,22 @@ def wrapped_taps(ws: WrappedStencil) -> np.ndarray:
     return np.stack([dm, dc], axis=1).astype(np.int32)
 
 
-# csrc/witer.cu's band tile: BAND_ROWS slot rows x BAND_LANES lanes a block,
-# or 32 lanes where the window and the block's taps do not fit in
-# BLOCK_SMEM bytes (kBandRows, 32 * kBandLpt, kLaneHalo and kSmemBudget
-# there; `witer_launch_plan` makes the kernel's choice)
-BAND_ROWS = 8
-BAND_LANES = 64
-BAND_LANE_HALO = 4  # window lanes each side of a tile
-BLOCK_SMEM = 227 * 1024  # shared memory an H100 block may have
-
-
-class TapLists(NamedTuple):
-    """The band's finite taps listed per row, as csrc/witer.cu reads them
-    (`wrapped_tap_lists`).  Row m's entries are [ptr[m], ptr[m+1]); an
-    entry is a diagonal (dm, dc) whose weight w for row m is finite and
-    whose source row m + dm lies in [0, Mp) (any other tap reads +inf):
-    at most Dp entries a row."""
-
-    ptr: np.ndarray    # (Mp+1,) int32
-    dmdc: np.ndarray   # (E,) int32, dm << 16 | (dc & 0xffff)
-    w: np.ndarray      # (E,) the stencil's dtype
-
-
 def wrapped_tap_lists(ws: WrappedStencil) -> TapLists:
     """Per-row lists of the grouped diagonals' finite weights (the
-    diagonals' (dm, dc) from `wrapped_taps`), by row, then diagonal."""
-    Mp = ws.Mp
-    taps = wrapped_taps(ws).astype(np.int64)
-    W = ws.wpT[:ws.D, :Mp]
-    m, j = np.nonzero(np.isfinite(W).T)             # row-major: by row
-    dm, dc = taps[j, 0], taps[j, 1]
-    keep = (m + dm >= 0) & (m + dm < Mp)
-    m, j, dm, dc = m[keep], j[keep], dm[keep], dc[keep]
-    if len(dm) and (np.abs(dm).max() > ws.pad2 - SUB
-                    or np.abs(dc).max() > _DC_RANGE):
-        raise ValueError("a tap reaches past the stencil's row padding or "
-                         "two theta lanes")
-    ptr = np.zeros(Mp + 1, np.int64)
-    np.cumsum(np.bincount(m, minlength=Mp), out=ptr[1:])
-    dmdc = (dm << 16) | (dc & 0xFFFF)
-    return TapLists(ptr.astype(np.int32), dmdc.astype(np.int32), W[j, m])
-
-
-def band_block_taps(tap_ptr: np.ndarray) -> int:
-    """The most taps a band block reads: the entries of BAND_ROWS
-    consecutive rows from a multiple of BAND_ROWS."""
-    ptr = np.asarray(tap_ptr, np.int64)
-    m0 = np.arange(0, len(ptr) - 1, BAND_ROWS)
-    ends = np.minimum(m0 + BAND_ROWS, len(ptr) - 1)
-    return int((ptr[ends] - ptr[m0]).max(initial=0))
+    diagonals' (dm, dc) from `wrapped_taps`), by row, then diagonal: at
+    most Dp entries a row, as csrc/witer.cu's band reads them."""
+    return row_tap_lists(wrapped_taps(ws), ws.wpT[:ws.D, :ws.Mp],
+                         ws.pad2 - SUB)
 
 
 def witer_launch_plan(st: WStatic, itemsize: int, block_taps: int):
     """(band lanes a block, taps staged in shared memory): the band tile
-    csrc/witer.cu's launch function takes for this geometry and dtype -
-    BAND_LANES lanes with the block's taps beside the window, else 32,
-    else the taps read from global memory.  Raises ValueError where one
+    csrc/witer.cu's launch function takes for this geometry and dtype
+    (`band_tile`, the halo the stencil's row padding).  Raises ValueError where one
     of the launch's kernels would need more than an H100 block may have
     (BLOCK_SMEM bytes of shared memory, 32 warps); the kernel refuses
     such a launch too."""
     rho_starts, Mp, NTL, pad2, nt = st
-    halo = pad2 - SUB
-    tap = 8 if itemsize == 4 else 16            # sizeof(Tap<T>) there
     if NTL > 32 * 32 * (4 if NTL % 256 else 8):
         raise ValueError(f"the witer kernel's ring takes rows of at most "
                          f"8192 lanes (4096 if not a multiple of 256), "
@@ -443,29 +400,8 @@ def witer_launch_plan(st: WStatic, itemsize: int, block_taps: int):
         raise ValueError(f"the witer kernel's chain holds a column of "
                          f"{Mp} slots in one block: more than 32 warps or "
                          f"{BLOCK_SMEM // 1024} KB of shared memory")
-
-    def smem(lanes, taps):
-        window = (BAND_ROWS + 2 * halo) * (lanes + 2 * BAND_LANE_HALO)
-        return _round_up(window * itemsize, 16) + taps * tap
-
-    for staged in (True, False):
-        for lanes in (BAND_LANES, 32):
-            if smem(lanes, block_taps if staged else 0) <= BLOCK_SMEM:
-                return lanes, staged
-    raise ValueError(f"the witer kernel's band window of {BAND_ROWS} + 2 x "
-                     f"{halo} rows x 40 lanes needs {smem(32, 0)} bytes of "
-                     f"shared memory, more than the {BLOCK_SMEM // 1024} KB "
-                     f"an H100 block may have")
-
-
-def _block_taps(tap_ptr: torch.Tensor) -> int:
-    """`band_block_taps` of the tensor, computed once and kept on it
-    (again if it is modified in place)."""
-    cache = getattr(tap_ptr, "_witer_block_taps", None)
-    if cache is None or cache[0] != tap_ptr._version:
-        cache = (tap_ptr._version, band_block_taps(tap_ptr.cpu().numpy()))
-        tap_ptr._witer_block_taps = cache
-    return cache[1]
+    return band_tile(pad2 - SUB, itemsize, block_taps,
+                     "the witer kernel's band window")
 
 
 def _ring_plan(NTL: int):
@@ -740,9 +676,7 @@ def witer(st: WStatic, dist: torch.Tensor, cen: torch.Tensor,
         return witer_reference(st, dist, cen, tbl, iters)
     if dist.device.type != "cuda":
         raise ValueError(f"witer runs on cuda or cpu, not {dist.device}")
-    if dist.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the witer kernel takes float32 or float64, not "
-                        f"{dist.dtype}")
+    kernels.require_float("witer", dist.dtype)
     if tbl.tap_ptr.dtype != torch.int32 or tbl.tap_dmdc.dtype != torch.int32:
         raise TypeError("the witer kernel takes int32 tap lists")
     tensors = (dist, cen) + tuple(tbl)

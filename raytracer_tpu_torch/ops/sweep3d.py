@@ -304,9 +304,7 @@ def sweep3d_T_batched(dist_flat: torch.Tensor, W4: torch.Tensor, n1: int,
     if interpret:
         raise ValueError("interpret=True runs the JAX package's Pallas "
                          "interpreter; the port has none on a CUDA device")
-    if dist_flat.dtype not in (torch.float32, torch.float64):
-        raise TypeError("the sweep3d kernel takes float32 or float64, not "
-                        f"{dist_flat.dtype}")
+    kernels.require_float("sweep3d", dist_flat.dtype)
     if not (dist_flat.is_contiguous() and W4.is_contiguous()):
         raise ValueError("sweep3d takes contiguous tensors")
     M13 = mirror_weights(W4, n1)

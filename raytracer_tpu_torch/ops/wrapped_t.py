@@ -11,8 +11,9 @@ m holds slot m, and the nt theta rows are padded to NTT (a multiple of
 
 and `titer` runs `iters` of them per call: on a CUDA tensor as the
 hand-written kernel `csrc/titer.cu` (one launch function that enqueues
-one kernel per phase), on a CPU tensor as its plain twin
-`titer_reference`, which follows the Pallas body op for op.  The solve
+three kernels an iteration), on a CPU tensor as its plain twin
+`titer_reference`, which follows the Pallas body op for op
+(`titer_tiles_reference` replays the kernel's work partition).  The solve
 loop calls it until no distance improves by more than
 `SolverConfig.tol`, counting `sweeps_per_call` iterations per call as
 the JAX package does.
@@ -284,24 +285,15 @@ def _scan_plan(st: TWStatic):
     return ring_statics, n_ring, chain_statics, chain_rep, n_chain
 
 
-def titer_reference(st: TWStatic, dist: torch.Tensor, cen: torch.Tensor,
-                    tbl: TWTables, iters: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of `titer`: `iters` Jacobi iterations of the
-    (S*NTT, ML) theta-major field, following the TPU kernel's body op for
-    op (`_make_titer_kernel` of the JAX package).  cen (S,) holds each
-    source block's centre distance.  Returns new (dist, cen)."""
+def _titer_scans(st: TWStatic, tbl: TWTables, rows: int, dtype, dev):
+    """The ring and chain scans of one iteration of the (rows, ML) field,
+    op for op the TPU kernel's (shared by both plain versions)."""
     Mp, ML, NTT, nt, maxdm = st
-    rows = dist.shape[0]
-    S = rows // NTT
-    dup = NTT - nt
-    n_dm = 2 * maxdm + 1
     ring_statics, n_ring, chain_statics, chain_rep, n_chain = _scan_plan(st)
-    dev = dist.device
     row = (torch.arange(rows, device=dev) % NTT)[:, None]
-    inf = torch.tensor(float("inf"), dtype=dist.dtype, device=dev)
-    rf, rb, fan = tbl.ring_f, tbl.ring_b, tbl.fan_w
-    cfl, cbl, w_ref = tbl.cfl, tbl.cbl, tbl.wrows
+    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    rf, rb = tbl.ring_f, tbl.ring_b
+    cfl, cbl = tbl.cfl, tbl.cbl
 
     def ring_scan(v):
         # row t improves from row t-s (theta - s) at cost s*rf
@@ -335,6 +327,27 @@ def titer_reference(st: TWStatic, dist: torch.Tensor, cen: torch.Tensor,
             v = torch.minimum(v, torch.roll(v, ML - chain_rep, dims=1)
                               + cbl[L])
         return v
+
+    return ring_scan, chain_scan
+
+
+def titer_reference(st: TWStatic, dist: torch.Tensor, cen: torch.Tensor,
+                    tbl: TWTables, iters: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of `titer`: `iters` Jacobi iterations of the
+    (S*NTT, ML) theta-major field, following the TPU kernel's body op for
+    op (`_make_titer_kernel` of the JAX package).  cen (S,) holds each
+    source block's centre distance.  Returns new (dist, cen)."""
+    Mp, ML, NTT, nt, maxdm = st
+    rows = dist.shape[0]
+    S = rows // NTT
+    dup = NTT - nt
+    n_dm = 2 * maxdm + 1
+    dev = dist.device
+    ring_scan, chain_scan = _titer_scans(st, tbl, rows, dist.dtype, dev)
+    row = (torch.arange(rows, device=dev) % NTT)[:, None]
+    inf = torch.tensor(float("inf"), dtype=dist.dtype, device=dev)
+    fan, w_ref = tbl.fan_w, tbl.wrows
 
     def band_sweep(cur):
         pages = []
@@ -380,6 +393,129 @@ def titer_reference(st: TWStatic, dist: torch.Tensor, cen: torch.Tensor,
     return v, cen
 
 
+# csrc/titer.cu's tiles: a band block's lanes and its step of theta rows
+# (the kernel's kBandLanes, kBandRows, kBandRing), a ring block's columns
+BAND_LANES = 128
+BAND_ROWS = 4
+BAND_RING = 16
+RING_COLS = 8
+BLOCK_SMEM = 227 * 1024  # shared memory an H100 block may have
+
+
+def titer_launch_plan(st: TWStatic, itemsize: int):
+    """(ring rows a thread, ring warps a column, chain lanes a thread,
+    chain warps a row): the strips csrc/titer.cu's launch function takes
+    for this geometry - a ring column of NTT rows on one warp, 2, 4 or 8
+    rows a thread, else 32 a thread on several warps; a chain row of
+    exactly ML lanes, the most lanes a thread (a multiple of 4, at most
+    32) that divide ML / 32.  Raises ValueError where one of its kernels
+    would need more than an H100 block may have (BLOCK_SMEM bytes of
+    shared memory, 32 warps); the kernel refuses such a launch too."""
+    Mp, ML, NTT, nt, maxdm = st
+    ring_r = 2 if NTT <= 64 else 4 if NTT <= 128 else 8 if NTT <= 256 else 32
+    ring_nw = -(-NTT // (32 * ring_r))
+    cols = RING_COLS if ring_nw == 1 else 1
+    ring = (2 * ring_nw * 32 + NTT * (cols + 1)) * itemsize
+    if ring_nw > 32 or ring > BLOCK_SMEM:
+        raise ValueError(f"the titer kernel's ring holds a column of {NTT} "
+                         f"theta rows in one block: more than 32 warps or "
+                         f"{BLOCK_SMEM // 1024} KB of shared memory")
+    chain_r = next(r for r in range(32, 0, -4) if (ML // 32) % r == 0)
+    chain_nw = ML // (32 * chain_r)
+    if chain_nw > 32:
+        raise ValueError(f"the titer kernel's chain holds a row of {ML} "
+                         f"lanes in one block: more than 32 warps of "
+                         f"{chain_r} lanes a thread")
+    band = BAND_RING * (BAND_LANES + 2 * maxdm) * itemsize
+    if band > BLOCK_SMEM:
+        raise ValueError(f"the titer kernel's band ring of {BAND_RING} rows "
+                         f"x {BAND_LANES + 2 * maxdm} lanes needs {band} "
+                         f"bytes of shared memory, more than the "
+                         f"{BLOCK_SMEM // 1024} KB an H100 block may have")
+    return ring_r, ring_nw, chain_r, chain_nw
+
+
+def titer_tiles_reference(st: TWStatic, dist: torch.Tensor, cen: torch.Tensor,
+                          tbl: TWTables, iters: int, run: int = BAND_ROWS
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """csrc/titer.cu's band in plain torch ops: the same floats as
+    `titer_reference` by another route.  Each tile of BAND_LANES lanes x
+    `run` theta rows (a multiple of BAND_ROWS) of a source block reads
+    the rows c_begin - 2 .. c_end + 1 (wrapped mod NTT when dup == 0,
+    +inf past the block's edge when dup > 0) at the lanes m0 - maxdm ..
+    m0 + BAND_LANES - 1 + maxdm (wrapped mod ML), every (dm, dc) tap of
+    every lane, +inf weights too, one add a candidate.  Each row's band
+    is evaluated once; the duplicate merge (rows t < dup take row t+nt's
+    result, rows t >= nt row t-nt's) and the fan run at the start of the
+    next pass, and the centre takes its minimum from the band's output
+    before the merge, as in the kernel.  The ring and chain scans are
+    `titer_reference`'s."""
+    Mp, ML, NTT, nt, maxdm = st
+    rows = dist.shape[0]
+    S = rows // NTT
+    dup = NTT - nt
+    n_dm = 2 * maxdm + 1
+    dev, dtype = dist.device, dist.dtype
+    ring_scan, chain_scan = _titer_scans(st, tbl, rows, dtype, dev)
+    inf = float("inf")
+    fan = tbl.fan_w[0]
+    width = BAND_LANES + 2 * maxdm
+    n_runs = -(-NTT // run)
+    # every run's ring rows (theta rows, -1 where the row is +inf)
+    q = (torch.arange(n_runs, device=dev)[:, None] * run - 2
+         + torch.arange(run + NDC - 1, device=dev)[None, :])
+    if dup == 0:
+        q = q % NTT
+    else:
+        q = torch.where((q >= 0) & (q < NTT), q, -1)
+    j = torch.arange(width, device=dev)
+    lane = torch.arange(BAND_LANES, device=dev)
+
+    def band(x):
+        """(rows, ML) band output, unmerged."""
+        y = torch.empty_like(x)
+        for b in range(S):
+            xb = x[b * NTT:(b + 1) * NTT]
+            for m0 in range(0, ML, BAND_LANES):
+                lx = (m0 - maxdm + j) % ML
+                win = torch.where(q[:, :, None] >= 0,
+                                  xb[q.clamp(min=0)][:, :, lx], inf)
+                # output row i of a run reads ring row i + 2 + dc
+                acc = win[:, 2:2 + run, maxdm:maxdm + BAND_LANES].clone()
+                for t in range(n_dm):
+                    xw = (m0 - maxdm + t + lane) % ML
+                    for u in range(NDC):
+                        w = tbl.wrows[t * NDC + u, xw]
+                        acc = torch.minimum(
+                            acc, win[:, u:u + run, t:t + BAND_LANES] + w)
+                y[b * NTT:(b + 1) * NTT, m0:m0 + BAND_LANES] = \
+                    acc.reshape(n_runs * run, BAND_LANES)[:NTT]
+        return y
+
+    def merge_and_fan(y, c):
+        y3 = y.view(S, NTT, ML)
+        if dup:
+            fwd = torch.full_like(y3, inf)
+            bwd = torch.full_like(y3, inf)
+            fwd[:, :dup] = y3[:, nt:]
+            bwd[:, nt:] = y3[:, :dup]
+            y3 = torch.minimum(y3, torch.minimum(fwd, bwd))
+        return torch.minimum(y3, c[:, None, None] + fan).reshape(rows, ML)
+
+    v = dist
+    for it in range(iters):
+        if it:
+            v = merge_and_fan(v, cen)
+        y = band(chain_scan(ring_scan(v)))
+        # each lane with a finite fan weight folds min(y + fan) into cen
+        fin = torch.isfinite(fan)
+        part = y.view(S, NTT, ML)[:, :, fin] + fan[fin]
+        if part.numel():
+            cen = torch.minimum(cen, part.amin(dim=(1, 2)))
+        v = y
+    return (merge_and_fan(v, cen) if iters else v.clone()), cen.clone()
+
+
 def _check_titer_args(st: TWStatic, dist: torch.Tensor, cen: torch.Tensor,
                       tbl: TWTables):
     Mp, ML, NTT, nt, maxdm = st
@@ -409,7 +545,7 @@ def _titer_lib() -> ctypes.CDLL:
     fn = lib.titer_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
                        + [ctypes.c_void_p])
     return lib
 
@@ -419,9 +555,11 @@ def titer(st: TWStatic, dist: torch.Tensor, cen: torch.Tensor,
     """`iters` Jacobi iterations of the (S*NTT, ML) theta-major field;
     returns new (dist, cen), the inputs untouched.
 
-    A CUDA tensor goes to the hand-written kernel `csrc/titer.cu`: one
-    launch function that enqueues one kernel per phase on the current
-    stream (`titer.launches` counts its calls).  A CPU tensor goes to
+    A CUDA tensor goes to the hand-written kernel `csrc/titer.cu`
+    (float32 or float64): one launch function that enqueues three kernels
+    an iteration and one more on the current stream (`titer.launches`
+    counts its calls); a grid whose kernels would not fit an H100 block
+    raises ValueError (`titer_launch_plan`).  A CPU tensor goes to
     `titer_reference`.  Any other device raises.
     """
     _check_titer_args(st, dist, cen, tbl)
@@ -429,11 +567,12 @@ def titer(st: TWStatic, dist: torch.Tensor, cen: torch.Tensor,
         return titer_reference(st, dist, cen, tbl, iters)
     if dist.device.type != "cuda":
         raise ValueError(f"titer runs on cuda or cpu, not {dist.device}")
-    kernels.require_float32("titer", dist.dtype)
+    kernels.require_float("titer", dist.dtype)
     tensors = (dist, cen) + tuple(tbl)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("titer takes contiguous tensors")
     Mp, ML, NTT, nt, maxdm = st
+    titer_launch_plan(st, dist.element_size())
     S = dist.shape[0] // NTT
     ring_statics, n_ring, chain_statics, chain_rep, n_chain = _scan_plan(st)
     out = torch.empty_like(dist)
@@ -446,7 +585,8 @@ def titer(st: TWStatic, dist: torch.Tensor, cen: torch.Tensor,
         tbl.cbl.data_ptr(), tbl.fan_w.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), cen_out.data_ptr(),
         S, ML, NTT, nt, maxdm, len(ring_statics), n_ring,
-        len(chain_statics), chain_rep, n_chain, int(iters), stream)
+        len(chain_statics), chain_rep, n_chain, int(iters),
+        int(dist.dtype == torch.float64), stream)
     if rc != 0:
         raise RuntimeError(f"titer kernel launch failed: CUDA error {rc}")
     titer.launches += 1

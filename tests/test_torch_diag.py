@@ -6,9 +6,10 @@ the JAX package.
 interpret mode bit for bit: every candidate is one f32 add and min does
 not depend on order.  The cases include ntheta 127 at nr 3, whose
 128-lane cover has one padding lane (the grids `auto` sends to 'diag').
-The kernel reads the field itself instead of the TPU's 40-copy source
-stack; `test_diag_taps_replay_the_sweep` holds that indexing, replayed
-in NumPy, to the same bits.
+The kernel reads the field itself, through per-row lists of the finite
+taps, instead of the TPU's 40-copy source stack;
+`test_diag_taps_replay_the_sweep` holds those lists, replayed in NumPy,
+to the same bits.
 
 The ring and chain scans are plain torch ops in the JAX package's order
 of operations; they equal the JAX functions run op by op bit for bit.
@@ -100,10 +101,10 @@ def test_diag_sweep_reference_matches_pallas(ntheta, nr):
 
 @pytest.mark.parametrize("ntheta", [9, 127])
 def test_diag_taps_replay_the_sweep(ntheta):
-    """The CUDA kernel's indexing - dist[m + dm, (c + dc) mod nt] + w[d, m]
-    over (dm, dc) taps and a (D, Mp) weight table, +inf rows outside
-    [0, Mp) skipped, +inf weights skipped, +inf padding lanes - replayed
-    in NumPy, gives the twin's bits."""
+    """The CUDA kernel's taps - dist[m + dm, (c + dc) mod nt] + w over each
+    row's list of finite taps (`tap_ptr`, `tap_dmdc`, `tap_w`, source
+    rows in [0, Mp)), +inf padding lanes - replayed in NumPy, give the
+    twin's bits."""
     _, cg, _ = _grids(ntheta, 3, 400.0)
     ds = pdc.pack_diag_stencil(cg)
     tbl = pdc.device_diag_tables(ds, "cpu")
@@ -111,15 +112,17 @@ def test_diag_taps_replay_the_sweep(ntheta):
     nt = ds.ntheta
     want = pdc.diag_sweep_reference(_static(ds), torch.from_numpy(dist),
                                     tbl).numpy()
-    taps, wT = tbl.taps.numpy(), tbl.wT.numpy()
+    ptr, code, w = (t.numpy() for t in (tbl.tap_ptr, tbl.tap_dmdc,
+                                         tbl.tap_w))
     out = np.full_like(dist, np.inf)
     out[:, :nt] = dist[:, :nt]
     cols = np.arange(nt)
-    for (dm, dc), w in zip(taps, wT):
-        for m in np.flatnonzero(np.isfinite(w)):
-            if 0 <= m + dm < ds.Mp:
-                cand = dist[m + dm, (cols + dc) % nt] + w[m]
-                out[m, :nt] = np.minimum(out[m, :nt], cand)
+    for m in range(ds.Mp):
+        for e in range(ptr[m], ptr[m + 1]):
+            dm, dc = code[e] >> 16, ((code[e] & 0xFFFF) ^ 0x8000) - 0x8000
+            assert 0 <= m + dm < ds.Mp and np.isfinite(w[e])
+            cand = dist[m + dm, (cols + dc) % nt] + w[e]
+            out[m, :nt] = np.minimum(out[m, :nt], cand)
     np.testing.assert_array_equal(out, want)
 
 
@@ -258,9 +261,9 @@ def test_diag_sweep_refuses_bad_arguments():
     tbl = pdc.device_diag_tables(ds, "cpu")
     with pytest.raises(ValueError, match="dist must be"):
         pdc.diag_sweep(st, torch.zeros((ds.Mp, ds.NTL + 1)), tbl)
-    with pytest.raises(ValueError, match="wT must be"):
+    with pytest.raises(ValueError, match="tap_ptr must be"):
         pdc.diag_sweep(st, torch.zeros((ds.Mp, ds.NTL)),
-                       tbl._replace(wT=tbl.wT[:, :8]))
+                       tbl._replace(tap_ptr=tbl.tap_ptr[:8]))
     mtbl = pdc.DiagTables(*(torch.zeros(t.shape, dtype=t.dtype,
                                         device="meta") for t in tbl))
     with pytest.raises(ValueError, match="cuda or cpu"):

@@ -8,10 +8,11 @@ and `AnnulusSolver(method="sweep")` on the CPU takes the JAX package's
 4 rounds at 48x12 (spacing 150) from the innermost node at theta 0,
 with a largest finite time of 610.4519199802852 s and every node within
 1e-9 s (float64 rounding of the same sums in another order: the JAX
-AnnulusSolver runs its XLA engine).  The CUDA kernels `rsweep`, `titer`,
-`band` and `diag` have float32 builds only; on the card they refuse
-float64 with a TypeError that names ROADMAP C.10 (their shared check is
-called here directly: a CUDA tensor cannot be made on this machine).
+AnnulusSolver runs its XLA engine).  The CUDA kernels `rsweep` and
+`band` have float32 builds only; on the card they refuse float64 with a
+TypeError that names ROADMAP C.11, which queues their float64 builds
+(their shared check is called here directly: a CUDA tensor cannot be
+made on this machine).  `titer` and `diag` have float64 builds.
 """
 import ast
 import os
@@ -31,6 +32,7 @@ from raytracer_tpu_torch.ops import sweep_theta as psw
 from raytracer_tpu_torch.ops.wrapped_t import pack_twrapped_stencil
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLOAT32_ONLY = ("rsweep", "band")   # their float64 builds: ROADMAP C.11
 F64_ATOL = 1e-9
 F64_ROUNDS = 4
 F64_TMAX = 610.4519199802852
@@ -111,15 +113,23 @@ def test_sweep_float64_keeps_its_dtype_on_every_buffer(grids):
     assert buf.dtype == torch.float64
     assert psw._from_T(buf, rst, static.nt, static.ML, False).dtype == \
         torch.float64
-    with pytest.raises(TypeError, match="C.10"):
+    with pytest.raises(TypeError, match="C.11"):
         psw.plan_rsweep(wdn, rst, False)
 
 
 @pytest.mark.parametrize("kernel", ["rsweep", "titer", "band", "diag"])
 def test_card_refuses_float64_naming_c10(kernel):
-    with pytest.raises(TypeError, match=r"ROADMAP C\.10"):
-        kernels.require_float32(kernel, torch.float64)
-    kernels.require_float32(kernel, torch.float32)   # no error
+    """rsweep and band have float32 builds only: their check refuses
+    float64 naming ROADMAP C.11, the item that queues their float64
+    builds.  titer and diag have float64 builds: their check takes it."""
+    if kernel in FLOAT32_ONLY:
+        with pytest.raises(TypeError, match=r"ROADMAP C\.11"):
+            kernels.require_float32(kernel, torch.float64)
+        kernels.require_float32(kernel, torch.float32)   # no error
+    else:
+        kernels.require_float(kernel, torch.float64)     # no error
+        with pytest.raises(TypeError, match="float32 or float64"):
+            kernels.require_float(kernel, torch.float16)
 
 
 @pytest.mark.parametrize("module,wrapper,kernel", [
@@ -129,13 +139,16 @@ def test_card_refuses_float64_naming_c10(kernel):
     ("ops/diag_circulant.py", "diag_sweep", "diag")])
 def test_float32_kernels_check_dtype_on_their_cuda_branch(module, wrapper,
                                                           kernel):
-    """Each float32-only wrapper calls kernels.require_float32 with its
-    kernel's name after its CPU branch has returned (the plain version
-    takes float64)."""
+    """Each wrapper checks its kernel's dtype after its CPU branch has
+    returned (the plain version takes float64): the float32-only ones
+    by kernels.require_float32, the others (float32 or float64) by
+    kernels.require_float, with the kernel's name."""
     with open(os.path.join(ROOT, "raytracer_tpu_torch", module)) as f:
         text = f.read()
     fn = next(n for n in ast.parse(text).body
               if isinstance(n, ast.FunctionDef) and n.name == wrapper)
     src = ast.get_source_segment(text, fn)
-    assert f'kernels.require_float32("{kernel}",' in src
-    assert src.index("require_float32") > src.index('device.type == "cpu"')
+    check = ("require_float32" if kernel in FLOAT32_ONLY
+             else "require_float")
+    assert f'kernels.{check}("{kernel}",' in src
+    assert src.index(check) > src.index('device.type == "cpu"')

@@ -1,12 +1,31 @@
 """Time two versions of the port's kernels in turns on one NVIDIA GPU: the
 sources in the package's csrc/ and an earlier copy.
 
-    python3 tools/chip_kernel_ab.py --old DIR [--kernels witer,relax,fused]
-        [--reps N] [--breakdown] [--ptxas]
+    python3 tools/chip_kernel_ab.py --old DIR [--kernels titer,diag]
+        [--old-pkg ROOT] [--reps N] [--breakdown] [--ptxas]
 
 DIR holds the earlier sources, unpacked from an earlier commit (e.g.
 `git archive <commit> raytracer_tpu_torch/csrc`) into a directory that
 .gitignore lists.  --kernels picks among
+  titer   the twrapped engine's 4 iterations at 180x63 S=1 and S=2 and
+          176x40 S=2 (dup 0), per launch, and the new kernel alone in
+          float64 at 180x63 S=1 and 176x40 S=2 (the earlier titer.cu with
+          titer_launch(dist, cen, wrows, ring_f, ring_b, cfl, cbl, fan,
+          out, scratch, cen_out, s, ml, ntt, nt, maxdm, n_ring_statics,
+          n_ring, n_chain_statics, chain_rep, n_chain, iters, stream);
+          with --breakdown both versions' device time by kernel at 180x63
+          S=1, torch.profiler);
+  diag    the diag engine at 127x63 and 183x63: one sweep (the earlier
+          diag.cu with diag_launch(dist, taps, wT, out, d, mp, ntl, nt,
+          stream), the diagonals as (D, 2) int32 (dm, dc) and a (D, Mp)
+          weight table), the ring and chain scans (earlier: the torch ops
+          _ring_scan and _chain_scan) and one whole iteration (earlier:
+          those scans, the earlier sweep and the fan and changed test as
+          torch ops, with the host read of the flag; now diag_step with
+          the scans, one launch call, and the read of its flag), the new
+          kernels alone in float64;
+          with --breakdown both iterations' device time by kernel at
+          127x63;
   witer   the wrapped engine's 4 iterations at 183x63 S=1 and S=2 and
           256x63 S=2, per launch, and the new kernel alone in float64 at
           183x63 S=1 (the earlier witer.cu with witer_launch(dist, cen,
@@ -30,6 +49,13 @@ both versions at 180x63 S=1 and 24x12 S=2: builds with a pre-included
 header that defines fused.cu's timing hook FUSED_SPLIT (block 0 stamps
 %globaltimer after every grid sync), and a kernel of grid syncs alone
 at the fused kernel's grid for their own cost (timing only).
+`--old-pkg ROOT` (a directory holding an earlier commit's
+raytracer_tpu_torch package, e.g. `git archive <commit>
+raytracer_tpu_torch`) also times whole solves, each version in its own
+process in the order old, new, new, old: twrapped at 180x63 and auto
+(diag) at 127x63 from the surface source at theta 0, host clock around
+each solve with a synchronize, medians of 5 and 3 after a warm-up, with
+the iteration counts.
 `--ptxas` prints the register and shared-memory use of the new kernels
 (nvcc -Xptxas -v).  Imports torch and the port, never JAX.
 """
@@ -405,12 +431,247 @@ def relax_ab(lib_old, reps, rows):
         print(json.dumps(rows[-1]), flush=True)
 
 
+def _titer_case(ntheta, nr, S, dtype, rng):
+    """Tables, static, field and centre values of a titer launch (phase
+    3a of chip_smoke.py)."""
+    from raytracer_tpu_torch.ops import wrapped_t as pwt
+
+    _, cg, _ = rt.init_annulus_circulant(ntheta, nr, spacing=20.0)
+    ws = pwt.pack_twrapped_stencil(cg, dtype=dtype, band_closure=1)
+    st = pwt.TWStatic(ws.Mp, ws.ML, ws.NTT, ws.nt, ws.maxdm)
+    tbl = pwt.device_twrapped_tables(ws, "cuda")
+    d = rng.uniform(0.0, 1500.0, (S * ws.NTT, ws.ML))
+    d[rng.random(d.shape) < 0.5] = np.inf
+    d[:, ws.Mp:] = np.inf
+    cen = rng.uniform(0.0, 1500.0, S)
+    return (ws, st, tbl, torch.from_numpy(d.astype(dtype)).cuda(),
+            torch.from_numpy(cen.astype(dtype)).cuda())
+
+
+def _titer_old(lib_old, st, tbl, S):
+    """run(dist, cen) of the earlier titer.cu (float32 only), launch
+    interface titer_launch(dist, cen, wrows, ring_f, ring_b, cfl, cbl,
+    fan, out, scratch, cen_out, s, ml, ntt, nt, maxdm, n_ring_statics,
+    n_ring, n_chain_statics, chain_rep, n_chain, iters, stream)."""
+    from raytracer_tpu_torch.ops import wrapped_t as pwt
+
+    fn = lib_old.titer_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [
+        ctypes.c_void_p]
+    statics, n_ring, chain_statics, rep, n_chain = pwt._scan_plan(st)
+
+    def run(dist, cen, iters=4):
+        out = torch.empty_like(dist)
+        scratch = torch.empty_like(dist)
+        cen_out = torch.empty_like(cen)
+        rc = fn(dist.data_ptr(), cen.data_ptr(), tbl.wrows.data_ptr(),
+                tbl.ring_f.data_ptr(), tbl.ring_b.data_ptr(),
+                tbl.cfl.data_ptr(), tbl.cbl.data_ptr(), tbl.fan_w.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), cen_out.data_ptr(), S,
+                st.ML, st.NTT, st.nt, st.maxdm, len(statics), n_ring,
+                len(chain_statics), rep, n_chain, iters,
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        return out, cen_out
+    return run
+
+
+def titer_ab(lib_old, reps, rows, breakdown):
+    """The earlier titer kernel and the package's, in turns, per launch of
+    4 iterations at 180x63 S=1 and S=2 and 176x40 S=2 (dup 0), both held
+    bit-equal to titer_reference first; the package's alone in float64.
+    With `breakdown`, each version's device time by kernel at 180x63
+    S=1 (torch.profiler)."""
+    from raytracer_tpu_torch.ops import wrapped_t as pwt
+
+    rng = np.random.default_rng(5)
+    for ntheta, nr, S, dtype in ((180, 63, 1, np.float32),
+                                 (180, 63, 2, np.float32),
+                                 (176, 40, 2, np.float32),
+                                 (180, 63, 1, np.float64),
+                                 (176, 40, 2, np.float64)):
+        ws, st, tbl, dist, cen = _titer_case(ntheta, nr, S, dtype, rng)
+        want = pwt.titer_reference(st, dist, cen, tbl, 4)
+
+        def new():
+            return pwt.titer(st, dist, cen, tbl, 4)
+
+        got = new()
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, got, want)), ("new", ntheta, S, dtype)
+        row = dict(kernel="titer", grid=f"{ntheta}x{nr}", S=S,
+                   dtype=np.dtype(dtype).name, dup=ws.NTT - ws.nt,
+                   bit_equal=True)
+        if dtype == np.float32:
+            old_run = _titer_old(lib_old, st, tbl, S)
+
+            def old():
+                return old_run(dist, cen)
+
+            got = old()
+            torch.cuda.synchronize()
+            assert all(map(torch.equal, got, want)), ("old", ntheta, S)
+            row["old_ms"], row["new_ms"] = _turns(old, new, reps)
+            if breakdown and ntheta == 180 and S == 1:
+                row["old_split_ms"] = chip_smoke._kernel_split_ms(old, 5)
+                row["new_split_ms"] = chip_smoke._kernel_split_ms(new, 5)
+        else:
+            row["new_ms"] = [_ms(new, reps), _ms(new, reps)]
+        rows.append(row)
+        print(json.dumps(rows[-1]), flush=True)
+
+
+def diag_ab(lib_old, reps, rows, breakdown):
+    """The diag engine's pieces, earlier and new, in turns at 127x63 and
+    183x63: the sweep kernels, the scans (earlier: torch ops), and one
+    iteration of the loop (earlier: the torch scans, the earlier sweep,
+    the fan and changed test as torch ops and the host read of the flag;
+    new: diag_step with the scans and the read of its flag), all
+    held bit-equal to the plain versions first; float64 new alone.  With
+    `breakdown`, both iterations' device time by kernel at 127x63."""
+    from raytracer_tpu_torch.ops import diag_circulant as pdc
+
+    fn = lib_old.diag_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    rng = np.random.default_rng(6)
+    for ntheta, dtype in ((127, np.float32), (183, np.float32),
+                          (127, np.float64)):
+        _, cg, _ = rt.init_annulus_circulant(ntheta, 63, spacing=20.0)
+        ds = pdc.pack_diag_stencil(cg, dtype=dtype)
+        st = pdc.DiagStatic(ds.D, ds.Mp, ds.NTL, ds.pad, ds.ntheta)
+        tbl = pdc.device_diag_tables(ds, "cuda")
+        sc = pdc.device_diag_scan_tables(ds, "cuda")
+        d = rng.uniform(0.0, 1500.0, (ds.Mp, ds.NTL))
+        d[rng.random(d.shape) < 0.3] = np.inf
+        x = torch.from_numpy(d.astype(dtype)).cuda()
+        old_x = x + 1.0
+        dcen = torch.tensor(400.0, dtype=x.dtype, device="cuda")
+        tol = torch.tensor(1e-3, dtype=x.dtype, device="cuda")
+        d_ids = np.arange(ds.D)
+        taps = torch.tensor(pdc.diag_taps(ds), device="cuda")
+        wT = torch.tensor(np.ascontiguousarray(
+            ds.wp[d_ids // pdc.LANES, :, d_ids % pdc.LANES]), device="cuda")
+
+        def old_sweep(v):
+            out = torch.empty_like(v)
+            rc = fn(v.data_ptr(), taps.data_ptr(), wT.data_ptr(),
+                    out.data_ptr(), ds.D, ds.Mp, ds.NTL, ds.ntheta,
+                    torch.cuda.current_stream().cuda_stream)
+            assert rc == 0, rc
+            return out
+
+        def old_iter():
+            v = pdc._chain_scan(pdc._ring_scan(x, sc.ring_f, sc.ring_b,
+                                               ds.ntheta),
+                                sc.chain_f, sc.chain_b)
+            v = old_sweep(v)
+            c = torch.minimum(dcen, (v + sc.fan_w).min())
+            v = torch.minimum(v, c + sc.fan_w + sc.lane_mask)
+            return v, c, bool(((v < old_x - tol).any()
+                               | (c < dcen - tol)).item())
+
+        def new_iter():
+            v, c, flag = pdc.diag_step(st, x, tbl, sc, old_x, dcen, tol, True)
+            return v, c, bool(flag.item())
+
+        name = f"{ntheta}x63"
+        want_sweep = pdc.diag_sweep_reference(st, x, tbl)
+        want_iter = pdc.diag_step_reference(
+            st, pdc._chain_scan(pdc._ring_scan(x, sc.ring_f, sc.ring_b,
+                                               ds.ntheta),
+                                sc.chain_f, sc.chain_b),
+            tbl, sc, old_x, dcen, tol)
+        pieces = (
+            ("sweep", lambda: old_sweep(x) if dtype == np.float32 else None,
+             lambda: pdc.diag_sweep(st, x, tbl), want_sweep),
+            ("ring_scan",
+             lambda: pdc._ring_scan(x, sc.ring_f, sc.ring_b, ds.ntheta),
+             lambda: pdc.ring_scan(x, sc, ds.ntheta), None),
+            ("chain_scan", lambda: pdc._chain_scan(x, sc.chain_f, sc.chain_b),
+             lambda: pdc.chain_scan(x, sc), None),
+            ("iteration", old_iter if dtype == np.float32 else None,
+             new_iter, want_iter))
+        for piece, old, new, want in pieces:
+            got = new()
+            if want is None:
+                want = old()
+            torch.cuda.synchronize()
+            if piece == "iteration":
+                assert torch.equal(got[0], want[0]) \
+                    and torch.equal(got[1], want[1]) \
+                    and got[2] == bool(want[2]), ("new", name, piece)
+            else:
+                assert torch.equal(got, want), ("new", name, piece)
+            row = dict(kernel="diag", piece=piece, grid=name,
+                       dtype=np.dtype(dtype).name, bit_equal=True)
+            if dtype == np.float32:
+                got = old()
+                torch.cuda.synchronize()
+                same = (torch.equal(got[0], want[0]) and got[2] == bool(
+                    want[2]) if piece == "iteration" else torch.equal(got,
+                                                                      want))
+                assert same, ("old", name, piece)
+                row["old_ms"], row["new_ms"] = _turns(old, new, reps)
+                if breakdown and piece == "iteration" and ntheta == 127:
+                    row["old_split_ms"] = chip_smoke._kernel_split_ms(old, 5)
+                    row["new_split_ms"] = chip_smoke._kernel_split_ms(new, 5)
+            else:
+                row["new_ms"] = [_ms(new, reps), _ms(new, reps)]
+            rows.append(row)
+            print(json.dumps(rows[-1]), flush=True)
+
+
+_SOLVES = r"""
+import json, statistics, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import raytracer_tpu_torch as rt
+assert rt.__file__.startswith(sys.argv[1]), rt.__file__
+out = {}
+for name, (nth, method, n) in {"twrapped 180x63": (180, "twrapped", 5),
+                               "diag 127x63": (127, "auto", 3)}.items():
+    gr, cg, U = rt.init_annulus_circulant(nth, 63, spacing=20.0)
+    src = rt.closest_point(gr, 0.0, rt.R, system="polar")
+    solver = rt.AnnulusSolver(gr, None, None, U, method=method, circulant=cg)
+    solver.solve(src, want_prev=False)
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve(src, want_prev=False)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    out[name] = dict(method=solver.method, iterations=solver.last_iterations,
+                     median_ms=statistics.median(times), ms=times)
+print(json.dumps(out))
+"""
+
+
+def solves_ab(old_root, rows):
+    """The twrapped solve at 180x63 and the diag solve at 127x63 of the
+    package in `old_root` and of this one, each in its own process, in
+    the order old, new, new, old."""
+    for label, root in (("old", old_root), ("new", ROOT), ("new", ROOT),
+                        ("old", old_root)):
+        p = subprocess.run([sys.executable, "-c", _SOLVES,
+                            os.path.abspath(root)], check=True,
+                           capture_output=True, text=True)
+        rows.append(dict(solves=label, **json.loads(p.stdout.splitlines()[-1])))
+        print(json.dumps(rows[-1]), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", required=True,
                     help="directory with the earlier kernel sources")
-    ap.add_argument("--kernels", default="witer,relax",
-                    help="comma-separated: witer, relax, fused")
+    ap.add_argument("--kernels", default="titer,diag",
+                    help="comma-separated: titer, diag, witer, relax, fused")
+    ap.add_argument("--old-pkg", default=None,
+                    help="directory holding an earlier raytracer_tpu_torch, "
+                         "to time whole solves against")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--breakdown", action="store_true")
@@ -428,6 +689,11 @@ def main(argv=None):
     rows: list = []
     want = set(a.kernels.split(","))
     with tempfile.TemporaryDirectory() as tmp:
+        if "titer" in want:
+            titer_ab(_old_lib(a.old, "titer", tmp), a.reps, rows,
+                     a.breakdown)
+        if "diag" in want:
+            diag_ab(_old_lib(a.old, "diag", tmp), a.reps, rows, a.breakdown)
         if "fused" in want:
             fused_ab(_old_lib(a.old, "fused", tmp), max(1, a.reps // 4), rows)
         if "witer" in want:
@@ -438,6 +704,8 @@ def main(argv=None):
         if a.breakdown and "fused" in want:
             fused_breakdown(tmp, {"old": a.old, "new": kernels.CSRC_DIR},
                             max(1, a.reps // 4), rows)
+        if a.old_pkg:
+            solves_ab(a.old_pkg, rows)
     print(_smi())
 
 
