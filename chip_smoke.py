@@ -13,7 +13,12 @@ the exit code is non-zero):
      candidate is one f32 add followed by a min, and the scans keep the
      TPU kernels' span schedules): rsweep at 180x63 (S=1 and 4 both
      directions, two lane blocks, and one 1,280-lane block, which takes
-     the kernel's device-memory route), with its microseconds per row;
+     the kernel's device-memory route), with its microseconds per row,
+     and in float64 (S=1 and 4 both directions, and a 640-lane block
+     whose float64 ring does not fit in shared memory: the device-memory
+     route), then the float64 sweep on the card: auto at 180x63 equal to
+     the CPU route in the JAX package's 15 rounds (JAX_F64_180) and the
+     48x12 solve from node 0 in C.10's 4 rounds;
      titer at 180x63
      (S=1 and S=2, dup 4) and at 176x40 (S=2, dup 0), in float32 and
      (180x63 S=1, 176x40 S=2) float64, with its device time by kernel;
@@ -21,7 +26,8 @@ the exit code is non-zero):
      the field and rolls theta itself, against its plain version on the
      5 rolled pages at 1080x300 (S=1 and S=2), at the warm level's
      coarse grid (540 theta rows) and on 5 theta rows, where the wrap
-     folds the rows onto each other; (3b) witer at 183x63 (S=1 and S=2,
+     folds the rows onto each other, in float32 and float64, and a
+     float64 window too wide for shared memory refused by name; (3b) witer at 183x63 (S=1 and S=2,
      dup 73), at 256x63 (S=2, dup 0) and in float64 at 183x63 (S=1),
      with its device time by kernel, at 128x100 and 1080x300 (S=1),
      where a chain column or a ring row spans several warps, and in
@@ -36,7 +42,12 @@ the exit code is non-zero):
      (600,4,3) S=8 (640 lanes in chunks of 128), and at
      the 3-D path's 128x128x64 at S=1 and S=7 (T=8), with the bytes a
      call reads from device memory in this design (13 weights a node a
-     sweep) and in one that reads all 26 each sweep; (3d) relax at
+     sweep) and in one that reads all 26 each sweep; (3e) plane3d (one
+     directional pass of the 3-D sweep engine) on the (9,6,5) test wedge
+     at star 1 and 2, float32 and float64, every axis and direction, S=1
+     and S=3 with carry_init across an opened face, on (35,5,61) (odd
+     lines), on planes of which only two or one fit in shared memory, and
+     one pass along each axis at 128x128x64, timed; (3d) relax at
      180x63 (S=1 and S=8, finite pad rows in the input) and in float64
      at 24x12 (S=2), fused (the whole
      solve in one cooperative launch) at 24x12 (S=2, T=3: ntheta 24 takes
@@ -50,7 +61,8 @@ the exit code is non-zero):
      of three steady solves by kernel (torch.profiler) and the device's
      busy and idle share of the steady solve;
   5. the port's main_annulus CLI on the 180x63 grid into a temporary
-     directory;
+     directory, and again with --dtype float64 (the JAX package's float64
+     times at 60 and 150 degrees);
   6. AnnulusSolver(method="twrapped") at 180x63 (the titer kernel),
      held to the anchors and to phase 4's sweep field at every node; a
      float64 twrapped solve at 48x12 equal to the same solve on the CPU;
@@ -59,7 +71,9 @@ the exit code is non-zero):
      "stream") at 1080x300 with warm level 1 (the
      band kernel), held to the same solve on the CPU at every node, and
      to the sweep solve of the same grid at the surface receivers
-     (2e-3 s) and at every node (ENGINE_ATOL, see there);
+     (2e-3 s) and at every node (ENGINE_ATOL, see there); rsweep in
+     float64 at 1080x300's tables; a float64 stream solve at 48x12 equal
+     to the same solve on the CPU;
   8. travel_time_table of 8 sources x 150 receivers at 180x63 on
      'sweep' and 'twrapped', each row held to its single-source solve;
   9. AnnulusSolver(method="auto") at 183x63, which routes to 'wrapped'
@@ -96,9 +110,17 @@ the exit code is non-zero):
      recover_prev with as many receiver paths reaching the source
      without a cycle as in the JAX package (ROADMAP C.9), a 48x12 solve
      bit-equal to the same route on the CPU, an 8 x 150 table (S=8) with
-     three rows held to single solves.
+     three rows held to single solves;
+ 14. the 3-D sweep engine at 128x128x64 (phase 11's grid):
+     solve3d(engine="sweep") for one source and for 8 sources in one
+     group (the plane3d kernel, 6 launches a round), each within rtol
+     1e-6 / atol 5e-3 s of the kernel engine's field in at most
+     MAX_ROUNDS rounds; star 2 (98 taps), where auto takes the sweep
+     engine, within 1e-3 s of the star-2 xla engine and at or below star
+     1 + 1e-3 s; solve3d_reflection (PcP) and solve3d_converted (SKS) on
+     the test wedges of tests/test_grid3d_disc.py equal to the CPU route.
 Every kernel-launch count is set to 0 just before each path (4, 6, 7,
-9, 10, 11, 13) and read just after it.  Then one JSON line of kernel numbers, the
+9, 10, 11, 13, 14) and read just after it.  Then one JSON line of kernel numbers, the
 card's name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -156,6 +178,12 @@ JAX_CONTRIB = {"pallas": (95, 0.002685546875, 0.004364013671875, 6),
                "fused": (-1, 0.0008544921875, 0.0, 147),
                "twrapped tight": 124}
 SPREAD_ATOL = 1e-6
+# the JAX package's float64 sweep at 180x63 on the CPU (tol 0 in float64:
+# it runs until no node improves): rounds, t(60), t(150)
+# (tools/jax_float64_reference.py)
+JAX_F64_180 = (15, 610.7424599684254, 1050.9944170319238)
+# ROADMAP C.10: the float64 sweep at 48x12 (spacing 150) from node 0
+C10_ROUNDS, C10_TMAX = 4, 610.4519199802852
 # The JAX package's 3x3 travel-time tables (s) on the CPU, float32, 3
 # surface sources x 3 surface receivers (tools/jax_grid3d_reference.py):
 # the root example_grid3d.py at its defaults (24x24x16, xla engine), and
@@ -209,13 +237,16 @@ def _launch_counters():
                                          stream_t, sweep3d, sweep_theta,
                                          wrapped_t)
 
+    from raytracer_tpu_torch.ops import plane3d
+
     return {"rsweep": sweep_theta.rsweep, "titer": wrapped_t.titer,
             "band": stream_t.band, "witer": diag_wrapped.witer,
             "diag": diag_circulant.diag_sweep,
             "ring_scan": diag_circulant.ring_scan,
             "chain_scan": diag_circulant.chain_scan,
             "sweep3d": sweep3d.sweep3d_T, "relax": pallas_circulant.relax,
-            "fused": fused_circulant.fused}
+            "fused": fused_circulant.fused,
+            "plane3d": plane3d.plane_sweep3d}
 
 
 def _reset_counts():
@@ -347,15 +378,16 @@ def phase_build():
           + " ".join(f"{n}={s:.2f}s" for n, s in secs.items()), flush=True)
 
 
-def _rsweep_buffer(rng, rst, nt, S, upward):
+def _rsweep_buffer(rng, rst, nt, S, upward, dtype=None):
     """Random T-layout field at the main path's layout: finite travel
     times with some +inf (unreached) cells in the field rows, +inf pad
-    rows and pad lanes."""
+    rows and pad lanes (float32 unless `dtype` says otherwise)."""
     import numpy as np
     import torch
 
-    buf = np.full((S, rst.MT + rst.K8, rst.NTL), np.inf, np.float32)
-    vals = rng.uniform(0.0, 1500.0, (S, rst.MT, nt)).astype(np.float32)
+    dtype = dtype or np.float32
+    buf = np.full((S, rst.MT + rst.K8, rst.NTL), np.inf, dtype)
+    vals = rng.uniform(0.0, 1500.0, (S, rst.MT, nt)).astype(dtype)
     vals[rng.random(vals.shape) < 0.3] = np.inf
     off = rst.K8 if upward else 0
     buf[:, off: off + rst.MT, :nt] = vals
@@ -370,9 +402,10 @@ def _rsweep_work(wtab, rst, nt, S, upward):
 
     taps = rst.taps_up if upward else rst.taps_dn
     w = wtab.cpu().numpy()
+    item = w.dtype.itemsize
     cols = [iw for _, _, iw in taps]
     finite = int(np.isfinite(w[:, cols]).sum())
-    nbytes = (2 * S * (rst.MT + rst.K8) * rst.NTL * 4 + w.size * 4
+    nbytes = (2 * S * (rst.MT + rst.K8) * rst.NTL * item + w.size * item
               + len(taps) * 3 * 4)
     return nbytes, 2 * finite * nt * S, finite
 
@@ -381,13 +414,15 @@ def _rsweep_check(rng, cases, nt, wdn, wup) -> float:
     """Each (statics, S, upward) case through the kernel and the plain
     version on the same random field; raises unless bit-equal.  Returns
     the largest abs difference (0.0)."""
+    import numpy as np
     import torch
 
     from raytracer_tpu_torch.ops.sweep_theta import rsweep, rsweep_reference
 
+    dtype = np.float64 if wdn.dtype == torch.float64 else np.float32
     max_err = 0.0
     for st, S, up in cases:
-        buf = _rsweep_buffer(rng, st, nt, S, up)
+        buf = _rsweep_buffer(rng, st, nt, S, up, dtype)
         wtab = wup if up else wdn
         out_k = rsweep(buf.clone(), wtab, st, up)
         out_r = rsweep_reference(buf.clone(), wtab, st, up)
@@ -396,8 +431,9 @@ def _rsweep_check(rng, cases, nt, wdn, wup) -> float:
         max_err = max(max_err, err)
         if not torch.equal(out_k, out_r):
             raise AssertionError(
-                f"rsweep kernel != plain version (S={S}, upward={up}, "
-                f"NTB={st.NTB}/{st.NTL}): max abs err {err}")
+                f"rsweep kernel != plain version ({np.dtype(dtype).name}, "
+                f"S={S}, upward={up}, NTB={st.NTB}/{st.NTL}): max abs err "
+                f"{err}")
     return max_err
 
 
@@ -441,6 +477,30 @@ def phase_kernels(rec: dict):
         times["bound_by"].append("bytes" if t_b >= t_o else "operations")
     buf4 = _rsweep_buffer(rng, rst, nt, 4, False)
     ms4 = _cuda_ms(lambda: rsweep(buf4, wdn, rst, False), 10)
+    # float64: the same cases, and the 640-lane block whose float64 ring
+    # does not fit in shared memory (its float32 one does): the kernel's
+    # device-memory route
+    _, cg64, _ = init_annulus_circulant(180, 63, spacing=20.0,
+                                        dtype=np.float64)
+    ws64 = pack_twrapped_stencil(cg64, dtype=np.float64, band_closure=0)
+    _, _, wdn64, wup64, rst64 = device_tables(ws64, cg64, np.float64, "cuda")
+    mid64 = rst64._replace(NTL=640, NTB=640)
+    cases64 = [(rst64, 1, False), (rst64, 1, True), (rst64, 4, False),
+               (rst64, 4, True), (mid64, 1, False), (mid64, 1, True)]
+    max_err = max(max_err, _rsweep_check(rng, cases64, nt, wdn64, wup64))
+    routes64 = {f"{st.NTB} lanes": "shared" if _kernel_tables(
+        wup64 if up else wdn64, st, up)[0].shared else "global"
+        for st, _, up in cases64}
+    assert routes64 == {"256 lanes": "shared", "640 lanes": "global"}, \
+        routes64
+    assert _kernel_tables(wdn, rst._replace(NTL=640, NTB=640),
+                          False)[0].shared      # float32: the ring route
+    ms64 = []
+    for up in (False, True):
+        wtab = wup64 if up else wdn64
+        buf = _rsweep_buffer(rng, rst64, nt, 1, up, np.float64)
+        ms64.append(_cuda_ms(lambda: rsweep(buf, wtab, rst64, up), 20))
+    f64 = _f64_auto_gates()
     rec["rsweep"] = {
         "max_abs_err": max_err,
         "ms": statistics.mean(times["ms"]),
@@ -460,8 +520,65 @@ def phase_kernels(rec: dict):
           f"{1e3 * times['ms'][1] / rst.MT:.3f} us per row, plain "
           f"{times['plain_ms'][0]:.1f}/{times['plain_ms'][1]:.1f} ms, "
           f"bound {times['bound_ms'][0]:.5f}/{times['bound_ms'][1]:.5f} ms "
-          f"({times['bound_by'][0]}); kernel at S=4 down {ms4:.4f} ms",
-          flush=True)
+          f"({times['bound_by'][0]}); kernel at S=4 down {ms4:.4f} ms; "
+          f"float64 bit-equal in {len(cases64)} cases (S=1,4 both "
+          f"directions; routes {routes64}), kernel down/up at S=1 "
+          f"{ms64[0]:.4f}/{ms64[1]:.4f} ms = "
+          f"{ms64[0] / times['ms'][0]:.2f}/{ms64[1] / times['ms'][1]:.2f}x "
+          f"float32; {f64}", flush=True)
+
+
+def _f64_auto_gates() -> str:
+    """The float64 sweep on the card (ROADMAP C.11): AnnulusSolver(
+    method="auto") at 180x63 equal to the CPU route node for node in the
+    JAX package's rounds, its anchors within T_ATOL; the 48x12 (spacing
+    150) solve from node 0 in C.10's 4 rounds to its largest time.
+    Returns a line that says so."""
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+
+    gr, cg, U = rt.init_annulus_circulant(180, 63, 20.0, dtype=np.float64)
+    source = rt.closest_point(gr, 0.0, rt.R, system="polar")
+    out = {}
+    for device in ("cuda", "cpu"):
+        solver = rt.AnnulusSolver(gr, None, None, U,
+                                  rt.SolverConfig(dtype="float64"),
+                                  method="auto", circulant=cg, device=device)
+        t0 = time.perf_counter()
+        d = solver.solve(source, want_prev=False).dist
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[device] = (d, solver.last_iterations, solver.method,
+                       time.perf_counter() - t0)
+    (d_k, it_k, m_k, t_k), (d_c, it_c, _, t_c) = out["cuda"], out["cpu"]
+    rounds, t60_ref, t150_ref = JAX_F64_180
+    assert m_k == "sweep" and d_k.dtype == np.float64, m_k
+    assert it_k == it_c == rounds, (it_k, it_c)
+    assert np.array_equal(d_k, d_c), float(np.abs(d_k - d_c).max())
+    tt = {deg: float(d_k[rt.closest_point(gr, np.deg2rad(deg), rt.R,
+                                          system="polar")])
+          for deg in (60.0, 150.0)}
+    assert abs(tt[60.0] - T60_REF) <= T_ATOL, tt
+    assert abs(tt[150.0] - T150_REF) <= T_ATOL, tt
+    assert abs(tt[60.0] - t60_ref) <= 1e-9 and abs(tt[150.0] - t150_ref) \
+        <= 1e-9, tt
+    g48, cg48, U48 = rt.init_annulus_circulant(48, 12, 150.0,
+                                               dtype=np.float64)
+    s48 = rt.AnnulusSolver(g48, None, None, U48,
+                           rt.SolverConfig(dtype="float64"), method="sweep",
+                           circulant=cg48)
+    d48 = s48.solve(0, want_prev=False).dist
+    tmax = float(np.max(d48[np.isfinite(d48)]))
+    assert s48.last_iterations == C10_ROUNDS and tmax == C10_TMAX, \
+        (s48.last_iterations, tmax)
+    return (f"float64 auto at 180x63 on the card: {m_k}, {it_k} rounds (the "
+            f"JAX package's {rounds}), equal to the CPU route at every node, "
+            f"t(60)={tt[60.0]:.6f} s, t(150)={tt[150.0]:.6f} s, first solve "
+            f"{t_k:.3f} s (CPU route {t_c:.1f} s); float64 sweep at 48x12 "
+            f"from node 0: {s48.last_iterations} rounds, largest time "
+            f"{tmax!r} s (C.10)")
 
 
 def phase_main_path(rec: dict, tmp: str):
@@ -558,8 +675,27 @@ def phase_cli(tmp: str):
         n_rows = len(f.read().strip().splitlines())
     assert n_rows == 151, n_rows
     assert os.path.getsize(f"{prefix}.npz") > 0
+    t_cli = time.perf_counter() - t0
+    # --dtype float64 (the JAX CLI's option): the float64 sweep on the card
+    import numpy as np
+
+    t0 = time.perf_counter()
+    main_annulus.main(["--ntheta", "180", "--nr", "63", "--dtype", "float64",
+                       "--out-prefix", f"{prefix}64"])
+    tt = np.loadtxt(f"{prefix}64_travel_times.csv", delimiter=",",
+                    skiprows=1)
+    t60 = float(tt[np.argmin(np.abs(tt[:, 0] - 60.0)), 1])
+    t150 = float(tt[np.argmin(np.abs(tt[:, 0] - 150.0)), 1])
+    assert tt.shape == (150, 2), tt.shape
+    assert abs(t60 - JAX_F64_180[1]) <= 1e-9, t60
+    assert abs(t150 - JAX_F64_180[2]) <= 1e-9, t150
+    with np.load(f"{prefix}64.npz") as f:
+        assert f["dist"].dtype == np.float64
     print(f"phase 5 cli: main_annulus wrote {n_rows - 1} travel times and "
-          f"the npz in {time.perf_counter() - t0:.2f} s", flush=True)
+          f"the npz in {t_cli:.2f} s; with --dtype float64 in "
+          f"{time.perf_counter() - t0:.2f} s, t(60)={t60!r} s, "
+          f"t(150)={t150!r} s (the JAX package's float64 values)",
+          flush=True)
 
 
 def _titer_work(ws, st, S, iters):
@@ -602,7 +738,7 @@ def _band_work(wrows, maxdm, S, nt, ML):
     import numpy as np
 
     w = wrows.cpu().numpy()[: (2 * maxdm + 1) * 5]
-    nbytes = 4 * (2 * S * nt * ML + wrows.numel())
+    nbytes = w.dtype.itemsize * (2 * S * nt * ML + wrows.numel())
     return nbytes, 2 * S * nt * int(np.isfinite(w).sum())
 
 
@@ -623,6 +759,7 @@ def phase_jacobi_kernels(rec: dict):
     import numpy as np
     import torch
 
+    from raytracer_tpu_torch import kernels
     from raytracer_tpu_torch.models.fast_annulus import init_annulus_circulant
     from raytracer_tpu_torch.ops import stream_t, wrapped_t
 
@@ -667,15 +804,25 @@ def phase_jacobi_kernels(rec: dict):
     ws = wrapped_t.pack_twrapped_stencil(cg, dtype=np.float32,
                                          band_closure=1)
     coarse = stream_t._warm_stencils(ws, cg, np.float32, 1, 1)[0]
+    ws64 = wrapped_t.pack_twrapped_stencil(cg, dtype=np.float64,
+                                           band_closure=1)
+    coarse64 = stream_t._warm_stencils(ws64, cg, np.float64, 1, 1)[0]
     # the stream path's levels (the fine grid at S=1 and 2, the warm
     # level's coarse grid) and 5 theta rows, where the wrap folds the
-    # rows dc = -2..2 onto each other
+    # rows dc = -2..2 onto each other; float64 (ROADMAP C.11) on the
+    # same shapes
     for name, w_, S, nt in (("1080x300", ws, 1, ws.nt),
                             ("1080x300", ws, 2, ws.nt),
                             ("1080x300 coarse", coarse, 1, coarse.nt),
-                            ("1080x300, 5 rows", ws, 2, 5)):
+                            ("1080x300, 5 rows", ws, 2, 5),
+                            ("1080x300 f64", ws64, 1, ws64.nt),
+                            ("1080x300 coarse f64", coarse64, 1,
+                             coarse64.nt),
+                            ("1080x300, 5 rows f64", ws64, 2, 5)):
         wrows = torch.tensor(w_.wrows, device="cuda")
-        v = _random_field(rng, (S, nt, w_.ML), w_.Mp)
+        assert stream_t.band_smem_bytes(w_.maxdm, wrows.element_size()) \
+            <= kernels.BLOCK_SMEM
+        v = _random_field(rng, (S, nt, w_.ML), w_.Mp, w_.wrows.dtype)
         out_k = stream_t.band(v, wrows, w_.maxdm)
         out_r = stream_t.band_reference(stream_t._band_stack(v), wrows,
                                         w_.maxdm)
@@ -697,6 +844,17 @@ def phase_jacobi_kernels(rec: dict):
         # times at the main paths' shape (S=1), errors over every case
         rec[name] = {k: rows[0][k] for k in keys}
         rec[name]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    # a window wider than an H100 block's shared memory is refused by
+    # name before the launch (the widest the stream engine builds here is
+    # maxdm=8)
+    v64 = _random_field(rng, (1, 5, 1024), 1024, np.float64)
+    wide = torch.zeros((5 * (2 * 391 + 1), 1024), dtype=torch.float64,
+                       device="cuda")
+    try:
+        stream_t.band(v64, wide, 391)
+        raise AssertionError("band took a 391-lane window in float64")
+    except ValueError as e:
+        assert "232448" in str(e), e
     print("phase 3a kernels: titer (T=4) bit-equal to titer_reference: "
           + "; ".join(f"{r['grid']} S={r['S']} dup={r['dup']}: kernel "
                       f"{r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, "
@@ -808,6 +966,20 @@ def phase_stream(rec: dict):
         rs7.append((_cuda_ms(lambda: rsweep(buf, wtab, rst7, up), 10),
                     _kernel_tables(wtab, rst7, up)[0].shared,
                     *_bound_ms(nbytes, ops)))
+    # float64 at this grid's tables: the ring needs 229,824 of the 232,448
+    # bytes, still the shared-memory route
+    from raytracer_tpu_torch.ops.wrapped_t import pack_twrapped_stencil
+
+    ws64 = pack_twrapped_stencil(cg, dtype=np.float64, band_closure=0)
+    _, _, wdn64, wup64, rst64 = device_tables(ws64, cg, np.float64, "cuda")
+    err7 = max(err7, _rsweep_check(rng, [(rst64, 1, False), (rst64, 1, True)],
+                                   st7.nt, wdn64, wup64))
+    rs7_64 = []
+    for up in (False, True):
+        wtab = wup64 if up else wdn64
+        buf = _rsweep_buffer(rng, rst64, st7.nt, 1, up, np.float64)
+        rs7_64.append((_cuda_ms(lambda: rsweep(buf, wtab, rst64, up), 10),
+                       _kernel_tables(wtab, rst64, up)[0].shared))
     rec["rsweep"]["max_abs_err"] = max(rec["rsweep"]["max_abs_err"], err7)
     solver = rt.AnnulusSolver(gr, None, None, U, method="stream",
                               circulant=cg)
@@ -859,6 +1031,7 @@ def phase_stream(rec: dict):
         assert -CPU_ATOL <= a <= ENGINE_ATOL, (name, a)
     rec["band"]["launches"] = counts["band"]
     rec["stream_ms"] = 1e3 * steady
+    f64 = _f64_against_cpu(rt, "stream", 48, 12, 150.0)
     print(f"phase 7 rsweep at 1080x300 (MT={rst7.MT}, K8={rst7.K8}, "
           f"NTL={rst7.NTL}, {len(rst7.taps_dn)}+{len(rst7.taps_up)} taps): "
           f"bit-equal to rsweep_reference at S=1 both directions; kernel "
@@ -866,8 +1039,11 @@ def phase_stream(rec: dict):
           + "/".join(f"{1e3 * r[0] / rst7.MT:.3f}" for r in rs7)
           + " us per row, bound " + "/".join(f"{r[2]:.5f}" for r in rs7)
           + f" ms ({rs7[0][3]}), "
-          + ("shared-memory" if rs7[0][1] else "device-memory") + " route",
-          flush=True)
+          + ("shared-memory" if rs7[0][1] else "device-memory") + " route; "
+          f"float64 bit-equal, kernel down/up "
+          + "/".join(f"{r[0]:.4f}" for r in rs7_64) + " ms, "
+          + ("shared-memory" if rs7_64[0][1] else "device-memory")
+          + " route", flush=True)
     print(f"phase 7 stream: 1080x300, {gr.nnods} nodes, warm level 1, "
           f"{iters} iterations over both levels, band launches="
           f"{counts['band']} (path counts {counts}); max |cuda - cpu| = "
@@ -879,8 +1055,8 @@ def phase_stream(rec: dict):
           f"{1e3 * steady:.1f} ms; cold stream {iters_by['cold']} "
           f"iterations; against a cold stream solve at tol={TIGHT_TOL:g} "
           f"({iters_by['tight']} iterations) the most any node sits above "
-          f"is " + ", ".join(f"{n} {a:.3g} s" for n, a in above.items()),
-          flush=True)
+          f"is " + ", ".join(f"{n} {a:.3g} s" for n, a in above.items())
+          + f"; {f64}", flush=True)
 
 
 def phase_tables(rec: dict):
@@ -1500,6 +1676,171 @@ def phase_sweep3d_kernel(rec: dict):
           + f"; grid {t_grid:.2f} s, prepare3d {t_prep:.2f} s", flush=True)
 
 
+def _opened_faces(W, shifts, axis):
+    """The weights with the box face across `axis` opened: a cross tap
+    whose source leaves the box along `axis` only gets a finite weight, so
+    carry_init planes reach the field; a tap that leaves the plane keeps
+    its +inf (what lets the kernel skip such taps)."""
+    import numpy as np
+
+    W = W.copy()
+    shape = W.shape[1:]
+    idx = np.meshgrid(*[np.arange(m) for m in shape], indexing="ij")
+    for s, sh in enumerate(shifts):
+        if sh[axis] == 0:
+            continue
+        inside = np.ones(shape, bool)
+        for a in (0, 1, 2):
+            if a != axis:
+                inside &= (idx[a] + sh[a] >= 0) & (idx[a] + sh[a] < shape[a])
+        leaves = (idx[axis] + sh[axis] < 0) | (idx[axis] + sh[axis]
+                                              >= shape[axis])
+        W[s][inside & leaves] = 37.0
+    return W
+
+
+def _plane3d_work(layout, taps, S):
+    """(bytes, operations) of one directional pass: the S fields read and
+    written once, the pass's weight planes (its taps) and the four
+    scan-cost stacks read once; one add and one min per finite tap
+    weight, and per level update of the scans (the min component's
+    levels, both directions along both plane axes)."""
+    import torch
+
+    from raytracer_tpu_torch.ops.plane3d import tree_levels
+
+    W = layout.W
+    nA, _, p0, p1 = W.shape
+    used = sorted({int(t) for t in taps[:, 0].tolist()})
+    Wu = W[:, used]
+    finite = int(torch.isfinite(Wu).sum())
+    n = nA * p0 * p1
+    nbytes = W.element_size() * (2 * S * n + Wu.numel() + 4 * n)
+
+    def updates(m):
+        return sum(k // 2 + (k - 1) // 2 for _, k in tree_levels(m))
+
+    scan = nA * 2 * (updates(p0) * p1 + updates(p1) * p0)
+    return nbytes, 2 * S * (finite + scan)
+
+
+def phase_plane3d_kernel(rec: dict):
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.ops import plane3d
+    from raytracer_tpu_torch.solvers import solve3d as s3
+
+    rng = np.random.default_rng(13)
+    max_err, n_cases = 0.0, 0
+
+    def check(d, lay, axis, down, ci, shifts, what):
+        nonlocal max_err, n_cases
+        out_k = plane3d.plane_sweep3d(d, lay, axis, down, ci, shifts)
+        out_r = plane3d.plane_sweep3d_reference(d, lay, axis, down, ci,
+                                                shifts)
+        torch.cuda.synchronize()
+        err = _max_err(out_k, out_r)
+        max_err = max(max_err, err)
+        n_cases += 1
+        if not torch.equal(out_k, out_r):
+            raise AssertionError(f"plane3d kernel != plain version ({what}, "
+                                 f"axis {axis}, down={down}): max abs err "
+                                 f"{err}")
+
+    def field(shape, dtype, frac=0.3):
+        v = rng.uniform(0.0, 500.0, shape).astype(dtype)
+        v[rng.random(shape) < frac] = np.inf
+        return torch.from_numpy(v).cuda()
+
+    # the test wedge (lines of 5, 6 and 9 nodes): star 1 and 2, float32
+    # and float64, every axis and direction; S=1 on the masked box, S=3
+    # with carry_init across an opened face (one plane at star 1, a tuple
+    # of two at star 2); then lines of 35 and 61 (odd) at star 1
+    g, U = _wedge3d((9, 6, 5), 80.0, 100.0, 600.0)
+    for star in (1, 2):
+        shifts = s3.shifts_star(star)
+        for dtype in (np.float32, np.float64):
+            Wn = s3._shifted_weights(g, U, dtype, shifts)
+            shape = Wn.shape[1:]
+            for axis in (0, 1, 2):
+                pshape = tuple(m for a, m in enumerate(shape) if a != axis)
+                for S, carry in ((1, False), (3, True)):
+                    W = torch.from_numpy(_opened_faces(Wn, shifts, axis)
+                                         if carry else Wn).cuda()
+                    lay = s3._sweep_layout3d(W, s3._scan_costs_of(W, shifts),
+                                             axis)
+                    d = field((S,) + shape, dtype)
+                    ci = None
+                    if carry:
+                        planes = tuple(field((S,) + pshape, dtype, 0.2)
+                                       for _ in range(star))
+                        ci = planes[0] if star == 1 else planes
+                    for down in (True, False):
+                        check(d, lay, axis, down, ci, shifts,
+                              f"(9,6,5) star {star} {np.dtype(dtype).name} "
+                              f"S={S} carry={carry}")
+    g, U = _wedge3d((35, 5, 61), 80.0, 100.0, 600.0)
+    W = torch.from_numpy(s3._shifted_weights(g, U, np.float32)).cuda()
+    sc = s3._scan_costs_of(W, s3.SHIFTS)
+    for axis in (0, 1, 2):
+        lay = s3._sweep_layout3d(W, sc, axis)
+        d = field((1,) + tuple(W.shape[1:]), np.float32)
+        for down in (True, False):
+            check(d, lay, axis, down, None, s3.SHIFTS, "(35,5,61) star 1")
+
+    # planes too large for three in shared memory: two (float32 planes of
+    # 160x128 along axis 0, float64 96x128: the in-plane ping-pong, the
+    # scans one direction after the other) and one (float64 160x128: the
+    # second plane in device memory)
+    for dims, dtype in (((128, 160, 3), np.float32), ((128, 96, 3), np.float64),
+                        ((128, 160, 3), np.float64)):
+        g, U = _wedge3d(dims, 80.0, 100.0, 600.0)
+        W = torch.from_numpy(s3._shifted_weights(g, U, dtype)).cuda()
+        sc = s3._scan_costs_of(W, s3.SHIFTS)
+        lay = s3._sweep_layout3d(W, sc, 0)
+        d = field((2,) + tuple(W.shape[1:]), dtype)
+        planes = plane3d.plane3d_smem_bytes(dims[1], dims[0],
+                                            W.element_size())[1]
+        assert planes == (1 if (dims[1], dtype) == (160, np.float64) else 2)
+        for down in (True, False):
+            check(d, lay, 0, down, None, s3.SHIFTS,
+                  f"{dims} {np.dtype(dtype).name} S=2, {planes} shared planes")
+
+    # a pass at the 3-D path's 128x128x64 along each axis, S=1, timed
+    g, U, packed, _, _ = rec["wedge"]
+    lays = s3._device_layout(packed, "sweep", torch.device("cuda"))
+    d = field((1,) + packed.shape, np.float32)
+    rows = []
+    for axis in (0, 1, 2):
+        check(d, lays[axis], axis, True, None, packed.shifts,
+              "128x128x64 star 1")
+        ms = _cuda_ms(lambda: plane3d.plane_sweep3d(
+            d, lays[axis], axis, True, None, packed.shifts), 5)
+        plain = _cuda_ms(lambda: plane3d.plane_sweep3d_reference(
+            d, lays[axis], axis, True, None, packed.shifts), 1)
+        taps = plane3d._tap_table(packed.shifts, axis, True, "cuda")
+        nbytes, ops = _plane3d_work(lays[axis], taps, 1)
+        bound, by = _bound_ms(nbytes, ops)
+        rows.append(dict(axis=axis, planes=lays[axis].W.shape[0],
+                         ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                         nbytes=nbytes, ops=ops))
+    rec["plane3d"] = {k: statistics.mean(r[k] for r in rows)
+                      for k in ("ms", "plain_ms", "bound_ms")}
+    rec["plane3d"]["bound_by"] = rows[0]["bound_by"]
+    rec["plane3d"]["max_abs_err"] = max_err
+    print(f"phase 3e kernels: plane3d bit-equal to plane_sweep3d_reference "
+          f"in {n_cases} passes ((9,6,5) star 1 and 2, float32 and float64, "
+          f"S=1 and S=3 with carry_init, every axis and direction; (35,5,61) "
+          f"star 1; axis-0 planes of 160x128 in float32 and 96x128 in "
+          f"float64 (two in shared memory) and 160x128 in float64 (one)); at {WEDGE_DIMS} star 1 S=1, down: " + "; ".join(
+              f"axis {r['axis']} ({r['planes']} planes): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
+              f"{r['nbytes'] / 1e6:.1f} MB, {r['ops'] / 1e6:.1f} M ops)"
+              for r in rows), flush=True)
+
+
 def phase_grid3d(rec: dict):
     import numpy as np
     import torch
@@ -1596,6 +1937,7 @@ def phase_grid3d(rec: dict):
     rec["sweep3d"]["launches"] = launches
     rec["grid3d_ms"] = steady
     rec["grid3d_launches"] = launches
+    rec["grid3d_single"] = (src, d1, srcs64)
     print(f"phase 11 grid3d: {WEDGE_DIMS}, {n} nodes (grid {t_grid:.2f} s, "
           f"prepare3d {t_prep:.2f} s), auto -> {route}, source batch "
           f"{batch} for {TABLE3D_SOURCES} sources. Single source {src}: "
@@ -1949,6 +2291,202 @@ def phase_contrib(rec: dict):
           + "; ".join(parts), flush=True)
 
 
+STAGED_DIMS = (128, 128, 60)   # + 5 twin levels of the AK135 interfaces
+
+
+def _staged_at_scale(cfg, radii, prof) -> list:
+    """PcP and SKS timed on CMB-spanning wedges of ~1M nodes (no CPU
+    route at this size): one call each by the host clock (the masked
+    weights and their layouts are built in every call, the weights on
+    the host), the rounds, the plane3d launches (6 a round), and the
+    relations of
+    tests/test_grid3d_disc.py: PcP at least the direct P field and 50 s
+    above it at 10 deg, SKS at most ScS (its reflection class) + 0.05 s,
+    +inf below the CMB."""
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+    from raytracer_tpu_torch.example_grid3d import surface_nodes
+
+    def timed(fn):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, it = fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        launches = _counts()["plane3d"]
+        assert 1 <= it and launches == 6 * it, (it, launches)
+        return d, it, launches, t
+
+    lines = []
+    for name, c0, c1, deg in (
+            ("PcP", (np.deg2rad(60.0), np.deg2rad(60.0), 3000.0),
+             (np.deg2rad(120.0), np.deg2rad(120.0), rt.R), 90.0),
+            ("SKS", (0.0, np.deg2rad(60.0), 1400.0),
+             (np.deg2rad(130.0), np.deg2rad(120.0), rt.R), 0.0)):
+        t0 = time.perf_counter()
+        gw = rt.grid3d(c0, c1, STAGED_DIMS, force_radii=radii)
+        Up = rt.velocity3d(gw, rt.LinearInterpolation(prof.r, prof.Vp))
+        t_grid = time.perf_counter() - t0
+        src = surface_nodes(gw, [(deg, 90.0)])
+        if name == "PcP":
+            d, it, launches, ts = timed(lambda: rt.solve3d_reflection(
+                gw, Up, src, 3481.5, cfg))
+            dP, _ = rt.solve3d(gw, Up, src, cfg)
+            fin = np.isfinite(d[0])
+            assert fin.sum() == int((gw.r >= 3481.5 - 1e-6).sum())
+            assert np.all(d[0][fin] >= dP[0][fin] - BATCH_ATOL)
+            rec_ = surface_nodes(gw, [(deg + 10.0, 90.0)])[0]
+            assert d[0, rec_] > dP[0, rec_] + 50.0
+            check = (f"at 10 deg {d[0, rec_] - dP[0, rec_]:.1f} s above "
+                     f"direct P")
+        else:
+            Us = rt.velocity3d(gw, rt.LinearInterpolation(prof.r, prof.Vs))
+            d, it, launches, ts = timed(lambda: rt.solve3d_converted(
+                gw, Us, Up, src, 3481.5, config=cfg))
+            scs, _ = rt.solve3d_reflection(gw, Us, src, 3481.5, cfg)
+            fin = np.isfinite(scs[0])
+            assert np.all(d[0][fin] <= scs[0][fin] + 5e-2)
+            assert not np.isfinite(d[0][gw.r < 3481.45 - 1e-6]).any()
+            rec_ = surface_nodes(gw, [(125.0, 90.0)])[0]
+            check = (f"at 125 deg {scs[0, rec_] - d[0, rec_]:.1f} s below "
+                     f"ScS")
+        lines.append(f"{name} on {gw.nnods} ({len(gw)} nodes, grid "
+                     f"{t_grid:.2f} s): {it} rounds, {launches} launches, "
+                     f"the call {1e3 * ts:.1f} ms, {check}")
+    return lines
+
+
+def phase_sweep3d_engine(rec: dict):
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+    from raytracer_tpu_torch.example_grid3d import surface_nodes
+    from raytracer_tpu_torch.models.velocity import table_interface_radii
+    from raytracer_tpu_torch.solvers.solve3d import select_engine3d
+
+    g, U, packed, _, _ = rec["wedge"]
+    src, d_k, srcs64 = rec["grid3d_single"]
+    cfg = rt.SolverConfig(dtype="float32")
+
+    # the 3-D path on the sweep engine: one source's whole field
+    _reset_counts()
+    t0 = time.perf_counter()
+    d_s, it_s = rt.solve3d(g, U, [src], cfg, engine="sweep", _packed=packed)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    counts = _counts()
+    launches = counts["plane3d"]
+    assert 1 <= it_s <= MAX_ROUNDS and launches == 6 * it_s, (it_s, counts)
+    assert d_s.shape == d_k.shape and np.isfinite(d_s).all()
+    err_k = float(np.abs(d_s - d_k).max())
+    np.testing.assert_allclose(d_s, d_k, rtol=1e-6, atol=BATCH_ATOL)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.solve3d(g, U, [src], cfg, engine="sweep", _packed=packed)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    steady = 1e3 * statistics.median(times)
+    split = _kernel_split_ms(lambda: rt.solve3d(
+        g, U, [src], cfg, engine="sweep", _packed=packed), 1)
+
+    # 8 sources in one group through the kernel's source dimension
+    srcs8 = srcs64[:8]
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d8, it8 = rt.solve3d(g, U, srcs8, cfg, engine="sweep", source_batch=8,
+                         _packed=packed)
+    torch.cuda.synchronize()
+    t8 = time.perf_counter() - t0
+    launches8 = _counts()["plane3d"]
+    assert 1 <= it8 <= MAX_ROUNDS and launches8 == 6 * it8, (it8, launches8)
+    k8, _ = rt.solve3d(g, U, srcs8, cfg, _packed=packed)
+    err8 = float(np.abs(d8 - k8).max())
+    np.testing.assert_allclose(d8, k8, rtol=1e-6, atol=BATCH_ATOL)
+
+    # star 2 (98 taps): auto -> sweep, against star-2 xla and star 1
+    t0 = time.perf_counter()
+    packed2 = rt.prepare3d(g, U, cfg, star=2)
+    t_prep2 = time.perf_counter() - t0
+    assert select_engine3d(packed2, "auto", np.float32) == "sweep"
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d2, it2 = rt.solve3d(g, U, [src], cfg, _packed=packed2)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter() - t0
+    launches2 = _counts()["plane3d"]
+    assert 1 <= it2 <= MAX_ROUNDS and launches2 == 6 * it2, (it2, launches2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d2x, it2x = rt.solve3d(g, U, [src], cfg, engine="xla", _packed=packed2)
+    torch.cuda.synchronize()
+    t2x = time.perf_counter() - t0
+    err2 = float(np.abs(d2 - d2x).max())
+    assert err2 <= 1e-3, err2
+    assert np.all(d2 <= d_s + 1e-3), float((d2 - d_s).max())
+    gain = float(np.mean(d_s - d2))
+    packed2.dcache.clear()
+
+    # the staged solves on the test wedges (tests/test_grid3d_disc.py)
+    radii = table_interface_radii("ak135")
+    prof = rt.velocity_profile("ak135")
+    staged = []
+    for name, c0, c1, dims, deg in (
+            ("PcP", (np.deg2rad(60.0), np.deg2rad(88.0), 3000.0),
+             (np.deg2rad(120.0), np.deg2rad(92.0), rt.R), (61, 3, 35), 90.0),
+            ("SKS", (0.0, np.deg2rad(88.0), 1400.0),
+             (np.deg2rad(130.0), np.deg2rad(92.0), rt.R), (66, 3, 42), 0.0)):
+        gw = rt.grid3d(c0, c1, dims, force_radii=radii)
+        Up = rt.velocity3d(gw, rt.LinearInterpolation(prof.r, prof.Vp))
+        Us = rt.velocity3d(gw, rt.LinearInterpolation(prof.r, prof.Vs))
+        sw = surface_nodes(gw, [(deg, 90.0)])
+        out = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            if name == "PcP":
+                out[device] = rt.solve3d_reflection(gw, Up, sw, 3481.5, cfg,
+                                                    device=device)
+            else:
+                out[device] = rt.solve3d_converted(gw, Us, Up, sw, 3481.5,
+                                                   config=cfg, device=device)
+            out[device] += (time.perf_counter() - t0,)
+        (dk, ik, tk), (dc, ic, tc) = out["cuda"], out["cpu"]
+        assert ik == ic and np.array_equal(dk, dc), (name, ik, ic)
+        staged.append(f"{name} on {dims}: {ik} rounds, equal to the CPU "
+                      f"route, {1e3 * tk:.1f} ms on the card (CPU "
+                      f"{tc:.2f} s)")
+    staged += _staged_at_scale(cfg, radii, prof)
+
+    rec["plane3d"]["launches"] = launches
+    rec["sweep3d_engine_ms"] = steady
+    rec["sweep3d_engine_launches"] = launches
+    ms = rec["plane3d"]["ms"]
+    print(f"phase 14 3-D sweep engine: {WEDGE_DIMS}, star 1, one source: "
+          f"{it_s} rounds, plane3d launches={launches} (path counts "
+          f"{counts}), max |sweep - kernel engine| = {err_k:.3g} s; first "
+          f"solve {t_first:.3f} s, steady solve median of 3 {steady:.2f} ms, "
+          f"of it the kernel {launches} x {ms:.4f} ms = "
+          f"{100 * launches * ms / steady:.1f} %; device ms per solve by "
+          f"kernel (torch.profiler): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in split.items())
+          + f" (busy {100 * sum(split.values()) / steady:.1f} %). 8 sources "
+          f"in one group: {it8} rounds, {launches8} launches, "
+          f"{1e3 * t8:.1f} ms = {1e3 * t8 / 8:.2f} ms per source, max "
+          f"|sweep - kernel engine| = {err8:.3g} s. star 2 (98 taps, "
+          f"prepare3d {t_prep2:.2f} s): auto -> sweep, {it2} rounds, "
+          f"{launches2} launches, {1e3 * t2:.1f} ms; xla {it2x} iterations "
+          f"{1e3 * t2x:.1f} ms, max |sweep - xla| = {err2:.3g} s, mean gain "
+          f"over star 1 {gain:.3f} s. Staged: " + "; ".join(staged),
+          flush=True)
+
+
 def main():
     faulthandler.dump_traceback_later(900, exit=True)
     t_start = time.perf_counter()
@@ -1962,6 +2500,7 @@ def main():
                       lambda: phase_jacobi_kernels(rec),
                       lambda: phase_wrapped_diag_kernels(rec),
                       lambda: phase_sweep3d_kernel(rec),
+                      lambda: phase_plane3d_kernel(rec),
                       lambda: phase_lane_gather_kernels(rec),
                       lambda: phase_main_path(rec, tmp),
                       lambda: phase_cli(tmp), lambda: phase_twrapped(rec),
@@ -1969,7 +2508,8 @@ def main():
                       lambda: phase_wrapped(rec, tmp),
                       lambda: phase_diag(rec),
                       lambda: phase_grid3d(rec), phase_example3d,
-                      lambda: phase_contrib(rec)):
+                      lambda: phase_contrib(rec),
+                      lambda: phase_sweep3d_engine(rec)):
             t0 = time.perf_counter()
             phase()
             print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -2004,6 +2544,10 @@ def main():
         "fused": ("raytracer_tpu_torch/csrc/fused.cu",
                   "raytracer_tpu/contrib/fused_circulant.py:67",
                   "fused 180x63"),
+        # the port's own kernel: the JAX package runs this pass as XLA
+        "plane3d": ("raytracer_tpu_torch/csrc/plane3d.cu",
+                    "raytracer_tpu/solvers/solve3d.py:158",
+                    "solve3d sweep 128x128x64"),
     }
     kernels_line = {"kernels": [{
         "name": name,
@@ -2037,7 +2581,10 @@ def main():
           f"180x63 {rec['pallas_ms']:.1f} ms = {rec['relax']['launches']} x "
           f"{rec['relax']['ms']:.4f} ms of relax + the rest, fused 180x63 "
           f"{rec['fused_ms']:.2f} ms = 1 launch of {rec['fused_iters']} "
-          f"iterations)",
+          f"iterations, 3-D sweep engine 128x128x64 "
+          f"{rec['sweep3d_engine_ms']:.2f} ms = "
+          f"{rec['sweep3d_engine_launches']} x {rec['plane3d']['ms']:.4f} ms "
+          f"of plane3d + the rest)",
           flush=True)
     print(json.dumps(kernels_line))
     print(_smi())

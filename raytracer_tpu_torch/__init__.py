@@ -11,7 +11,9 @@ CSV), the Jacobi engines 'twrapped' (kernel `csrc/titer.cu`), 'stream'
 `csrc/relax.cu`) and 'fused' (kernel `csrc/fused.cu`), and the plain
 'circulant' oracle; and the 3-D
 spherical-shell solve (`grid3d` -> `prepare3d` -> `solve3d` ->
-`recover_prev3d`) whose kernel engine is `csrc/sweep3d.cu`.
+`recover_prev3d`) whose kernel engine is `csrc/sweep3d.cu` and whose
+directional-sweep engine is `csrc/plane3d.cu`, with the staged 3-D solves
+(`solve3d_reflection`, `solve3d_converted`) on it.
 Entry points run on the card unless the caller passes `device="cpu"`.
 """
 from .config import DEFAULT_SOLVER_CONFIG, R, SolverConfig
@@ -19,11 +21,12 @@ from .models.annulus import Grid2D, closest_point, init_annulus
 from .models.fast_annulus import init_annulus_circulant
 from .models.grid3d import Grid3D, closest_point3d, grid3d, velocity3d
 from .models.velocity import (LinearInterpolation, interpolate_velocity,
-                              velocity_profile)
+                              table_interface_radii, velocity_profile)
 from .ops.circulant import CirculantGraph, build_circulant
 from .solvers.api import AnnulusSolver
 from .solvers.path import recontruct_path
-from .solvers.solve3d import prepare3d, recover_prev3d, solve3d
+from .solvers.solve3d import (mask_region3d, prepare3d, recover_prev3d,
+                              solve3d, solve3d_converted, solve3d_reflection)
 from .solvers.types import BellmanFordMoore
 from .utils.io import save_solution_npz, travel_times
 
@@ -31,8 +34,10 @@ __all__ = [
     "DEFAULT_SOLVER_CONFIG", "R", "SolverConfig",
     "Grid2D", "closest_point", "init_annulus", "init_annulus_circulant",
     "Grid3D", "closest_point3d", "grid3d", "velocity3d",
-    "prepare3d", "solve3d", "recover_prev3d",
-    "LinearInterpolation", "interpolate_velocity", "velocity_profile",
+    "prepare3d", "solve3d", "recover_prev3d", "mask_region3d",
+    "solve3d_reflection", "solve3d_converted",
+    "LinearInterpolation", "interpolate_velocity", "table_interface_radii",
+    "velocity_profile",
     "CirculantGraph", "build_circulant",
     "AnnulusSolver", "recontruct_path", "BellmanFordMoore",
     "save_solution_npz", "travel_times",

@@ -1,5 +1,5 @@
 // cp.async helpers (global -> shared copies that bypass the registers),
-// shared by rsweep.cu, sweep3d.cu, band.cu and fused.cu.
+// shared by every kernel source but plane3d.cu.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -3,7 +3,7 @@
 // products and differences likewise),
 // the minimum, +inf, and the minimum across a warp or into memory.  Used
 // by witer.cu, titer.cu, diag.cu (with diag_scans.cuh), fused.cu and relax.cu
-// (through lane_gather.cuh).
+// (through lane_gather.cuh), rsweep.cu, band.cu and plane3d.cu.
 #pragma once
 
 #include <cuda_runtime.h>

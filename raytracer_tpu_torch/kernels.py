@@ -28,6 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 DEFAULT_CUDA_BIN = "/usr/local/cuda/bin"
 
+# dynamic shared memory one H100 block may have (227 KB = 232,448 bytes):
+# the wrappers refuse a launch that would need more
+BLOCK_SMEM = 227 * 1024
+
 _LIBS: dict = {}
 
 
@@ -84,15 +88,6 @@ def build(name: str) -> float:
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     return time.perf_counter() - t0
-
-
-def require_float32(name: str, dtype) -> None:
-    """Refuse anything but float32 for a kernel whose float64 build is
-    queued (ROADMAP C.11: rsweep and band); the plain version on the CPU
-    takes both."""
-    if str(dtype) not in ("torch.float32", "float32"):
-        raise TypeError(f"the {name} kernel takes float32, got {dtype}: its "
-                        f"float64 build is queued (ROADMAP C.11)")
 
 
 def require_float(name: str, dtype) -> None:

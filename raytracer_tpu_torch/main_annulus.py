@@ -12,6 +12,7 @@ sides), and writes the travel-time CSV and the npz archive to
     python -m raytracer_tpu_torch.main_annulus --ntheta 180 --nr 63
     python -m raytracer_tpu_torch.main_annulus --method wrapped
     python -m raytracer_tpu_torch.main_annulus --nr 63 --method pallas
+    python -m raytracer_tpu_torch.main_annulus --nr 63 --dtype float64
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import time
 
 import numpy as np
 
-from .config import R
+from .config import R, SolverConfig
 from .models.annulus import closest_point
 from .models.fast_annulus import init_annulus_circulant
 from .solvers.api import AnnulusSolver
@@ -41,6 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ntheta", type=int, default=180)
     ap.add_argument("--nr", type=int, default=50)
     ap.add_argument("--spacing", type=float, default=20.0)
+    ap.add_argument("--dtype", default="float32")
     ap.add_argument("--method", default="auto",
                     choices=["auto", "sweep", "stream", "twrapped", "wrapped",
                              "diag", "circulant", "pallas", "fused", "banded",
@@ -61,13 +63,14 @@ def main(argv=None):
         times[name] = time.perf_counter() - t0
         return out
 
+    cfg = SolverConfig(dtype=args.dtype)
     gr, cg, U = section("init_annulus_circulant", lambda: init_annulus_circulant(
-        args.ntheta, args.nr, spacing=args.spacing))
+        args.ntheta, args.nr, spacing=args.spacing, dtype=cfg.dtype))
     print(f"grid: {gr.nnods} nodes, {cg.M} slots per column")
     source = closest_point(gr, 0.0, R, system="polar")
 
     solver = section("solver pack", lambda: AnnulusSolver(
-        gr, None, None, U, method=args.method, circulant=cg,
+        gr, None, None, U, cfg, method=args.method, circulant=cg,
         device=args.device))
     print(f"solver method: {solver.method} on {solver.device}")
 

@@ -50,6 +50,21 @@ def velocity_profile(model: str = "ak135") -> VelProfile:
     return VelProfile(r=r[::-1].copy(), Vp=table[::-1, 1].copy(), Vs=table[::-1, 2].copy())
 
 
+def table_interface_radii(model: str = "ak135", min_jump: float = 0.3,
+                          wave: str = "Vp") -> tuple:
+    """Radii (km) where the vendored 1-km table actually jumps: the
+    midpoints of adjacent-row velocity steps larger than `min_jump` km/s,
+    outermost first.  These are the tables' (IASP91) interfaces, not
+    config.DISCONTINUITY_RADII (the reference's hardcoded list, whose CMB
+    constant sits 2.5 km below the table's transition); the
+    discontinuity-aware 3-D grid (grid3d force_radii) uses these."""
+    prof = velocity_profile(model)
+    v = getattr(prof, wave if wave in ("Vp", "Vs") else "Vp")
+    jump = np.abs(np.diff(v)) > min_jump
+    mids = 0.5 * (prof.r[:-1] + prof.r[1:])[jump]
+    return tuple(float(m) for m in mids[::-1])   # outermost first
+
+
 class LinearInterpolation:
     """1-D linear interpolant over (x, y) with clamped extrapolation."""
 

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..kernels import BLOCK_SMEM
 from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
 from .circulant import CirculantGraph, _DC_RANGE, resolve_device
 
@@ -191,7 +192,6 @@ def pack_diag_stencil(cg: CirculantGraph, dtype=np.float32) -> DiagStencil:
 BAND_ROWS = 8
 BAND_LANES = 64
 BAND_LANE_HALO = 4
-BLOCK_SMEM = 227 * 1024
 
 
 class TapLists(NamedTuple):

@@ -34,10 +34,11 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..kernels import BLOCK_SMEM
 from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
 from .circulant import CirculantGraph, _DC_RANGE, resolve_device
 from .diag_circulant import (BAND_LANE_HALO, BAND_LANES, BAND_ROWS,
-                             BLOCK_SMEM, LANES, SUB, TapLists, _block_taps,
+                             LANES, SUB, TapLists, _block_taps,
                              _round_up, band_block_taps, band_tile,
                              decompose_diagonals, row_tap_lists)
 

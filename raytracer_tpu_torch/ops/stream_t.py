@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..kernels import BLOCK_SMEM
 from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
 from .circulant import CirculantGraph, _DC_RANGE, resolve_device
 from .diag_circulant import decompose_diagonals
@@ -256,12 +257,24 @@ def band_reference(stack: torch.Tensor, wrows: torch.Tensor,
     return torch.roll(macc, (ML - maxdm) % ML, dims=-1)
 
 
+# csrc/band.cu: theta rows in a block's shared-memory ring, output lanes
+# a block
+BAND_RING_ROWS = 32
+BAND_LANES = 128
+
+
+def band_smem_bytes(maxdm: int, itemsize: int) -> int:
+    """Shared memory of one `band` block: a ring of BAND_RING_ROWS rows
+    of BAND_LANES + 2*maxdm lanes of the field's type."""
+    return BAND_RING_ROWS * (BAND_LANES + 2 * maxdm) * itemsize
+
+
 def _band_lib() -> ctypes.CDLL:
     lib = kernels.load("band")
     fn = lib.band_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
     return lib
 
@@ -278,11 +291,13 @@ def band(v: torch.Tensor, wrows: torch.Tensor, maxdm: int) -> torch.Tensor:
     moving-frame weight rows -> (S, nt, ML): what the TPU kernel computes
     on the 5 pages v rolled by dc = -2..2 theta rows.
 
-    A CUDA tensor goes to the hand-written kernel `csrc/band.cu`, which
-    rolls theta in its index arithmetic (on the current stream;
-    `band.launches` counts its launches); a CPU tensor goes to
-    `band_reference` on the stack of rolled pages.  Any other device
-    raises.
+    A CUDA tensor (float32 or float64) goes to the hand-written kernel
+    `csrc/band.cu`, which rolls theta in its index arithmetic (on the
+    current stream; `band.launches` counts its launches); a window whose
+    ring exceeds an H100 block's shared memory (`band_smem_bytes` over
+    BLOCK_SMEM) raises ValueError before the launch.  A CPU tensor
+    goes to `band_reference` on the stack of rolled pages.  Any other
+    device raises.
     """
     if v.dim() != 3:
         raise ValueError(f"v must be (S, nt, ML), got {tuple(v.shape)}")
@@ -298,14 +313,20 @@ def band(v: torch.Tensor, wrows: torch.Tensor, maxdm: int) -> torch.Tensor:
         return band_reference(_band_stack(v), wrows, maxdm)
     if v.device.type != "cuda":
         raise ValueError(f"band runs on cuda or cpu, not {v.device}")
-    kernels.require_float32("band", v.dtype)
+    kernels.require_float("band", v.dtype)
     if not (v.is_contiguous() and wrows.is_contiguous()):
         raise ValueError("band takes contiguous tensors")
+    smem = band_smem_bytes(maxdm, v.element_size())
+    if smem > BLOCK_SMEM:
+        raise ValueError(f"band: maxdm={maxdm} in {v.dtype} needs a "
+                         f"{smem}-byte ring, over the {BLOCK_SMEM} "
+                         f"bytes of shared memory an H100 block may have")
     S, nt, _ = v.shape
     out = torch.empty_like(v)
     stream = torch.cuda.current_stream(v.device).cuda_stream
     rc = _band_lib().band_launch(v.data_ptr(), wrows.data_ptr(),
-                                 out.data_ptr(), S, nt, ML, maxdm, stream)
+                                 out.data_ptr(), S, nt, ML, maxdm,
+                                 int(v.dtype == torch.float64), stream)
     if rc != 0:
         raise RuntimeError(f"band kernel launch failed: CUDA error {rc}")
     band.launches += 1

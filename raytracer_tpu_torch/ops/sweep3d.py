@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..kernels import BLOCK_SMEM
 from .diag_circulant import LANES, SUB, _round_up
 
 # the 26 taps, same order as solvers/solve3d.SHIFTS
@@ -223,9 +224,6 @@ def sweep3d_mirrored_reference(dist_flat: torch.Tensor, M13: torch.Tensor,
     return cur
 
 
-_SMEM_CTA = 227 * 1024   # shared memory one CTA may use on an H100
-
-
 def sweep3d_tiling(n1: int, L0: int, S: int, itemsize: int, planes: int,
                    sms: int = 132):
     """(lc, tj, kc, sc, smem bytes) of the kernel: a CTA walks kc k-planes
@@ -239,11 +237,11 @@ def sweep3d_tiling(n1: int, L0: int, S: int, itemsize: int, planes: int,
         return 4 * sc * (tj + 2) * (lc + 8) * itemsize
 
     lc, tj, sc = L0, min(8, n1), S
-    while tj > 1 and smem(lc, tj, sc) > _SMEM_CTA:
+    while tj > 1 and smem(lc, tj, sc) > BLOCK_SMEM:
         tj //= 2
-    while lc > LANES and smem(lc, tj, sc) > _SMEM_CTA:
+    while lc > LANES and smem(lc, tj, sc) > BLOCK_SMEM:
         lc = max(d for d in range(LANES, lc, LANES) if L0 % d == 0)
-    while smem(lc, tj, sc) > _SMEM_CTA:
+    while smem(lc, tj, sc) > BLOCK_SMEM:
         sc -= 1
     blocks = planes * -(-n1 // tj) * (L0 // lc)
     return lc, tj, max(1, -(-blocks // sms)), sc, smem(lc, tj, sc)

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..kernels import BLOCK_SMEM
 from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
 from .circulant import CirculantGraph, _DC_RANGE, resolve_device
 from .diag_circulant import LANES, SUB, _round_up, decompose_diagonals
@@ -447,8 +448,6 @@ _RSWEEP_INFO = 20       # ints per block in RSweepPlan.binfo
 _RSWEEP_NEAR = 248      # floats per block of RSweepPlan.near (7 x 7 x 5, padded)
 _RSWEEP_HALO = 4        # lanes each side of a shared-memory ring row
 RSWEEP_THREADS = 1024
-# dynamic shared memory one CTA may use on an H100 (227 KB)
-RSWEEP_SMEM_LIMIT = 232448
 
 
 class RSweepPlan(NamedTuple):
@@ -463,19 +462,21 @@ class RSweepPlan(NamedTuple):
     shared   : the route - True: the field rows a block reads sit in a
                shared-memory ring of K8+16 rows; False: they are read in
                device memory (the ring and tap buffers would exceed
-               RSWEEP_SMEM_LIMIT)
+               BLOCK_SMEM)
     threads  : threads per CTA
     far_lanes, near_lanes : lanes of one row per thread in the far pass
                and in the near chain (a warp takes 32 x that many)
     ent_cap  : the most far entries of one block
     smem_bytes : the shared route's dynamic shared memory
-    ent   : (E, 2) int32 far taps - x = ring offset ((r + dm) mod (K8+16))
-            * (NTB + 8) + 4 + dc on the shared route, (dm << 3) | (dc + 2)
-            on the global route; the weight's float32 bits
+    ent   : int32 far taps, (E, 2) in float32: x = ring offset ((r + dm)
+            mod (K8+16)) * (NTB + 8) + 4 + dc on the shared route,
+            (dm << 3) | (dc + 2) on the global route, then the weight's
+            float32 bits; (E, 4) in float64: x, 0, then the weight's low
+            and high 32 bits (one 16-byte load a tap in the kernel)
     binfo : (MT/8, 20) int32 per block g (sweep order): start and count
             of its entries, the offset of row b+j's entries from the
             block's start (j = 0..7), then row b+j's count
-    near  : (MT/8, 248) float32 per block: the weight of the tap from the
+    near  : (MT/8, 248) per block, in the table's dtype: the weight of the tap from the
             row at sweep position u (0 = visited first) into the row at
             position u + d, lane shift dc, at (u * 7 + d - 1) * 5 + dc + 2;
             +inf where that tap is absent or its weight is +inf
@@ -509,11 +510,16 @@ def rsweep_lanes(ntb: int) -> Tuple[int, int]:
     return far, near
 
 
-def rsweep_smem_bytes(rst: RSweepStatic, ent_cap: int) -> int:
+def rsweep_smem_bytes(rst: RSweepStatic, ent_cap: int,
+                      itemsize: int = 4) -> int:
     """Shared memory of the ring route: K8+16 rows of NTB + 8 lanes, two
-    buffers of ent_cap far entries, two near tables and two info rows."""
-    return (4 * (rst.K8 + 2 * RSWEEP_BLOCK) * (rst.NTB + 2 * _RSWEEP_HALO)
-            + 2 * 8 * ent_cap + 2 * 4 * _RSWEEP_NEAR + 2 * 4 * _RSWEEP_INFO)
+    buffers of ent_cap far entries (8 bytes each in float32, 16 in
+    float64), two near tables and two info rows; `itemsize` is the
+    field's (4 or 8)."""
+    return (itemsize * (rst.K8 + 2 * RSWEEP_BLOCK)
+            * (rst.NTB + 2 * _RSWEEP_HALO)
+            + 2 * 2 * itemsize * ent_cap + 2 * itemsize * _RSWEEP_NEAR
+            + 2 * 4 * _RSWEEP_INFO)
 
 
 def rsweep_block_rows(rst: RSweepStatic, upward: bool) -> np.ndarray:
@@ -532,9 +538,14 @@ def _sweep_position(j, upward: bool):
 
 def plan_rsweep(wtab: np.ndarray, rst: RSweepStatic,
                 upward: bool) -> RSweepPlan:
-    """Pack the finite taps of `wtab` ((MT+K8, D) float32, host) for the
-    kernel, and choose its route from the shapes."""
-    kernels.require_float32("rsweep", np.asarray(wtab).dtype)
+    """Pack the finite taps of `wtab` ((MT+K8, D) float32 or float64,
+    host) for the kernel, and choose its route from the shapes and the
+    dtype (the float64 ring takes twice the bytes)."""
+    wtab = np.asarray(wtab)
+    if wtab.dtype not in (np.float32, np.float64):
+        raise TypeError(f"rsweep packs float32 or float64 tables, not "
+                        f"{wtab.dtype}")
+    item = wtab.dtype.itemsize
     taps = rst.taps_up if upward else rst.taps_dn
     B = RSWEEP_BLOCK
     if max(abs(dc) for _, dc, _ in taps) > 2:
@@ -545,7 +556,7 @@ def plan_rsweep(wtab: np.ndarray, rst: RSweepStatic,
     starts = rsweep_block_rows(rst, upward)
     nblk = len(starts)
     rows = (starts[:, None] + np.arange(B)[None, :]).ravel()   # visit blocks
-    W = np.asarray(wtab)[rows][:, t_iw]                        # (N, T)
+    W = wtab[rows][:, t_iw]                                    # (N, T)
     blk = np.repeat(starts, B)
     src = rows[:, None] + t_dm[None, :]
     near = (src >= blk[:, None]) & (src < blk[:, None] + B)
@@ -562,7 +573,7 @@ def plan_rsweep(wtab: np.ndarray, rst: RSweepStatic,
     binfo[:, 2:2 + B] = row_start[:-1].reshape(nblk, B) - b_start[:, None]
     binfo[:, 2 + B:2 + 2 * B] = count.reshape(nblk, B)
     # near taps: dense (u, d, dc) per block, +inf where absent
-    near_t = np.full((nblk, _RSWEEP_NEAR), np.inf, np.float32)
+    near_t = np.full((nblk, _RSWEEP_NEAR), np.inf, wtab.dtype)
     rn, tn = np.nonzero(near)
     j_dst = rows[rn] - blk[rn]
     u_dst = _sweep_position(j_dst, upward)
@@ -572,8 +583,8 @@ def plan_rsweep(wtab: np.ndarray, rst: RSweepStatic,
         raise ValueError("a near tap does not point back in sweep order")
     near_t[rn // B, (u_src * (B - 1) + d - 1) * 5 + t_dc[tn] + 2] = W[rn, tn]
     ent_cap = max(1, int(binfo[:, 1].max(initial=0)))
-    smem = rsweep_smem_bytes(rst, ent_cap)
-    shared = smem <= RSWEEP_SMEM_LIMIT
+    smem = rsweep_smem_bytes(rst, ent_cap, item)
+    shared = smem <= BLOCK_SMEM
     dm, dc = t_dm[ti], t_dc[ti]
     if shared:
         R, stride = rst.K8 + 2 * B, rst.NTB + 2 * _RSWEEP_HALO
@@ -581,7 +592,10 @@ def plan_rsweep(wtab: np.ndarray, rst: RSweepStatic,
     else:
         x = dm * 8 + (dc + 2)
     w = W[ri, ti]
-    ent = np.stack([x, w.view(np.int32).astype(np.int64)], axis=1)
+    bits = w.view(np.int32).reshape(len(w), item // 4).astype(np.int64)
+    cols = [x[:, None]] + ([np.zeros((len(w), 1), np.int64)]
+                           if item == 8 else []) + [bits]
+    ent = np.concatenate(cols, axis=1)
     far_l, near_l = rsweep_lanes(rst.NTB)
     return RSweepPlan(shared=shared, threads=RSWEEP_THREADS,
                       far_lanes=far_l, near_lanes=near_l, ent_cap=ent_cap,
@@ -660,7 +674,7 @@ def _rsweep_lib() -> ctypes.CDLL:
     fn = lib.rsweep_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
                        + [ctypes.c_void_p])
     return lib
 
@@ -682,7 +696,7 @@ def rsweep(buf: torch.Tensor, wtab: torch.Tensor, rst: RSweepStatic,
         return rsweep_reference(buf, wtab, rst, upward)
     if buf.device.type != "cuda":
         raise ValueError(f"rsweep runs on cuda or cpu, not {buf.device}")
-    kernels.require_float32("rsweep", buf.dtype)
+    kernels.require_float("rsweep", buf.dtype)
     if buf.data_ptr() % 16:
         raise ValueError("rsweep takes a 16-byte aligned buffer")
     plan, ent, binfo, near = _kernel_tables(wtab, rst, upward)
@@ -691,7 +705,8 @@ def rsweep(buf: torch.Tensor, wtab: torch.Tensor, rst: RSweepStatic,
         buf.data_ptr(), ent.data_ptr(), binfo.data_ptr(), near.data_ptr(),
         buf.shape[0],
         rst.MT, rst.K8, rst.NTL, rst.NTB, int(upward), int(plan.shared),
-        plan.ent_cap, plan.threads, plan.far_lanes, plan.near_lanes, stream)
+        plan.ent_cap, plan.threads, plan.far_lanes, plan.near_lanes,
+        int(buf.dtype == torch.float64), stream)
     if rc != 0:
         raise RuntimeError(f"rsweep kernel launch failed: CUDA error {rc}")
     rsweep.launches += 1

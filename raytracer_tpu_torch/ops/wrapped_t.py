@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..kernels import BLOCK_SMEM
 from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
 from .circulant import CirculantGraph, _DC_RANGE, resolve_device
 from .diag_circulant import LANES, SUB, _round_up, decompose_diagonals
@@ -399,7 +400,6 @@ BAND_LANES = 128
 BAND_ROWS = 4
 BAND_RING = 16
 RING_COLS = 8
-BLOCK_SMEM = 227 * 1024  # shared memory an H100 block may have
 
 
 def titer_launch_plan(st: TWStatic, itemsize: int):

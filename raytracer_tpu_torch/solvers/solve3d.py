@@ -8,7 +8,7 @@ is 26 statically shifted whole-array add+min operations over the dense
 built on the host in float64 with +inf at the non-periodic box faces
 (`_shifted_weights`, a copy of the JAX package's).
 
-Two engines of the JAX package are ported:
+The three engines of the JAX package:
 - 'pallas', the kernel engine: `sweeps` Jacobi sweeps per call of the
   hand-written CUDA kernel `csrc/sweep3d.cu` (ops/sweep3d.py) on the
   card, or of its plain twin on the CPU, with `source_batch` sources
@@ -17,14 +17,24 @@ Two engines of the JAX package are ported:
 - 'xla', the plain torch sweep (`_sweep`, 26 `torch.roll`s), with the
   six exact min-plus axis scans (`_axis_scan`) every `scan_every`
   iterations.
-Both stop once no distance improves by more than `SolverConfig.tol`, and
-both reproduce the JAX package's floats and iteration counts.  The
-directional-sweep engine 'sweep' and the staged solves are ROADMAP A.8b.
+- 'sweep', the directional-sweep engine: a round is a down and an up
+  plane pass along each axis (`_plane_sweep3d`, one launch of the
+  hand-written CUDA kernel `csrc/plane3d.cu` a pass on the card, its
+  plain twin on the CPU; ops/plane3d.py); `iters` counts rounds.  Any
+  stencil (`shifts_star`); 'auto' takes it for star >= 2.
+All stop once no distance improves by more than `SolverConfig.tol`, and
+all reproduce the JAX package's floats and iteration counts.
 
+The staged solves run on the sweep engine: `solve3d_reflection` (PcP,
+two stages on `mask_region3d`'s masked weights) and `solve3d_converted`
+(SKS/PKP, three stages seeded on the twin planes of a forced radius);
+`composite_velocity3d` builds the composite model of a converted class.
 `recover_prev3d` recovers the predecessor tree from a converged field
-(neighbour argmin, ties to the first shift), as plain torch on the
-device.  Entry points run on the card unless the caller passes
-`device="cpu"`.
+(neighbour argmin, ties to the first shift), `_prev3d_seeded` that of a
+stage field, as plain torch on the device.  Entry points run on the card
+unless the caller passes `device="cpu"`.  The JAX package's jitted
+functions keep their names without `_jit` (`_solve3d_sweep` for
+`_solve3d_sweep_jit`, `_prev3d_seeded` for `_prev3d_seeded_jit`).
 """
 from __future__ import annotations
 
@@ -37,18 +47,14 @@ import torch
 from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
 from ..models.grid3d import Grid3D
 from ..ops.circulant import _safe_weight, resolve_device
-from ..ops.diag_circulant import _sum_min_scan
+from ..ops.plane3d import PlaneLayout3D, _axis_scan, scan_sum_trees
+from ..ops.plane3d import plane_sweep3d as _plane_sweep3d
 from ..ops.sweep3d import (Sweep3DPlan, mirror_weights, plan_sweep3d,
                            sweep3d_T_batched)
 
 # the kernel engine's fast-memory budget of the JAX package (see
 # _kernel_vmem_bytes)
 VMEM_BUDGET = 100 * 2**20
-
-_NOT_PORTED = ("the 3-D directional-sweep engine 'sweep' (and with it "
-               "every stencil wider than star 1 under engine='auto') is "
-               "not ported yet: ROADMAP A.8b")
-
 
 def shifts_star(star: int = 1):
     """The star-`star` lattice stencil: every (dk, dj, di) in
@@ -132,28 +138,6 @@ def _sweep(dist: torch.Tensor, W: torch.Tensor,
     return out
 
 
-def _axis_scan(dist: torch.Tensor, cost_fwd: torch.Tensor,
-               cost_bwd: torch.Tensor, axis: int) -> torch.Tensor:
-    """Exact min-plus chain relaxation along `axis`, both directions.
-
-    cost_fwd[..., t, ...] = weight entering position t from t-1 (+inf at
-    t=0); cost_bwd = entering t from t+1 (flipped for the reverse scan).
-    The scan is `jax.lax.associative_scan`'s recursion over (sum, min)
-    pairs (`_sum_min_scan`), so the sums round as the JAX package's.
-    """
-    out = dist
-    for cost, flip in ((cost_fwd, False), (cost_bwd, True)):
-        x = torch.flip(dist, dims=[axis]) if flip else dist
-        c = torch.flip(cost, dims=[axis]) if flip else cost
-        _, scanned = _sum_min_scan(torch.movedim(c, axis, 0),
-                                   torch.movedim(x, axis, 0))
-        scanned = torch.movedim(scanned, 0, axis)
-        if flip:
-            scanned = torch.flip(scanned, dims=[axis])
-        out = torch.minimum(out, scanned)
-    return out
-
-
 def _scans(d: torch.Tensor, scan_costs) -> torch.Tensor:
     """The six axis scans of one (n2, n1, n0) field."""
     for axis, (cf, cb) in enumerate(scan_costs):
@@ -225,6 +209,69 @@ def _solve3d_kernel(srcs: Sequence[int], W4: torch.Tensor, scan_costs,
         s = Solve3DState(f, changed, s.it + sweeps)
     return Solve3DState(s.dist[:, :rows, :n0].reshape((S,) + shape),
                         s.changed, s.it)
+
+
+def _sweep_layout3d(W: torch.Tensor, scan_costs, axis: int) -> PlaneLayout3D:
+    """Per-axis plane layout for `_plane_sweep3d`, built once for a set of
+    weights: W as (nA, n_shifts, p0, p1) planes plus the four in-plane
+    scan-cost plane stacks (nA, p0, p1), and on a CUDA device the
+    kernel's sum trees (`scan_sum_trees`).  Each layout is a transposed
+    copy of W: 3 x W for the three axes, 3 x 109 MB at star 1 and
+    3 x 411 MB at star 2 on a 128x128x64 float32 grid (the trees add
+    about 2 x 4 cost stacks an axis, ~100 MB at that grid)."""
+    oaxes = [a for a in (0, 1, 2) if a != axis]
+    xs_W = torch.movedim(W, 1 + axis, 0).contiguous()
+    xs_c = []
+    for a in oaxes:
+        cf, cb = scan_costs[a]
+        xs_c += [torch.movedim(cf, axis, 0).contiguous(),
+                 torch.movedim(cb, axis, 0).contiguous()]
+    trees = scan_sum_trees(*xs_c) if W.device.type == "cuda" else None
+    return PlaneLayout3D(xs_W, *xs_c, trees=trees)
+
+
+def _sweep_fix(dist0: torch.Tensor, W: torch.Tensor, scan_costs,
+               tol: torch.Tensor, max_iters: int, axes=(0, 1, 2),
+               shifts=SHIFTS, layouts=None) -> Solve3DState:
+    """Directional-sweep rounds from the (S,) + shape field `dist0`: a
+    round is a down and an up pass along each of `axes` over the whole
+    batch, then the changed test any(d < dist - tol), one host read a
+    round; `it` counts rounds.  `layouts` (axis -> `_sweep_layout3d`) are
+    built here unless given."""
+    if layouts is None:
+        layouts = {a: _sweep_layout3d(W, scan_costs, a) for a in axes}
+    s = Solve3DState(dist0, True, 0)
+    while s.changed and s.it < max_iters:
+        d = s.dist
+        for a in axes:
+            d = _plane_sweep3d(d, layouts[a], a, True, shifts=shifts)
+            d = _plane_sweep3d(d, layouts[a], a, False, shifts=shifts)
+        changed = bool((d < s.dist - tol).any())
+        s = Solve3DState(d, changed, s.it + 1)
+    return s
+
+
+def _solve3d_sweep(srcs, W: torch.Tensor, scan_costs, tol: torch.Tensor,
+                   max_iters: int, axes=(0, 1, 2), shifts=SHIFTS,
+                   layouts=None) -> Solve3DState:
+    """Directional-sweep solve of the flat source ids `srcs` together
+    (the batch runs through the kernel's source dimension; the JAX
+    package vmaps the round).  Converges in a few rounds where the
+    Jacobi engines take O(n0 + n1 + n2) iterations."""
+    shp = tuple(W.shape[1:])
+    srcs = torch.as_tensor(np.asarray(srcs, dtype=np.int64).ravel(),
+                           device=W.device)
+    S = len(srcs)
+    dist0 = torch.full((S, math.prod(shp)), float("inf"), dtype=W.dtype,
+                       device=W.device)
+    dist0[torch.arange(S, device=W.device), srcs] = 0.0
+    return _sweep_fix(dist0.reshape((S,) + shp), W, scan_costs, tol,
+                      max_iters, axes, shifts, layouts)
+
+
+# the JAX package's name for a solve from an arbitrary (S,) + shape
+# initial field (multi-seed restarts: the staged solves' later stages)
+_solve3d_sweep_init = _sweep_fix
 
 
 def _gather3d_it(dist: torch.Tensor, it: int, idx: torch.Tensor) -> np.ndarray:
@@ -327,9 +374,11 @@ def _device_key(device: torch.device) -> str:
 
 
 def _device_layout(packed: Packed3D, name: str, device: torch.device):
-    """`name` ('W', 'W4' or 'scan') of `packed` on `device`, uploaded on
-    first use and kept in `packed.dcache` (keyed by `_device_key`, so
-    'cuda' and 'cuda:0' share one upload).  On a CUDA device the upload of
+    """`name` ('W', 'W4', 'scan' or 'sweep') of `packed` on `device`,
+    uploaded on first use and kept in `packed.dcache` (keyed by
+    `_device_key`, so 'cuda' and 'cuda:0' share one upload).  'sweep' is
+    the sweep engine's per-axis plane layouts (axis -> `_sweep_layout3d`),
+    built from 'W' and 'scan' on the device.  On a CUDA device the upload of
     'W4' also derives the kernel's 13-tap mirrored weights and checks
     them against W4 bit for bit (`ops.sweep3d.mirror_weights`, which
     keeps them on the tensor and raises if the weights are not
@@ -350,6 +399,11 @@ def _device_layout(packed: Packed3D, name: str, device: torch.device):
             packed.dcache[key] = W4
         elif name == "W":
             packed.dcache[key] = up(packed.W_np)
+        elif name == "sweep":
+            W = _device_layout(packed, "W", device)
+            scan = _device_layout(packed, "scan", device)
+            packed.dcache[key] = {a: _sweep_layout3d(W, scan, a)
+                                  for a in (0, 1, 2)}
         else:
             packed.dcache[key] = tuple((up(cf), up(cb))
                                        for cf, cb in packed.scan_costs)
@@ -377,13 +431,16 @@ def solve3d(
 
     engine: 'pallas' = the kernel engine (`csrc/sweep3d.cu` on the card,
     its plain twin on the CPU; `sweeps` sweeps per call); 'xla' = the
-    plain torch roll sweep; 'auto' = `select_engine3d`, the JAX package's
-    accelerator route on every device.  'sweep' raises (ROADMAP A.8b).
+    plain torch roll sweep; 'sweep' = directional plane passes
+    (`csrc/plane3d.cu` on the card, 6 launches a round; `iters` then
+    counts rounds); 'auto' = `select_engine3d`, the JAX package's
+    accelerator route on every device.
     scan_every: axis-scan cadence in iterations (0 = never; None = 0 on
-    the kernel engine, 8 on xla).
-    source_batch: sources per kernel call (0 = `_auto_source_batch`);
-    a group runs until its last source converges, its tail padded with
-    its last source.
+    the kernel engine, 8 on xla; the sweep engine scans every plane).
+    source_batch: sources per kernel call (0 = `_auto_source_batch`) on
+    'pallas'; sources a group on 'sweep' (max(1, min(source_batch,
+    len(sources)))); a group runs until its last source converges, its
+    tail padded with its last source.
     interpret: accepted for parity with the JAX package; on a CUDA device
     `interpret=True` raises (it never selects the plain twin).
     """
@@ -399,8 +456,6 @@ def solve3d(
     if sweeps < 1:
         raise ValueError("sweeps must be >= 1")
     engine = select_engine3d(packed, engine, dtype)
-    if engine == "sweep":
-        raise NotImplementedError(_NOT_PORTED)
     if engine == "pallas" and packed.plan is None:
         raise ValueError("engine='pallas' supports the star-1 stencil "
                          "only; use engine='xla' for star>=2")
@@ -416,6 +471,20 @@ def solve3d(
     ncol = gr.nnods_total if ridx is None else len(ridx)
     out = np.empty((len(sources), ncol), dtype=dtype)
     iters = 0
+    if engine == "sweep":
+        layouts = _device_layout(packed, "sweep", dev)
+        scan = _device_layout(packed, "scan", dev)
+        S = max(1, min(source_batch, len(sources)))
+        for lo in range(0, len(sources), S):
+            grp = sources[lo:lo + S]
+            g_src = np.concatenate([grp, np.full(S - len(grp), grp[-1])])
+            st = _solve3d_sweep(g_src, Wdev, scan, tol, config.max_iters,
+                                (0, 1, 2), packed.shifts, layouts)
+            arr = (_flat3d_it(st.dist, st.it) if ridx is None
+                   else _gather3d_it(st.dist, st.it, ridx))
+            out[lo:lo + len(grp)] = arr[:len(grp), :-1]
+            iters = max(iters, int(arr[0, -1]))
+        return out, iters
     if engine == "pallas":
         plan = packed.plan
         statics = (plan.n1, plan.BR, plan.NB, plan.L0, plan.H8, packed.shape)
@@ -495,3 +564,166 @@ def recover_prev3d(gr: Grid3D, U: np.ndarray, dist, sources,
                    packed.shifts)
            for i in range(len(sources))]
     return np.stack([p.cpu().numpy() for p in out])
+
+
+def _prev3d_seeded(dist3: torch.Tensor, W: torch.Tensor,
+                   shifts=SHIFTS) -> torch.Tensor:
+    """Stage-field predecessor tree: like `_prev3d`, but a node whose
+    best neighbour candidate cannot explain its own time (its value came
+    from seeding - a stage handoff plane, not relaxation) points to
+    itself, so backtraces stop at the stage boundary."""
+    best, prev, ids = _neighbour_argmin(dist3, W, shifts)
+    eps = torch.tensor(1e-3, dtype=dist3.dtype, device=dist3.device)
+    explained = torch.isfinite(best) & (best <= dist3 * (1 + 1e-5) + eps)
+    return torch.where(explained, prev, ids).reshape(-1)
+
+
+def mask_region3d(W: np.ndarray, keep: np.ndarray,
+                  shifts=SHIFTS) -> np.ndarray:
+    """Copy of the (n_shifts, n2, n1, n0) shifted weights with every edge
+    touching a node OUTSIDE `keep` (dense (n2, n1, n0) bool) removed: the
+    dense-lattice form of the 2-D phase machinery's stage masks (host
+    NumPy, a copy of the JAX package's)."""
+    Wm = np.array(W, copy=True)
+    for s, (dk, dj, di) in enumerate(shifts):
+        src_keep = np.roll(keep, (-dk, -dj, -di), axis=(0, 1, 2))
+        Wm[s][~keep] = np.inf
+        Wm[s][~src_keep] = np.inf
+    return Wm
+
+
+def _staged_weights(gr: Grid3D, U, keep, dtype, shifts, dev):
+    """(W, scan costs, sweep layouts) of `U` masked to `keep`, on `dev`."""
+    W = torch.from_numpy(mask_region3d(
+        _shifted_weights(gr, U, dtype, shifts), keep, shifts)).to(dev)
+    scan = _scan_costs_of(W, shifts)
+    return W, scan, {a: _sweep_layout3d(W, scan, a) for a in (0, 1, 2)}
+
+
+def _staged_out(dist: torch.Tensor, receivers) -> np.ndarray:
+    S = dist.shape[0]
+    out = dist.reshape(S, -1)
+    if receivers is not None:
+        out = out[:, torch.as_tensor(np.asarray(receivers, dtype=np.int64)
+                                     .ravel(), device=dist.device)]
+    return out.cpu().numpy()
+
+
+def solve3d_reflection(
+    gr: Grid3D,
+    U: np.ndarray,
+    sources: Sequence[int],
+    r_reflect: float,
+    config: SolverConfig = DEFAULT_SOLVER_CONFIG,
+    receivers=None,
+    star: int = 1,
+    device="cuda",
+) -> Tuple[np.ndarray, int]:
+    """Two-stage topside reflection on the 3-D grid (PcP for the CMB):
+    stage A solves the region ABOVE the reflector from the sources;
+    stage B restarts from the reflector-level field (every reflector
+    node a seed at its stage-A time) and solves the same masked region:
+    T_PcP(x) = min_b [T_A(b) + T_B(b -> x)] over reflector nodes b.
+
+    Physically meaningful when `gr` was built with force_radii including
+    `r_reflect` (a sharp interface and side-aware velocities via
+    `velocity3d`).  Both stages run on the sweep engine with all sources
+    in one batch.  Returns ((S, n) times - or (S, n_receivers) - and the
+    rounds of both stages summed)."""
+    dev = resolve_device(device)
+    dtype = np.dtype(config.dtype)
+    shifts = shifts_star(star)
+    shp3 = (gr.nnods[2], gr.nnods[1], gr.nnods[0])
+    keep = (gr.r >= r_reflect - 1e-6).reshape(shp3)
+    Wm, scan, layouts = _staged_weights(gr, U, keep, dtype, shifts, dev)
+    sources = np.atleast_1d(np.asarray(sources, dtype=np.int64))
+    tol = torch.tensor(config.tol_value(), dtype=Wm.dtype, device=dev)
+    stA = _solve3d_sweep(sources, Wm, scan, tol, config.max_iters,
+                         (0, 1, 2), shifts, layouts)
+    lev = torch.as_tensor((np.abs(gr.r - r_reflect) < 1e-6).reshape(shp3),
+                          device=dev)
+    d0B = torch.where(lev[None], stA.dist,
+                      torch.tensor(float("inf"), dtype=Wm.dtype, device=dev))
+    stB = _solve3d_sweep_init(d0B, Wm, scan, tol, config.max_iters,
+                              (0, 1, 2), shifts, layouts)
+    return _staged_out(stB.dist, receivers), stA.it + stB.it
+
+
+def solve3d_converted(
+    gr: Grid3D,
+    U_down: np.ndarray,
+    U_core: np.ndarray,
+    sources: Sequence[int],
+    r_boundary: float,
+    U_up: Optional[np.ndarray] = None,
+    config: SolverConfig = DEFAULT_SOLVER_CONFIG,
+    receivers=None,
+    star: int = 1,
+    device="cuda",
+) -> Tuple[np.ndarray, int]:
+    """Three-stage boundary-converted core transit on the 3-D grid (SKS
+    class with U_down = U_up = the Vs node field, U_core = Vp; PKP class
+    all-Vp).
+
+    `gr` must be twin-doubled at `r_boundary` (`grid3d(force_radii=
+    [...])`): the boundary is the topside level at exactly r_boundary
+    plus the underside twin one radial level below it.  Stage A solves
+    the topside region (levels >= r_boundary) with U_down; the core
+    stage seeds the UNDERSIDE twin plane from stage A's topside-plane
+    times (the twin-gap traversal ~twin_offset/v is forgiven, as the 2-D
+    zero-cost merge forgives it) and solves the region below with
+    U_core; stage B seeds the topside plane from the core field's
+    underside plane and re-solves the topside region with U_up (default
+    U_down, whose weights it reuses).  Nodes outside the topside region
+    return +inf in the final field.  Returns the times and the rounds of
+    the three stages summed."""
+    dtype = np.dtype(config.dtype)
+    shifts = shifts_star(star)
+    shp3 = (gr.nnods[2], gr.nnods[1], gr.nnods[0])
+    r_ax = np.asarray(gr.r_ax)
+    k_top = int(np.argmin(np.abs(r_ax - r_boundary)))
+    if (abs(r_ax[k_top] - r_boundary) > 1e-6 or k_top == 0
+            or abs(r_ax[k_top - 1]
+                   - (r_boundary - gr.twin_offset)) > 1e-6):
+        raise ValueError(
+            "r_boundary must be a twin-doubled forced radius of the "
+            "grid (build with grid3d(force_radii=[r_boundary, ...]))")
+    dev = resolve_device(device)
+    k_under = k_top - 1
+    same_up = U_up is None or U_up is U_down
+
+    keep_top = (gr.r >= r_boundary - 1e-6).reshape(shp3)
+    keep_core = (gr.r <= r_boundary - 1e-6).reshape(shp3)
+    dn = _staged_weights(gr, U_down, keep_top, dtype, shifts, dev)
+    core = _staged_weights(gr, U_core, keep_core, dtype, shifts, dev)
+    up = dn if same_up else _staged_weights(gr, U_up, keep_top, dtype,
+                                            shifts, dev)
+
+    sources = np.atleast_1d(np.asarray(sources, dtype=np.int64))
+    tol = torch.tensor(config.tol_value(), dtype=dn[0].dtype, device=dev)
+    stA = _solve3d_sweep(sources, *dn[:2], tol, config.max_iters,
+                         (0, 1, 2), shifts, dn[2])
+    d0K = torch.full_like(stA.dist, float("inf"))
+    d0K[:, k_under] = stA.dist[:, k_top]
+    stK = _solve3d_sweep_init(d0K, *core[:2], tol, config.max_iters,
+                              (0, 1, 2), shifts, core[2])
+    d0B = torch.full_like(stK.dist, float("inf"))
+    d0B[:, k_top] = torch.minimum(stK.dist[:, k_under], stA.dist[:, k_top])
+    stB = _solve3d_sweep_init(d0B, *up[:2], tol, config.max_iters,
+                              (0, 1, 2), shifts, up[2])
+    return (_staged_out(stB.dist, receivers),
+            stA.it + stK.it + stB.it)
+
+
+def composite_velocity3d(gr: Grid3D, r_boundary: float,
+                         V_above, V_below) -> np.ndarray:
+    """Node velocities of the COMPOSITE radial model: the `V_above`
+    interpolant for r >= r_boundary, `V_below` for r < r_boundary.  A
+    boundary-converted phase class (SKS: S mantle legs + P core leg) is
+    the Fermat first arrival of the composite model whose speed is Vs
+    above the CMB and Vp below it; feed the result to `solve3d` (any
+    star)."""
+    rr = np.asarray(gr.r, np.float64)
+    above = rr >= r_boundary - 1e-9
+    return np.where(above, np.asarray(V_above(rr), np.float64),
+                    np.asarray(V_below(rr), np.float64))

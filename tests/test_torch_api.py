@@ -396,6 +396,40 @@ def test_main_annulus_cli_method_on_cpu(tmp_path, capsys):
                            "--out-prefix", str(tmp_path / "p")])
 
 
+def test_main_annulus_dtype_float64_equals_the_jax_cli(tmp_path, capsys,
+                                                       monkeypatch):
+    """--dtype float64 (the JAX CLI's option, default float32): the port's
+    CLI solves in float64 on the CPU and writes the JAX CLI's travel
+    times at a tiny grid (the JAX CLI runs its circulant engine there,
+    the port its directional sweep: the same float64 fixpoint, within
+    1e-9 s, the rounding of the same path sums in another order)."""
+    import runpy
+    import sys
+
+    args = ["--ntheta", "16", "--nr", "4", "--spacing", "400", "--dtype",
+            "float64"]
+    monkeypatch.setattr(sys, "argv", ["main_annulus.py", *args,
+                                      "--out-prefix", str(tmp_path / "j")])
+    runpy.run_path(os.path.join(ROOT, "main_annulus.py"),
+                   run_name="__main__")
+    main_annulus.main([*args, "--device", "cpu", "--out-prefix",
+                       str(tmp_path / "p")])
+    out = capsys.readouterr().out
+    assert "solver method: sweep on cpu" in out
+    want = np.loadtxt(tmp_path / "j_travel_times.csv", delimiter=",",
+                      skiprows=1)
+    got = np.loadtxt(tmp_path / "p_travel_times.csv", delimiter=",",
+                     skiprows=1)
+    assert got.shape == want.shape == (150, 2)
+    # the receivers' degrees: the JAX CLI's full mesh and the port's
+    # circulant grid place the same nodes to the last bit or two
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-15, atol=0)
+    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=0, atol=1e-9)
+    with np.load(tmp_path / "p.npz") as f:
+        assert f["dist"].dtype == np.float64
+    assert main_annulus.build_parser().parse_args([]).dtype == "float32"
+
+
 def _jax_cli_options() -> dict:
     """option -> (default, choices) of the root main_annulus.py, read
     from its source text (importing it would configure JAX)."""

@@ -282,7 +282,7 @@ def test_plan_route_by_shape(tables_180):
         plan = psw.plan_rsweep(w, st, False)
         assert plan.shared == shared, name
         assert plan.smem_bytes == psw.rsweep_smem_bytes(st, plan.ent_cap)
-        assert (plan.smem_bytes <= psw.RSWEEP_SMEM_LIMIT) == shared, name
+        assert (plan.smem_bytes <= kernels.BLOCK_SMEM) == shared, name
         far, near = psw.rsweep_lanes(st.NTB)
         assert (plan.far_lanes, plan.near_lanes) == (far, near)
         assert st.NTB <= plan.threads * plan.near_lanes

@@ -8,6 +8,10 @@ stencil.  On the CPU it must equal the JAX package's `engine="pallas"`
 run in interpret mode bit for bit, with the same iteration count, for
 single sources, source groups with a padded tail, receivers and the axis
 scans; the port's 'xla' engine must equal JAX's in float32 and float64.
+The directional-sweep engine ('sweep', the plane-pass kernel
+`csrc/plane3d.cu` on the card) must give the JAX package's floats and
+rounds for single sources, padded source groups and receivers, in
+float32 and float64, and star 2 must route 'auto' to it.
 `recover_prev3d` must give the JAX package's predecessor trees.  The
 JAX-side TPU routing figures (`_kernel_vmem_bytes`, `_auto_source_batch`)
 are kept so that a grid takes the same engine and source batch in both
@@ -195,19 +199,82 @@ def test_recover_prev3d_equals_jax_and_descends(wedge):
             assert np.all(np.diff(d[s][p]) < 0)
 
 
-def test_sweep_engine_raises_naming_the_roadmap_item(wedge):
-    _, gp, U, _, pp = wedge
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8b"):
-        ps.solve3d(gp, U, [3], PF32, engine="sweep", _packed=pp, device="cpu")
+def test_sweep_engine_equals_jax(wedge):
+    """The directional-sweep engine: the JAX package's floats and rounds
+    for single sources, groups of source_batch=2 on 3 sources (the tail
+    group padded with its last source) and receivers gathered on the
+    device (mirrors tests/test_sweep3d.py's sweep test)."""
+    gj, gp, U, jp, pp = wedge
+    srcs = _sources(gj)
+    want, it_w = js.solve3d(gj, U, srcs, JF32, engine="sweep", _packed=jp)
+    got, it_g = ps.solve3d(gp, U, srcs, PF32, engine="sweep", _packed=pp,
+                           device="cpu")
+    assert it_g == it_w and 0 < it_g
+    np.testing.assert_array_equal(got, want)
+    d_xla, it_x = ps.solve3d(gp, U, srcs, PF32, engine="xla", _packed=pp,
+                             device="cpu")
+    assert it_g <= it_x     # rounds, not Jacobi iterations
+    np.testing.assert_allclose(got, d_xla, rtol=1e-6, atol=5e-3)
+    want_b, it_wb = js.solve3d(gj, U, srcs, JF32, engine="sweep",
+                               source_batch=2, _packed=jp)
+    got_b, it_gb = ps.solve3d(gp, U, srcs, PF32, engine="sweep",
+                              source_batch=2, _packed=pp, device="cpu")
+    assert it_gb == it_wb
+    np.testing.assert_array_equal(got_b, want_b)
+    np.testing.assert_allclose(got_b, got, rtol=1e-6, atol=5e-3)
+    recs = [0, len(gj) // 3, len(gj) - 1]
+    tab, _ = ps.solve3d(gp, U, srcs, PF32, engine="sweep", source_batch=2,
+                        receivers=recs, _packed=pp, device="cpu")
+    np.testing.assert_array_equal(tab, got_b[:, recs])
 
 
-def test_star2_auto_raises_naming_the_roadmap_item():
+def test_sweep_engine_float64_equals_jax():
+    gj, gp, U, jp, pp = _wedge((9, 6, 5), "float64")
+    srcs = _sources(gj)
+    want, it_w = js.solve3d(gj, U, srcs, JConfig(dtype="float64"),
+                            engine="sweep", _packed=jp)
+    got, it_g = ps.solve3d(gp, U, srcs, PConfig(dtype="float64"),
+                           engine="sweep", _packed=pp, device="cpu")
+    assert got.dtype == np.float64 and it_g == it_w
+    np.testing.assert_array_equal(got, want)
+
+
+def test_star2_auto_routes_to_sweep_and_equals_jax():
+    """star 2 (98 taps) has no kernel-engine plan: 'auto' takes the sweep
+    engine, as the JAX package does off the TPU; the same floats and
+    rounds as JAX's sweep, within 1e-3 s of the port's star-2 xla solve,
+    never above star 1 by more than 1e-3 s (mirrors
+    tests/test_grid3d_disc.py's star-2 test on a smaller p_wedge: 19x4x10
+    in place of 57x4x29)."""
+    c0, c1 = (0.0, np.deg2rad(87.0), 3000.0), (np.deg2rad(70.0),
+                                               np.deg2rad(93.0), R)
+    gj, gp = jg.grid3d(c0, c1, (19, 4, 10)), pt.grid3d(c0, c1, (19, 4, 10))
+    prof = rt.velocity_profile("ak135")
+    U = jg.velocity3d(gj, rt.LinearInterpolation(prof.r, prof.Vp))
+    jp2 = js.prepare3d(gj, U, JF32, star=2)
+    pp2 = ps.prepare3d(gp, U, PF32, star=2, device="cpu")
+    assert pp2.plan is None and len(pp2.shifts) == 98
+    assert ps.select_engine3d(pp2, "auto", np.float32) == "sweep"
+    x, y, z = spherical2cart(0.0, np.deg2rad(90.0), R)
+    src = jg.closest_point3d(gj, x, y, z)
+    want, it_w = js.solve3d(gj, U, [src], JF32, engine="sweep", _packed=jp2)
+    got, it_g = ps.solve3d(gp, U, [src], PF32, _packed=pp2, device="cpu")
+    assert it_g == it_w < 10
+    np.testing.assert_array_equal(got, want)
+    d2x, _ = ps.solve3d(gp, U, [src], PF32, engine="xla", _packed=pp2,
+                        device="cpu")
+    d1, _ = ps.solve3d(gp, U, [src], PF32, engine="sweep", device="cpu")
+    fin = np.isfinite(d1[0])
+    np.testing.assert_allclose(got[0][fin], d2x[0][fin], rtol=0, atol=1e-3)
+    assert np.all(got[0][fin] <= d1[0][fin] + 1e-3)
+    assert float(np.mean(d1[0][fin] - got[0][fin])) > 0.0
+
+
+def test_star2_pallas_engine_names_the_star1_limit():
+    """The kernel engine's plan is star-1 only: an explicit
+    engine='pallas' on a star-2 stencil raises ValueError."""
     _, gp, U, _, _ = _wedge((7, 6, 4))
     pp = ps.prepare3d(gp, U, PF32, star=2, device="cpu")
-    assert pp.plan is None and len(pp.shifts) == 98
-    assert ps.select_engine3d(pp, "auto", np.float32) == "sweep"
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8b"):
-        ps.solve3d(gp, U, [3], PF32, _packed=pp, device="cpu")
     with pytest.raises(ValueError, match="star-1"):
         ps.solve3d(gp, U, [3], PF32, engine="pallas", _packed=pp,
                    device="cpu")

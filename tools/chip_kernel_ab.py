@@ -38,7 +38,15 @@ DIR holds the earlier sources, unpacked from an earlier commit (e.g.
           u_of, idx, w, out, t_tiles, nt, s_count, ntp, is_double,
           stream));
   fused   the whole-solve kernel at 180x63 S=1, 24x12 S=2 and 180x63
-          S=8, per solve (both with the package's launch interface).
+          S=8, per solve (both with the package's launch interface);
+  plane3d one directional pass of the 3-D sweep engine at 128x128x64
+          (star 1, down): along each axis at S=1 and along axis 0 at S=8
+          in float32, along axis 0 in float64 (both with the package's
+          launch interface); with --breakdown the package's source built
+          with one step of a pass left out at a time (the cross taps, the
+          in-plane taps, the scans, the L2 prefetch, and all three steps:
+          timing only, each computes another function), along axes 0
+          and 1.
 Both versions are built with the package's nvcc flags into a temporary
 directory, run on the same inputs and held bit-equal to the plain
 versions (fused with the same iterations); then each shape is timed
@@ -431,6 +439,126 @@ def relax_ab(lib_old, reps, rows):
         print(json.dumps(rows[-1]), flush=True)
 
 
+# --breakdown for plane3d: the (anchor, replacement) pairs in
+# csrc/plane3d.cu that leave one step of a pass out
+_PLANE3D_SKIP = {
+    "no cross taps": [("      for (int t = 0; t < n_cross; ++t) {\n",
+                       "      for (int t = 0; t < 0; ++t) {\n")],
+    "no in-plane taps": [
+        ("    for (int t = n_cross; t < n_cross + n_inpl; ++t) {\n",
+         "    for (int t = n_cross; t < n_cross; ++t) {\n")],
+    "no scans": [
+        ("    // 3. the scans along plane axis 0, then along plane axis 1\n",
+         "    if (false) {\n"),
+        ("    // 4. the output plane", "    }\n    // 4. the output plane")],
+    "no prefetch": [("    if (!can_prefetch || threadIdx.x", "    if (true || "
+                     "!can_prefetch || threadIdx.x")],
+}
+
+
+def _plane3d_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn = lib.plane3d_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
+                   + [ctypes.c_void_p] * 2)
+    return lib
+
+
+def _plane3d_variants(tmp: str) -> dict:
+    """The package's plane3d.cu with the steps of _PLANE3D_SKIP left out,
+    one at a time and the three of a plane together, built in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with open(kernels.source_path("plane3d")) as f:
+        text = f.read()
+    variants = {"full": []}
+    variants.update({k: [k] for k in _PLANE3D_SKIP})
+    variants["only the write"] = ["no cross taps", "no in-plane taps",
+                                  "no scans"]
+
+    def make(item):
+        name, skips = item
+        t = text
+        for k in skips:
+            for anchor, repl in _PLANE3D_SKIP[k]:
+                assert anchor in t, (k, anchor)
+                t = t.replace(anchor, repl, 1)
+        tag = "plane3d_" + name.replace(" ", "_").replace("-", "_")
+        src = os.path.join(tmp, tag + ".cu")
+        with open(src, "w") as f:
+            f.write(t)
+        return name, _plane3d_bind(_build(src, tmp, tag, "-I",
+                                          kernels.CSRC_DIR))
+
+    with ThreadPoolExecutor(len(variants)) as ex:
+        return dict(ex.map(make, variants.items()))
+
+
+def plane3d_ab(lib_old, reps, rows, breakdown, tmp):
+    """The earlier plane3d kernel and the package's, in turns, one pass
+    at chip_smoke's 128x128x64 wedge: along each axis (S=1) and along
+    axis 0 at S=8 in float32, along axis 0 in float64, both held
+    bit-equal to plane_sweep3d_reference first.  The wrapper
+    plane_sweep3d launches both (its library swapped in turn), so both
+    versions take the package's launch interface."""
+    from raytracer_tpu_torch.ops import plane3d as p3
+    from raytracer_tpu_torch.solvers import solve3d as s3
+
+    own = p3._plane3d_lib
+    libs = {"old": _plane3d_bind(lib_old), "new": own()}
+    rng = np.random.default_rng(14)
+    g, U = chip_smoke._wedge3d(chip_smoke.WEDGE_DIMS, 60.0, 120.0, 2500.0)
+    dev = torch.device("cuda")
+
+    def field(S, shape, dtype):
+        v = rng.uniform(0.0, 500.0, (S,) + shape).astype(dtype)
+        v[rng.random(v.shape) < 0.3] = np.inf
+        return torch.from_numpy(v).cuda()
+
+    def pass_of(lib, d, lay, axis, shifts):
+        def run():
+            p3._plane3d_lib = lambda: lib
+            return p3.plane_sweep3d(d, lay, axis, True, None, shifts)
+        return run
+
+    try:
+        for dtype, cases in ((np.float32, ((0, 1), (1, 1), (2, 1), (0, 8))),
+                             (np.float64, ((0, 1),))):
+            pk = rt.prepare3d(g, U, rt.SolverConfig(dtype=np.dtype(dtype)
+                                                    .name))
+            lays = s3._device_layout(pk, "sweep", dev)
+            for axis, S in cases:
+                d = field(S, pk.shape, dtype)
+                runs = {k: pass_of(lib, d, lays[axis], axis, pk.shifts)
+                        for k, lib in libs.items()}
+                want = p3.plane_sweep3d_reference(d, lays[axis], axis, True,
+                                                  None, pk.shifts)
+                for k, run in runs.items():
+                    got = run()
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), (k, axis, S, dtype)
+                o, n = _turns(runs["old"], runs["new"], reps)
+                rows.append(dict(kernel="plane3d", grid="128x128x64",
+                                 axis=axis, S=S, dtype=np.dtype(dtype).name,
+                                 planes=int(lays[axis].W.shape[0]),
+                                 old_ms=o, new_ms=n, bit_equal=True))
+                print(json.dumps(rows[-1]), flush=True)
+            if breakdown and dtype == np.float32:
+                variants = _plane3d_variants(tmp)
+                for rep in range(2):
+                    for name, lib in variants.items():
+                        ms = [_ms(pass_of(lib, field(1, pk.shape, dtype),
+                                          lays[ax], ax, pk.shifts), reps)
+                              for ax in (0, 1)]
+                        rows.append(dict(kernel="plane3d", split=name,
+                                         turn=rep, axis0_ms=ms[0],
+                                         axis1_ms=ms[1]))
+                        print(json.dumps(rows[-1]), flush=True)
+            pk.dcache.clear()
+    finally:
+        p3._plane3d_lib = own
+
+
 def _titer_case(ntheta, nr, S, dtype, rng):
     """Tables, static, field and centre values of a titer launch (phase
     3a of chip_smoke.py)."""
@@ -668,7 +796,8 @@ def main(argv=None):
     ap.add_argument("--old", required=True,
                     help="directory with the earlier kernel sources")
     ap.add_argument("--kernels", default="titer,diag",
-                    help="comma-separated: titer, diag, witer, relax, fused")
+                    help="comma-separated: titer, diag, witer, relax, fused, "
+                         "plane3d")
     ap.add_argument("--old-pkg", default=None,
                     help="directory holding an earlier raytracer_tpu_torch, "
                          "to time whole solves against")
@@ -701,6 +830,9 @@ def main(argv=None):
                      a.breakdown)
         if "relax" in want:
             relax_ab(_old_lib(a.old, "relax", tmp), a.reps, rows)
+        if "plane3d" in want:
+            plane3d_ab(_old_lib(a.old, "plane3d", tmp), a.reps, rows,
+                       a.breakdown, tmp)
         if a.breakdown and "fused" in want:
             fused_breakdown(tmp, {"old": a.old, "new": kernels.CSRC_DIR},
                             max(1, a.reps // 4), rows)
