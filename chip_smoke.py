@@ -53,7 +53,18 @@ the exit code is non-zero):
      solve in one cooperative launch) at 24x12 (S=2, T=3: ntheta 24 takes
      the modular ring shifts; float32 and float64), at 48x12 and 180x63
      with S=8 (the table's width) and at 180x63 with S=1, each with the
-     same iterations as its plain version;
+     same iterations as its plain version; (3f) bfm_step (one
+     Bellman-Ford-Moore iteration on the padded ELL graph) in lockstep
+     with its plain version, every field of the state equal after every
+     step, over whole solves: at 180x63 (init_annulus, the reference's
+     benchmark graph) S=1 and S=8 in float32, at 48x12 (spacing 150,
+     halo) S=2 and on the production Delaunay annulus in float64, on the
+     3-D graph of example_grid3d (24x24x16, S=3); timed over the 180x63
+     solve with its bound from each step's frontier; (3g) banded_sweep
+     (a Jacobi iteration of the banded solve) and banded_gs (a
+     Gauss-Seidel direction) the same way on the production Delaunay
+     annulus in float32 (the JAX package's 214 steps and 33 rounds) and
+     float64, and on 16x6 with its halo (S=2), timed;
   4. the main path through the user entry points: init_annulus_circulant
      (180, 63, 20) -> AnnulusSolver(method="auto") on cuda -> solve with
      prev -> receiver fan -> paths -> travel-time CSV, held against the
@@ -118,11 +129,30 @@ the exit code is non-zero):
      MAX_ROUNDS rounds; star 2 (98 taps), where auto takes the sweep
      engine, within 1e-3 s of the star-2 xla engine and at or below star
      1 + 1e-3 s; solve3d_reflection (PcP) and solve3d_converted (SKS) on
-     the test wedges of tests/test_grid3d_disc.py equal to the CPU route.
+     the test wedges of tests/test_grid3d_disc.py equal to the CPU route;
+ 15. the reference's benchmark: bfm(A, halo, source, gr, Vp) on
+     init_annulus(180, 63) (the bfm_step kernel), dist and prev equal to
+     the JAX package's digests in its 266 iterations (JAX_BFM_180), the
+     anchors, the receiver walks that reach the source (C.9), within
+     ENGINE_ATOL of the port's auto sweep field on the same graph; the
+     host prepare and the steady solve timed;
+ 16. AnnulusSolver(method="auto") on the production Delaunay annulus:
+     the JAX package's warning, 'banded' (the banded_sweep kernel) in
+     214 iterations, the field equal to the JAX digest (JAX_BANDED), prev
+     from the host PrevRecovery; solve_banded_gs (the banded_gs kernel)
+     in 33 rounds equal to its JAX digest; in float64 the Gauss-Seidel
+     field within 1e-9 s of the Jacobi one and that within 1e-9 s of
+     dijkstra; an 8-source table timed, rows equal to single solves;
+ 17. main_annulus --method ell at 180x63 (the anchors) and --method
+     banded at 48x12 (its CSV equal to the CPU route's), example_grid3d
+     --engine ell (within T_ATOL of the root example's table).
 Every kernel-launch count is set to 0 just before each path (4, 6, 7,
-9, 10, 11, 13, 14) and read just after it.  Then one JSON line of kernel numbers, the
-card's name and power limit from nvidia-smi, and as the last line
-{"ok": true, "device": {...}}.
+9, 10, 11, 13, 14, 15, 16, 17) and read just after it.  Then one JSON
+line of kernel numbers, the card's name and power limit from nvidia-smi,
+and as the last line {"ok": true, "device": {...}}.  The kernels line
+lists fourteen kernels:
+the eight Pallas counterparts, the diag engine's two scans, plane3d, and
+the generic graphs' bfm_step, banded_sweep and banded_gs.
 
 Needs no network and writes only to a temporary directory and to the
 package's `_build/`.  Without CUDA, or without the package beside it, it
@@ -199,6 +229,21 @@ TABLE3D_SOURCES, TABLE3D_RECEIVERS, TABLE3D_BATCH = 64, 1024, 7
 # a source group's row against its single-source solve: the tolerance of
 # the JAX package's test_solve3d_source_batched_matches_single
 BATCH_ATOL = 5e-3
+# The JAX package's generic-graph solvers on the CPU
+# (tools/jax_graph_reference.py), float32, AK135 Vp, the surface source at
+# theta 0.  bfm on init_annulus(180, 63, spacing=20): iterations, the
+# receiver walks of the 150-receiver fan that reach the source (ROADMAP
+# C.9), and sha256 of dist (float32) and prev (int64).  solve_banded and
+# solve_banded_gs (block 512, passes 2) on the production Delaunay annulus
+# (DELAUNAY, node_adjacency star 0, no halo): iterations (rounds) and the
+# sha256 of the field.
+JAX_BFM_180 = (266, 150,
+               "28a0279bc5c499916c808bcb125761b9ce84055d56a8cae8df7c8d41043ffac8",
+               "d017b590cf3e31b75262887a93ebe9fc7f6ea6dd4f7af580610f7814dd7adebb")
+JAX_BANDED = {
+    "jacobi": (214, "2062a7ccf1a12eef69a330d87e6bef8ab42701eb6b0857b91f07cc437cda1068"),
+    "gs": (33, "2062a7ccf1a12eef69a330d87e6bef8ab42701eb6b0857b91f07cc437cda1068")}
+DELAUNAY = dict(nr=60, spacing=120.0)   # benchmarks/chip_banded_gs.py
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # f32 outside the tensor cores, same sheet
 
@@ -237,7 +282,7 @@ def _launch_counters():
                                          stream_t, sweep3d, sweep_theta,
                                          wrapped_t)
 
-    from raytracer_tpu_torch.ops import plane3d
+    from raytracer_tpu_torch.ops import banded, plane3d, relax
 
     return {"rsweep": sweep_theta.rsweep, "titer": wrapped_t.titer,
             "band": stream_t.band, "witer": diag_wrapped.witer,
@@ -246,7 +291,8 @@ def _launch_counters():
             "chain_scan": diag_circulant.chain_scan,
             "sweep3d": sweep3d.sweep3d_T, "relax": pallas_circulant.relax,
             "fused": fused_circulant.fused,
-            "plane3d": plane3d.plane_sweep3d}
+            "plane3d": plane3d.plane_sweep3d, "bfm_step": relax.bfm_step,
+            "banded_sweep": banded.banded_step, "banded_gs": banded.banded_gs}
 
 
 def _reset_counts():
@@ -2487,6 +2533,515 @@ def phase_sweep3d_engine(rec: dict):
           flush=True)
 
 
+# ----------------------------------------------------------------------
+# the generic graphs: the ELL BFM solver and the banded solver
+# ----------------------------------------------------------------------
+
+def _digest(a, dtype) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(np.asarray(a), dtype=dtype)
+                          .tobytes()).hexdigest()
+
+
+def _no_halo():
+    import numpy as np
+
+    return np.empty((0, 2), np.int64)
+
+
+def _ak135_vp(gr):
+    import raytracer_tpu_torch as rt
+
+    prof = rt.velocity_profile("ak135")
+    return rt.interpolate_velocity(gr.r, rt.LinearInterpolation(prof.r,
+                                                                prof.Vp))
+
+
+def _ell_work(g, front, itemsize):
+    """(bytes, operations) of one BFM iteration on this frontier: the
+    state read and written once (dist, prev, front of every field), the
+    neighbour ids of every real slot read once (the frontier rows'
+    relaxation and the new frontier both need them), the weights of the
+    real slots of the frontier rows (a row read once for all fields);
+    one add and one min per real slot of each field's frontier rows."""
+    S, n_pad = front.shape
+    deg = g.deg.long()
+    union = int(deg[front.any(0)].sum())
+    per_field = int((deg[None, :] * front).sum())
+    state = 2 * S * n_pad * (itemsize + 4 + 1)
+    return state + 4 * int(deg.sum()) + itemsize * union, 2 * per_field
+
+
+def _ell_lockstep(g, srcs, dtype, what):
+    """bfm_step (the kernel) and bfm_step_reference (its plain version)
+    from init_state until the frontier empties, every field of the two
+    states equal after every step; returns the steps and each step's
+    (bytes, operations)."""
+    import torch
+
+    from raytracer_tpu_torch.ops import relax
+
+    sk = sr = relax.init_state(g, srcs, dtype)
+    work = []
+    while True:
+        front = sr.front if sr.front.dim() == 2 else sr.front[None]
+        work.append(_ell_work(g, front, g.w.element_size()))
+        sk = relax.bfm_step(sk, g)
+        sr = relax.bfm_step_reference(sr, g)
+        for f in sk._fields:
+            if not torch.equal(getattr(sk, f), getattr(sr, f)):
+                raise AssertionError(f"bfm_step kernel != plain version "
+                                     f"({what}, {f}, step {len(work)})")
+        if not int(sr.live):
+            return len(work), work
+
+
+def _steps_ms(step, state, n):
+    """Mean milliseconds of a call of step over n calls from `state`,
+    CUDA events around the calls (the plain version reads the host at
+    each call)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n):
+        state = step(state)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def phase_graph_kernels(rec: dict):
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+    from raytracer_tpu_torch.ops import relax
+
+    # the reference's benchmark graph, built and packed once for phases
+    # 3f and 15
+    t0 = time.perf_counter()
+    gr, A, halo = rt.init_annulus(180, 63, spacing=20.0)
+    U = _ak135_vp(gr)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    G = rt.prepare(A, halo, gr, U)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    src = rt.closest_point(gr, 0.0, rt.R, system="polar")
+    rec["graph_180"] = (gr, A, halo, U, src, G, t_build, t_prep)
+
+    n1, work1 = _ell_lockstep(G, src, "float32", "180x63 S=1")
+    srcs8 = [rt.closest_point(gr, np.deg2rad(d), rt.R, system="polar")
+             for d in np.linspace(0.0, 315.0, 8)]
+    n8, work8 = _ell_lockstep(G, srcs8, "float32", "180x63 S=8")
+    assert n1 == JAX_BFM_180[0], n1
+    # float64: 48x12 (spacing 150, halo), the production Delaunay mesh;
+    # float32: the 3-D graph of example_grid3d (24x24x16, 3 sources)
+    cases = [f"180x63 S=1 and S=8 ({n1} and {n8} steps)"]
+    gs, As, hs = rt.init_annulus(48, 12, spacing=150.0)
+    g48 = rt.prepare(As, hs, gs, _ak135_vp(gs), rt.SolverConfig(
+        dtype="float64"))
+    n, _ = _ell_lockstep(g48, [rt.closest_point(gs, 0.0, rt.R, system="polar"),
+                               11], "float64", "48x12 float64")
+    cases.append(f"48x12 float64 S=2 ({n})")
+    dg = rt.add_midpoints(rt.triangle_annulus_2d(**DELAUNAY))
+    dA = rt.node_adjacency(dg, star=0)
+    dsrc = rt.closest_point(dg, 0.0, rt.R, system="polar")
+    gd = rt.prepare(dA, _no_halo(), dg, _ak135_vp(dg),
+                    rt.SolverConfig(dtype="float64"))
+    n, _ = _ell_lockstep(gd, dsrc, "float64", "Delaunay float64")
+    cases.append(f"the production Delaunay mesh float64 ({n})")
+    rec["delaunay"] = (dg, dA, dsrc)
+    from raytracer_tpu_torch.example_grid3d import (SOURCE_DEGREES,
+                                                    surface_nodes)
+
+    g3 = rt.grid3d((np.deg2rad(70.0), np.deg2rad(70.0), rt.R - 2000.0),
+                   (np.deg2rad(110.0), np.deg2rad(110.0), rt.R), (24, 24, 16))
+    prof = rt.velocity_profile("ak135")
+    U3 = rt.LinearInterpolation(prof.r, prof.Vp)(g3.r)
+    G3 = rt.prepare(rt.nodal_incidence3d(g3), _no_halo(), g3, U3)
+    n, _ = _ell_lockstep(G3, surface_nodes(g3, SOURCE_DEGREES), "float32",
+                         "3-D 24x24x16")
+    cases.append(f"the 3-D 24x24x16 graph S=3 ({n})")
+
+    # times over a whole single-source solve at 180x63
+    st = relax.init_state(G, src, "float32")
+    ms = _steps_ms(lambda s: relax.bfm_step(s, G), st, n1)
+    plain = _steps_ms(lambda s: relax.bfm_step_reference(s, G), st, n1)
+    nbytes = sum(b for b, _ in work1) / n1
+    ops = sum(o for _, o in work1) / n1
+    bound, by = _bound_ms(nbytes, ops)
+    ms8 = _steps_ms(lambda s: relax.bfm_step(s, G),
+                    relax.init_state(G, srcs8, "float32"), n8)
+    split = _kernel_split_ms(lambda: _steps_ms(
+        lambda s: relax.bfm_step(s, G), st, n1), 1)
+    rec["bfm_step"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                           bound_by=by, max_abs_err=0.0)
+    print(f"phase 3f kernels: bfm_step bit-equal to bfm_step_reference "
+          f"(dist, prev, front, it, live after every step) on "
+          + ", ".join(cases) + f". 180x63 ({G.nbr.shape[0]} x "
+          f"{G.nbr.shape[1]} ELL, {int(G.deg.sum())} real slots; "
+          f"init_annulus {t_build:.2f} s, prepare {t_prep:.2f} s): a call "
+          f"{ms:.4f} ms on average over the {n1} steps of a solve (S=8: "
+          f"{ms8:.4f} ms), plain {plain:.3f} ms, bound {bound:.5f} ms "
+          f"({by}, {nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} M ops a step "
+          f"on average); device ms a solve by kernel: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(split.items())),
+          flush=True)
+
+
+def _banded_work(bg, S, passes=1):
+    """(bytes, operations) of one banded call: the fields read and written
+    once, the finite taps (source row and weight) and the tap offsets
+    read once; one add and one min per finite tap, field and pass."""
+    itemsize = bg.tw.element_size()
+    taps = int(bg.tw.numel())
+    nbytes = (2 * S * bg.n_pad * itemsize + (4 + itemsize) * taps
+              + 4 * int(bg.toff.numel()))
+    return nbytes, 2 * taps * S * passes
+
+
+def _dense_on_card(bg):
+    """bg with its dense W (which only the plain versions read, kept on
+    the host by prepare_banded) on the card beside the tap lists."""
+    return bg._replace(W=bg.W.to(bg.tw.device))
+
+
+def _banded_lockstep(bg, srcs, cfg, what):
+    """banded_step and banded_gs (the kernels) against their plain
+    versions from the sources' start field to the fixpoint, equal after
+    every call; returns (Jacobi steps, Gauss-Seidel rounds)."""
+    import torch
+
+    from raytracer_tpu_torch.ops import banded as pb
+
+    d0 = pb._sources(bg, srcs, cfg)
+    twin = _dense_on_card(bg)
+    one = torch.ones((), dtype=torch.int32, device=d0.device)
+    sk = sr = pb.BandedState(d0, one, torch.zeros_like(one))
+    n = 0
+    while int(sr.changed):
+        sk, sr = pb.banded_step(sk, bg), pb.banded_step_reference(sr, twin)
+        n += 1
+        for f in sk._fields:
+            if not torch.equal(getattr(sk, f), getattr(sr, f)):
+                raise AssertionError(f"banded_sweep kernel != plain version "
+                                     f"({what}, {f}, step {n})")
+    dk = dr = d0
+    rounds = 0
+    while True:
+        start = dr
+        for forward in (True, False):
+            dk = pb.banded_gs(dk, bg, forward)
+            dr = pb.banded_gs_reference(dr, twin, forward)
+            if not torch.equal(dk, dr):
+                raise AssertionError(f"banded_gs kernel != plain version "
+                                     f"({what}, round {rounds}, "
+                                     f"forward={forward})")
+        rounds += 1
+        if not bool((dr < start).any()):
+            return n, rounds
+
+
+def phase_banded_kernels(rec: dict):
+    import torch
+
+    import raytracer_tpu_torch as rt
+    from raytracer_tpu_torch.ops import banded as pb
+
+    dg, dA, dsrc = rec["delaunay"]
+    U = _ak135_vp(dg)
+    cases = []
+    for dtype in ("float32", "float64"):
+        cfg = rt.SolverConfig(dtype=dtype)
+        t0 = time.perf_counter()
+        bg = rt.prepare_banded(dA, _no_halo(), dg, U, cfg)
+        torch.cuda.synchronize()
+        t_prep = time.perf_counter() - t0
+        n, rounds = _banded_lockstep(bg, [dsrc], cfg, f"Delaunay {dtype}")
+        cases.append(f"the production Delaunay mesh {dtype} ({n} steps, "
+                     f"{rounds} rounds)")
+        if dtype == "float32":
+            assert (n, rounds) == (JAX_BANDED["jacobi"][0],
+                                   JAX_BANDED["gs"][0]), (n, rounds)
+            bg32, n32, r32, t_prep32 = bg, n, rounds, t_prep
+    gs, As, hs = rt.init_annulus(16, 6, spacing=200.0)
+    for dtype in ("float32", "float64"):
+        cfg = rt.SolverConfig(dtype=dtype)
+        bg = rt.prepare_banded(As, hs, gs, _ak135_vp(gs), cfg)
+        n, rounds = _banded_lockstep(
+            bg, [rt.closest_point(gs, 0.0, rt.R, system="polar"), 40], cfg,
+            f"16x6 {dtype}")
+        cases.append(f"16x6 with its halo {dtype} S=2 ({n}, {rounds})")
+
+    cfg = rt.SolverConfig()
+    d0 = pb._sources(bg32, [dsrc], cfg)
+    one = torch.ones((), dtype=torch.int32, device=d0.device)
+    st = pb.BandedState(d0, one, torch.zeros_like(one))
+    ms = _steps_ms(lambda s: pb.banded_step(s, bg32), st, n32)
+    twin32 = _dense_on_card(bg32)
+    plain = _steps_ms(lambda s: pb.banded_step_reference(s, twin32), st,
+                      n32)
+    nbytes, ops = _banded_work(bg32, 1)
+    bound, by = _bound_ms(nbytes, ops)
+    split = _kernel_split_ms(lambda: _steps_ms(
+        lambda s: pb.banded_step(s, bg32), st, n32), 1)
+    rec["banded_sweep"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                               bound_by=by, max_abs_err=0.0)
+    calls = 2 * r32
+
+    def gs_calls(fn, g):
+        def run(d):
+            for k in range(calls):
+                d = fn(d, g, k % 2 == 0)
+            return d
+        return run
+
+    gms = _steps_ms(gs_calls(pb.banded_gs, bg32), d0, 1) / calls
+    gplain = _steps_ms(gs_calls(pb.banded_gs_reference, twin32), d0,
+                       1) / calls
+    gbytes, gops = _banded_work(bg32, 1, passes=2)
+    gbound, gby = _bound_ms(gbytes, gops)
+    rec["banded_gs"] = dict(ms=gms, plain_ms=gplain, bound_ms=gbound,
+                            bound_by=gby, max_abs_err=0.0)
+    print(f"phase 3g kernels: banded_sweep and banded_gs bit-equal to "
+          f"their plain versions after every call on " + ", ".join(cases)
+          + f". Delaunay ({bg32.n} nodes, {len(bg32.offsets_np)} offsets, "
+          f"{int(bg32.tw.numel())} finite taps; prepare_banded "
+          f"{t_prep32:.2f} s): banded_sweep a call {ms:.4f} ms over the "
+          f"{n32} steps of a solve, plain {plain:.3f} ms, bound "
+          f"{bound:.5f} ms ({by}, {nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} M "
+          f"ops); device ms a solve by kernel: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(split.items()))
+          + f"; banded_gs a call (a direction, B=512, P=2) {gms:.4f} ms, "
+          f"plain {gplain:.3f} ms, bound {gbound:.5f} ms ({gby})",
+          flush=True)
+
+
+def phase_graph_bfm(rec: dict):
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+    from raytracer_tpu_torch.solvers import bfm as B
+
+    gr, A, halo, U, src, G, t_build, t_prep = rec["graph_180"]
+    # the reference's benchmark through its entry point: bfm(A, halo,
+    # source, gr, Vp), packing included
+    _reset_counts()
+    t0 = time.perf_counter()
+    D = rt.bfm(A, halo, src, gr, U)
+    torch.cuda.synchronize()
+    t_bfm = time.perf_counter() - t0
+    counts = _counts()
+    it_ref, reach_ref, dist_ref, prev_ref = JAX_BFM_180
+    launches = counts["bfm_step"]
+    assert launches == -(-it_ref // B.CHECK_EVERY) * B.CHECK_EVERY, counts
+    assert sum(counts.values()) == launches, counts
+    rec["bfm_step"]["launches"] = launches
+    assert D.dist.shape == (gr.nnods,) and np.isfinite(D.dist).all()
+    assert _digest(D.dist, "<f4") == dist_ref, "bfm dist != JAX digest"
+    assert _digest(D.prev, "<i8") == prev_ref, "bfm prev != JAX digest"
+    assert int(B.solve_state(G, src).it) == it_ref
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.solve(G, src)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    steady = 1e3 * statistics.median(times)
+    rec["bfm_ms"] = steady
+    from raytracer_tpu_torch.main_annulus import receiver_degrees
+
+    degs = receiver_degrees()
+    receivers = [rt.closest_point(gr, np.deg2rad(d), rt.R, system="polar")
+                 for d in degs]
+    tt = rt.travel_times(D, gr, receivers)
+    t60 = float(tt[np.argmin(np.abs(degs - 60.0))])
+    t150 = float(tt[np.argmin(np.abs(degs - 150.0))])
+    assert abs(t60 - T60_REF) <= T_ATOL, t60
+    assert abs(t150 - T150_REF) <= T_ATOL, t150
+    reach = _reaching(D.prev, src, receivers)
+    assert len(reach) == reach_ref, len(reach)
+    # the port's auto route (the directional sweep) on the same graph
+    t0 = time.perf_counter()
+    sweep = rt.AnnulusSolver(gr, A, halo, U)
+    assert sweep.method == "sweep", sweep.method
+    d_sweep = sweep.solve(src, want_prev=False).dist
+    t_sweep = time.perf_counter() - t0
+    err = float(np.abs(D.dist - d_sweep).max())
+    assert err <= ENGINE_ATOL, err
+    print(f"phase 15 bfm: init_annulus(180, 63) ({gr.nnods} nodes, "
+          f"{A.nnz} edges, {t_build:.2f} s), bfm(A, halo, source, gr, Vp) "
+          f"{t_bfm:.2f} s with its prepare (prepare alone {t_prep:.2f} s), "
+          f"{it_ref} iterations in {launches} bfm_step calls (a host read "
+          f"every {B.CHECK_EVERY}), dist and prev equal to the JAX "
+          f"package's digests, steady solve {steady:.2f} ms (median of "
+          f"3), t(60)={t60:.3f} s, t(150)={t150:.3f} s, {len(reach)} of "
+          f"{len(receivers)} receiver walks reach the source (C.9), "
+          f"max |bfm - auto sweep| = {err:.3g} s (sweep built from the "
+          f"graph in {t_sweep:.1f} s)", flush=True)
+
+
+def phase_graph_banded(rec: dict):
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+
+    dg, dA, dsrc = rec["delaunay"]
+    U = _ak135_vp(dg)
+    _reset_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        solver = rt.AnnulusSolver(dg, dA, _no_halo(), U)
+    t_pack = time.perf_counter() - t0
+    msgs = [str(w.message) for w in caught]
+    assert solver.method == "banded", solver.method
+    assert msgs == ["circulant layout unavailable (mesh has no theta-column "
+                    "structure (ntheta=0)); falling back to banded"], msgs
+    t0 = time.perf_counter()
+    D = solver.solve(dsrc)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    counts = _counts()
+    it_ref, dig_ref = JAX_BANDED["jacobi"]
+    launches = counts["banded_sweep"]
+    assert solver.last_iterations == it_ref, solver.last_iterations
+    from raytracer_tpu_torch.ops.banded import CHECK_EVERY
+
+    assert launches == -(-it_ref // CHECK_EVERY) * CHECK_EVERY, counts
+    assert sum(counts.values()) == launches, counts
+    rec["banded_sweep"]["launches"] = launches
+    assert _digest(D.dist, "<f4") == dig_ref, "banded field != JAX digest"
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve(dsrc, want_prev=False)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    steady = 1e3 * statistics.median(times)
+    rec["banded_ms"] = steady
+    from raytracer_tpu_torch.main_annulus import receiver_degrees
+
+    degs = receiver_degrees()
+    receivers = [rt.closest_point(dg, np.deg2rad(d), rt.R, system="polar")
+                 for d in degs]
+    reach = _reaching(D.prev, dsrc, receivers)
+    for r in reach[:20]:
+        p = rt.recontruct_path(D.prev, dsrc, r)
+        assert p[0] == r and p[-1] == dsrc
+        assert (np.diff(D.dist[p]) <= 1e-3).all()
+    # the Gauss-Seidel solve, on its own path
+    _reset_counts()
+    t0 = time.perf_counter()
+    d_gs, rounds = rt.solve_banded_gs(solver.banded, [dsrc])
+    torch.cuda.synchronize()
+    t_gs = time.perf_counter() - t0
+    counts = _counts()
+    assert rounds == JAX_BANDED["gs"][0] and \
+        counts["banded_gs"] == 2 * rounds, (rounds, counts)
+    assert sum(counts.values()) == counts["banded_gs"], counts
+    rec["banded_gs"]["launches"] = counts["banded_gs"]
+    assert _digest(d_gs[0], "<f4") == JAX_BANDED["gs"][1]
+    gs_err32 = float(np.abs(d_gs[0] - D.dist).max())
+    # float64: Gauss-Seidel against Jacobi, Jacobi against Dijkstra
+    f64 = rt.SolverConfig(dtype="float64")
+    bg64 = rt.prepare_banded(dA, _no_halo(), dg, U, f64)
+    d64, it64 = rt.solve_banded(bg64, [dsrc], f64)
+    g64, r64 = rt.solve_banded_gs(bg64, [dsrc], f64)
+    err_gs64 = float(np.abs(g64 - d64).max())
+    assert err_gs64 <= 1e-9, err_gs64
+    t0 = time.perf_counter()
+    Dd = rt.dijkstra(dA, _no_halo(), dsrc, dg, U, f64)
+    t_dij = time.perf_counter() - t0
+    err_dij = float(np.abs(d64[0] - Dd.dist).max())
+    assert err_dij <= 1e-9, err_dij
+    # an 8-source table (benchmarks/chip_banded_gs.py's sources)
+    srcs8 = [rt.closest_point(dg, np.deg2rad(d), rt.R, system="polar")
+             for d in np.linspace(0.0, 175.0, 8)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = solver.travel_time_table(srcs8, receivers, batch=8)
+    torch.cuda.synchronize()
+    t_table = time.perf_counter() - t0
+    assert table.shape == (8, len(receivers)) and np.isfinite(table).all()
+    for row in (0, 5):
+        single = solver.solve(srcs8[row], want_prev=False).dist
+        assert np.array_equal(table[row], single[receivers]), row
+    print(f"phase 16 banded: the production Delaunay annulus ({dg.nnods} "
+          f"nodes, {dA.nnz} edges), AnnulusSolver(method='auto') warns and "
+          f"routes to banded (packed in {t_pack:.2f} s), {it_ref} "
+          f"iterations in {launches} banded_sweep calls, field equal to "
+          f"the JAX package's digest, first solve with prev "
+          f"{t_first:.2f} s, steady solve {steady:.2f} ms (median of 3), "
+          f"{len(reach)} of {len(receivers)} receiver walks reach the "
+          f"source; solve_banded_gs {rounds} rounds in {counts['banded_gs']} "
+          f"banded_gs calls ({1e3 * t_gs:.1f} ms, the JAX package's "
+          f"digest; float32 max |gs - jacobi| = {gs_err32:.3g} s); float64: "
+          f"{it64} iterations, gs {r64} rounds within {err_gs64:.3g} s, "
+          f"dijkstra ({t_dij:.2f} s on the host) within {err_dij:.3g} s; "
+          f"8 x {len(receivers)} table {1e3 * t_table:.1f} ms", flush=True)
+
+
+def phase_graph_cli(tmp: str):
+    import numpy as np
+
+    from raytracer_tpu_torch import example_grid3d, main_annulus
+
+    prefix = os.path.join(tmp, "ell")
+    _reset_counts()
+    t0 = time.perf_counter()
+    main_annulus.main(["--ntheta", "180", "--nr", "63", "--method", "ell",
+                       "--out-prefix", prefix])
+    t_ell = time.perf_counter() - t0
+    n_ell = _counts()["bfm_step"]
+    assert n_ell > 0
+    tt = np.loadtxt(f"{prefix}_travel_times.csv", delimiter=",", skiprows=1)
+    assert tt.shape == (150, 2), tt.shape
+    t60 = float(tt[np.argmin(np.abs(tt[:, 0] - 60.0)), 1])
+    t150 = float(tt[np.argmin(np.abs(tt[:, 0] - 150.0)), 1])
+    assert abs(t60 - T60_REF) <= T_ATOL and abs(t150 - T150_REF) <= T_ATOL
+    # --method banded at 48x12, against the same run on the CPU
+    small = ["--ntheta", "48", "--nr", "12", "--spacing", "150", "--method",
+             "banded"]
+    _reset_counts()
+    t0 = time.perf_counter()
+    main_annulus.main([*small, "--out-prefix", os.path.join(tmp, "bd")])
+    t_banded = time.perf_counter() - t0
+    n_banded = _counts()["banded_sweep"]
+    assert n_banded > 0
+    main_annulus.main([*small, "--device", "cpu", "--out-prefix",
+                       os.path.join(tmp, "bdc")])
+    with open(os.path.join(tmp, "bd_travel_times.csv")) as f1, \
+            open(os.path.join(tmp, "bdc_travel_times.csv")) as f2:
+        assert f1.read() == f2.read()
+    # example_grid3d --engine ell
+    _reset_counts()
+    table, _ = example_grid3d.main(["--engine", "ell"])
+    n3 = _counts()["bfm_step"]
+    assert n3 > 0
+    err3 = float(np.abs(table - np.asarray(JAX_EXAMPLE)).max())
+    assert err3 <= T_ATOL, err3
+    print(f"phase 17 drivers: main_annulus --method ell at 180x63 "
+          f"{t_ell:.2f} s ({n_ell} bfm_step calls, t(60)={t60:.3f} s, "
+          f"t(150)={t150:.3f} s); --method banded at 48x12 {t_banded:.2f} s "
+          f"({n_banded} banded_sweep calls), its CSV equal to the CPU "
+          f"route's; example_grid3d --engine ell ({n3} bfm_step calls) "
+          f"within {err3:.3g} s of the root example's table", flush=True)
+
+
 def main():
     faulthandler.dump_traceback_later(900, exit=True)
     t_start = time.perf_counter()
@@ -2502,6 +3057,8 @@ def main():
                       lambda: phase_sweep3d_kernel(rec),
                       lambda: phase_plane3d_kernel(rec),
                       lambda: phase_lane_gather_kernels(rec),
+                      lambda: phase_graph_kernels(rec),
+                      lambda: phase_banded_kernels(rec),
                       lambda: phase_main_path(rec, tmp),
                       lambda: phase_cli(tmp), lambda: phase_twrapped(rec),
                       lambda: phase_stream(rec), lambda: phase_tables(rec),
@@ -2509,7 +3066,10 @@ def main():
                       lambda: phase_diag(rec),
                       lambda: phase_grid3d(rec), phase_example3d,
                       lambda: phase_contrib(rec),
-                      lambda: phase_sweep3d_engine(rec)):
+                      lambda: phase_sweep3d_engine(rec),
+                      lambda: phase_graph_bfm(rec),
+                      lambda: phase_graph_banded(rec),
+                      lambda: phase_graph_cli(tmp)):
             t0 = time.perf_counter()
             phase()
             print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -2548,6 +3108,17 @@ def main():
         "plane3d": ("raytracer_tpu_torch/csrc/plane3d.cu",
                     "raytracer_tpu/solvers/solve3d.py:158",
                     "solve3d sweep 128x128x64"),
+        # the generic graphs' own kernels: the JAX package runs these
+        # steps as XLA
+        "bfm_step": ("raytracer_tpu_torch/csrc/ell_bfm.cu",
+                     "raytracer_tpu/ops/relax.py:75",
+                     "bfm 180x63"),
+        "banded_sweep": ("raytracer_tpu_torch/csrc/banded.cu",
+                         "raytracer_tpu/ops/banded.py:197",
+                         "auto Delaunay -> banded"),
+        "banded_gs": ("raytracer_tpu_torch/csrc/banded.cu",
+                      "raytracer_tpu/ops/banded.py:262",
+                      "solve_banded_gs Delaunay"),
     }
     kernels_line = {"kernels": [{
         "name": name,
@@ -2584,7 +3155,11 @@ def main():
           f"iterations, 3-D sweep engine 128x128x64 "
           f"{rec['sweep3d_engine_ms']:.2f} ms = "
           f"{rec['sweep3d_engine_launches']} x {rec['plane3d']['ms']:.4f} ms "
-          f"of plane3d + the rest)",
+          f"of plane3d + the rest, bfm 180x63 {rec['bfm_ms']:.2f} ms = "
+          f"{rec['bfm_step']['launches']} x {rec['bfm_step']['ms']:.4f} ms "
+          f"of bfm_step, banded Delaunay {rec['banded_ms']:.2f} ms = "
+          f"{rec['banded_sweep']['launches']} x "
+          f"{rec['banded_sweep']['ms']:.4f} ms of banded_sweep + the rest)",
           flush=True)
     print(json.dumps(kernels_line))
     print(_smi())

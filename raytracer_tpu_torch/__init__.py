@@ -13,32 +13,57 @@ CSV), the Jacobi engines 'twrapped' (kernel `csrc/titer.cu`), 'stream'
 spherical-shell solve (`grid3d` -> `prepare3d` -> `solve3d` ->
 `recover_prev3d`) whose kernel engine is `csrc/sweep3d.cu` and whose
 directional-sweep engine is `csrc/plane3d.cu`, with the staged 3-D solves
-(`solve3d_reflection`, `solve3d_converted`) on it.
+(`solve3d_reflection`, `solve3d_converted`) on it; and the generic-graph
+solvers of any mesh (the Delaunay mesher `triangle_annulus_2d`,
+`add_midpoints`): the reference's headline Bellman-Ford-Moore `bfm` on a
+padded ELL graph (kernel `csrc/ell_bfm.cu`), the RCM-banded solver
+(`prepare_banded`, `solve_banded`, `solve_banded_gs`; kernels
+`csrc/banded.cu`), the host Dijkstra gold standard and radius stepping.
 Entry points run on the card unless the caller passes `device="cpu"`.
 """
 from .config import DEFAULT_SOLVER_CONFIG, R, SolverConfig
-from .models.annulus import Grid2D, closest_point, init_annulus
+from .models.annulus import Grid2D, closest_point, init_annulus, node_adjacency
+from .models.delaunay import (add_midpoints, structured_convex_hull,
+                              triangle_annulus_2d,
+                              unstructured_constrained_domain)
 from .models.fast_annulus import init_annulus_circulant
-from .models.grid3d import Grid3D, closest_point3d, grid3d, velocity3d
+from .models.grid3d import (Grid3D, closest_point3d, grid3d,
+                            nodal_incidence3d, velocity3d)
 from .models.velocity import (LinearInterpolation, interpolate_velocity,
                               table_interface_radii, velocity_profile)
-from .ops.circulant import CirculantGraph, build_circulant
+from .ops.banded import (BandedGraph, prepare_banded, solve_banded,
+                        solve_banded_gs)
+from .ops.circulant import (CirculantGraph, PrevRecovery, build_circulant,
+                            recover_prev)
+from .ops.graph import ELLGraph, csr_to_ell
+from .ops.relax import DeviceGraph
 from .solvers.api import AnnulusSolver
+from .solvers.bfm import (bfm, bfm3d, bfm_gpu, bfm_tpu, prepare, solve,
+                          solve_many)
+from .solvers.dijkstra import dijkstra, weight_matrix, weights
 from .solvers.path import recontruct_path
 from .solvers.solve3d import (mask_region3d, prepare3d, recover_prev3d,
                               solve3d, solve3d_converted, solve3d_reflection)
-from .solvers.types import BellmanFordMoore
+from .solvers.radius_stepping import radius_stepping
+from .solvers.types import BellmanFordMoore, Dijkstra, RadiusStepping
 from .utils.io import save_solution_npz, travel_times
 
 __all__ = [
     "DEFAULT_SOLVER_CONFIG", "R", "SolverConfig",
     "Grid2D", "closest_point", "init_annulus", "init_annulus_circulant",
-    "Grid3D", "closest_point3d", "grid3d", "velocity3d",
+    "node_adjacency", "add_midpoints", "triangle_annulus_2d",
+    "structured_convex_hull", "unstructured_constrained_domain",
+    "Grid3D", "closest_point3d", "grid3d", "velocity3d", "nodal_incidence3d",
     "prepare3d", "solve3d", "recover_prev3d", "mask_region3d",
     "solve3d_reflection", "solve3d_converted",
     "LinearInterpolation", "interpolate_velocity", "table_interface_radii",
     "velocity_profile",
-    "CirculantGraph", "build_circulant",
-    "AnnulusSolver", "recontruct_path", "BellmanFordMoore",
+    "CirculantGraph", "build_circulant", "PrevRecovery", "recover_prev",
+    "ELLGraph", "csr_to_ell", "DeviceGraph",
+    "BandedGraph", "prepare_banded", "solve_banded", "solve_banded_gs",
+    "bfm", "bfm_gpu", "bfm_tpu", "bfm3d", "prepare", "solve", "solve_many",
+    "dijkstra", "weight_matrix", "weights", "radius_stepping",
+    "AnnulusSolver", "recontruct_path", "BellmanFordMoore", "Dijkstra",
+    "RadiusStepping",
     "save_solution_npz", "travel_times",
 ]

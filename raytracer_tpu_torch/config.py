@@ -2,8 +2,8 @@
 
 A copy of the parts of `raytracer_tpu/config.py` that the port's solvers
 need: the Earth radius, the AK135 discontinuity radii the mesh forces
-into every column, and `SolverConfig` with the same defaults and the
-same `tol_value` rule.
+into every column, and `SolverConfig` with the same fields in the same
+order, the same defaults and the same `tol_value` rule.
 """
 from __future__ import annotations
 
@@ -36,10 +36,13 @@ R_INNER = 0.1
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """Runtime knobs for the circulant solvers.
+    """Runtime knobs of the solvers.
 
     dtype     : device dtype of distances and weights
     max_iters : hard cap on the number of sweep rounds or iterations
+    node_pad  : the ELL layout pads its node count to a multiple of this
+                (ops/graph.csr_to_ell), with at least one dummy row
+    degree_pad : and its neighbour count (ELL width) to a multiple of this
     tol       : stop once no distance improves by more than `tol`
                 seconds; None picks 1e-3 for float32 (one f32 ULP of the
                 largest travel times is ~2.4e-4 s) and 0.0 for float64
@@ -55,6 +58,8 @@ class SolverConfig:
 
     dtype: str = "float32"
     max_iters: int = 100_000
+    node_pad: int = 1024
+    degree_pad: int = 8
     tol: float = None
     band_closure: int = 1
     warm_levels: int = None

@@ -6,8 +6,10 @@ theta-major `TWStencil`, the Jacobi engines' tables),
 `stream_level_from_numpy` (one level's `StreamTables`/`LevelStatic`),
 `wrapped_from_numpy` (a slot-major `WrappedStencil`),
 `diag_from_numpy` (a `DiagStencil`), `tiled_from_numpy` (the lane-gather
-engines' `TiledStencil`) and `packed3d_from_numpy` (the 3-D
-solve's `Packed3D`) take the JAX package's packed tables (as NumPy arrays or anything `np.asarray` reads) together with
+engines' `TiledStencil`), `packed3d_from_numpy` (the 3-D
+solve's `Packed3D`), `device_graph_from_numpy` (the ELL solver's
+`DeviceGraph`) and `banded_from_numpy` (the banded solver's
+`BandedGraph`) take the JAX package's packed tables (as NumPy arrays or anything `np.asarray` reads) together with
 their static fields and return the port's own table types, so both
 packages can run on identical tables.
 Nothing here imports the JAX package: the inputs are read by field
@@ -21,9 +23,11 @@ from typing import Mapping
 import numpy as np
 
 from .contrib.pallas_circulant import TiledStencil
+from .ops.banded import BandedGraph, banded_graph
 from .ops.circulant import CirculantGraph, ColumnMap, resolve_device
 from .ops.diag_circulant import DiagStencil
 from .ops.diag_wrapped import WrappedStencil
+from .ops.relax import DeviceGraph, device_graph
 from .ops.stream_t import LevelStatic, StreamTables
 from .ops.sweep_theta import RSweepStatic, SweepStatic, SweepTables
 from .ops.wrapped_t import TWStencil
@@ -160,3 +164,25 @@ def packed3d_from_numpy(W_np, shape, shifts, device,
     shifts = tuple(tuple(int(v) for v in s) for s in shifts)
     return _packed3d(np.ascontiguousarray(np.asarray(W_np)),
                      tuple(int(n) for n in shape), shifts, block_rows)
+
+
+def device_graph_from_numpy(nbr, w, halo_src, halo_dst, n: int,
+                            device) -> DeviceGraph:
+    """The port's `DeviceGraph` on `device` from the JAX package's packed
+    one (`DeviceGraph` fields nbr, w, halo_src, halo_dst, n), copied with
+    the bits of w kept; the kernel's row degrees and halo groups are
+    derived from the same arrays."""
+    return device_graph(np.array(nbr), np.array(w), np.array(halo_src),
+                        np.array(halo_dst), int(n), resolve_device(device))
+
+
+def banded_from_numpy(offs, W, halo_src, halo_dst, perm, iperm, n: int,
+                      n_pad: int, offsets_np, device) -> BandedGraph:
+    """The port's `BandedGraph` on `device` from the JAX package's packed
+    one (`BandedGraph` fields offs, W, halo_src, halo_dst, perm, iperm, n,
+    n_pad, offsets_np), copied with the bits of W kept; the kernels' tap
+    lists and halo groups are derived from the same arrays."""
+    return banded_graph(np.array(offs), np.array(W), np.array(halo_src),
+                        np.array(halo_dst), np.array(perm), np.array(iperm),
+                        int(n), int(n_pad), np.array(offsets_np),
+                        resolve_device(device))

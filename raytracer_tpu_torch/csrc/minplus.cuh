@@ -3,12 +3,17 @@
 // products and differences likewise),
 // the minimum, +inf, and the minimum across a warp or into memory.  Used
 // by witer.cu, titer.cu, diag.cu (with diag_scans.cuh), fused.cu and relax.cu
-// (through lane_gather.cuh), rsweep.cu, band.cu and plane3d.cu.
+// (through lane_gather.cuh), rsweep.cu, band.cu, plane3d.cu, ell_bfm.cu and
+// banded.cu.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace minplus {
+
+// dynamic shared memory one H100 block may have (227 KB; kernels.BLOCK_SMEM
+// on the host): the launchers refuse a launch that asks for more
+constexpr size_t kBlockSmem = 232448;
 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }

@@ -73,7 +73,6 @@ using minplus::min_of;
 constexpr int kThreads = 1024;
 constexpr int kMaxLevels = 31;
 constexpr int kG = 4;                  // nodes (scan items) a thread loads at once
-constexpr size_t kSmemLimit = 232448;  // 227 KB, an H100 block's most
 
 // n / d for 0 <= n < 2^31 by a multiply-high (d >= 1 fixed): shift =
 // ceil(log2 d), mul = floor(2^32 (2^shift - d) / d) + 1
@@ -400,7 +399,7 @@ extern "C" int plane3d_launch(const void* din, void* dout, const void* W, const 
                               int ns, int nc, int n_cross, int n_inpl, int down, int planes,
                               int smem, int is_double, const void* taps, void* stream) {
   if (S < 1 || nA < 1 || p0 < 1 || p1 < 1 || ns < 1 || nc < 0 || (nc > 0 && !carry) ||
-      n_cross < 0 || n_inpl < 0 || smem < 1 || static_cast<size_t>(smem) > kSmemLimit ||
+      n_cross < 0 || n_inpl < 0 || smem < 1 || static_cast<size_t>(smem) > minplus::kBlockSmem ||
       static_cast<long long>(p0) * p1 > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

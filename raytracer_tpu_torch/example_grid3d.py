@@ -10,8 +10,10 @@ The counterpart of the root `example_grid3d.py`, with the same flags and
 defaults plus `--device` (default cuda).  The stencil engine is
 `solve3d` under engine='auto', which takes the kernel engine
 (`csrc/sweep3d.cu` on the card) for the star-1 stencil; the line before
-the table names the route and the source batch.  `--engine ell` (the
-generic ELL solver) is not ported yet.
+the table names the route and the source batch.  `--engine ell` runs the
+same solve on the generic ELL Bellman-Ford-Moore solver instead
+(`nodal_incidence3d` -> `prepare` -> `solve_many`, the kernel
+`csrc/ell_bfm.cu` on the card).
 """
 from __future__ import annotations
 
@@ -21,9 +23,10 @@ import time
 import numpy as np
 
 from .config import R, SolverConfig
-from .models.grid3d import closest_point3d, grid3d
+from .models.grid3d import closest_point3d, grid3d, nodal_incidence3d
 from .models.velocity import LinearInterpolation, velocity_profile
 from .ops.circulant import resolve_device
+from .solvers.bfm import prepare, solve_many
 from .solvers.solve3d import (_auto_source_batch, prepare3d,
                               select_engine3d, solve3d)
 from .utils.coords import spherical2cart
@@ -40,7 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default="float32")
     ap.add_argument("--engine", default="stencil", choices=["stencil", "ell"],
                     help="stencil = solve3d fast path; ell = generic ELL "
-                         "BFM (not ported yet)")
+                         "BFM")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the solve (default cuda)")
     return ap
@@ -54,9 +57,6 @@ def surface_nodes(g, degrees):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.engine == "ell":
-        raise NotImplementedError("--engine ell runs the generic ELL BFM "
-                                  "solver, not ported yet: ROADMAP A.6")
     device = resolve_device(args.device)
     c0 = (np.deg2rad(70.0), np.deg2rad(70.0), R - args.depth)
     c1 = (np.deg2rad(110.0), np.deg2rad(110.0), R)
@@ -71,16 +71,28 @@ def main(argv=None):
 
     sources = surface_nodes(g, SOURCE_DEGREES)
     receivers = surface_nodes(g, RECEIVER_DEGREES)
-    packed = prepare3d(g, U, cfg, device=device)
-    dtype = np.dtype(cfg.dtype)
-    route = select_engine3d(packed, "auto", dtype)
-    batch = (f", source batch {_auto_source_batch(packed.plan, dtype.itemsize, len(sources))}"
-             if route == "pallas" else "")
-    t0 = time.time()
-    table, iters = solve3d(g, U, sources, cfg, receivers=receivers,
-                           _packed=packed, device=device)
-    print(f"multi-source solve (stencil, engine {route}{batch}, on "
-          f"{device}): {time.time()-t0:.2f}s ({iters} iterations)")
+    if args.engine == "stencil":
+        packed = prepare3d(g, U, cfg, device=device)
+        dtype = np.dtype(cfg.dtype)
+        route = select_engine3d(packed, "auto", dtype)
+        batch = (f", source batch {_auto_source_batch(packed.plan, dtype.itemsize, len(sources))}"
+                 if route == "pallas" else "")
+        t0 = time.time()
+        table, iters = solve3d(g, U, sources, cfg, receivers=receivers,
+                               _packed=packed, device=device)
+        print(f"multi-source solve (stencil, engine {route}{batch}, on "
+              f"{device}): {time.time()-t0:.2f}s ({iters} iterations)")
+    else:
+        A = nodal_incidence3d(g)
+        print(f"graph: {A.nnz} edges")
+        gdev = prepare(A, np.empty((0, 2), np.int64), g, U, cfg,
+                       device=device)
+        t0 = time.time()
+        D = solve_many(gdev, sources, cfg)
+        iters = None
+        print(f"multi-source solve (ell, on {device}): "
+              f"{time.time()-t0:.2f}s")
+        table = D.dist[:, receivers]
     print("travel-time table (s):")
     for (a, b), row in zip(SOURCE_DEGREES, table):
         print(f"  src ({a:.0f},{b:.0f}) deg: " + "  ".join(f"{t:8.2f}" for t in row))

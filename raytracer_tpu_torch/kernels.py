@@ -28,8 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 DEFAULT_CUDA_BIN = "/usr/local/cuda/bin"
 
-# dynamic shared memory one H100 block may have (227 KB = 232,448 bytes):
-# the wrappers refuse a launch that would need more
+# dynamic shared memory one H100 block may have (227 KB = 232,448 bytes,
+# minplus::kBlockSmem in the kernels): the wrappers refuse a launch that
+# would need more
 BLOCK_SMEM = 227 * 1024
 
 _LIBS: dict = {}

@@ -1,18 +1,20 @@
 """End-to-end driver of the PyTorch port (the main path).
 
-Builds the AK135 annulus with the O(M) circulant builder, solves the
-travel-time field from a surface source with the chosen engine
-(`--method`, the JAX driver's choices; 'auto' takes the directional
-sweep, or the JAX package's Jacobi route on a grid without sweep
-support, and methods not ported yet raise naming their ROADMAP item),
-reconstructs ray paths to the receiver fan (2..150 deg both
-sides), and writes the travel-time CSV and the npz archive to
-`--out-prefix`.  Runs on the card unless `--device cpu` is given.
+Builds the AK135 annulus with the O(M) circulant builder (with
+`--method ell` or `banded`, the materialised graph of init_annulus, as
+the JAX driver builds it), solves the travel-time field from a surface
+source with the chosen engine (`--method`, the JAX driver's choices;
+'auto' takes the directional sweep, or the JAX package's Jacobi route on
+a grid without sweep support), reconstructs ray paths to the receiver
+fan (2..150 deg both sides), and writes the travel-time CSV and the npz
+archive to `--out-prefix`.  Runs on the card unless `--device cpu` is
+given.
 
     python -m raytracer_tpu_torch.main_annulus --ntheta 180 --nr 63
     python -m raytracer_tpu_torch.main_annulus --method wrapped
     python -m raytracer_tpu_torch.main_annulus --nr 63 --method pallas
     python -m raytracer_tpu_torch.main_annulus --nr 63 --dtype float64
+    python -m raytracer_tpu_torch.main_annulus --nr 63 --method ell
 """
 from __future__ import annotations
 
@@ -22,8 +24,10 @@ import time
 import numpy as np
 
 from .config import R, SolverConfig
-from .models.annulus import closest_point
+from .models.annulus import closest_point, init_annulus
 from .models.fast_annulus import init_annulus_circulant
+from .models.velocity import (LinearInterpolation, interpolate_velocity,
+                              velocity_profile)
 from .solvers.api import AnnulusSolver
 from .solvers.path import recontruct_path
 from .utils.io import save_solution_npz, travel_times
@@ -64,21 +68,34 @@ def main(argv=None):
         return out
 
     cfg = SolverConfig(dtype=args.dtype)
-    gr, cg, U = section("init_annulus_circulant", lambda: init_annulus_circulant(
-        args.ntheta, args.nr, spacing=args.spacing, dtype=cfg.dtype))
-    print(f"grid: {gr.nnods} nodes, {cg.M} slots per column")
+    if args.method in ("ell", "banded"):
+        gr, A, halo = section("init_annulus", lambda: init_annulus(
+            args.ntheta, args.nr, spacing=args.spacing))
+        print(f"grid: {gr.nnods} nodes, {gr.nel} elements, {A.nnz} "
+              f"directed edges")
+        prof = velocity_profile("ak135")
+        U = interpolate_velocity(gr.r, LinearInterpolation(prof.r, prof.Vp))
+        cg = None
+    else:
+        gr, cg, U = section("init_annulus_circulant",
+                            lambda: init_annulus_circulant(
+                                args.ntheta, args.nr, spacing=args.spacing,
+                                dtype=cfg.dtype))
+        A = halo = None
+        print(f"grid: {gr.nnods} nodes, {cg.M} slots per column")
     source = closest_point(gr, 0.0, R, system="polar")
 
     solver = section("solver pack", lambda: AnnulusSolver(
-        gr, None, None, U, cfg, method=args.method, circulant=cg,
+        gr, A, halo, U, cfg, method=args.method, circulant=cg,
         device=args.device))
     print(f"solver method: {solver.method} on {solver.device}")
 
     section("solve (first)", lambda: solver.solve(source, want_prev=False))
     section("solve (steady)", lambda: solver.solve(source, want_prev=False))
     D = section("solve + prev recovery", lambda: solver.solve(source))
-    unit = "rounds" if solver.method == "sweep" else "iterations"
-    print(f"Converged in {solver.last_iterations} {unit}")
+    if solver.last_iterations:   # 'ell' keeps its count, as in the JAX driver
+        unit = "rounds" if solver.method == "sweep" else "iterations"
+        print(f"Converged in {solver.last_iterations} {unit}")
 
     degs = receiver_degrees()
     receivers = [closest_point(gr, np.deg2rad(d), R, system="polar")

@@ -5,9 +5,11 @@ that the circulant fast builder needs: primary polar lattice with the 7
 AK135 discontinuity radii forced into the radial column, quad elements +
 triangle fan to the core point, secondary nodes subdividing every element
 edge, layer constraining of element neighbours, and discontinuity node
-doubling with a halo (twin) table.  The node adjacency is the scipy
-triple product (`_node_adjacency_scipy`); the native C++ builder of the
-JAX package is not carried over.
+doubling with a halo (twin) table, plus `node_adjacency` and the ragged
+`element_neighbours` that the Delaunay mesher (models/delaunay.py)
+needs.  The node adjacency is the scipy triple product
+(`_node_adjacency_scipy`); the native C++ builder of the JAX package is
+not carried over (it builds the same matrix).
 """
 from __future__ import annotations
 
@@ -235,6 +237,13 @@ def element_neighbours_flat(e2n_flat: np.ndarray, e2n_off: np.ndarray,
 # local edge maps (src/GridAnnulus.jl:519-524)
 _QUAD_EDGES = np.array([[0, 1], [1, 2], [2, 3], [3, 0]])
 _TRI_EDGES = np.array([[0, 1], [1, 2], [2, 0]])
+
+
+def element_neighbours(e2n: List[np.ndarray], nnods_shared: int) -> List[np.ndarray]:
+    """Ragged-list wrapper around element_neighbours_flat."""
+    flat, off = _ragged_to_flat(e2n)
+    nbr_flat, nbr_off = element_neighbours_flat(flat, off, nnods_shared)
+    return _flat_to_ragged(nbr_flat, nbr_off)
 
 
 def edge_connectivity_flat(gr: Grid2D):
@@ -480,6 +489,18 @@ def discontinuous_boundaries(gr: Grid2D, spacing: float) -> Tuple[Grid2D, np.nda
     return gr2, halo
 
 
+def node_adjacency(gr: Grid2D, star: int = 1) -> sp.csr_matrix:
+    """Node->node adjacency implied by the element-incidence relaxation,
+    as a deduplicated CSR matrix with sorted indices and boolean data.
+
+    star=0: neighbours = nodes sharing an element; star=1: also nodes of
+    layer-constrained neighbouring elements (the default of
+    init_annulus); star>1: further powers of the element-neighbour
+    expansion.  The JAX package's native builder gives the same matrix.
+    """
+    return _node_adjacency_scipy(gr, star)
+
+
 def _node_adjacency_scipy(gr: Grid2D, star: int = 1) -> sp.csr_matrix:
     """Node->node adjacency implied by the element-incidence relaxation.
 
@@ -528,7 +549,7 @@ def init_annulus(ntheta: int, nr: int, spacing: float = 20.0, star: int = 1,
     gr = secondary_nodes(gr, spacing=spacing)
     constrain2layers(gr)
     gr, halo = discontinuous_boundaries(gr, spacing)
-    A = _node_adjacency_scipy(gr, star=star)
+    A = node_adjacency(gr, star=star)
     return gr, A, halo
 
 

@@ -16,7 +16,8 @@ Host table building (`column_map`, `build_circulant`) is NumPy, a copy of
 engines are tested against) and the predecessor recovery
 (`recover_prev_device`) are torch tensor code on the solver's device,
 the counterparts of the JAX package's `_solve_circulant_jit` and
-`_prev_argmin_jit`.
+`_prev_argmin_jit`.  `PrevRecovery` (host NumPy) recovers the tree on
+graphs without a circulant layout, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -162,6 +163,54 @@ def _safe_weight(L, usum):
     """2L/usum with impassable (usum <= 0) media mapped to +inf, avoiding
     0/0 NaN on zero-length twin edges in zero-velocity regions."""
     return np.where(usum > 0, 2.0 * L / np.where(usum > 0, usum, 1.0), np.inf)
+
+
+class PrevRecovery:
+    """Shortest-path-tree predecessor recovery from a converged field, on
+    the host (the JAX package's `PrevRecovery`, for graphs without a
+    circulant layout).
+
+    prev[i] = argmin_j dist[j] + w(j->i) over i's neighbours (including
+    halo twin links with an epsilon weight to break twin-twin ping-pong
+    ties).  The edge list and weights depend only on (gr, A, halo, U):
+    build once, call per solve.
+    """
+
+    def __init__(self, gr, A: sp.csr_matrix, halo: np.ndarray, U: np.ndarray):
+        coo = A.tocoo()
+        rows = coo.row.astype(np.int64)
+        cols = coo.col.astype(np.int64)
+        w = csr_edge_weights(gr, rows, cols, U)
+        halo = np.asarray(halo)
+        if halo.size:
+            rows = np.concatenate([rows, halo[:, 1]])
+            cols = np.concatenate([cols, halo[:, 0]])
+            w = np.concatenate([w, np.full(halo.shape[0], 1e-6)])
+        self.rows, self.cols, self.w = rows, cols, w
+        self.n = A.shape[0]
+
+    def __call__(self, dist: np.ndarray) -> np.ndarray:
+        rows, cols, w = self.rows, self.cols, self.w
+        vals = dist[cols] + w
+        # tie-break equal-candidate sets (collinear chains of secondary
+        # nodes all lie on the same shortest path) toward the LONGEST hop:
+        # quantise to 0.1 ms and prefer the larger edge weight in a tie
+        vals_q = np.round(vals * 1e4)
+        order = np.lexsort((-w, vals_q, rows))
+        rows_s, cols_s = rows[order], cols[order]
+        first = np.searchsorted(rows_s, np.arange(self.n))
+        # rows with no entries point to themselves
+        prev = np.arange(self.n, dtype=np.int64)
+        has = np.zeros(self.n, dtype=bool)
+        has[rows_s] = True
+        safe_first = np.clip(first, 0, len(rows_s) - 1)
+        cand_prev = cols_s[safe_first]
+        return np.where(has & np.isfinite(dist), cand_prev, prev)
+
+
+def recover_prev(gr, A: sp.csr_matrix, halo: np.ndarray, U: np.ndarray, dist: np.ndarray) -> np.ndarray:
+    """One-shot convenience wrapper around PrevRecovery."""
+    return PrevRecovery(gr, A, halo, U)(dist)
 
 
 def build_circulant(

@@ -1,18 +1,22 @@
 """High-level solver API of the PyTorch port.
 
-`AnnulusSolver` packs the circulant graph once and then serves repeated
-solves on one explicit device.  This port carries the directional-sweep
-engine ('sweep', the JAX package's auto route on its accelerator), the
-Jacobi engines 'twrapped', 'stream', 'wrapped' and 'diag', the
-quarantined engines 'pallas' and 'fused' (explicit methods only, as in
-the JAX package), and the plain Jacobi oracle 'circulant'; every other
-method raises
-`NotImplementedError` naming the ROADMAP item that ports it.  Nothing
-falls back silently: no CPU run unless the caller asks for
-`device="cpu"`, no engine the JAX package would not route to.
+`AnnulusSolver` packs the graph once (the circulant layout when the
+mesh's rotational symmetry verifies, the RCM-banded or padded-ELL layout
+otherwise) and then serves repeated solves on one explicit device.  This
+port carries the directional-sweep engine ('sweep', the JAX package's
+auto route on its accelerator), the Jacobi engines 'twrapped', 'stream',
+'wrapped' and 'diag', the quarantined engines 'pallas' and 'fused'
+(explicit methods only, as in the JAX package), the plain Jacobi oracle
+'circulant', and the generic-graph methods 'banded' and 'ell'.  A mesh
+without a circulant layout falls back as the JAX package's accelerator
+route does: to 'banded' under auto, to 'ell' from an explicit
+circulant-family method, with the JAX package's warning.  Nothing else
+falls back: no CPU run unless the caller asks for `device="cpu"`, no
+engine the JAX package would not route to.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -22,7 +26,8 @@ from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
 from ..contrib.fused_circulant import solve_circulant_fused
 from ..contrib.pallas_circulant import (pack_tiled_stencil,
                                         solve_circulant_pallas)
-from ..ops.circulant import (CirculantError, CirculantGraph,
+from ..ops.banded import prepare_banded, solve_banded
+from ..ops.circulant import (CirculantError, CirculantGraph, PrevRecovery,
                              build_circulant, recover_prev_device,
                              resolve_device, solve_circulant)
 from ..ops.diag_circulant import pack_diag_stencil, solve_circulant_diag
@@ -33,15 +38,14 @@ from ..ops.sweep_theta import solve_circulant_sweep
 from ..ops.wrapped_t import (max_twrapped_batch, pack_twrapped_stencil,
                              solve_circulant_twrapped, supports_twrapped)
 from ..utils.cache import build_circulant_cached
+from . import bfm as _bfm
 from .types import BellmanFordMoore
 
-# methods of the JAX package's AnnulusSolver that later slices port
-_NOT_PORTED = {
-    "ell": "ROADMAP A.6 (generic graphs)",
-    "banded": "ROADMAP A.6 (generic graphs)",
-}
-_PORTED = ("sweep", "twrapped", "stream", "wrapped", "diag", "pallas",
-           "fused", "circulant")
+# the methods that need the circulant layout
+_CIRCULANT = ("sweep", "twrapped", "stream", "wrapped", "diag", "pallas",
+              "fused", "circulant")
+# the methods of a materialised graph without one
+_GRAPH = ("banded", "ell")
 # the kernel engines that chunk a whole source list themselves
 _BATCHED = ("twrapped", "sweep", "stream", "wrapped")
 # the JAX package's auto re-route of grids without sweep support:
@@ -90,6 +94,19 @@ class AnnulusSolver:
       reaches them, as in the JAX package
       'circulant' -> plain Jacobi solve (ops/circulant.solve_circulant),
                      the oracle of the kernel engines
+      'banded'    -> RCM-banded diagonal sweep (ops/banded.py, one Jacobi
+                     iteration a launch of the CUDA kernel banded_sweep,
+                     csrc/banded.cu): any graph, the unstructured-mesh
+                     path; prev from the host PrevRecovery
+      'ell'       -> the padded-ELL Bellman-Ford-Moore solver
+                     (solvers/bfm.py, one iteration a call of the CUDA
+                     kernel csrc/ell_bfm.cu): any graph; prev is BFM's own
+                     and `last_iterations` is not set, as in the JAX
+                     package
+    A mesh whose circulant layout cannot be built (a Delaunay mesh, for
+    one) falls back with a warning: to 'banded' under auto, to 'ell' from
+    an explicit circulant-family method, as the JAX package's
+    accelerator route does.
     cache_dir: a directory for the circulant stencil built from (A, halo)
     (utils/cache.py; the JAX package's file names and keys).
     device: "cuda" (default) or "cpu"; the CPU runs the kernels' plain
@@ -123,37 +140,58 @@ class AnnulusSolver:
         self._diag_stencil = None
         self._tiled_stencil = None
 
+        self.A = A
+        self.halo = (np.asarray(halo) if halo is not None
+                     else np.empty((0, 2), np.int64))
+        self.ell = None
+        self.banded = None
+        self._prev_rec = None
+
         was_auto = method == "auto"
+        fallback = "ell"
         if was_auto:
-            method = "sweep"
-        if method not in _PORTED:
-            raise NotImplementedError(
-                f"method={method!r} is not ported yet: "
-                f"{_NOT_PORTED.get(method, 'unknown method')}")
-        if circulant is None:
-            if A is None:
-                raise ValueError("pass A and halo, or a prebuilt circulant")
+            method, fallback = "sweep", "banded"
+        if method not in _CIRCULANT + _GRAPH:
+            raise ValueError(f"unknown method {method!r}")
+        if circulant is not None and method in _GRAPH:
+            raise ValueError(
+                f"method={method!r} needs the materialised graph; a prebuilt "
+                "circulant stencil only serves the circulant-family methods")
+        if circulant is None and A is None:
+            raise ValueError("pass A and halo, or a prebuilt circulant")
+        if method in _CIRCULANT:
             dtype = np.dtype(config.dtype)
             try:
-                if cache_dir is not None:
-                    circulant = build_circulant_cached(gr, A, halo, U, dtype,
-                                                       cache_dir)
-                else:
-                    circulant = build_circulant(gr, A, halo, U, dtype=dtype)
+                if circulant is None:
+                    if cache_dir is not None:
+                        circulant = build_circulant_cached(
+                            gr, A, halo, U, dtype, cache_dir)
+                    else:
+                        circulant = build_circulant(gr, A, halo, U,
+                                                    dtype=dtype)
             except CirculantError as e:
-                raise NotImplementedError(
-                    f"circulant layout unavailable ({e}); the 'ell'/"
-                    f"'banded' fallback is {_NOT_PORTED['ell']}") from e
-        if method == "sweep" and was_auto and not supports_twrapped(circulant):
-            # auto only: the wrap structure has no sweep support; the
-            # Jacobi chain by size
-            method = ("twrapped" if gr.nnods <= _TWRAPPED_MAX_NODES
-                      else "stream")
-        if method == "twrapped" and not supports_twrapped(circulant):
-            method = "wrapped"
-        if method == "wrapped" and not supports_wrapped(circulant):
-            method = "diag"
-        self.circulant: CirculantGraph = circulant
+                warnings.warn(f"circulant layout unavailable ({e}); "
+                              f"falling back to {fallback}")
+                method = fallback
+        if method in _CIRCULANT:
+            if (method == "sweep" and was_auto
+                    and not supports_twrapped(circulant)):
+                # auto only: the wrap structure has no sweep support; the
+                # Jacobi chain by size
+                method = ("twrapped" if gr.nnods <= _TWRAPPED_MAX_NODES
+                          else "stream")
+            if method == "twrapped" and not supports_twrapped(circulant):
+                method = "wrapped"
+            if method == "wrapped" and not supports_wrapped(circulant):
+                method = "diag"
+        elif method == "banded":
+            self.banded = prepare_banded(A, self.halo, gr, U, config,
+                                         device=self.device)
+        else:
+            self.ell = _bfm.prepare(A, self.halo, gr, U, config,
+                                    device=self.device)
+        # None on 'ell' and 'banded'
+        self.circulant: Optional[CirculantGraph] = circulant
         self._method = method
 
     @property
@@ -246,6 +284,14 @@ class AnnulusSolver:
                                 _dcache=self._device_cache)
             self.last_iterations = iters
             return dist if receivers is None else dist[:, receivers]
+        if self._method == "banded":
+            dist, iters = solve_banded(self.banded, list(sources), cfg)
+            self.last_iterations = iters
+            return dist if receivers is None else dist[:, receivers]
+        if self._method == "ell":
+            dist = np.stack([_bfm.solve(self.ell, int(s), cfg).dist
+                             for s in sources])
+            return dist if receivers is None else dist[:, receivers]
         rows = []
         for s in sources:
             d, iters = solve_circulant(self.circulant, int(s), cfg,
@@ -258,9 +304,14 @@ class AnnulusSolver:
 
     def recover_prev(self, dist) -> np.ndarray:
         """Predecessor tree from a converged distance field: the argmin
-        sweep of the circulant stencil on the solver's device."""
-        return recover_prev_device(self.circulant, dist, self.device,
-                                   _dcache=self._device_cache)
+        sweep of the circulant stencil on the solver's device, the host
+        PrevRecovery on a graph without a circulant layout."""
+        if self.circulant is not None:
+            return recover_prev_device(self.circulant, dist, self.device,
+                                       _dcache=self._device_cache)
+        if self._prev_rec is None:
+            self._prev_rec = PrevRecovery(self.gr, self.A, self.halo, self.U)
+        return self._prev_rec(np.asarray(dist, dtype=np.float64))
 
     def solve(self, source: int, want_prev: bool = True,
               device_dist: bool = False) -> BellmanFordMoore:
@@ -269,7 +320,11 @@ class AnnulusSolver:
         (kernel engines only) returns `dist` as a tensor on the solver's
         device after the solve has converged; 'diag', 'pallas', 'fused'
         and 'circulant' return a host array all the same, as in the JAX
-        package."""
+        package.  On 'ell' prev is BFM's own (int32) and `last_iterations`
+        is left as it was; on 'banded' prev comes from the host
+        PrevRecovery, as in the JAX package."""
+        if self._method == "ell":
+            return _bfm.solve(self.ell, source, self.config)
         dist = self._dist_batch([source], device_out=device_dist)[0]
         if want_prev:
             prev = self.recover_prev(dist)
@@ -285,8 +340,8 @@ class AnnulusSolver:
 
         The kernel engines are handed the WHOLE source list at once and
         chunk it by `batch` themselves; only the receiver columns leave
-        the device.  'diag', 'pallas', 'fused' and 'circulant' solve
-        chunk by chunk, `batch` sources per call.
+        the device.  'diag', 'pallas', 'fused', 'circulant', 'banded' and
+        'ell' solve chunk by chunk, `batch` sources per call.
         """
         receivers = np.asarray(receivers)
         if self._method in _BATCHED:

@@ -9,6 +9,13 @@ def polar2cartesian(theta, r):
     return r * np.sin(theta), r * np.cos(theta)
 
 
+def cartesian2polar(x, z):
+    """(x, z) -> (theta, r), theta in [0, 2pi)."""
+    theta = np.arctan2(x, z)
+    theta = np.where(theta < 0, theta + 2 * np.pi, theta)
+    return theta, np.sqrt(x * x + z * z)
+
+
 def spherical2cart(theta, phi, r):
     """Spherical -> cartesian, theta the colatitude, phi the longitude."""
     x = r * np.cos(phi) * np.sin(theta)

@@ -1,13 +1,16 @@
 """PyTorch port: AnnulusSolver end to end on the CPU against the JAX
 package's prev recovery, paths and travel-time CSV; the ported methods,
 travel-time tables and device-resident fields against the JAX
-AnnulusSolver; the auto routing; the outputs of a device-resident
-result; the CLI's defaults; the solver's parameters and stencil
-cache; and the port's refusals (no silent CPU run, no silent engine
-change)."""
+AnnulusSolver; the generic-graph methods 'ell' and 'banded' and the
+fallback of a mesh without a circulant layout, as the JAX package routes
+it on its accelerator; the auto routing; the outputs of a
+device-resident result; the CLI's defaults; the solver's parameters and
+stencil cache; and the port's refusals (no silent CPU run, no silent
+engine change)."""
 import ast
 import inspect
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -113,12 +116,130 @@ def test_cuda_default_raises_without_cuda(solved, monkeypatch):
         pt.AnnulusSolver(gr, None, None, U, circulant=cg)
 
 
+NO_HALO = np.empty((0, 2), np.int64)
+
+
+@pytest.fixture(scope="module")
+def graph48():
+    """The materialised 48x12 annulus (with its halo twins) of both
+    packages, and its AK135 Vp."""
+    gr, A, halo = pt.init_annulus(48, 12, spacing=150.0)
+    jgr, jA, jhalo = rt.init_annulus(48, 12, spacing=150.0)
+    prof = pt.velocity_profile("ak135")
+    U = pt.interpolate_velocity(gr.r, pt.LinearInterpolation(prof.r, prof.Vp))
+    return gr, A, halo, jgr, jA, jhalo, U
+
+
 @pytest.mark.parametrize("method", ["ell", "banded"])
-def test_unported_methods_name_their_roadmap_item(solved, method):
-    gr, cg, U, *_ = solved
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+def test_graph_methods_equal_jax(graph48, method):
+    """'ell' (BFM's own prev, last_iterations untouched) and 'banded'
+    (prev from the host PrevRecovery) give the JAX AnnulusSolver's dist,
+    prev, iterations and travel-time table."""
+    gr, A, halo, jgr, jA, jhalo, U = graph48
+    port = pt.AnnulusSolver(gr, A, halo, U, method=method, device="cpu")
+    jax_ = rt.AnnulusSolver(jgr, jA, jhalo, U, JConfig(), method=method)
+    assert port.method == jax_.method == method
+    src = pt.closest_point(gr, 0.0, pt.R, system="polar")
+    D, J = port.solve(src), jax_.solve(src)
+    np.testing.assert_array_equal(D.dist, J.dist)
+    np.testing.assert_array_equal(D.prev, J.prev)
+    assert D.prev.dtype == J.prev.dtype
+    assert port.last_iterations == jax_.last_iterations
+    assert (port.last_iterations is None) == (method == "ell")
+    np.testing.assert_array_equal(port.recover_prev(D.dist),
+                                  jax_.recover_prev(J.dist))
+    _, recs = _receivers(gr)
+    srcs = [src, 17, 3000]
+    tab = port.travel_time_table(srcs, recs[::7], batch=2)
+    np.testing.assert_array_equal(
+        tab, jax_.travel_time_table(srcs, recs[::7], batch=2))
+    assert tab.dtype == np.float32
+
+
+@pytest.mark.parametrize("method", ["ell", "banded"])
+def test_graph_methods_refuse_a_prebuilt_circulant(solved, method):
+    gr, cg, U, jgr, jcg, *_ = solved
+    with pytest.raises(ValueError) as port:
         pt.AnnulusSolver(gr, None, None, U, method=method, circulant=cg,
                          device="cpu")
+    with pytest.raises(ValueError) as jax_:
+        rt.AnnulusSolver(jgr, None, None, U, method=method, circulant=jcg)
+    assert str(port.value) == str(jax_.value)
+
+
+@pytest.fixture(scope="module")
+def delaunay():
+    """The small Delaunay mesh of tests/test_banded.py, both packages."""
+    from raytracer_tpu.models.delaunay import add_midpoints, triangle_annulus_2d
+
+    dg = pt.add_midpoints(pt.triangle_annulus_2d(nr=12, spacing=500.0))
+    jdg = add_midpoints(triangle_annulus_2d(nr=12, spacing=500.0))
+    A = pt.node_adjacency(dg, star=0)
+    prof = pt.velocity_profile("ak135")
+    U = pt.interpolate_velocity(dg.r, pt.LinearInterpolation(prof.r, prof.Vp))
+    return dg, jdg, A, U
+
+
+def _built_with_warning(make):
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        solver = make()
+    msgs = [str(w.message) for w in rec if "circulant" in str(w.message)]
+    assert len(msgs) == 1, msgs
+    return solver, msgs[0]
+
+
+def test_auto_on_a_delaunay_mesh_warns_and_routes_to_banded(delaunay,
+                                                            monkeypatch):
+    """auto on a mesh without a circulant layout: the JAX package's
+    accelerator route (its platform check patched to a TPU while the
+    solver is built) warns and takes 'banded'; the port does the same,
+    with the same warning, field, prev and iterations.  Off its
+    accelerator the JAX auto route falls back to 'ell' instead."""
+    import jax
+
+    dg, jdg, A, U = delaunay
+    F64 = pt.SolverConfig(dtype="float64")
+    port, msg = _built_with_warning(lambda: pt.AnnulusSolver(
+        dg, A, NO_HALO, U, F64, device="cpu"))
+    cpu_route, cpu_msg = _built_with_warning(lambda: rt.AnnulusSolver(
+        jdg, A, NO_HALO, U, JConfig(dtype="float64")))
+    assert cpu_route.method == "ell"
+    assert cpu_msg.endswith("falling back to ell")
+
+    class _Tpu:
+        platform = "tpu"
+
+    real_devices = jax.devices
+    monkeypatch.setattr(jax, "devices", lambda *a: [_Tpu()])
+    jax_, jmsg = _built_with_warning(lambda: rt.AnnulusSolver(
+        jdg, A, NO_HALO, U, JConfig(dtype="float64")))
+    monkeypatch.setattr(jax, "devices", real_devices)
+    assert port.method == jax_.method == "banded"
+    assert msg == jmsg == ("circulant layout unavailable (mesh has no "
+                           "theta-column structure (ntheta=0)); falling "
+                           "back to banded")
+    src = pt.closest_point(dg, 0.0, pt.R, system="polar")
+    D, J = port.solve(src), jax_.solve(src)
+    np.testing.assert_array_equal(D.dist, J.dist)
+    np.testing.assert_array_equal(D.prev, J.prev)
+    assert port.last_iterations == jax_.last_iterations > 0
+
+
+def test_explicit_sweep_on_a_delaunay_mesh_falls_back_to_ell(delaunay):
+    """An explicit circulant-family method on that mesh falls back to
+    'ell' in both packages, with the same warning and field."""
+    dg, jdg, A, U = delaunay
+    port, msg = _built_with_warning(lambda: pt.AnnulusSolver(
+        dg, A, NO_HALO, U, method="sweep", device="cpu"))
+    jax_, jmsg = _built_with_warning(lambda: rt.AnnulusSolver(
+        jdg, A, NO_HALO, U, JConfig(), method="sweep"))
+    assert port.method == jax_.method == "ell"
+    assert msg == jmsg and msg.endswith("falling back to ell")
+    src = pt.closest_point(dg, np.deg2rad(120.0), pt.R, system="polar")
+    D, J = port.solve(src), jax_.solve(src)
+    np.testing.assert_array_equal(D.dist, J.dist)
+    np.testing.assert_array_equal(D.prev, J.prev)
 
 
 def _jax_solver(jgr, jcg, U, method):
@@ -378,8 +499,8 @@ def test_main_annulus_cli_on_cpu(tmp_path, capsys):
 
 
 def test_main_annulus_cli_method_on_cpu(tmp_path, capsys):
-    """--method takes the JAX driver's choices: a ported engine runs, an
-    unported one raises naming its ROADMAP item."""
+    """--method takes the JAX driver's choices: each circulant engine runs
+    and prints its iterations ('ell' and 'banded': the test below)."""
     for method in ("twrapped", "wrapped", "diag", "pallas", "fused"):
         prefix = tmp_path / method
         main_annulus.main(["--ntheta", "48", "--nr", "12", "--spacing", "150",
@@ -390,10 +511,35 @@ def test_main_annulus_cli_method_on_cpu(tmp_path, capsys):
         assert "iterations" in out
         assert len((tmp_path / f"{method}_travel_times.csv").read_text()
                    .splitlines()) == 151
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        main_annulus.main(["--ntheta", "48", "--nr", "12", "--spacing",
-                           "150", "--method", "ell", "--device", "cpu",
-                           "--out-prefix", str(tmp_path / "p")])
+
+
+@pytest.mark.parametrize("method", ["ell", "banded"])
+def test_main_annulus_graph_methods_equal_the_jax_cli(tmp_path, capsys,
+                                                      monkeypatch, method):
+    """--method ell and banded build the materialised graph with
+    init_annulus, as the JAX driver does, and write the JAX CLI's travel
+    times and npz at 48x12; 'ell' prints no iteration count, as the JAX
+    driver does."""
+    import runpy
+    import sys
+
+    args = ["--ntheta", "48", "--nr", "12", "--spacing", "150", "--method",
+            method]
+    monkeypatch.setattr(sys, "argv", ["main_annulus.py", *args,
+                                      "--out-prefix", str(tmp_path / "j")])
+    runpy.run_path(os.path.join(ROOT, "main_annulus.py"),
+                   run_name="__main__")
+    capsys.readouterr()
+    main_annulus.main([*args, "--device", "cpu", "--out-prefix",
+                       str(tmp_path / "p")])
+    out = capsys.readouterr().out
+    assert f"solver method: {method} on cpu" in out
+    assert ("Converged in" in out) == (method == "banded")
+    assert (tmp_path / "p_travel_times.csv").read_text() == \
+        (tmp_path / "j_travel_times.csv").read_text()
+    with np.load(tmp_path / "p.npz") as fp, np.load(tmp_path / "j.npz") as fj:
+        for k in ("dist", "prev", "source"):
+            np.testing.assert_array_equal(fp[k], fj[k])
 
 
 def test_main_annulus_dtype_float64_equals_the_jax_cli(tmp_path, capsys,

@@ -90,6 +90,30 @@ _REFUSING_RUN = textwrap.dedent("""
     assert p3.shape == d3.shape
     from raytracer_tpu_torch import example_grid3d
     example_grid3d.main(["--n", "8", "8", "5", "--device", "cpu"])
+    example_grid3d.main(["--n", "8", "8", "5", "--engine", "ell",
+                         "--device", "cpu"])
+    # the generic graphs: the Delaunay mesher, auto -> banded, ell, bfm,
+    # dijkstra, radius stepping, the Gauss-Seidel banded solve
+    import warnings
+    dg = pt.add_midpoints(pt.triangle_annulus_2d(nr=6, spacing=1500.0))
+    dA = pt.node_adjacency(dg, star=0)
+    prof = pt.velocity_profile()
+    dU = pt.interpolate_velocity(dg.r, pt.LinearInterpolation(prof.r,
+                                                              prof.Vp))
+    nohalo = np.empty((0, 2), np.int64)
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        s = pt.AnnulusSolver(dg, dA, nohalo, dU, device="cpu")
+    assert s.method == "banded" and np.isfinite(s.solve(5).dist).all()
+    s = pt.AnnulusSolver(dg, dA, nohalo, dU, method="ell", device="cpu")
+    assert np.isfinite(s.solve(5).dist).all()
+    d_b = pt.bfm(dA, nohalo, 5, dg, dU, device="cpu").dist
+    d_d = pt.dijkstra(dA, nohalo, 5, dg, dU).dist
+    assert np.abs(d_b - d_d).max() < 1e-3
+    assert np.isfinite(pt.radius_stepping(dA, nohalo, 5, dg, dU,
+                                          device="cpu").dist).all()
+    bg = pt.prepare_banded(dA, nohalo, dg, dU, device="cpu")
+    assert np.isfinite(pt.solve_banded_gs(bg, [5])[0]).all()
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("ISOLATED", len(names))
@@ -103,7 +127,7 @@ def test_port_imports_and_builds_tables_without_jax(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     n_modules = int(proc.stdout.split("ISOLATED")[1])
-    assert n_modules >= 20
+    assert n_modules >= 28
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -143,10 +167,12 @@ def test_cuda_sources_include_no_pytorch_headers(path):
 
 
 def test_every_kernel_source_is_in_the_port():
-    """The six ported kernels build from the port's own csrc/."""
+    """The ported kernels, and the port's own (plane3d, and the generic
+    graphs' ell_bfm and banded), build from the port's own csrc/."""
     have = set(os.listdir(os.path.join(PKG, "csrc")))
     assert {"rsweep.cu", "titer.cu", "band.cu", "witer.cu",
-            "diag.cu", "sweep3d.cu"} <= have
+            "diag.cu", "sweep3d.cu", "relax.cu", "fused.cu", "plane3d.cu",
+            "ell_bfm.cu", "banded.cu"} <= have
 
 
 def test_port_has_its_own_velocity_tables():

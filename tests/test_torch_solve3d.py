@@ -362,9 +362,27 @@ def test_example_grid3d_on_cpu_matches_the_root_example(monkeypatch):
     assert "engine pallas, source batch 3, on cpu" in proc.stdout
 
 
-def test_example_grid3d_ell_engine_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        example_grid3d.main(["--engine", "ell", "--device", "cpu"])
+def test_example_grid3d_parser_defaults():
     args = example_grid3d.build_parser().parse_args([])
     assert (args.n, args.depth, args.dtype, args.engine, args.device) == \
         ([24, 24, 16], 2000.0, "float32", "stencil", "cuda")
+
+
+def test_example_grid3d_ell_engine_prints_the_root_table(monkeypatch):
+    """--engine ell (nodal_incidence3d -> prepare -> solve_many) prints the
+    root example's --engine ell table: the same BFM floats."""
+    buf = io.StringIO()
+    monkeypatch.setattr(sys, "argv", ["example_grid3d.py", "--engine", "ell"])
+    with contextlib.redirect_stdout(buf):
+        runpy.run_path(os.path.join(ROOT, "example_grid3d.py"),
+                       run_name="__main__")
+    want = _table(buf.getvalue())
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        table, iters = example_grid3d.main(["--engine", "ell", "--device",
+                                            "cpu"])
+    assert iters is None
+    got = _table(out.getvalue())
+    assert got.shape == want.shape == (3, 3)
+    np.testing.assert_array_equal(got, want)
+    assert "multi-source solve (ell, on cpu)" in out.getvalue()
