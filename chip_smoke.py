@@ -64,7 +64,13 @@ the exit code is non-zero):
      (a Jacobi iteration of the banded solve) and banded_gs (a
      Gauss-Seidel direction) the same way on the production Delaunay
      annulus in float32 (the JAX package's 214 steps and 33 rounds) and
-     float64, and on 16x6 with its halo (S=2), timed;
+     float64, and on 16x6 with its halo (S=2), timed; (3h) the
+     level-masked bfm_step in lockstep with its plain version over
+     bfm_ms's two masked stages (level 1, then level 15 restarted at the
+     best Boundary_1 node) at 48x12, float32 and float64, the same `it`;
+     rsweep on every destination-masked stage table of bfm_ms (levels 1
+     and 15) and of PcP at 180x63, both directions, float32 and float64
+     (blocks without a finite tap included), timed on level 1's table;
   4. the main path through the user entry points: init_annulus_circulant
      (180, 63, 20) -> AnnulusSolver(method="auto") on cuda -> solve with
      prev -> receiver fan -> paths -> travel-time CSV, held against the
@@ -145,9 +151,23 @@ the exit code is non-zero):
      dijkstra; an 8-source table timed, rows equal to single solves;
  17. main_annulus --method ell at 180x63 (the anchors) and --method
      banded at 48x12 (its CSV equal to the CPU route's), example_grid3d
-     --engine ell (within T_ATOL of the root example's table).
+     --engine ell (within T_ATOL of the root example's table);
+ 18. the staged solvers on init_annulus(180, 63) (AK135, the surface
+     source), each held to the JAX package's figures (JAX_STAGED,
+     tools/jax_staged_reference.py: the iteration count, the finite set,
+     the receiver times, the field's digest, or else the CPU route within
+     CPU_ATOL at every finite node), its launches counted (one band an
+     iteration, two rsweep a round) and its steady solve timed (median of
+     3): bfm_ms at levels (1, 15) on stream, sweep and ell (dist and prev
+     digests; one steady solve of each profiled, its kernel's device time
+     and the card's busy share), reflected_travel_times (PcP) and the SKS class on stream
+     and sweep, bfm_multiphase on stream and sweep (3 levels) and on ell
+     at 48x12; stream and sweep within ENGINE_ATOL of each other;
+ 19. main_annulus --phases PcP,SKS at 180x63, its CSV's times held to the
+     JAX package's.
 Every kernel-launch count is set to 0 just before each path (4, 6, 7,
-9, 10, 11, 13, 14, 15, 16, 17) and read just after it.  Then one JSON
+9, 10, 11, 13, 14, 15, 16, 17, each solve of 18, 19) and read just after
+it.  Then one JSON
 line of kernel numbers, the card's name and power limit from nvidia-smi,
 and as the last line {"ok": true, "device": {...}}.  The kernels line
 lists fourteen kernels:
@@ -244,6 +264,83 @@ JAX_BANDED = {
     "jacobi": (214, "2062a7ccf1a12eef69a330d87e6bef8ab42701eb6b0857b91f07cc437cda1068"),
     "gs": (33, "2062a7ccf1a12eef69a330d87e6bef8ab42701eb6b0857b91f07cc437cda1068")}
 DELAUNAY = dict(nr=60, spacing=120.0)   # benchmarks/chip_banded_gs.py
+# The JAX package's staged solvers on the CPU (tools/jax_staged_reference.py)
+# on init_annulus(180, 63, spacing=20), float32, AK135 Vp (Vs for the S
+# legs), the surface source at theta 0; bfm_multiphase on 'ell' at
+# init_annulus(48, 12, spacing=150).  Per solve: iterations summed over
+# the stages (rounds on 'sweep'; each level's count on 'ell'), finite
+# nodes, sha256 of the packed finite mask and of dist (float32), the
+# times at the surface receivers at 30, 60 and 90 degrees, and on 'ell'
+# sha256 of prev (int64).
+JAX_STAGED = {
+    'bfm_ms stream': (
+        49, 4500,
+        'f77c572759449ddf952af5d889c815247006f75a061fb2ed0a1330fe1e892d10',
+        '478a106610fb9e8668c5a1e81c05da6269ad763f9630d06bd8af90a3c0fdbe6e',
+        (573.6251220703125, 1146.844482421875, 1720.073974609375)
+    ),
+    'bfm_ms sweep': (
+        7, 5095,
+        '04cc0be107fdf0691de8ff5ea8b130afae8c8fd55416663431b981ef797ae17d',
+        '4e7849c4e677703236326bc073361bb8295e765167c13441cf2f79f3eb241bc9',
+        (573.6251220703125, 1146.84423828125, 1720.073486328125)
+    ),
+    'bfm_ms ell': (
+        [47, 47], 4500,
+        'f77c572759449ddf952af5d889c815247006f75a061fb2ed0a1330fe1e892d10',
+        '478a106610fb9e8668c5a1e81c05da6269ad763f9630d06bd8af90a3c0fdbe6e',
+        (573.6251220703125, 1146.844482421875, 1720.073974609375),
+        '432cde09800597f4b3fdd7ec1aaff5bb06a718595c528abb05808ea45d950e41'
+    ),
+    'PcP stream': (
+        114, 97020,
+        '6b979adc3c0f731bc50dd861d8286c373f71807af9121a06cf7488c77e04a2b0',
+        'd08a0e3ef187c843b38d8fb565d170c3f5fa5f99cb416bac421e131ac084bcd2',
+        (554.53759765625, 656.6795654296875, 785.3890380859375)
+    ),
+    'PcP sweep': (
+        7, 97020,
+        '6b979adc3c0f731bc50dd861d8286c373f71807af9121a06cf7488c77e04a2b0',
+        '5d6a0454ecb07ea33827fbdd0ea2bfb5e32ddfaf195c6ab63562598010fd0940',
+        (554.53759765625, 656.6795654296875, 785.3890380859375)
+    ),
+    'SKS stream': (
+        179, 97020,
+        '6b979adc3c0f731bc50dd861d8286c373f71807af9121a06cf7488c77e04a2b0',
+        '81b813dae1d772887aeb311c0efc969e802ae251219dcc43174299ccb54e4072',
+        (1018.7841796875, 1209.6473388671875, 1420.60498046875)
+    ),
+    'SKS sweep': (
+        10, 97020,
+        '6b979adc3c0f731bc50dd861d8286c373f71807af9121a06cf7488c77e04a2b0',
+        '246ba87870de08da3a8d3c38e3a42359d950f0be523ac526e6714aa2d7ad1f56',
+        (1018.7841796875, 1209.6473388671875, 1420.60498046875)
+    ),
+    'bfm_multiphase stream': (
+        95, 4500,
+        'f77c572759449ddf952af5d889c815247006f75a061fb2ed0a1330fe1e892d10',
+        'b2d53d71a7f19a7076f28f86a561e3dc75614f5944ee7db9f3f87f11f0ab078f',
+        (573.6251220703125, 1146.844482421875, 1720.073974609375)
+    ),
+    'bfm_multiphase sweep': (
+        7, 4500,
+        'f77c572759449ddf952af5d889c815247006f75a061fb2ed0a1330fe1e892d10',
+        'cdff4388819faa2d4625b84ffc2058f24347d11b7670fce73db8fcf96a24c380',
+        (573.6251220703125, 1146.84423828125, 1720.073486328125)
+    ),
+    'bfm_multiphase 48x12 ell': (
+        [14, 15, 0], 576,
+        '44def26eabcbdbd585476147a57f3b4e6774dc4dc8164d08b9462c581097923d',
+        'b69ec2a116926c28aad341e5cbc5f6179f0e780e786d18c7c80ea9624aa7aac9',
+        (572.645751953125, 1144.3504638671875, 1716.0550537109375),
+        'd08a48958277bb69bfb1071be1a48dbd0588d02cad06ad7dfd8ed941ce92373c'
+    ),
+}
+STAGED_DEGREES = (30.0, 60.0, 90.0)
+# wrapper -> the CUDA kernels it launches, by their names in a profile
+KERNEL_NAMES = {"band": ("band_kernel",),
+                "rsweep": ("rsweep_shared", "rsweep_global"),
+                "bfm_step": ("relax_merge_kernel", "frontier_kernel")}
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # f32 outside the tensor cores, same sheet
 
@@ -3042,6 +3139,359 @@ def phase_graph_cli(tmp: str):
           f"within {err3:.3g} s of the root example's table", flush=True)
 
 
+# ----------------------------------------------------------------------
+# the staged solvers: bfm_ms, bfm_multiphase and the named phases
+# ----------------------------------------------------------------------
+
+def _ell_masked_lockstep(g, src, dtype, gr, what):
+    """bfm_ms's ELL levels (1, then 15 restarted at the best Boundary_1
+    node) with bfm_step (the kernel, its level mask) and
+    bfm_step_reference (its plain version) in lockstep, every field of
+    the two states equal after every step; returns each level's steps."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.models.partition import partition_grid
+    from raytracer_tpu_torch.ops import relax
+    from raytracer_tpu_torch.solvers.multiphase import _level_mask_t
+
+    part = partition_grid(gr)
+    n_pad = g.nbr.shape[0]
+    steps = []
+    st = None
+    for level in (1, 15):
+        mask = _level_mask_t(part, level, gr, n_pad, g.w.device)
+        if st is None:
+            st = relax.init_state(g, src, dtype, mask=mask)
+        else:
+            b1 = torch.as_tensor(np.flatnonzero(part.boundary_of == 1),
+                                 device=g.w.device)
+            new = int(b1[torch.argmin(st.dist[b1])])
+            keep = torch.zeros(n_pad, dtype=torch.bool, device=g.w.device)
+            keep[b1] = True
+            front = relax.init_state(g, new, dtype).front & mask
+            st = relax.BFMState(
+                dist=torch.where(keep, st.dist, torch.full_like(
+                    st.dist, float("inf"))), prev=st.prev,
+                front=front, it=torch.zeros_like(st.it),
+                live=front.any().to(torch.int32))
+        sk = sr = st
+        n = 0
+        while int(sr.live):
+            sk = relax.bfm_step(sk, g, None, mask)
+            sr = relax.bfm_step_reference(sr, g, None, mask)
+            n += 1
+            for f in sk._fields:
+                if not torch.equal(getattr(sk, f), getattr(sr, f)):
+                    raise AssertionError(
+                        f"masked bfm_step kernel != plain version ({what}, "
+                        f"level {level}, {f}, step {n})")
+        assert int(sk.it) == n and not bool((sk.front & ~mask).any())
+        steps.append(n)
+        st = sr
+    return steps
+
+
+def phase_staged_kernels(rec: dict):
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+    from raytracer_tpu_torch.ops.sweep_theta import (_kernel_tables,
+                                                     pack_rsweep_tables,
+                                                     rsweep)
+    from raytracer_tpu_torch.ops.wrapped_t import pack_twrapped_stencil
+    from raytracer_tpu_torch.solvers import multiphase as M
+    from raytracer_tpu_torch.solvers import phases as P
+
+    # the level-masked bfm_step over bfm_ms's two masked stages at 48x12
+    gs, As, hs = rt.init_annulus(48, 12, spacing=150.0)
+    src48 = rt.closest_point(gs, 0.0, rt.R, system="polar")
+    steps = {}
+    for dtype in ("float32", "float64"):
+        g = rt.prepare(As, hs, gs, _ak135_vp(gs), rt.SolverConfig(
+            dtype=dtype))
+        steps[dtype] = _ell_masked_lockstep(g, src48, dtype, gs,
+                                            f"48x12 {dtype}")
+    # rsweep on every destination-masked stage table of bfm_ms (levels 1
+    # and 15) and of PcP at 180x63, both directions, float32 and float64
+    gr, A, halo, U, src, G, t_build, t_prep = rec["graph_180"]
+    part = rt.partition_grid(gr)
+    rng = np.random.default_rng(18)
+    tables, max_err, lines = 0, 0.0, []
+    ms_level1 = None
+    for dtype in (np.float32, np.float64):
+        cg = rt.build_circulant(gr, A, halo, U, dtype=dtype)
+        ws = pack_twrapped_stencil(cg, dtype=dtype, band_closure=0)
+        _, rst = pack_rsweep_tables(ws, cg, dtype)
+        stages = M._ms_stages(cg, ws, halo, part, (1, 15), dtype, "sweep")
+        stages.append(M._stage("sweep", cg, ws, P._region_mask_above(
+            part, P.REFLECTORS["cmb"]), dtype))
+        named = [(name, sp.wtab_dn, sp.wtab_up) for name, sp in zip(
+            ("bfm_ms level 1", "bfm_ms level 15", "PcP"), stages)]
+        for name, wdn, wup in named:
+            wdn_t, wup_t = torch.tensor(wdn).cuda(), torch.tensor(wup).cuda()
+            max_err = max(max_err, _rsweep_check(
+                rng, [(rst, 1, False), (rst, 1, True)], cg.cmap.ntheta,
+                wdn_t, wup_t))
+            tables += 1
+            plans = [_kernel_tables(w, rst, up)[0]
+                     for up, w in ((False, wdn_t), (True, wup_t))]
+            empty = [int((p.binfo[:, 1] == 0).sum()) for p in plans]
+            lines.append(f"{name} {np.dtype(dtype).name}: "
+                         f"{np.isfinite(wdn[:, :len(rst.taps_dn)]).sum()}+"
+                         f"{np.isfinite(wup[:, :len(rst.taps_up)]).sum()} "
+                         f"finite weights, ent_cap {plans[0].ent_cap}/"
+                         f"{plans[1].ent_cap}, {empty[0]}/{empty[1]} of "
+                         f"{rst.MT // 8} blocks without a far tap, routes "
+                         + "/".join("shared" if p.shared else "global"
+                                    for p in plans))
+            if name == "bfm_ms level 1" and dtype == np.float32:
+                ms_level1 = (wdn_t, rst, cg.cmap.ntheta)
+    wdn_t, rst, nt = ms_level1
+    buf = _rsweep_buffer(rng, rst, nt, 1, False)
+    ms1 = _cuda_ms(lambda: rsweep(buf, wdn_t, rst, False), 20)
+    rec["rsweep_level1_ms"] = ms1
+    print(f"phase 3h kernels: the level-masked bfm_step bit-equal to its "
+          f"plain version (dist, prev, front, it, live after every step) "
+          f"over bfm_ms's two masked stages at 48x12 (spacing 150, halo): "
+          f"float32 {steps['float32']} steps, float64 {steps['float64']}; "
+          f"rsweep bit-equal to rsweep_reference on {tables} "
+          f"destination-masked stage tables at 180x63 (S=1, both "
+          f"directions, max abs err {max_err}): " + "; ".join(lines)
+          + f"; rsweep down on bfm_ms level 1's table {ms1:.4f} ms "
+          f"(S=1, float32)", flush=True)
+
+
+def _median_ms(fn, n: int = 3) -> float:
+    """Median host milliseconds of n calls of fn, each between two
+    synchronizes."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def _hold_to_jax(name, dist, it, receivers, cpu_route, prev=None) -> str:
+    """The card's staged field against the JAX package's figures
+    (JAX_STAGED[name]): the same iteration count, the same finite set,
+    the JAX times at the STAGED_DEGREES surface receivers within 2e-3 s;
+    the field bit for bit (its digest), or else within CPU_ATOL of the
+    port's CPU route (`cpu_route()`) at every finite node.  Returns a
+    note for the phase line."""
+    import numpy as np
+
+    ref = JAX_STAGED[name]
+    it_ref, n_fin, fin_sha, dist_sha, t_ref = ref[:5]
+    assert it == it_ref, (name, it, it_ref)
+    fin = np.isfinite(dist)
+    assert int(fin.sum()) == n_fin, (name, int(fin.sum()), n_fin)
+    assert _digest(np.packbits(fin), "u1") == fin_sha, (name, "finite set")
+    t = [float(dist[r]) for r in receivers]
+    err_t = max(abs(a - b) for a, b in zip(t, t_ref))
+    assert err_t <= CPU_ATOL, (name, t, t_ref)
+    if prev is not None:
+        assert _digest(prev, "<i8") == ref[5], (name, "prev digest")
+    if _digest(dist, "<f4") == dist_sha:
+        return "bit-equal to JAX"
+    d_cpu = np.asarray(cpu_route())
+    assert np.array_equal(np.isfinite(d_cpu), fin), name
+    err = float(np.abs(dist[fin] - d_cpu[fin]).max())
+    assert err <= CPU_ATOL, (name, err)
+    return (f"digest differs from JAX: within {err:.3g} s of the CPU "
+            f"route, JAX receiver times within {err_t:.3g} s")
+
+
+def _engines_agree(a, b, what) -> float:
+    """max |a - b| over the nodes finite in a, which must be finite in b
+    too; raises above ENGINE_ATOL."""
+    import numpy as np
+
+    fin = np.isfinite(a)
+    assert np.isfinite(b[fin]).all(), what
+    err = float(np.abs(a[fin] - b[fin]).max())
+    assert err <= ENGINE_ATOL, (what, err)
+    return err
+
+
+def phase_staged(rec: dict):
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+    from raytracer_tpu_torch.solvers import bfm as B
+    from raytracer_tpu_torch.solvers import multiphase as M
+    from raytracer_tpu_torch.solvers import phases as P
+
+    gr, A, halo, U, src, _, _, _ = rec["graph_180"]
+    prof = rt.velocity_profile("ak135")
+    interp = rt.LinearInterpolation(prof.r, prof.Vp)
+    Us = rt.interpolate_velocity(gr.r, rt.LinearInterpolation(prof.r,
+                                                              prof.Vs))
+    cfg = rt.SolverConfig(dtype="float32")
+    receivers = [rt.closest_point(gr, np.deg2rad(d), rt.R, system="polar")
+                 for d in STAGED_DEGREES]
+    reuse: dict = {}
+    lines, fields = [], {}
+
+    def card_share(solve, kernel, steady):
+        """One steady solve's device time (torch.profiler): the kernel's
+        own and all of it, as shares of the steady solve."""
+        split = _kernel_split_ms(solve, 1)
+        own = sum(v for k, v in split.items() if k in KERNEL_NAMES[kernel])
+        busy = sum(split.values())
+        return (f"on the card {kernel} {own:.3f} ms = "
+                f"{100 * own / steady:.1f} % of the steady solve, busy "
+                f"{busy:.2f} ms (idle {100 * (1 - busy / steady):.1f} %)")
+
+    def run(name, solve, cpu_route, kernel, per_it, profile=False):
+        """First call (set-up included) with its launches counted, then
+        the steady solve timed (median of 3), and with `profile` one
+        steady solve profiled (a profile of a stream solve's ~23,000
+        kernels takes seconds, so only bfm_ms's is taken)."""
+        _reset_counts()
+        t0 = time.perf_counter()
+        dist, it = solve()
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        counts = _counts()
+        assert counts[kernel] == per_it * it, (name, counts, it)
+        assert sum(counts.values()) == counts[kernel], (name, counts)
+        note = _hold_to_jax(name, dist, it, receivers, cpu_route)
+        steady = _median_ms(solve)
+        fields[name] = dist
+        lines.append(f"{name} {it} {'rounds' if per_it == 2 else 'its'}, "
+                     f"{counts[kernel]} {kernel} launches, steady "
+                     f"{steady:.2f} ms (first {t_first:.2f} s), "
+                     + (f"{card_share(solve, kernel, steady)}, "
+                        if profile else "") + note)
+
+    for m, kernel, per_it in (("stream", "band", 1), ("sweep", "rsweep", 2)):
+        run(f"bfm_ms {m}",
+            lambda m=m: M.bfm_ms_staged(A, halo, src, gr, U, cfg, (1, 15),
+                                        m, "cuda", reuse)[:2],
+            lambda m=m: M.bfm_ms_staged(A, halo, src, gr, U, cfg, (1, 15),
+                                        m, "cpu")[0], kernel, per_it, True)
+        run(f"PcP {m}",
+            lambda m=m: P.reflected_travel_times_it(
+                A, halo, src, gr, U, "cmb", cfg, "cuda", reuse, m),
+            lambda m=m: P.reflected_travel_times(
+                A, halo, src, gr, U, "cmb", cfg, "cpu", engine=m),
+            kernel, per_it)
+        run(f"SKS {m}",
+            lambda m=m: P.converted_travel_times_it(
+                A, halo, src, gr, Us, U, Us, "cmb", cfg, "cuda", reuse, m),
+            lambda m=m: P.converted_travel_times(
+                A, halo, src, gr, Us, U, Us, "cmb", cfg, "cpu", engine=m),
+            kernel, per_it)
+        # bfm_multiphase: its 3 levels' repacks once, then the solve
+        t0 = time.perf_counter()
+        cg0, ws0, stages = M.multiphase_stages(A, gr, U, interpolant=interp,
+                                               config=cfg, method=m)
+        t_pack = time.perf_counter() - t0
+        run(f"bfm_multiphase {m}",
+            lambda m=m, cg0=cg0, ws0=ws0, stages=stages: M._solve_stages(
+                m, cg0, ws0, stages, src, cfg, "cuda"),
+            lambda m=m: M.bfm_multiphase_staged(
+                A, src, gr, U, interpolant=interp, config=cfg, method=m,
+                device="cpu")[0], kernel, per_it)
+        lines[-1] += f" (its 3 levels packed in {t_pack:.2f} s)"
+    # public entry points on the stages kept in reuse
+    D = rt.bfm_ms(A, halo, src, gr, U, cfg, levels=(1, 15), method="sweep",
+                  _reuse=reuse)
+    assert np.array_equal(D.dist, fields["bfm_ms sweep"])
+    pcp = rt.phase_travel_times(A, halo, src, gr, U, "PcP", cfg,
+                                receivers=receivers, _reuse=reuse)
+    assert np.array_equal(pcp, fields["PcP stream"][receivers])
+    # bfm_ms on the ELL path: its prepare once, then the masked bfm_step
+    _reset_counts()
+    t0 = time.perf_counter()
+    De = M.bfm_ms(A, halo, src, gr, U, cfg, levels=(1, 15), method="ell",
+                  _reuse=reuse)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = _counts()["bfm_step"]
+    its = JAX_STAGED["bfm_ms ell"][0]
+    assert launches == sum(B.CHECK_EVERY * max(1, -(-i // B.CHECK_EVERY))
+                           for i in its), (launches, its)
+    note = _hold_to_jax("bfm_ms ell", De.dist, its, receivers,
+                        lambda: None, prev=De.prev)
+    assert note == "bit-equal to JAX", note
+    def ell():
+        return M.bfm_ms(A, halo, src, gr, U, cfg, levels=(1, 15),
+                        method="ell", _reuse=reuse)
+
+    steady = _median_ms(ell)
+    fields["bfm_ms ell"] = De.dist
+    lines.append(f"bfm_ms ell {its} its, {launches} bfm_step launches, "
+                 f"steady {steady:.2f} ms (first {t_first:.2f} s with its "
+                 f"prepare), {card_share(ell, 'bfm_step', steady)}"
+                 f", dist and prev bit-equal to JAX")
+    # bfm_multiphase on the ELL path at 48x12 (a prepare a level)
+    gs, As, _ = rt.init_annulus(48, 12, spacing=150.0)
+    srcs = rt.closest_point(gs, 0.0, rt.R, system="polar")
+    rcvs = [rt.closest_point(gs, np.deg2rad(d), rt.R, system="polar")
+            for d in STAGED_DEGREES]
+    _reset_counts()
+    Dm = M.bfm_multiphase(As, srcs, gs, _ak135_vp(gs), interpolant=interp,
+                          config=cfg)
+    launches48 = _counts()["bfm_step"]
+    its48 = JAX_STAGED["bfm_multiphase 48x12 ell"][0]
+    assert launches48 == sum(B.CHECK_EVERY * max(1, -(-i // B.CHECK_EVERY))
+                             for i in its48), (launches48, its48)
+    note = _hold_to_jax("bfm_multiphase 48x12 ell", Dm.dist, its48, rcvs,
+                        lambda: None, prev=Dm.prev)
+    assert note == "bit-equal to JAX", note
+    lines.append(f"bfm_multiphase ell 48x12 {its48} its, {launches48} "
+                 f"bfm_step launches, dist and prev bit-equal to JAX")
+    # the engines against each other
+    errs = {k: _engines_agree(fields[f"{k} stream"], fields[f"{k} sweep"],
+                              k)
+            for k in ("bfm_ms", "PcP", "SKS", "bfm_multiphase")}
+    errs["bfm_ms ell"] = _engines_agree(fields["bfm_ms ell"],
+                                        fields["bfm_ms stream"], "ell")
+    print("phase 18 staged solves at 180x63 (init_annulus, AK135, the "
+          "surface source): " + "; ".join(lines) + "; max |stream - sweep| "
+          + ", ".join(f"{k} {v:.3g} s" for k, v in errs.items()), flush=True)
+
+
+def phase_staged_cli(tmp: str):
+    import numpy as np
+
+    from raytracer_tpu_torch import main_annulus
+
+    prefix = os.path.join(tmp, "phases")
+    _reset_counts()
+    t0 = time.perf_counter()
+    main_annulus.main(["--ntheta", "180", "--nr", "63", "--phases",
+                       "PcP,SKS", "--out-prefix", prefix])
+    t_cli = time.perf_counter() - t0
+    counts = _counts()
+    assert counts["band"] > 0 and counts["rsweep"] > 0, counts
+    tab = np.genfromtxt(f"{prefix}_phases.csv", delimiter=",",
+                        skip_header=2)
+    assert tab.shape == (150, 3), tab.shape
+    deg, pcp, sks = tab[:, 0], tab[:, 1], tab[:, 2]
+    assert np.isfinite(pcp[deg <= 60]).all()
+    mid = (deg >= 90) & (deg <= 150)
+    assert np.isfinite(sks[mid]).all() and np.all(sks[mid] > pcp[mid])
+    errs = []
+    for name, col in (("PcP stream", pcp), ("SKS stream", sks)):
+        for d, t_ref in zip(STAGED_DEGREES, JAX_STAGED[name][4]):
+            errs.append(abs(float(col[np.argmin(np.abs(deg - d))]) - t_ref))
+    assert max(errs) <= CPU_ATOL, errs
+    print(f"phase 19 driver: main_annulus --phases PcP,SKS at 180x63 "
+          f"{t_cli:.2f} s (launches {counts}), its CSV's PcP and SKS at "
+          f"{STAGED_DEGREES} deg within {max(errs):.3g} s of the JAX "
+          f"package's", flush=True)
+
+
 def main():
     faulthandler.dump_traceback_later(900, exit=True)
     t_start = time.perf_counter()
@@ -3058,6 +3508,7 @@ def main():
                       lambda: phase_plane3d_kernel(rec),
                       lambda: phase_lane_gather_kernels(rec),
                       lambda: phase_graph_kernels(rec),
+                      lambda: phase_staged_kernels(rec),
                       lambda: phase_banded_kernels(rec),
                       lambda: phase_main_path(rec, tmp),
                       lambda: phase_cli(tmp), lambda: phase_twrapped(rec),
@@ -3069,7 +3520,9 @@ def main():
                       lambda: phase_sweep3d_engine(rec),
                       lambda: phase_graph_bfm(rec),
                       lambda: phase_graph_banded(rec),
-                      lambda: phase_graph_cli(tmp)):
+                      lambda: phase_graph_cli(tmp),
+                      lambda: phase_staged(rec),
+                      lambda: phase_staged_cli(tmp)):
             t0 = time.perf_counter()
             phase()
             print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)

@@ -18,7 +18,12 @@ solvers of any mesh (the Delaunay mesher `triangle_annulus_2d`,
 `add_midpoints`): the reference's headline Bellman-Ford-Moore `bfm` on a
 padded ELL graph (kernel `csrc/ell_bfm.cu`), the RCM-banded solver
 (`prepare_banded`, `solve_banded`, `solve_banded_gs`; kernels
-`csrc/banded.cu`), the host Dijkstra gold standard and radius stepping.
+`csrc/banded.cu`), the host Dijkstra gold standard and radius stepping;
+and the staged solvers: the reference's multi-stage and multiphase
+sweeps (`bfm_ms`, `bfm_multiphase`) on the level-masked ELL step, the
+staged stream engine and the staged directional sweep, and the named
+phases (`phase_travel_times`: PcP, SKS, PP, pP/sP and the rest) over
+the radial partition (`partition_grid`, `level_mask`).
 Entry points run on the card unless the caller passes `device="cpu"`.
 """
 from .config import DEFAULT_SOLVER_CONFIG, R, SolverConfig
@@ -29,8 +34,11 @@ from .models.delaunay import (add_midpoints, structured_convex_hull,
 from .models.fast_annulus import init_annulus_circulant
 from .models.grid3d import (Grid3D, closest_point3d, grid3d,
                             nodal_incidence3d, velocity3d)
-from .models.velocity import (LinearInterpolation, interpolate_velocity,
-                              table_interface_radii, velocity_profile)
+from .models.partition import (GridPartition, find_layer_number,
+                               level_mask, partition_grid)
+from .models.velocity import (LinearInterpolation, dual_velocity,
+                              interpolate_velocity, table_interface_radii,
+                              velocity_profile)
 from .ops.banded import (BandedGraph, prepare_banded, solve_banded,
                         solve_banded_gs)
 from .ops.circulant import (CirculantGraph, PrevRecovery, build_circulant,
@@ -41,6 +49,10 @@ from .solvers.api import AnnulusSolver
 from .solvers.bfm import (bfm, bfm3d, bfm_gpu, bfm_tpu, prepare, solve,
                           solve_many)
 from .solvers.dijkstra import dijkstra, weight_matrix, weights
+from .solvers.multiphase import (bfm_ms, bfm_multiphase, boundary_velocity,
+                                 directions)
+from .solvers.phases import (depth_phase_travel_times, phase_travel_times,
+                             reflected_travel_times)
 from .solvers.path import recontruct_path
 from .solvers.solve3d import (mask_region3d, prepare3d, recover_prev3d,
                               solve3d, solve3d_converted, solve3d_reflection)
@@ -57,7 +69,11 @@ __all__ = [
     "prepare3d", "solve3d", "recover_prev3d", "mask_region3d",
     "solve3d_reflection", "solve3d_converted",
     "LinearInterpolation", "interpolate_velocity", "table_interface_radii",
-    "velocity_profile",
+    "velocity_profile", "dual_velocity",
+    "GridPartition", "find_layer_number", "level_mask", "partition_grid",
+    "bfm_ms", "bfm_multiphase", "boundary_velocity", "directions",
+    "phase_travel_times", "depth_phase_travel_times",
+    "reflected_travel_times",
     "CirculantGraph", "build_circulant", "PrevRecovery", "recover_prev",
     "ELLGraph", "csr_to_ell", "DeviceGraph",
     "BandedGraph", "prepare_banded", "solve_banded", "solve_banded_gs",

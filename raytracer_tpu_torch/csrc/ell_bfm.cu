@@ -31,8 +31,12 @@
 //     3. dist1, prev1 and improved = dist1 < dist0.
 //   frontier_kernel, a warp a row: front1[i] = improved[i] or
 //     improved[nbr[i,k]] for some k < deg[i] (JAX takes all K slots: the
-//     padding points at i itself); live_out = 1 where a front bit is set,
-//     it_out = it_in + 1.
+//     padding points at i itself), and mask[i] when a level mask is given
+//     (the staged solves' masked step, raytracer_tpu/solvers/
+//     multiphase.py _masked_step: the frontier ANDed with the level);
+//     live_out = 1 where a front bit is set, so a masked frontier that
+//     empties stops the host's loop where the JAX loop stops; it_out =
+//     it_in + 1.
 // When not active, dist, prev and front are copied through and it_out =
 // it_in, live_out = live_in: a step after the frontier empties changes
 // nothing, so the host reads live and it every few steps and still counts
@@ -168,7 +172,8 @@ __global__ void __launch_bounds__(kThreads)
 
 __global__ void __launch_bounds__(kThreads)
     frontier_kernel(const uint8_t* __restrict__ improved, const uint8_t* __restrict__ front0,
-                    const int* __restrict__ nbr, const int* __restrict__ deg, Ctl ctl,
+                    const int* __restrict__ nbr, const int* __restrict__ deg,
+                    const uint8_t* __restrict__ mask, Ctl ctl,
                     uint8_t* __restrict__ front1, int* __restrict__ it_out,
                     int* __restrict__ live_out, int S, int n_pad, int K) {
   const bool active = ctl.active();
@@ -182,11 +187,15 @@ __global__ void __launch_bounds__(kThreads)
   const int i = static_cast<int>(i64);
   const size_t row = static_cast<size_t>(i) * K;
   const int dg = deg[i];
+  // a row outside the level never joins the frontier: skip its scan
+  const bool in_level = mask == nullptr || mask[i] != 0;
   for (int b = 0; b < S; ++b) {
     const size_t base = static_cast<size_t>(b) * n_pad;
     bool f;
     if (!active) {
       f = front0[base + i] != 0;
+    } else if (!in_level) {
+      f = false;
     } else {
       f = improved[base + i] != 0;
       for (int k0 = 0; !f && k0 < dg; k0 += 32) {
@@ -205,7 +214,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 int launch(const void* dist0, const void* prev0, const void* front0, const void* nbr,
            const void* w, const void* deg, const void* didx, const void* hoff, const void* hsrc,
-           Ctl ctl, void* dist1, void* prev1, void* improved, void* front1, void* it_out,
+           const void* mask, Ctl ctl, void* dist1, void* prev1, void* improved, void* front1, void* it_out,
            void* live_out, int S, int n_pad, int K, cudaStream_t st) {
   const unsigned blocks = static_cast<unsigned>((static_cast<long long>(n_pad) + kWarps - 1) /
                                                 kWarps);
@@ -219,8 +228,8 @@ int launch(const void* dist0, const void* prev0, const void* front0, const void*
   if (e != cudaSuccess) return static_cast<int>(e);
   frontier_kernel<<<blocks, kThreads, 0, st>>>(
       static_cast<const uint8_t*>(improved), static_cast<const uint8_t*>(front0),
-      static_cast<const int*>(nbr), static_cast<const int*>(deg), ctl,
-      static_cast<uint8_t*>(front1), static_cast<int*>(it_out), static_cast<int*>(live_out), S,
+      static_cast<const int*>(nbr), static_cast<const int*>(deg),
+      static_cast<const uint8_t*>(mask), ctl, static_cast<uint8_t*>(front1), static_cast<int*>(it_out), static_cast<int*>(live_out), S,
       n_pad, K);
   return static_cast<int>(cudaGetLastError());
 }
@@ -232,12 +241,13 @@ int launch(const void* dist0, const void* prev0, const void* front0, const void*
 // (S, n_pad) float32, or float64 when is_double; prev0/prev1 (S, n_pad)
 // int32; front0/front1/improved (S, n_pad) bytes (improved is scratch);
 // nbr (n_pad, K) int32, w (n_pad, K) of dist's type; deg and didx (n_pad)
-// int32, hoff (D+1) and hsrc int32 (hsrc may be empty); it_in, live_in, it_out, live_out one
-// int32 each, live_out zeroed by the caller.  All contiguous device memory.
+// int32, hoff (D+1) and hsrc int32 (hsrc may be empty); mask (n_pad) bytes, the level mask
+// of a staged solve, or null for none; it_in, live_in, it_out, live_out one int32 each,
+// live_out zeroed by the caller.  All contiguous device memory.
 extern "C" int ell_bfm_step_launch(const void* dist0, const void* prev0, const void* front0,
                                    const void* nbr, const void* w, const void* deg,
                                    const void* didx, const void* hoff, const void* hsrc,
-                                   const void* it_in, const void* live_in, void* dist1,
+                                   const void* mask, const void* it_in, const void* live_in, void* dist1,
                                    void* prev1, void* improved, void* front1, void* it_out,
                                    void* live_out, int S, int n_pad, int K, int max_iters,
                                    int is_double, void* stream) {
@@ -247,10 +257,10 @@ extern "C" int ell_bfm_step_launch(const void* dist0, const void* prev0, const v
     return static_cast<int>(cudaErrorInvalidValue);
   const Ctl ctl{static_cast<const int*>(it_in), static_cast<const int*>(live_in), max_iters};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_double ? launch<double>(dist0, prev0, front0, nbr, w, deg, didx, hoff, hsrc, ctl,
-                                    dist1, prev1, improved, front1, it_out, live_out, S, n_pad,
-                                    K, st)
-                   : launch<float>(dist0, prev0, front0, nbr, w, deg, didx, hoff, hsrc, ctl,
-                                   dist1, prev1, improved, front1, it_out, live_out, S, n_pad,
-                                   K, st);
+  return is_double ? launch<double>(dist0, prev0, front0, nbr, w, deg, didx, hoff, hsrc, mask,
+                                    ctl, dist1, prev1, improved, front1, it_out, live_out, S,
+                                    n_pad, K, st)
+                   : launch<float>(dist0, prev0, front0, nbr, w, deg, didx, hoff, hsrc, mask,
+                                   ctl, dist1, prev1, improved, front1, it_out, live_out, S,
+                                   n_pad, K, st);
 }

@@ -1,20 +1,26 @@
 """End-to-end driver of the PyTorch port (the main path).
 
 Builds the AK135 annulus with the O(M) circulant builder (with
-`--method ell` or `banded`, the materialised graph of init_annulus, as
-the JAX driver builds it), solves the travel-time field from a surface
-source with the chosen engine (`--method`, the JAX driver's choices;
-'auto' takes the directional sweep, or the JAX package's Jacobi route on
-a grid without sweep support), reconstructs ray paths to the receiver
-fan (2..150 deg both sides), and writes the travel-time CSV and the npz
-archive to `--out-prefix`.  Runs on the card unless `--device cpu` is
-given.
+`--method ell` or `banded`, or `--phases`, the materialised graph of
+init_annulus, as the JAX driver builds it), solves the travel-time field
+from a surface source with the chosen engine (`--method`, the JAX
+driver's choices; 'auto' takes the directional sweep, or the JAX
+package's Jacobi route on a grid without sweep support), reconstructs
+ray paths to the receiver fan (2..150 deg both sides), and writes the
+travel-time CSV and the npz archive to `--out-prefix`.  Runs on the
+card unless `--device cpu` is given.
 
     python -m raytracer_tpu_torch.main_annulus --ntheta 180 --nr 63
     python -m raytracer_tpu_torch.main_annulus --method wrapped
     python -m raytracer_tpu_torch.main_annulus --nr 63 --method pallas
     python -m raytracer_tpu_torch.main_annulus --nr 63 --dtype float64
     python -m raytracer_tpu_torch.main_annulus --nr 63 --method ell
+    python -m raytracer_tpu_torch.main_annulus --nr 63 --phases PcP,SKS
+
+`--phases` adds `<prefix>_phases.csv`: one first-arrival column per
+named phase over the receiver fan (solvers/phases.py; NaN where the
+phase has no arrival), the Vp or Vs table chosen per phase as the JAX
+driver does; it builds the materialised graph the phases need.
 """
 from __future__ import annotations
 
@@ -53,7 +59,39 @@ def build_parser() -> argparse.ArgumentParser:
                              "ell"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out-prefix", default="annulus_run")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated named phases (PcP,ScS,PP,SKS,"
+                         "SKP,PKS,PKP,PKIKP,Pdiff,Sdiff,P,S); writes "
+                         "<prefix>_phases.csv with one first-arrival "
+                         "column per phase over the receiver fan "
+                         "(solvers/phases.py; NaN where the phase has "
+                         "no arrival)")
     return ap
+
+
+def write_phases(args, gr, A, halo, source, receivers, degs, cfg):
+    """The `--phases` table: one column per phase, Vs for the S phases,
+    Vp and Vs for the converted ones, one `_reuse` dict across them."""
+    from .solvers.phases import phase_travel_times
+
+    prof = velocity_profile("ak135")
+    Vp_tab = interpolate_velocity(gr.r, LinearInterpolation(prof.r, prof.Vp))
+    Vs_tab = interpolate_velocity(gr.r, LinearInterpolation(prof.r, prof.Vs))
+    reuse: dict = {}
+    cols, names = [degs], ["deg"]
+    for name in [s.strip() for s in args.phases.split(",") if s.strip()]:
+        p = name.upper()
+        Utab = Vs_tab if p in ("S", "SDIFF", "SCS") else Vp_tab
+        Ustab = Vs_tab if p in ("SKS", "SKP", "PKS") else None
+        t = np.asarray(phase_travel_times(
+            A, halo, source, gr, Utab, name, cfg, receivers=receivers,
+            device=args.device, Us=Ustab, _reuse=reuse), dtype=np.float64)
+        cols.append(np.where(np.isfinite(t), t, np.nan))
+        names.append(name)
+    np.savetxt(f"{args.out_prefix}_phases.csv", np.stack(cols, axis=1),
+               delimiter=",", header=",".join(names) + "\n# NaN = phase "
+               "has no arrival at that receiver (outside its region or "
+               "branch)", comments="")
 
 
 def main(argv=None):
@@ -68,14 +106,14 @@ def main(argv=None):
         return out
 
     cfg = SolverConfig(dtype=args.dtype)
-    if args.method in ("ell", "banded"):
+    if args.method in ("ell", "banded") or args.phases:
         gr, A, halo = section("init_annulus", lambda: init_annulus(
             args.ntheta, args.nr, spacing=args.spacing))
         print(f"grid: {gr.nnods} nodes, {gr.nel} elements, {A.nnz} "
               f"directed edges")
         prof = velocity_profile("ak135")
         U = interpolate_velocity(gr.r, LinearInterpolation(prof.r, prof.Vp))
-        cg = None
+        cg = None   # the solver builds its layout from (A, halo)
     else:
         gr, cg, U = section("init_annulus_circulant",
                             lambda: init_annulus_circulant(
@@ -106,6 +144,9 @@ def main(argv=None):
         D, gr, receivers, isave=True,
         flname=f"{args.out_prefix}_travel_times.csv"))
     save_solution_npz(f"{args.out_prefix}.npz", D, gr, source, paths)
+    if args.phases:
+        section("named phases", lambda: write_phases(
+            args, gr, A, halo, source, receivers, degs, cfg))
 
     for name, t in times.items():
         print(f"{name:>24s}: {t:.4f} s")

@@ -92,3 +92,21 @@ def interpolate_velocity(r: np.ndarray, interpolant: Callable, buffer: float = V
     if on_disc.any():
         V = np.where(on_disc, interpolant(r + buffer), V)
     return V
+
+
+def dual_velocity(r: np.ndarray, interpolant: Callable, buffer: float = VELOCITY_BUFFER) -> np.ndarray:
+    """(n, 2) velocity: column 0 = below (r - buffer), column 1 = above.
+
+    Away from discontinuities both columns are equal (src/ShortestPath.jl:97-112).
+    """
+    r = np.asarray(r)
+    V = interpolant(r)
+    below = V.copy()
+    above = V.copy()
+    on_disc = np.zeros(r.shape, dtype=bool)
+    for rad in DISCONTINUITY_RADII:
+        on_disc |= r == rad
+    if on_disc.any():
+        below = np.where(on_disc, interpolant(r - buffer), below)
+        above = np.where(on_disc, interpolant(r + buffer), above)
+    return np.stack([below, above], axis=1)

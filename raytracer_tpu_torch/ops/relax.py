@@ -21,7 +21,10 @@ them):
      LAST in table order, as the JAX package's `.at[].set` does on the
      CPU (tests/test_torch_bfm.py pins the rule against it), and so does
      `init_state`'s twin pre-pointing;
-  3. frontier: the improved nodes and their neighbours.
+  3. frontier: the improved nodes and their neighbours, ANDed with the
+     level mask when one is given (the JAX package's `_masked_step` of
+     solvers/multiphase.py: the reference's level-masked `_update_Q!`,
+     src/SSSP/bfm_new_ms.jl:152-168); relaxation itself stays unmasked.
 The state also carries `live`, 1 while the frontier is not empty, and a
 step with `live` 0 or `it` at `max_iters` changes nothing, so a loop may
 read the host only every few steps and still count the JAX package's
@@ -174,10 +177,25 @@ def _steps(state: BFMState, max_iters: Optional[int]) -> bool:
     return bool(live) and it < cap
 
 
+def _check_mask(mask: Optional[torch.Tensor], g: DeviceGraph):
+    if mask is None:
+        return
+    n_pad = g.nbr.shape[0]
+    if mask.dtype != torch.bool or tuple(mask.shape) != (n_pad,) \
+            or mask.device != g.nbr.device:
+        raise ValueError(f"mask must be a ({n_pad},) bool tensor on "
+                         f"{g.nbr.device}, got {tuple(mask.shape)} "
+                         f"{mask.dtype} on {mask.device}")
+
+
 def bfm_step_reference(state: BFMState, g: DeviceGraph,
-                       max_iters: Optional[int] = None) -> BFMState:
+                       max_iters: Optional[int] = None,
+                       mask: Optional[torch.Tensor] = None) -> BFMState:
     """One full BFM iteration, plain torch: relax the frontier, halo merge,
-    rebuild the frontier (the JAX package's `bfm_step`)."""
+    rebuild the frontier (the JAX package's `bfm_step`); with `mask`
+    ((n_pad,) bool) the new frontier keeps only the masked rows (the JAX
+    package's `_masked_step`), and so does `live`."""
+    _check_mask(mask, g)
     if not _steps(state, max_iters):
         return state
     (dist0, prev, Q), one = _batched(state)
@@ -193,6 +211,8 @@ def bfm_step_reference(state: BFMState, g: DeviceGraph,
     K = g.nbr.shape[1]
     Q_new = improved | improved.index_select(1, g.nbr.reshape(-1)).view(
         S, n_pad, K).any(dim=2)
+    if mask is not None:
+        Q_new = Q_new & mask
     live = Q_new.any().to(torch.int32)
     if one:
         dist, prev, Q_new = dist[0], prev[0], Q_new[0]
@@ -205,17 +225,21 @@ def _ell_bfm_lib() -> ctypes.CDLL:
     fn = lib.ell_bfm_step_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
     return lib
 
 
 def bfm_step(state: BFMState, g: DeviceGraph,
-             max_iters: Optional[int] = None) -> BFMState:
+             max_iters: Optional[int] = None,
+             mask: Optional[torch.Tensor] = None) -> BFMState:
     """One BFM iteration of `state` (fields (n_pad,) or (S, n_pad)) on the
     graph `g`; returns a new state, the input untouched.  A state whose
     frontier is empty, or whose `it` has reached `max_iters`, comes back
-    unchanged (a copy on the card).
+    unchanged (a copy on the card).  `mask` ((n_pad,) bool, optional) is
+    the level mask of the staged solves: the new frontier, and `live`,
+    keep only its rows (in the kernel, so a loop that reads `live` every
+    few steps stops where the JAX package's masked loop stops).
 
     A CUDA state (float32 or float64) goes to the hand-written kernel
     `csrc/ell_bfm.cu`: two launches, the relaxation with the halo merge
@@ -229,10 +253,11 @@ def bfm_step(state: BFMState, g: DeviceGraph,
         raise ValueError(f"state ({d.device}, {d.dtype}) and graph "
                          f"({g.w.device}, {g.w.dtype}) differ")
     if d.device.type == "cpu":
-        return bfm_step_reference(state, g, max_iters)
+        return bfm_step_reference(state, g, max_iters, mask)
     if d.device.type != "cuda":
         raise ValueError(f"bfm_step runs on cuda or cpu, not {d.device}")
     kernels.require_float("ell_bfm", d.dtype)
+    _check_mask(mask, g)
     (dist0, prev0, front0), one = _batched(state)
     S, n_pad = dist0.shape
     if g.nbr.shape[0] != n_pad or prev0.dtype != torch.int32:
@@ -254,6 +279,7 @@ def bfm_step(state: BFMState, g: DeviceGraph,
         dist0.data_ptr(), prev0.data_ptr(), front0.data_ptr(),
         g.nbr.data_ptr(), g.w.data_ptr(), g.deg.data_ptr(),
         g.didx.data_ptr(), g.hoff.data_ptr(), g.hsrc.data_ptr(),
+        None if mask is None else mask.contiguous().data_ptr(),
         it_in.data_ptr(), live_in.data_ptr(), dist1.data_ptr(),
         prev1.data_ptr(), improved.data_ptr(), front1.data_ptr(),
         it_out.data_ptr(), live_out.data_ptr(), S, n_pad, g.nbr.shape[1],
@@ -271,12 +297,15 @@ def bfm_step(state: BFMState, g: DeviceGraph,
 bfm_step.launches = 0
 
 
-def init_state(g: DeviceGraph, source, dtype) -> BFMState:
+def init_state(g: DeviceGraph, source, dtype,
+               mask: Optional[torch.Tensor] = None) -> BFMState:
     """Initial distances, frontier and predecessors: +inf but 0 at the
     source, the frontier the source's neighbourhood (incl. itself), the
     halo twins pre-pointing at each other (the last row of a destination
     in table order wins).  `source` an int gives (n_pad,) fields, a
-    sequence of S ints (S, n_pad) ones."""
+    sequence of S ints (S, n_pad) ones.  With a level `mask` ((n_pad,)
+    bool) the frontier, and `live`, keep only its rows."""
+    _check_mask(mask, g)
     dev = g.nbr.device
     dtype = getattr(torch, np.dtype(dtype).name)
     one = np.ndim(source) == 0
@@ -294,6 +323,8 @@ def init_state(g: DeviceGraph, source, dtype) -> BFMState:
     front = torch.zeros((S, n_pad), dtype=torch.bool, device=dev)
     front[rows[:, None], g.nbr[src].long()] = True
     front[rows, src] = True
+    if mask is not None:
+        front = front & mask
     live = front.any().to(torch.int32)
     it = torch.zeros((), dtype=torch.int32, device=dev)
     if one:

@@ -26,8 +26,15 @@ the looser tolerance max(tol, 0.05) s; the finest always runs to `tol`.
 The iteration count adds up over all levels.
 
 Host tables are NumPy, copies of the JAX package's, and become tensors
-once per device.  The staged solves (`masked_stream_tables`,
-`solve_stream_staged`) are not ported yet (ROADMAP A.7).
+once per device.
+
+STAGED SOLVES (`masked_stream_tables`, `StageSpec`,
+`solve_stream_staged`): stages run one after another from one field,
+each a level loop whose updates are gated to the stage's slots (`sel`,
+after every sub-stage) on destination-masked chain and fan tables, plus
+the unmasked twin min-merge of the halo (`halo_map`); the reference's
+multi-stage and multiphase sweeps and the named phases
+(solvers/multiphase.py, solvers/phases.py) build their stages.
 """
 from __future__ import annotations
 
@@ -348,13 +355,57 @@ class StreamState(NamedTuple):
     it: int
 
 
+def _twin_merge(v, dist0, halo_map):
+    """The reference's twin min-merge (src/SSSP/bfm.jl:54-62), unmasked:
+    each slot takes the least of its K partner slots' values
+    (halo_map (K, ML), identity where a slot has no k-th twin) that
+    improved on `dist0`, the field at the start of the round or
+    iteration, so stale values do not spill across a stage reset."""
+    pv = v[:, :, halo_map]                              # (S, nt, K, ML)
+    improved = pv < dist0[:, :, halo_map]
+    pv = torch.where(improved, pv, torch.tensor(float("inf"),
+                                                dtype=v.dtype,
+                                                device=v.device))
+    return torch.minimum(v, pv.amin(dim=2))
+
+
+def _is_on(a, device: torch.device) -> bool:
+    """Whether `a` is a tensor on `device` (an index-free device matches
+    any index of its type)."""
+    return torch.is_tensor(a) and a.device.type == device.type and (
+        device.index is None or a.device.index == device.index)
+
+
+def _on(a, device: torch.device, dtype=None):
+    """`a` as a tensor on `device` (a tensor already there is kept)."""
+    if _is_on(a, device):
+        return a
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+
 def _run_level(dist0, cen0, it0: int, tbl: StreamTables, st: LevelStatic,
-               tol, max_iters: int) -> StreamState:
+               tol, max_iters: int, sel=None, halo_map=None) -> StreamState:
     """One level's iterations from an explicit initial field, until no
     distance improves by more than `tol` (read once per iteration) or
-    the iteration count reaches `max_iters`."""
+    the iteration count reaches `max_iters`.
+
+    `sel` (optional (ML,) bool tensor): slots allowed to UPDATE - the
+    dense-field equivalent of the reference's level-masked frontier
+    (src/SSSP/bfm_new_ms.jl:152-168): masked slots keep their value but
+    remain readable by in-level relaxations, so the select is applied
+    after every sub-stage (ring, chain, band, fan: a later sub-stage
+    reads the masked slot's old value, not a discarded candidate).  The
+    chain window costs are built destination-masked
+    (`masked_stream_tables`), which under window doubling forbids
+    out-of-level intermediate slots while the first hop may read an
+    out-of-level source.  `halo_map` ((K, ML) int64 tensor, optional):
+    the twin min-merge (`_twin_merge`) after the band, exempt from
+    `sel`, gated by improvement against the iteration's start field."""
     Mp, ML, nt, maxdm, chain_spans, TB = st
     wrows, rf, rb, cfp, cbp, fan = tbl
+
+    def gate(v_new, v_old):
+        return v_new if sel is None else torch.where(sel, v_new, v_old)
 
     def ring_scan(v):
         s = 1
@@ -378,9 +429,13 @@ def _run_level(dist0, cen0, it0: int, tbl: StreamTables, st: LevelStatic,
     v, cen, it, changed = dist0, cen0, it0, True
     while changed and it < max_iters:
         v_old, cen_old = v, cen
-        v = band(chain_scan(ring_scan(v)), wrows, maxdm)
+        v = gate(ring_scan(v), v)
+        v = gate(chain_scan(v), v)
+        v = gate(band(v, wrows, maxdm), v)
+        if halo_map is not None:
+            v = _twin_merge(v, v_old, halo_map)
         cen = torch.minimum(cen, (v + fan).amin(dim=(1, 2)))
-        v = torch.minimum(v, cen[:, None, None] + fan)
+        v = gate(torch.minimum(v, cen[:, None, None] + fan), v)
         changed = bool(((v < v_old - tol).any()
                         | (cen < cen_old - tol).any()).item())
         it += 1
@@ -433,6 +488,155 @@ def _solve_stream(src_m, src_c, src_cen, tbls, tol, tol_coarse,
         st = _run_level(fine0, st.cen, st.it, tbls[lv], statics[lv],
                         tol if lv == 0 else tol_coarse, max_iters)
     return st
+
+
+def masked_stream_tables(ws: TWStencil, slot_mask: np.ndarray,
+                         cen_on: bool, dtype) -> StreamTables:
+    """Per-stage host tables for a level-masked solve (the ms/multiphase
+    family).  slot_mask: (Mp,) bool - slots whose nodes belong to the
+    stage's active partition level (level labels depend only on radius,
+    and radius is constant along a slot, so the node-level mask IS a
+    per-slot lane mask).
+
+    Chain window costs are rebuilt from the destination-masked per-hop
+    cost: window doubling then forbids out-of-level intermediates while
+    the first hop may still read an out-of-level source (reference pull
+    semantics).  The fan row goes all-+inf when the centre is outside
+    the level.  Ring and band tables are the parent stencil's (their
+    candidates are destination-gated in `_run_level`), so a stage's band
+    sweep is the same `band` kernel on the same weight rows.
+
+    The parent stencil must be packed with band_closure=0: closed band
+    entries are 2-hop compositions whose intermediate slot is not
+    mask-checked.
+    """
+    Mp, ML = ws.Mp, ws.ML
+    lane_mask = np.zeros(ML, dtype=bool)
+    lane_mask[:Mp] = slot_mask[:Mp]
+    chain_f = np.where(lane_mask, np.asarray(ws.cfl[0, 0], np.float64),
+                       np.inf)
+    chain_b = np.where(lane_mask, np.asarray(ws.cbl[0, 0], np.float64),
+                       np.inf)
+    spans = _pow_spans(Mp)
+    cfp = _window_costs(chain_f, spans)
+    cbp = _window_costs(chain_b[::-1], spans)[:, ::-1]
+    fan = ws.fan_w if cen_on else np.full_like(ws.fan_w, np.inf)
+    return StreamTables(
+        wrows=np.asarray(ws.wrows), ring_f=np.asarray(ws.ring_f),
+        ring_b=np.asarray(ws.ring_b),
+        cfp=np.ascontiguousarray(cfp.astype(dtype)),
+        cbp=np.ascontiguousarray(cbp.astype(dtype)),
+        fan_w=np.asarray(fan))
+
+
+class StageSpec(NamedTuple):
+    """One stage of a staged (multi-level) solve.
+
+    tables    : stage tables (typically from masked_stream_tables; may
+                carry stage-specific weights, e.g. multiphase boundary
+                velocity swaps); NumPy arrays or tensors on the solve's
+                device (`stage_to_device`)
+    static    : LevelStatic (same nt/Mp/ML across stages)
+    sel_mask  : (ML,) bool - slots allowed to update
+    reset_keep: None, or (ML,) bool: before the stage, slots NOT in it
+                reset to +inf (the ms boundary restart)
+    cen_keep  : centre value survives the reset
+    halo_map  : (K, ML) int partner-slot maps for the unmasked twin
+                min-merge (halo_map[k, m] = m where no k-th twin); None
+                = no halo
+    """
+
+    tables: StreamTables
+    static: LevelStatic
+    sel_mask: object
+    reset_keep: object = None
+    cen_keep: bool = True
+    halo_map: object = None
+
+
+def _restart_to_device(stage, device: torch.device) -> dict:
+    """The restart and twin-map fields of a stage of either staged
+    engine as tensors on `device`."""
+    return dict(reset_keep=(None if stage.reset_keep is None
+                            else _on(stage.reset_keep, device, torch.bool)),
+                cen_keep=bool(stage.cen_keep),
+                halo_map=(None if stage.halo_map is None
+                          else _on(stage.halo_map, device, torch.int64)))
+
+
+def stage_to_device(stage: StageSpec, device) -> StageSpec:
+    """The stage with its tables, masks and maps as tensors on `device`
+    (a stage kept across solves is uploaded once)."""
+    device = torch.device(device)
+    return stage._replace(
+        tables=StreamTables(*(_on(a, device) for a in stage.tables)),
+        sel_mask=_on(stage.sel_mask, device, torch.bool),
+        **_restart_to_device(stage, device))
+
+
+def _solve_stream_staged(src_m, src_c, src_cen, stages, tol,
+                         max_iters: int) -> StreamState:
+    """Sequential level-masked stages from (S,) source descriptors; `it`
+    carries across stages and `max_iters` caps the total."""
+    wrows0 = stages[0].tables.wrows
+    dev, dtype = wrows0.device, wrows0.dtype
+    nt, ML = stages[0].static.nt, stages[0].static.ML
+    S = len(src_m)
+    inf = float("inf")
+    dist = torch.full((S, nt, ML), inf, dtype=dtype, device=dev)
+    cen = torch.full((S,), inf, dtype=dtype, device=dev)
+    for b in range(S):
+        if src_cen[b]:
+            cen[b] = 0.0
+        else:
+            dist[b, int(src_c[b]), int(src_m[b])] = 0.0
+    st = StreamState(dist, cen, True, 0)
+    for sp in stages:
+        dist, cen = st.dist, st.cen
+        if sp.reset_keep is not None:
+            dist = torch.where(sp.reset_keep, dist,
+                               torch.tensor(inf, dtype=dtype, device=dev))
+            if not sp.cen_keep:
+                cen = torch.full_like(cen, inf)
+        st = _run_level(dist, cen, st.it, sp.tables, sp.static, tol,
+                        max_iters, sel=sp.sel_mask, halo_map=sp.halo_map)
+    return st
+
+
+def solve_stream_staged(
+    cg: CirculantGraph,
+    ws_stages,
+    stages,
+    sources,
+    config: SolverConfig = DEFAULT_SOLVER_CONFIG,
+    batch: int = 1,
+    receivers=None,
+    device="cuda",
+) -> Tuple[np.ndarray, int]:
+    """Run StageSpec stages one after another on `device` (the circulant
+    fast path of the reference's bfm_ms / bfm_multiphase layer sweeps).
+    `ws_stages` is the stencil whose dcache holds the extraction arrays
+    (stage 0's).  Returns ((n_sources, n_out) host array, iterations
+    summed over the stages)."""
+    device = resolve_device(device)
+    dtype = np.dtype(config.dtype)
+    stages = [stage_to_device(sp, device) for sp in stages]
+    sources = np.atleast_1d(np.asarray(sources, dtype=np.int64))
+    cmap = cg.cmap
+    S = max(1, min(batch, len(sources)))
+    tol = torch.tensor(config.tol_value(), dtype=stages[0].tables.wrows.dtype,
+                       device=device)
+    n_out, ext = _extract_cached(ws_stages.dcache, cmap, receivers, device)
+
+    def dispatch(chunk):
+        is_cen = chunk == cmap.center
+        src_m = np.where(is_cen, 0, cmap.m_of[chunk])
+        src_c = np.where(is_cen, 0, cmap.c_of[chunk])
+        st = _solve_stream_staged(src_m, src_c, is_cen, stages, tol,
+                                  config.max_iters)
+        return _textract(st.dist, st.cen, st.it, *ext)
+
+    return _pipelined_chunk_solve(sources, S, n_out, dtype, dispatch)
 
 
 def auto_warm_levels(nt: int) -> int:

@@ -23,6 +23,12 @@ Host table building (`pack_sweep_tables`, `pack_rsweep_tables`) stays
 NumPy, a copy of the JAX package's; the tables become tensors once, on
 the solver's device (`tables_to_device`).
 
+The staged solve (`SweepStageSpec`, `solve_sweep_staged`) runs stages
+one after another on destination-masked tables (`slot_mask`, `cen_on`),
+each stage's rounds the same as above plus the unmasked twin min-merge
+after the seamfix; solvers/multiphase.py and solvers/phases.py build
+its stages.
+
 Exactness: every candidate is a real path cost (single stencil edges and
 min-plus window compositions of them), so iterates decrease monotonically
 and are bounded below by the true distances; the radial kernels are
@@ -45,7 +51,8 @@ from .circulant import CirculantGraph, _DC_RANGE, resolve_device
 from .diag_circulant import LANES, SUB, _round_up, decompose_diagonals
 from .diag_wrapped import (_extract_cached, _pipelined_chunk_solve,
                            _window_costs)
-from .stream_t import _pow_spans
+from .stream_t import (_is_on, _on, _pow_spans, _restart_to_device,
+                       _twin_merge)
 from .wrapped_t import TWStencil, _textract, pack_twrapped_stencil
 
 
@@ -162,24 +169,41 @@ def _hclosure_tables(dec, nt: int, ML: int, cap: int = _H_CAP, wmat=None):
     return levels, tuple(spans)
 
 
-def pack_sweep_tables(ws: TWStencil, cg: CirculantGraph,
-                      dtype) -> Tuple[SweepTables, SweepStatic]:
+def _masked_wmat(dec, slot_mask):
+    """The decomposition's weight rows, +inf at the destination slots
+    outside `slot_mask` ((Mp,) bool; None keeps every slot)."""
+    if slot_mask is None:
+        return dec.wmat
+    return np.where(np.asarray(slot_mask)[None, : dec.Mp], dec.wmat, np.inf)
+
+
+def pack_sweep_tables(ws: TWStencil, cg: CirculantGraph, dtype,
+                      slot_mask=None,
+                      cen_on: bool = True) -> Tuple[SweepTables, SweepStatic]:
     """Per-dc grouped diagonal rows (cached in the stencil's dcache).
 
     `ws` must be packed with band_closure=0: the groups are rebuilt from
     the raw decomposition and must describe the same graph as the chain
-    window costs taken from the shared stream tables.  (The JAX
-    package's destination-masked stage tables, `slot_mask`/`cen_on`,
-    belong to the staged solvers, which are not ported yet.)
+    window costs taken from the shared stream tables.
+
+    `slot_mask` ((Mp,) bool, optional) builds DESTINATION-MASKED stage
+    tables for the staged solves (solvers/multiphase.py,
+    solvers/phases.py): masked slots never improve (every cost row is
+    +inf at their lanes) but stay readable, the reference's masked
+    relaxation.  All compositions (chain windows, ring powers, closure
+    windows) inherit the mask at every intermediate hop because each
+    hop's destination row is masked at the seed.  `cen_on=False`
+    additionally cuts both fan directions.  Masked tables are not cached
+    (each stage owns its own).
     """
     key = "sweep_tables"
-    if key in ws.dcache:
+    if slot_mask is None and key in ws.dcache:
         return ws.dcache[key]
     dec = decompose_diagonals(cg)
     if dec.Mp != ws.Mp:
         raise ValueError(f"stencil has Mp={ws.Mp}, graph {dec.Mp}")
     ML = ws.ML
-    wmat = dec.wmat
+    wmat = _masked_wmat(dec, slot_mask)
     wg, dms = [], []
     for dc in range(-_DC_RANGE, _DC_RANGE + 1):
         sel = np.flatnonzero(dec.dcs == dc)
@@ -213,7 +237,9 @@ def pack_sweep_tables(ws: TWStencil, cg: CirculantGraph,
             out[: dec.Mp] = wmat[hit[0]]
         return out.astype(dtype)
 
-    # chain window costs from the dm=+-1, dc=0 hops
+    # chain window costs from the (possibly masked) dm=+-1, dc=0 hops;
+    # window doubling then forbids out-of-level intermediates while the
+    # first hop may still read an out-of-level source
     def _chain_vec(dm0):
         hit = np.flatnonzero((dec.dms == dm0) & (dec.dcs == 0))
         out = np.full(ML, np.inf)
@@ -230,14 +256,22 @@ def pack_sweep_tables(ws: TWStencil, cg: CirculantGraph,
     cbp = _window_costs(chain_b[::-1], spans)[:, ::-1]
 
     fan = np.asarray(ws.fan_w[0], np.float64)
+    fan_out = fan.copy()
+    if slot_mask is not None:
+        lane_ok = np.zeros(ML, dtype=bool)
+        lane_ok[: dec.Mp] = np.asarray(slot_mask)[: dec.Mp]
+        fan_out = np.where(lane_ok, fan_out, np.inf)
+    if not cen_on:
+        fan_out = np.full_like(fan_out, np.inf)
+    fan_in = fan if cen_on else np.full_like(fan, np.inf)
 
     wh_np, h_spans = _hclosure_tables(dec, ws.nt, ML, wmat=wmat)
     tables = SweepTables(
         wg=tuple(wg),
         cfp=cfp.astype(dtype),
         cbp=cbp.astype(dtype),
-        fan_w=fan.astype(dtype),
-        fan_in=fan.astype(dtype),
+        fan_w=fan_out.astype(dtype),
+        fan_in=fan_in.astype(dtype),
         wr_dn=wr_dn, wr_up=wr_up,
         ring_f=_dm0_vec(-1), ring_b=_dm0_vec(+1),
         ring2_f=_dm0_vec(-2), ring2_b=_dm0_vec(+2),
@@ -247,7 +281,8 @@ def pack_sweep_tables(ws: TWStencil, cg: CirculantGraph,
                          chain_spans=spans,
                          taps_dn=taps_dn, taps_up=taps_up,
                          h_cap=_H_CAP, h_spans=h_spans)
-    ws.dcache[key] = (tables, static)
+    if slot_mask is None:
+        ws.dcache[key] = (tables, static)
     return tables, static
 
 
@@ -289,16 +324,18 @@ _RSWEEP_SINGLE_BYTES = 52 * 1024 * 1024
 _RSWEEP_WINDOW_BYTES = 24 * 1024 * 1024
 
 
-def pack_rsweep_tables(ws: TWStencil, cg: CirculantGraph, dtype):
+def pack_rsweep_tables(ws: TWStencil, cg: CirculantGraph, dtype,
+                       slot_mask=None):
     """Weight tables for the radial sweeps, cached in dcache.
 
     wtab_dn: (MT + K8, Ddn) - row = BUFFER row of the down sweep (field
     rows first, +inf pad rows above), lane = tap.  wtab_up mirrors with
     the pad rows BELOW (field rows at [K8, K8+MT)).  +inf entries make
-    out-of-range taps no-ops.
+    out-of-range taps no-ops.  `slot_mask` destination-masks the weight
+    rows for staged solves (masked stage tables are not cached).
     """
     key = "rsweep_tables"
-    if key in ws.dcache:
+    if slot_mask is None and key in ws.dcache:
         return ws.dcache[key]
     dec = decompose_diagonals(cg)
     Mp = dec.Mp
@@ -317,7 +354,7 @@ def pack_rsweep_tables(ws: TWStencil, cg: CirculantGraph, dtype):
         nb = max(2, -(-full_bytes // _RSWEEP_WINDOW_BYTES))
         NTB = _round_up(-(-NTL // nb), LANES)
         NTL = NTB * (-(-NTL // NTB))
-    wmat = dec.wmat
+    wmat = _masked_wmat(dec, slot_mask)
 
     def _pack(sign):
         sel = np.flatnonzero(np.sign(dec.dms) == sign)
@@ -338,11 +375,9 @@ def pack_rsweep_tables(ws: TWStencil, cg: CirculantGraph, dtype):
     static = RSweepStatic(MT=MT, K8=K8, NTL=NTL, NTB=NTB, taps_dn=taps_dn,
                           taps_up=taps_up, Ddn=Ddn, Dup=Dup)
     out = ((wtab_dn, wtab_up), static)
-    ws.dcache[key] = out
+    if slot_mask is None:
+        ws.dcache[key] = out
     return out
-
-
-
 
 # ----------------------------------------------------------------------
 # device tables
@@ -828,9 +863,13 @@ def _from_T(buf, rst: RSweepStatic, nt: int, ML: int, upward: bool):
 
 def _run_sweep_rounds(dist0, cen0, it0: int, tbl: SweepTables, wtab_dn,
                       wtab_up, tol, static: SweepStatic, rst: RSweepStatic,
-                      max_iters: int) -> SweepState:
+                      max_iters: int, halo_map=None) -> SweepState:
     """Rounds from an explicit initial field until no distance improves
-    by more than `tol` (read once per round) or `max_iters` rounds."""
+    by more than `tol` (read once per round) or `max_iters` rounds.
+
+    `halo_map` ((K, ML) int64 tensor, optional): the staged solves' twin
+    min-merge (`_twin_merge`), once per round after the seamfix,
+    improvement-gated against the round-start field."""
     nt, ML = static.nt, static.ML
     fan, fan_in = tbl.fan_w, tbl.fan_in
     plan = _seam_plan(tbl, static, rst, dist0.device)
@@ -846,6 +885,8 @@ def _run_sweep_rounds(dist0, cen0, it0: int, tbl: SweepTables, wtab_dn,
                     rst, nt, ML, True)
         v = _hscan(_ring_chain(v, tbl, static), tbl, static)
         v = _seamfix(v, tbl, static, plan)
+        if halo_map is not None:
+            v = _twin_merge(v, v0, halo_map)
         changed = bool(((v < v0 - tol).any()
                         | (cen < cen0 - tol).any()).item())
         it += 1
@@ -932,3 +973,116 @@ def solve_circulant_sweep(
 
     return _pipelined_chunk_solve(sources, S, n_out, dtype, dispatch,
                                   device_out=device_out)
+
+
+# ----------------------------------------------------------------------
+# the staged solve (the reference's multi-stage and multiphase sweeps)
+# ----------------------------------------------------------------------
+
+
+class SweepStageSpec(NamedTuple):
+    """One stage of a staged (multi-level) directional-sweep solve.
+
+    tables/wtab_dn/wtab_up: destination-masked stage tables from
+        pack_sweep_tables / pack_rsweep_tables with slot_mask set (may
+        also carry stage-specific weights, e.g. multiphase boundary
+        velocity swaps); NumPy arrays or tensors on the solve's device
+        (`sweep_stage_to_device`: a stage kept across solves uploads and
+        plans its rsweep tables once)
+    reset_keep: None, or (ML,) bool: before the stage, slots NOT in it
+        reset to +inf (the ms boundary restart)
+    cen_keep  : centre value survives the reset
+    halo_map  : (K, ML) int partner-slot maps for the unmasked twin
+        min-merge (identity-padded); None = no halo
+    """
+
+    tables: SweepTables
+    wtab_dn: object
+    wtab_up: object
+    reset_keep: object = None
+    cen_keep: bool = True
+    halo_map: object = None
+
+
+def sweep_stage_to_device(stage: SweepStageSpec, device) -> SweepStageSpec:
+    """The stage with its tables, masks and maps as tensors on `device`
+    (the rsweep kernel's plan of a table is packed at its first launch
+    and kept on the tensor, `_kernel_tables`)."""
+    device = torch.device(device)
+    tbl = stage.tables
+    if not _is_on(tbl.cfp, device):
+        tbl = tables_to_device(tbl, device)
+    return stage._replace(
+        tables=tbl, wtab_dn=_on(stage.wtab_dn, device),
+        wtab_up=_on(stage.wtab_up, device),
+        **_restart_to_device(stage, device))
+
+
+def _solve_sweep_staged(src_m, src_c, src_cen, stages, tol,
+                        static: SweepStatic, rst: RSweepStatic,
+                        max_iters: int) -> SweepState:
+    """Sequential level-masked sweep stages from (S,) source descriptors;
+    `it` carries across stages and `max_iters` caps the total."""
+    wdn0 = stages[0].wtab_dn
+    dev, dtype = wdn0.device, wdn0.dtype
+    S = len(src_m)
+    inf = float("inf")
+    dist = torch.full((S, static.nt, static.ML), inf, dtype=dtype,
+                      device=dev)
+    cen = torch.full((S,), inf, dtype=dtype, device=dev)
+    for b in range(S):
+        if src_cen[b]:
+            cen[b] = 0.0
+        else:
+            dist[b, int(src_c[b]), int(src_m[b])] = 0.0
+    st = SweepState(dist, cen, True, 0)
+    for sp in stages:
+        dist, cen = st.dist, st.cen
+        if sp.reset_keep is not None:
+            dist = torch.where(sp.reset_keep, dist,
+                               torch.tensor(inf, dtype=dtype, device=dev))
+            if not sp.cen_keep:
+                cen = torch.full_like(cen, inf)
+        st = _run_sweep_rounds(dist, cen, st.it, sp.tables, sp.wtab_dn,
+                               sp.wtab_up, tol, static, rst, max_iters,
+                               halo_map=sp.halo_map)
+    return st
+
+
+def solve_sweep_staged(
+    cg: CirculantGraph,
+    ws: TWStencil,
+    stages,
+    sources,
+    config: SolverConfig = DEFAULT_SOLVER_CONFIG,
+    batch: int = 1,
+    receivers=None,
+    device="cuda",
+) -> Tuple[np.ndarray, int]:
+    """Run SweepStageSpec stages one after another on `device` (the
+    circulant fast path of the reference's bfm_ms / bfm_multiphase layer
+    sweeps, ~3-4 rounds a stage).  API mirrors
+    ops/stream_t.py::solve_stream_staged; `ws` is the (closure-free)
+    stencil whose dcache holds the extraction arrays.  Returns
+    ((n_sources, n_out) host array, rounds summed over the stages)."""
+    device = resolve_device(device)
+    dtype = np.dtype(config.dtype)
+    _, static = pack_sweep_tables(ws, cg, dtype)
+    _, rst = pack_rsweep_tables(ws, cg, dtype)
+    stages = [sweep_stage_to_device(sp, device) for sp in stages]
+    sources = np.atleast_1d(np.asarray(sources, dtype=np.int64))
+    cmap = cg.cmap
+    S = max(1, min(batch, len(sources)))
+    tol = torch.tensor(config.tol_value(), dtype=stages[0].wtab_dn.dtype,
+                       device=device)
+    n_out, ext = _extract_cached(ws.dcache, cmap, receivers, device)
+
+    def dispatch(chunk):
+        is_cen = chunk == cmap.center
+        src_m = np.where(is_cen, 0, cmap.m_of[chunk])
+        src_c = np.where(is_cen, 0, cmap.c_of[chunk])
+        st = _solve_sweep_staged(src_m, src_c, is_cen, stages, tol, static,
+                                 rst, config.max_iters)
+        return _textract(st.dist, st.cen, st.it, *ext)
+
+    return _pipelined_chunk_solve(sources, S, n_out, dtype, dispatch)

@@ -56,12 +56,14 @@ def prepare(
     return device_graph(ell.nbr, w, hsrc, hdst, ell.n, dev)
 
 
-def _run(g: DeviceGraph, state: BFMState, max_iters: int) -> BFMState:
-    """Steps until the frontier empties or `it` reaches max_iters."""
+def _run(g: DeviceGraph, state: BFMState, max_iters: int,
+         mask=None) -> BFMState:
+    """Steps until the frontier empties or `it` reaches max_iters; with a
+    level `mask` the frontier keeps only its rows (`ops/relax.bfm_step`)."""
     check = CHECK_EVERY if g.w.device.type == "cuda" else 1
     while True:
         for _ in range(check):
-            state = bfm_step(state, g, max_iters)
+            state = bfm_step(state, g, max_iters, mask)
         live, it = torch.stack([state.live, state.it]).tolist()
         if not live or it >= max_iters:
             return state

@@ -256,3 +256,41 @@ def test_closest_point():
             assert (pt.closest_point(gr, np.deg2rad(deg), rad, system="polar")
                     == rt.closest_point(jgr, np.deg2rad(deg), rad,
                                         system="polar"))
+
+
+def test_partition_and_level_masks(both):
+    """The copied radial partition (models/partition) labels every node
+    as the JAX package's does, with the same level iterator and masks,
+    on the circulant grids and on a full mesh with its twins."""
+    from raytracer_tpu.models import partition as jpart
+    from raytracer_tpu_torch.models import partition as ppart
+
+    (jgr, _, _), (pgr, _, _), _, _ = both
+    grids = [(jgr, pgr), (rt.init_annulus(16, 6, spacing=200.0)[0],
+                          pt.init_annulus(16, 6, spacing=200.0)[0])]
+    for jg, pg in grids:
+        jp, pp = jpart.partition_grid(jg), ppart.partition_grid(pg)
+        assert jp.id.dtype == pp.id.dtype and list(jp.id) == list(pp.id)
+        for k in ("layer_of", "boundary_of"):
+            _same(getattr(jp, k), getattr(pp, k), k)
+        for k in ("rboundaries", "layers", "boundaries", "nlayers",
+                  "nboundaries", "iterator"):
+            assert getattr(jp, k) == getattr(pp, k), k
+        for level in range(1, 2 * pp.nlayers):
+            _same(jpart.level_mask(jp, level), ppart.level_mask(pp, level),
+                  f"level {level}")
+    for r in (pt.R - 5.0, pt.R - 27.0, 5000.0, 1000.0):
+        assert ppart.find_layer_number(r) == jpart.find_layer_number(r)
+    with pytest.raises(ValueError):
+        ppart.find_layer_number(pt.config.DISCONTINUITY_RADII[2])
+    assert pt.partition_grid is ppart.partition_grid
+
+
+def test_dual_velocity():
+    r = np.concatenate([np.linspace(0.0, 6371.0, 501),
+                        np.asarray(rt.DISCONTINUITY_RADII)])
+    prof = pt.velocity_profile("ak135")
+    for wave in ("Vp", "Vs"):
+        ji = rt.LinearInterpolation(prof.r, getattr(prof, wave))
+        pi = pt.LinearInterpolation(prof.r, getattr(prof, wave))
+        _same(rt.dual_velocity(r, ji), pt.dual_velocity(r, pi), wave)

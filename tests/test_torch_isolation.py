@@ -114,6 +114,17 @@ _REFUSING_RUN = textwrap.dedent("""
                                           device="cpu").dist).all()
     bg = pt.prepare_banded(dA, nohalo, dg, dU, device="cpu")
     assert np.isfinite(pt.solve_banded_gs(bg, [5])[0]).all()
+    # the staged solvers: bfm_ms on its three engines, a named phase
+    gt, At, ht = pt.init_annulus(16, 6, spacing=200.0)
+    Ut = pt.interpolate_velocity(gt.r, pt.LinearInterpolation(prof.r,
+                                                              prof.Vp))
+    st = pt.closest_point(gt, 0.0, pt.R, system="polar")
+    assert pt.partition_grid(gt).nlayers == 8
+    for m in ("ell", "stream", "sweep"):
+        assert np.isfinite(pt.bfm_ms(At, ht, st, gt, Ut, method=m,
+                                     device="cpu").dist).sum() > 50
+    assert np.isfinite(pt.phase_travel_times(At, ht, st, gt, Ut, "PcP",
+                                             device="cpu")).sum() > 100
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("ISOLATED", len(names))
@@ -127,7 +138,7 @@ def test_port_imports_and_builds_tables_without_jax(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     n_modules = int(proc.stdout.split("ISOLATED")[1])
-    assert n_modules >= 28
+    assert n_modules >= 31
 
 
 @pytest.mark.parametrize("path", _sources(),
