@@ -23,7 +23,13 @@ and the staged solvers: the reference's multi-stage and multiphase
 sweeps (`bfm_ms`, `bfm_multiphase`) on the level-masked ELL step, the
 staged stream engine and the staged directional sweep, and the named
 phases (`phase_travel_times`: PcP, SKS, PP, pP/sP and the rest) over
-the radial partition (`partition_grid`, `level_mask`).
+the radial partition (`partition_grid`, `level_mask`); and the paths,
+bending refinement and sensitivity kernels: `backtrace_paths` and the
+tomography matrix `sensitivity_matrix` / `sensitivity_coo` (kernel
+`csrc/paths.cu`), the Adam bend of `refine_paths_batch` / `refine_fan`
+(kernel `csrc/bend.cu`), `AnnulusSolver.refined_travel_times`,
+`refined_travel_time_table` and `sensitivity_matrix`, and the 3-D
+`refine3d_travel_times` and `converted3d_refined`.
 Entry points run on the card unless the caller passes `device="cpu"`.
 """
 from .config import DEFAULT_SOLVER_CONFIG, R, SolverConfig
@@ -53,9 +59,16 @@ from .solvers.multiphase import (bfm_ms, bfm_multiphase, boundary_velocity,
                                  directions)
 from .solvers.phases import (depth_phase_travel_times, phase_travel_times,
                              reflected_travel_times)
-from .solvers.path import recontruct_path
-from .solvers.solve3d import (mask_region3d, prepare3d, recover_prev3d,
-                              solve3d, solve3d_converted, solve3d_reflection)
+from .solvers.path import (backtrace_paths, ray_parameters,
+                           reconstruct_path, recontruct_path, takeoff_angle)
+from .solvers.refine import (refine_fan, refine_path, refine_paths_batch,
+                             refraction_inits, resample_path)
+from .solvers.sensitivity import (path_sensitivity, path_sensitivity_dual,
+                                  sensitivity_coo, sensitivity_matrix)
+from .solvers.solve3d import (converted3d_refined, mask_region3d,
+                              prepare3d, recover_prev3d,
+                              refine3d_travel_times, solve3d,
+                              solve3d_converted, solve3d_reflection)
 from .solvers.radius_stepping import radius_stepping
 from .solvers.types import BellmanFordMoore, Dijkstra, RadiusStepping
 from .utils.io import save_solution_npz, travel_times
@@ -81,5 +94,12 @@ __all__ = [
     "dijkstra", "weight_matrix", "weights", "radius_stepping",
     "AnnulusSolver", "recontruct_path", "BellmanFordMoore", "Dijkstra",
     "RadiusStepping",
+    "backtrace_paths", "ray_parameters", "reconstruct_path",
+    "takeoff_angle",
+    "refine_fan", "refine_path", "refine_paths_batch", "refraction_inits",
+    "resample_path",
+    "path_sensitivity", "path_sensitivity_dual", "sensitivity_coo",
+    "sensitivity_matrix",
+    "refine3d_travel_times", "converted3d_refined",
     "save_solution_npz", "travel_times",
 ]

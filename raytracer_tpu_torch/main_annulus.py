@@ -16,6 +16,12 @@ card unless `--device cpu` is given.
     python -m raytracer_tpu_torch.main_annulus --nr 63 --dtype float64
     python -m raytracer_tpu_torch.main_annulus --nr 63 --method ell
     python -m raytracer_tpu_torch.main_annulus --nr 63 --phases PcP,SKS
+    python -m raytracer_tpu_torch.main_annulus --nr 63 --refine
+
+`--refine` adds `<prefix>_travel_times_refined.csv` (header
+`deg,refined_s`): the fan's paths bent to the continuous Fermat minimum
+under the AK135 Vp table (solvers/refine.py, the `bend` kernel on the
+card), in the CLI's `--dtype`.
 
 `--phases` adds `<prefix>_phases.csv`: one first-arrival column per
 named phase over the receiver fan (solvers/phases.py; NaN where the
@@ -59,6 +65,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "ell"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out-prefix", default="annulus_run")
+    ap.add_argument("--refine", action="store_true",
+                    help="bend the receiver-fan paths to the continuous "
+                         "Fermat minimum (solvers/refine.py) and write "
+                         "<prefix>_travel_times_refined.csv")
     ap.add_argument("--phases", default=None,
                     help="comma-separated named phases (PcP,ScS,PP,SKS,"
                          "SKP,PKS,PKP,PKIKP,Pdiff,Sdiff,P,S); writes "
@@ -92,6 +102,23 @@ def write_phases(args, gr, A, halo, source, receivers, degs, cfg):
                delimiter=",", header=",".join(names) + "\n# NaN = phase "
                "has no arrival at that receiver (outside its region or "
                "branch)", comments="")
+
+
+def write_refined(args, gr, paths, degs) -> np.ndarray:
+    """The `--refine` CSV: the fan's SPM polylines bent at the JAX
+    driver's defaults (`refine_paths_batch`: m 128, 800 steps, quad 8,
+    lr 3) under the AK135 Vp table, in the CLI's dtype, on its device;
+    returns the refined times."""
+    from .solvers.refine import refine_paths_batch
+
+    prof = velocity_profile("ak135")
+    pts = [np.stack([gr.x[p], gr.z[p]], axis=1) for p in paths]
+    _, t_ref = refine_paths_batch(pts, prof.r, prof.Vp, dtype=args.dtype,
+                                  device=args.device)
+    np.savetxt(f"{args.out_prefix}_travel_times_refined.csv",
+               np.stack([degs, t_ref], axis=1), delimiter=",",
+               header="deg,refined_s", comments="")
+    return t_ref
 
 
 def main(argv=None):
@@ -144,6 +171,10 @@ def main(argv=None):
         D, gr, receivers, isave=True,
         flname=f"{args.out_prefix}_travel_times.csv"))
     save_solution_npz(f"{args.out_prefix}.npz", D, gr, source, paths)
+    t_ref = None
+    if args.refine:
+        t_ref = section("bending refinement", lambda: write_refined(
+            args, gr, paths, degs))
     if args.phases:
         section("named phases", lambda: write_phases(
             args, gr, A, halo, source, receivers, degs, cfg))
@@ -152,6 +183,9 @@ def main(argv=None):
         print(f"{name:>24s}: {t:.4f} s")
     print(f"travel time at  60 deg: {tt[np.argmin(np.abs(degs - 60.0))]:.3f} s")
     print(f"travel time at 150 deg: {tt[np.argmin(np.abs(degs - 150.0))]:.3f} s")
+    if t_ref is not None:
+        print(f"refined     at  60 deg: "
+              f"{t_ref[np.argmin(np.abs(degs - 60.0))]:.3f} s")
 
 
 if __name__ == "__main__":

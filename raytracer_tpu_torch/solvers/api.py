@@ -354,3 +354,86 @@ class AnnulusSolver:
             out[i:i + len(chunk)] = self._dist_batch(chunk,
                                                      receivers=receivers)
         return out
+
+    def sensitivity_matrix(self, D: BellmanFordMoore, source: int,
+                           receivers: Sequence[int], max_len: int = 0):
+        """(n_rec, n) tomography kernels dt/dU for this solver's grid,
+        velocity and halo (solvers/sensitivity.py), a tensor on the
+        solver's device, from a `solve(source)` result that carries prev.
+        max_len bounds the backtrace depth (0 = 4 (ntheta + nr), or 2048
+        on a grid without them)."""
+        from .sensitivity import sensitivity_matrix
+
+        if max_len <= 0:
+            nt = int(getattr(self.gr, "ntheta", 0) or 0)
+            nr = int(getattr(self.gr, "nr", 0) or 0)
+            max_len = 4 * (nt + nr) if (nt and nr) else 2048
+        return sensitivity_matrix(self.gr, self.U, D.prev, source,
+                                  receivers, max_len, self.halo,
+                                  device=self.device)
+
+    def refined_travel_times(self, source: int,
+                             receivers: Sequence[int],
+                             D: BellmanFordMoore = None,
+                             profile=None,
+                             m: int = 128, iters: int = 800,
+                             lr: float = 3.0, quad: int = 8,
+                             multistart: bool = True,
+                             dtype="float64") -> np.ndarray:
+        """(n_rec,) bending-refined first arrivals (solvers/refine.py):
+        solve (or reuse D with prev), backtrace each receiver on the host
+        (`recontruct_path`), bend the fan on the solver's device (the
+        `bend` kernel on the card); `multistart` also bends
+        refraction-branch candidates for close receivers and keeps the
+        minimum.
+
+        profile: (radii, velocities) radial table for the continuous
+        functional, e.g. the AK135 1-km table; None uses the solver's own
+        sampled (r, U), whose refined time is the Fermat limit of that
+        coarser model.  The bend runs in `dtype` (float64 by default, as
+        solvers/refine.py)."""
+        from .locate import _radial_profile
+        from .path import recontruct_path
+        from .refine import refine_fan
+
+        if D is None:
+            D = self.solve(source, want_prev=True)
+        rs, vs = _radial_profile(profile, self.gr.r, self.U)
+        paths = [recontruct_path(D.prev, source, r) for r in receivers]
+        pts = [np.stack([self.gr.x[p], self.gr.z[p]], axis=1)
+               for p in paths]
+        return refine_fan(pts, rs, vs, m=m, iters=iters, lr=lr,
+                          quad=quad, multistart=multistart, dtype=dtype,
+                          device=self.device)
+
+    def refined_travel_time_table(self, sources: Sequence[int],
+                                  receivers: Sequence[int],
+                                  profile=None, m: int = 384,
+                                  iters: int = 1600, lr: float = 3.0,
+                                  quad: int = 16,
+                                  multistart: bool = True,
+                                  multistart_max_deg: float = 32.0,
+                                  dtype="float64") -> np.ndarray:
+        """(n_sources, n_receivers) bias-free first-arrival table: solve +
+        prev + backtrace per source, then bend the WHOLE table's path fan
+        (n_sources * n_receivers polylines) in batched launches of
+        `refine_paths_batch`.  The defaults are the accuracy-grade
+        bending configuration (m=384, quad=16).  multistart: as
+        `refined_travel_times`, for pairs closer than
+        `multistart_max_deg`."""
+        from .locate import _radial_profile
+        from .path import recontruct_path
+        from .refine import refine_fan
+
+        rs, vs = _radial_profile(profile, self.gr.r, self.U)
+        pts = []
+        for s in sources:
+            D = self.solve(int(s), want_prev=True)
+            for r in receivers:
+                p = recontruct_path(D.prev, int(s), int(r))
+                pts.append(np.stack([self.gr.x[p], self.gr.z[p]], axis=1))
+        t = refine_fan(pts, rs, vs, m=m, iters=iters, lr=lr, quad=quad,
+                       multistart=multistart,
+                       multistart_max_deg=multistart_max_deg, dtype=dtype,
+                       device=self.device)
+        return t.reshape(len(sources), len(receivers))

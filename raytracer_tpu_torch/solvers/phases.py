@@ -73,8 +73,9 @@ def _phase_setup(A, halo, gr, U, k: int, config, _reuse=None,
                  engine: str = "stream", device="cuda"):
     """(cg, ws, down stage, reflected up stage) of the region above
     boundary k, the stages' tables on `device`; kept in `_reuse` under
-    a key with U's fingerprint (and the device)."""
-    key = ("phase_setup", k, engine, _fingerprint(U), str(device))
+    a key with U's fingerprint, the device and the dtype (ROADMAP C.13)."""
+    key = ("phase_setup", k, engine, _fingerprint(U), str(device),
+           np.dtype(config.dtype).name)
     if _reuse is not None and key in _reuse:
         return _reuse[key]
     partition = partition_grid(gr)
@@ -166,17 +167,18 @@ def _converted_setup(A, halo, gr, U_down, U_core, U_up, k, config, engine,
                      device, _reuse):
     """(cg, ws, [down, core, up] stages on `device`) of a converted
     solve, the per-leg packs and the stages kept in `_reuse` (keys with
-    U's fingerprints)."""
+    U's fingerprints and the dtype, ROADMAP C.13)."""
     dtype = np.dtype(config.dtype)
     same_up = U_up is None or U_up is U_down
-    skey = ("conv_stages", k, engine, str(device), _fingerprint(U_down),
-            _fingerprint(U_core), None if same_up else _fingerprint(U_up))
+    skey = ("conv_stages", k, engine, str(device), dtype.name,
+            _fingerprint(U_down), _fingerprint(U_core),
+            None if same_up else _fingerprint(U_up))
     if _reuse is not None and skey in _reuse:
         return _reuse[skey]
     partition = partition_grid(gr)
 
     def _pack(tag, U):
-        key = ("conv_pack", tag, _fingerprint(U))
+        key = ("conv_pack", tag, _fingerprint(U), dtype.name)
         if _reuse is not None and key in _reuse:
             return _reuse[key]
         cg = build_circulant(gr, A, halo, U, dtype=dtype)

@@ -29,6 +29,9 @@ The staged solves run on the sweep engine: `solve3d_reflection` (PcP,
 two stages on `mask_region3d`'s masked weights) and `solve3d_converted`
 (SKS/PKP, three stages seeded on the twin planes of a forced radius);
 `composite_velocity3d` builds the composite model of a converted class.
+`refine3d_travel_times` and `converted3d_refined` bend the recovered
+paths of a solve and of the staged SKS solve (solvers/refine.py, the
+`bend` kernel on the card).
 `recover_prev3d` recovers the predecessor tree from a converged field
 (neighbour argmin, ties to the first shift), `_prev3d_seeded` that of a
 stage field, as plain torch on the device.  Entry points run on the card
@@ -727,3 +730,153 @@ def composite_velocity3d(gr: Grid3D, r_boundary: float,
     above = rr >= r_boundary - 1e-9
     return np.where(above, np.asarray(V_above(rr), np.float64),
                     np.asarray(V_below(rr), np.float64))
+
+
+def refine3d_travel_times(
+    gr: Grid3D,
+    U: np.ndarray,
+    source: int,
+    receivers: Sequence[int],
+    profile_r: np.ndarray,
+    profile_v: np.ndarray,
+    config: SolverConfig = DEFAULT_SOLVER_CONFIG,
+    star: int = 2,
+    m: int = 160,
+    iters: int = 800,
+    lr: float = 3.0,
+    engine: str = "sweep",
+    _packed: Packed3D = None,
+    device="cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Bias-free 3-D first arrivals: star-`star` SPM solve + prev
+    recovery + batched bending refinement (the 2-D cure of
+    solvers/refine.py lifted to the lattice).
+
+    The SPM stage only needs to land the polyline in the right phase
+    class (its angular quantisation bias is then removed by the bend),
+    so star=2 suffices; the bent time is an upper bound of the
+    continuous Fermat minimum of (profile_r, profile_v).  For converted
+    phases pass the composite velocities (`composite_velocity3d`) as both
+    U and the profile.  The solve, the prev recovery and the bend (the
+    `bend` kernel, float64) run on `device`.
+
+    Returns (times, spm_times): the refined and the raw SPM arrival per
+    receiver."""
+    from .path import recontruct_path
+    from .refine import refine_paths_batch
+
+    dev = resolve_device(device)
+    packed = _packed if _packed is not None else prepare3d(
+        gr, U, config, star=star, device=dev)
+    dist, _ = solve3d(gr, U, [source], config, engine=engine,
+                      _packed=packed, device=dev)
+    prev = recover_prev3d(gr, U, dist, [source], config, _packed=packed,
+                          device=dev)[0]
+    receivers = np.asarray(receivers, dtype=np.int64).ravel()
+    spm_t = np.asarray(dist[0])[receivers]
+    paths = [recontruct_path(prev, int(source), int(r_))
+             for r_ in receivers]
+    pts = [np.stack([gr.x[p], gr.y[p], gr.z[p]], axis=1) for p in paths]
+    r_max = float(np.max(gr.r))
+    _, t = refine_paths_batch(pts, profile_r, profile_v, m=m, iters=iters,
+                              lr=lr, r_max=r_max, device=dev)
+    # bending is a descent from the SPM polyline: never worse
+    return np.minimum(np.asarray(t), spm_t), spm_t
+
+
+def converted3d_refined(
+    gr: Grid3D,
+    U_down: np.ndarray,
+    U_core: np.ndarray,
+    source: int,
+    receivers: Sequence[int],
+    r_boundary: float,
+    profile_r: np.ndarray,
+    profile_v_mantle: np.ndarray,
+    profile_v_core: np.ndarray,
+    config: SolverConfig = DEFAULT_SOLVER_CONFIG,
+    star: int = 2,
+    m: int = 192,
+    iters: int = 800,
+    lr: float = 3.0,
+    device="cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Bias-free 3-D converted-phase (SKS-class) first arrivals: staged
+    star-`star` solve + per-stage path recovery + bending under the
+    COMPOSITE radial profile (mantle speed above r_boundary, core speed
+    below - Snell's law at the crossing emerges from the continuous
+    Fermat minimum).
+
+    The initial polyline comes from the STAGED fields (stage prevs via
+    `_prev3d_seeded`, stage handoffs stitched through the twin planes),
+    which pins the phase CLASS; a plain composite-velocity SPM solve
+    would instead find interface-skimming paths whose graph edges mix the
+    two side velocities.  The final stage restarts from the core field's
+    underside plane alone, as the JAX function does (solve3d_converted
+    also keeps stage A's topside times there).
+
+    Returns (refined_times, spm_times) per receiver."""
+    from .path import recontruct_path
+    from .refine import refine_paths_batch
+
+    dev = resolve_device(device)
+    dtype = np.dtype(config.dtype)
+    shifts = shifts_star(star)
+    shp3 = (gr.nnods[2], gr.nnods[1], gr.nnods[0])
+    n0, n1 = gr.nnods[0], gr.nnods[1]
+    r_ax = np.asarray(gr.r_ax)
+    k_top = int(np.argmin(np.abs(r_ax - r_boundary)))
+    k_under = k_top - 1
+
+    keep_top = (gr.r >= r_boundary - 1e-6).reshape(shp3)
+    keep_core = (gr.r <= r_boundary - 1e-6).reshape(shp3)
+    W_dn, sc_dn, lay_dn = _staged_weights(gr, U_down, keep_top, dtype,
+                                          shifts, dev)
+    W_k, sc_k, lay_k = _staged_weights(gr, U_core, keep_core, dtype,
+                                       shifts, dev)
+
+    tol = torch.tensor(config.tol_value(), dtype=W_dn.dtype, device=dev)
+    stA = _solve3d_sweep([int(source)], W_dn, sc_dn, tol, config.max_iters,
+                         (0, 1, 2), shifts, lay_dn)
+    d0K = torch.full_like(stA.dist, float("inf"))
+    d0K[:, k_under] = stA.dist[:, k_top]
+    stK = _solve3d_sweep_init(d0K, W_k, sc_k, tol, config.max_iters,
+                              (0, 1, 2), shifts, lay_k)
+    d0B = torch.full_like(stK.dist, float("inf"))
+    d0B[:, k_top] = stK.dist[:, k_under]
+    stB = _solve3d_sweep_init(d0B, W_dn, sc_dn, tol, config.max_iters,
+                              (0, 1, 2), shifts, lay_dn)
+
+    prevA = _prev3d_seeded(stA.dist[0], W_dn, shifts).cpu().numpy()
+    prevK = _prev3d_seeded(stK.dist[0], W_k, shifts).cpu().numpy()
+    prevB = _prev3d_seeded(stB.dist[0], W_dn, shifts).cpu().numpy()
+    prevA[int(source)] = int(source)
+    dB = stB.dist[0].reshape(-1).cpu().numpy()
+    spm_t = dB[np.asarray(receivers, dtype=np.int64)]
+
+    plane = n0 * n1                      # flat stride of one r-level
+
+    def col_node(node, k):
+        """Node id at r-level k in the same (phi, theta) column."""
+        return int(node) % plane + k * plane
+
+    paths = []
+    for r_ in np.asarray(receivers, dtype=np.int64):
+        pB = recontruct_path(prevB, -1, int(r_))   # walk to its seed
+        pB = pB[:-1] if pB[-1] == -1 else pB       # (sentinel never hit)
+        e_top = int(pB[-1])
+        pK = recontruct_path(prevK, -1, col_node(e_top, k_under))
+        pK = pK[:-1] if pK[-1] == -1 else pK
+        s_under = int(pK[-1])
+        pA = recontruct_path(prevA, int(source), col_node(s_under, k_top))
+        nodes = np.concatenate([pB, pK, pA]).astype(np.int64)
+        paths.append(np.stack([gr.x[nodes], gr.y[nodes], gr.z[nodes]],
+                              axis=1))
+
+    rs = np.asarray(profile_r, np.float64)
+    v_comp = np.where(rs >= r_boundary,
+                      np.asarray(profile_v_mantle, np.float64),
+                      np.asarray(profile_v_core, np.float64))
+    _, t = refine_paths_batch(paths, rs, v_comp, m=m, iters=iters, lr=lr,
+                              r_max=float(np.max(gr.r)), device=dev)
+    return np.asarray(t), spm_t

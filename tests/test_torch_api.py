@@ -587,8 +587,12 @@ def _jax_cli_options() -> dict:
                 and node.func.attr == "add_argument"):
             kw = {k.arg: k.value for k in node.keywords}
             name = node.args[0].value
+            action = (ast.literal_eval(kw["action"]) if "action" in kw
+                      else None)
+            # argparse's implicit defaults of the flag actions
+            implicit = {"store_true": False, "store_false": True}
             opts[name] = (ast.literal_eval(kw["default"]) if "default" in kw
-                          else None,
+                          else implicit.get(action),
                           ast.literal_eval(kw["choices"]) if "choices" in kw
                           else None)
     return opts

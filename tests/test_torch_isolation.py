@@ -125,6 +125,16 @@ _REFUSING_RUN = textwrap.dedent("""
                                      device="cpu").dist).sum() > 50
     assert np.isfinite(pt.phase_travel_times(At, ht, st, gt, Ut, "PcP",
                                              device="cpu")).sum() > 100
+    # paths, bending refinement, sensitivity kernels
+    sv = pt.AnnulusSolver(gt, At, ht, Ut, method="circulant", device="cpu")
+    Dt = sv.solve(st)
+    rt_ = [pt.closest_point(gt, np.deg2rad(d), pt.R, system="polar")
+           for d in (30.0, 90.0)]
+    G = sv.sensitivity_matrix(Dt, st, rt_)
+    assert G.shape == (2, gt.nnods) and bool((G <= 0).all())
+    assert pt.backtrace_paths(Dt.prev, st, rt_, 8, device="cpu").shape == (2, 8)
+    t_ref = sv.refined_travel_times(st, rt_, m=16, iters=5)
+    assert np.all(t_ref <= Dt.dist[rt_])
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("ISOLATED", len(names))
@@ -178,12 +188,13 @@ def test_cuda_sources_include_no_pytorch_headers(path):
 
 
 def test_every_kernel_source_is_in_the_port():
-    """The ported kernels, and the port's own (plane3d, and the generic
-    graphs' ell_bfm and banded), build from the port's own csrc/."""
+    """The ported kernels, and the port's own (plane3d, the generic
+    graphs' ell_bfm and banded, and paths and bend), build from the
+    port's own csrc/."""
     have = set(os.listdir(os.path.join(PKG, "csrc")))
     assert {"rsweep.cu", "titer.cu", "band.cu", "witer.cu",
             "diag.cu", "sweep3d.cu", "relax.cu", "fused.cu", "plane3d.cu",
-            "ell_bfm.cu", "banded.cu"} <= have
+            "ell_bfm.cu", "banded.cu", "paths.cu", "bend.cu"} <= have
 
 
 def test_port_has_its_own_velocity_tables():

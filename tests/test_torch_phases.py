@@ -151,6 +151,25 @@ def test_reuse_keys_carry_the_velocity(mid, pcp_mid):
     assert np.all(scs[surf] > pcp[surf] + 100.0)
 
 
+@pytest.mark.parametrize("phase", ["PcP", "SKS"])
+def test_reuse_keys_carry_the_dtype(mid, phase):
+    """A float32 solve, then a float64 one, through one reuse dict: the
+    float64 call builds its own tables (ROADMAP C.13) and equals a fresh
+    float64 solve."""
+    gr, A, halo, Up, Us, src = mid
+    F64P = PC(dtype="float64")
+    Ustab = Us if phase == "SKS" else None
+    reuse = {}
+    pph.phase_travel_times(A, halo, src, gr, Up, phase, F32P, device="cpu",
+                           Us=Ustab, _reuse=reuse)
+    got = pph.phase_travel_times(A, halo, src, gr, Up, phase, F64P,
+                                 device="cpu", Us=Ustab, _reuse=reuse)
+    fresh = pph.phase_travel_times(A, halo, src, gr, Up, phase, F64P,
+                                   device="cpu", Us=Ustab)
+    assert got.dtype == np.float64
+    np.testing.assert_array_equal(got, fresh)
+
+
 def test_pp_and_guards_equal_jax(mid):
     gr, A, halo, Up, Us, src = mid
     rcvs = _rcv(gr, (60.0, 90.0))
