@@ -82,6 +82,19 @@ the exit code is non-zero):
      chunks equal to one launch; the 150-path --refine fan at 800 steps
      in float64 at or below its input and within twice the JAX package's
      float64 spread of the twin (JAX_REFINE_SPREAD64), timed in float32;
+     (3j) gridsearch (the locator's grid search, a thread a column and
+     the whole catalogue in one call) against its twin on the card in
+     both formulas (direct, expanded) and float32 and float64: at the
+     location path's shape (the 12 station fields of the 180x63 graph, 64
+     events) and on odd cases (K 7 over 3,617 columns with non-finite and
+     duplicated columns, K 100 past the register tile, an all-inf row),
+     under the tie rule of ops/gridsearch_check.py (the misfit at the
+     pick within the tolerance of the minimum, m and t0 to the twin's at
+     that node, ids equal where no tie; float64 within 1e-12 of m in the
+     direct formula and of its terms in the expanded one, float32 within
+     1e-4 of m in the direct formula and a few ulps of the terms in the
+     expanded one, t0 within 1e-3 s besides; exact duplicates at the
+     first index), timed;
   4. the main path through the user entry points: init_annulus_circulant
      (180, 63, 20) -> AnnulusSolver(method="auto") on cuda -> solve with
      prev -> receiver fan -> paths -> travel-time CSV, held against the
@@ -185,16 +198,32 @@ the exit code is non-zero):
      defaults (m 384, quad 16, 1600 steps, multistart), timed with the
      bend's share; example_tomography at its defaults (12 paths
      launches), its misfit reduction and correlation within 0.02 of the
-     JAX package's (JAX_TOMO).
+     JAX package's (JAX_TOMO).  The --refine run also takes --q 600 --freq
+     1 (the amplitude CSV, checked in 21);
+ 21. location and amplitudes at 180x63 (benchmarks/chip_locate.py's
+     workload: phase 3f's graph, AK135 Vp, 12 stations every 30 degrees,
+     64 events from default_rng(0) with 0.2 s of noise): station_fields
+     cold (3j) and warm, one gridsearch launch timed, locate_many with
+     Gauss-Newton (one launch) against the CPU route on the same fields
+     (tie rule; positions within 1e-6 km and t0 within 1e-9 s where the
+     picks agree) and the JAX package's hits and errors (JAX_LOCATE: 2
+     hits, 10 % + 1 km); bend=True on 8 events (8 bend launches); one P+S
+     locate_phases event (the S fields inf in the liquid core) found at
+     its node; locate_many3d on a 64x64x32 wedge, 8 stations, 16 on-grid
+     events found within 1e-6 km and 1e-9 s; example_location at its
+     defaults within 10 % of the JAX driver's (JAX_EXAMPLE_LOCATION);
+     phase 20's amplitude CSV at 30, 60, 90 and 150 degrees: spreading,
+     the PcP/P ratio and valid within 1e-9 relative of the JAX CLI's
+     (JAX_AMPLITUDE), t* along the bent polylines within 5e-3.
 Every kernel-launch count is set to 0 just before each path (4, 6, 7,
-9, 10, 11, 13, 14, 15, 16, 17, each solve of 18, 19, each path of 20)
-and read just after it.  Then one JSON
+9, 10, 11, 13, 14, 15, 16, 17, each solve of 18, 19, each path of 20 and
+21) and read just after it.  Then one JSON
 line of kernel numbers, the card's name and power limit from nvidia-smi,
 and as the last line {"ok": true, "device": {...}}.  The kernels line
-lists sixteen kernels:
+lists seventeen kernels:
 the eight Pallas counterparts, the diag engine's two scans, plane3d, the
-generic graphs' bfm_step, banded_sweep and banded_gs, and the paths
-slice's paths and bend.
+generic graphs' bfm_step, banded_sweep and banded_gs, the paths slice's
+paths and bend, and the location slice's gridsearch.
 
 Needs no network and writes only to a temporary directory and to the
 package's `_build/`.  Without CUDA, or without the package beside it, it
@@ -427,10 +456,12 @@ JAX_TOMO = {'misfit0': 166.3869370505062, 'misfit1': 12.6883003705345,
 # wrapper -> the CUDA kernels it launches, by their names in a profile
 KERNEL_NAMES = {"band": ("band_kernel",),
                 "rsweep": ("rsweep_shared", "rsweep_global"),
-                "bfm_step": ("relax_merge_kernel", "frontier_kernel")}
+                "bfm_step": ("relax_merge_kernel", "frontier_kernel"),
+                "gridsearch": ("search_kernel", "finish_kernel")}
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # f32 outside the tensor cores, same sheet
 H100_F64_OPS_PER_S = 34e12   # f64 outside the tensor cores, same sheet
+H100_F64_TC_OPS_PER_S = 67e12   # f64 matrix products in the tensor cores
 
 
 def _run(cmd) -> str:
@@ -467,7 +498,8 @@ def _launch_counters():
                                          stream_t, sweep3d, sweep_theta,
                                          wrapped_t)
 
-    from raytracer_tpu_torch.ops import banded, bend, paths, plane3d, relax
+    from raytracer_tpu_torch.ops import (banded, bend, gridsearch, paths,
+                                         plane3d, relax)
 
     return {"rsweep": sweep_theta.rsweep, "titer": wrapped_t.titer,
             "band": stream_t.band, "witer": diag_wrapped.witer,
@@ -478,7 +510,8 @@ def _launch_counters():
             "fused": fused_circulant.fused,
             "plane3d": plane3d.plane_sweep3d, "bfm_step": relax.bfm_step,
             "banded_sweep": banded.banded_step, "banded_gs": banded.banded_gs,
-            "paths": paths.paths, "bend": bend.bend}
+            "paths": paths.paths, "bend": bend.bend,
+            "gridsearch": gridsearch.grid_search}
 
 
 def _reset_counts():
@@ -3828,7 +3861,7 @@ def phase_paths(rec: dict, tmp: str):
     _reset_counts()
     t0 = time.perf_counter()
     main_annulus.main(["--ntheta", "180", "--nr", "63", "--refine",
-                       "--out-prefix", prefix])
+                       "--q", "600", "--freq", "1", "--out-prefix", prefix])
     t_cli = time.perf_counter() - t0
     counts = _counts()
     assert counts["bend"] == 1 and counts["rsweep"] > 0, counts
@@ -3965,6 +3998,402 @@ def phase_paths(rec: dict, tmp: str):
           f"{out['corr']:.3f} (JAX {JAX_TOMO['corr']:.3f})", flush=True)
 
 
+# ----------------------------------------------------------------------
+# location and amplitudes: the gridsearch kernel
+# ----------------------------------------------------------------------
+
+# The JAX package on the CPU (tools/jax_locate_reference.py).  JAX_LOCATE:
+# benchmarks/chip_locate.py's catalogue, nothing cut (init_annulus(180,
+# 63), AK135 Vp, a float32 solver, 12 surface stations every 30 degrees,
+# 64 on-grid events from default_rng(0) with 0.2 s of pick noise,
+# locate_many(sigma=0.2), the search in float64): node hits and the mean
+# distance of the picked nodes and of the refined positions to the true
+# nodes (km).  JAX_AMPLITUDE: the root main_annulus.py --nr 63 --q 600
+# --freq 1 --refine (float32), its amplitude CSV's row (deg, tstar_s,
+# spreading_km, rel_amp, pcp_p_ratio, valid) at 30, 60, 90 and 150
+# degrees.  JAX_EXAMPLE_LOCATION: the root example_location.run() at its
+# defaults (float64).
+JAX_LOCATE = {'hits': 58, 'node_err': 0.07479838709679477,
+              'refined_err': 1.442721665652589}
+JAX_AMPLITUDE = {
+    30.0: [30.0, 0.6161679209534401, 18491.250463438562,
+           7.804566357527372e-06, 0.06363872632550541, 1.0],
+    60.0: [60.0, 1.012766652007171, 19850.571255278985,
+           2.0913759944854574e-06, 0.15020596580793302, 1.0],
+    90.0: [90.0, 1.3045057883039175, 50593.962746581936,
+           3.2814398837240935e-07, 0.05773092948857021, 1.0],
+    150.0: [150.0, 1.7456867535194582, float("nan"), float("nan"),
+            float("nan"), 0.0],
+}
+JAX_EXAMPLE_LOCATION = {'node_err': 60.76793047280398,
+                        'refined_err': 31.72570747485092}
+LOCATE_STATION_DEGS = tuple(range(0, 360, 30))
+# the tie rule's tolerances (ops/gridsearch_check.py): float64 holds m
+# within 1e-12 of itself (direct) or of its terms (expanded) and t0
+# within 1e-12 of its terms; float32 holds the direct m within 1e-4 of
+# itself, the expanded m and both t0 within a few ulps of their terms
+# (4 (K + 2) eps), and t0 within the solver's tol, 1e-3 s, besides
+SEARCH_RTOL = {"float64": 1e-12, "float32": 1e-4}
+SEARCH_T0_ATOL = {"float64": 0.0, "float32": 1e-3}
+
+
+def _search_rows(T, T_obs, w2, mode):
+    """The twin's rows of one search with the tie rule's tolerances in
+    T's dtype."""
+    from raytracer_tpu_torch.ops import gridsearch_check as GC
+
+    dt = str(T.dtype).split(".")[-1]
+    terms = (SEARCH_RTOL[dt] if dt == "float64"
+             else GC.ulp_rtol(T.dtype, T.shape[0]))
+    return GC.misfit_rows(T, T_obs, w2, mode, SEARCH_RTOL[dt], terms,
+                          SEARCH_T0_ATOL[dt])
+
+
+def _search_bound_ms(K, n, E, itemsize):
+    """(bound ms, bound_by) of one grid search, for either formula: the
+    fields and picks read once and (j, t0, m) written, against the
+    expanded formula's operations (the fewest that give (j, t0, m); a
+    fused multiply-add counts two).  Of them the (E, K) @ (K, n) product,
+    E n 2K, runs at the tensor cores' rate in float64 (67 TFLOP/s); the
+    per-column demeaning, n (6K + 2), and the combine, E n 3, at 34
+    TFLOP/s; in float32 all at 67 TFLOP/s (the tensor cores would round
+    to TF32)."""
+    nbytes = (K * n + E * K + K) * itemsize + E * (8 + 2 * itemsize)
+    prod, rest = 2 * E * n * K, 3 * E * n + n * (6 * K + 2)
+    if itemsize == 8:
+        t_o = prod / H100_F64_TC_OPS_PER_S + rest / H100_F64_OPS_PER_S
+    else:
+        t_o = (prod + rest) / H100_F32_OPS_PER_S
+    t_b = nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def _search_check(T, T_obs, w2, mode, what, odd_first=None):
+    """The kernel and the twin against the twin's rows on the card under
+    the tie rule; returns the kernel's search_agreement summary."""
+    import torch
+
+    from raytracer_tpu_torch.ops import gridsearch as GS
+    from raytracer_tpu_torch.ops import gridsearch_check as GC
+
+    j, t0, m = GS.grid_search(T, T_obs, w2, mode)
+    torch.cuda.synchronize()
+    rows = _search_rows(T, T_obs, w2, mode)
+    try:
+        out = GC.search_agreement(rows, j, t0, m)
+        if mode == "expanded":
+            tw = GS.grid_search_catalogue_reference(T, T_obs, w2)
+        else:
+            tw = [torch.stack(v) for v in zip(*[
+                GS.grid_search_reference(T, row, w2) for row in T_obs])]
+        GC.search_agreement(rows, *tw)
+    except AssertionError as e:
+        raise AssertionError((what, *e.args)) from None
+    if odd_first is not None:
+        # exact duplicates: the first index, as the twin's argmin
+        got = j[:len(odd_first)].tolist()
+        assert got == list(odd_first), (what, got, odd_first)
+    return out, (j, t0, m)
+
+
+def phase_gridsearch_kernel(rec: dict):
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+    from raytracer_tpu_torch.ops import gridsearch as GS
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # the twin's float32
+    solver, _, _, _, _ = rec["paths_180"]
+    gr = solver.gr
+    stations = [rt.closest_point(gr, np.deg2rad(d), rt.R, system="polar")
+                for d in LOCATE_STATION_DEGS]
+    # the location path's fields (12 station solves, the first call:
+    # phase 21 times the warm one)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fields = rt.station_fields(solver, stations)
+    t_cold = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    ev = rng.integers(0, gr.nnods, size=64)
+    T_obs = fields[:, ev].T + rng.normal(0.0, 0.2, (64, len(stations)))
+    rec["locate_inputs"] = (stations, fields, ev, T_obs, t_cold)
+    K, n, E = fields.shape[0], fields.shape[1], 64
+    lines, rows_out, errs = [], {}, []
+    for dtype in (torch.float64, torch.float32):
+        dt = str(dtype).split(".")[-1]
+        T = torch.as_tensor(fields, dtype=dtype, device="cuda")
+        O = torch.as_tensor(T_obs, dtype=dtype, device="cuda")
+        w2 = torch.full((K,), 25.0, dtype=dtype, device="cuda")
+        for mode in GS.MODES:
+            out, _ = _search_check(T, O, w2, mode, f"180x63 {dt} {mode}")
+            ms = _cuda_ms(lambda: GS.grid_search(T, O, w2, mode), 20)
+            if mode == "expanded":
+                plain = _cuda_ms(
+                    lambda: GS.grid_search_catalogue_reference(T, O, w2), 3)
+            else:
+                plain = _cuda_ms(lambda: [GS.grid_search_reference(T, r, w2)
+                                          for r in O], 1)
+            bound, by = _search_bound_ms(K, n, E, T.element_size())
+            rows_out[(dt, mode)] = dict(ms=ms, plain_ms=plain,
+                                        bound_ms=bound, bound_by=by)
+            errs.append(max(out["m_abs"], out["t0_err"]))
+            lines.append(f"{dt} {mode}: {out['same_node']} same node, "
+                         f"{out['tied']} tied, m within {out['m_abs']:.1e} "
+                         f"s^2 ({out['m_of_tol']:.1e} of its tolerance), t0 "
+                         f"within {out['t0_err']:.1e} s; "
+                         f"{ms:.4f} ms, plain {plain:.2f} ms, bound "
+                         f"{bound:.5f} ms ({by})")
+    # the odd case: K 7, 37 events over 3,617 columns, with non-finite
+    # columns and exact duplicates (the first index wins); K 100, past
+    # the kernel's register tile; an all-inf row
+    odd = []
+    for K2, n2, E2 in ((7, 3617, 37), (100, 20000, 9)):
+        T2 = rng.uniform(10.0, 1200.0, (K2, n2))
+        T2[:, rng.integers(0, n2, 40)] = np.inf
+        T2[2, 11] = np.inf
+        src = rng.integers(0, n2 // 2, 3)
+        T2[:, src + n2 // 2] = T2[:, src]            # later duplicates
+        T2[:, src] = np.where(np.isfinite(T2[:, src]), T2[:, src], 500.0)
+        T2[:, src + n2 // 2] = T2[:, src]
+        ob = T2[:, rng.integers(0, n2, E2)].T + 3.0
+        ob[np.isinf(ob)] = 700.0
+        ob[:3] = T2[:, src].T + 3.0
+        ob[3:] += rng.normal(0.0, 0.2, ob[3:].shape)
+        wk = rng.uniform(0.5, 4.0, K2)
+        for dtype in (torch.float64, torch.float32):
+            args = [torch.as_tensor(a, dtype=dtype, device="cuda")
+                    for a in (T2, ob, wk)]
+            for mode in GS.MODES:
+                out, _ = _search_check(*args, mode,
+                                       f"K={K2} n={n2} {dtype} {mode}",
+                                       odd_first=src.tolist())
+                odd.append(out["tied"])
+                errs.append(max(out["m_abs"], out["t0_err"]))
+    for mode in GS.MODES:
+        j, _, m = GS.grid_search(
+            torch.full((3, 300), float("inf"), device="cuda"),
+            torch.ones((2, 3), device="cuda"), torch.ones(3, device="cuda"),
+            mode)
+        assert j.tolist() == [0, 0] and bool(torch.isinf(m).all()), j
+    # the main path's call (float64 expanded) on the card alone, by
+    # kernel: the two passes against the wrapper's torch ops
+    T = torch.as_tensor(fields, device="cuda")
+    O = torch.as_tensor(T_obs, device="cuda")
+    w2 = torch.full((K,), 25.0, dtype=torch.float64, device="cuda")
+    split = _kernel_split_ms(lambda: GS.grid_search(T, O, w2, "expanded"),
+                             10)
+    on_card = sum(v for k, v in split.items()
+                  if k in KERNEL_NAMES["gridsearch"])
+    # the main path's row (float64 expanded), with the largest m or t0
+    # error of every case above, both formulas and dtypes
+    rec["gridsearch"] = rows_out[("float64", "expanded")]
+    rec["gridsearch"]["max_abs_err"] = max(errs)
+    rec["gridsearch"]["on_card_ms"] = on_card
+    lines.append(f"the float64 expanded call on the card {on_card:.4f} ms "
+                 "in its two passes ("
+                 + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items()))
+                 + " ms)")
+    print(f"phase 3j kernels: gridsearch against its twin on the card at "
+          f"the location path's shape (K {K}, n {n}, E {E}; station fields "
+          f"{t_cold:.2f} s cold) under the tie rule: " + "; ".join(lines)
+          + f"; the odd cases (K 7 n 3617 E 37 with non-finite and "
+          f"duplicated columns, K 100 n 20000 E 9; both modes and dtypes, "
+          f"exact duplicates at the first index; {sum(odd)} tied picks) "
+          f"and an all-inf row (node 0) hold; the largest m or t0 error "
+          f"over every case {max(errs):.2e}", flush=True)
+
+
+def _rel_close(a, b, rtol):
+    """a and b within rtol relative, or both NaN."""
+    import math
+
+    return abs(a - b) <= rtol * max(abs(a), abs(b)) or (
+        math.isnan(a) and math.isnan(b))
+
+
+def phase_locate(rec: dict, tmp: str):
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+    from raytracer_tpu_torch import example_location
+    from raytracer_tpu_torch.ops import gridsearch as GS
+    from raytracer_tpu_torch.ops import gridsearch_check as GC
+
+    solver, _, _, _, _ = rec["paths_180"]
+    gr = solver.gr
+    stations, fields, ev, T_obs, t_cold = rec["locate_inputs"]
+    K = len(stations)
+    sigma = [0.2] * K
+    prof = rt.velocity_profile("ak135")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = rt.station_fields(solver, stations)
+    t_warm = time.perf_counter() - t0
+    assert np.array_equal(warm, fields)
+    # the catalogue: one gridsearch launch, then the host Gauss-Newton
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    locs = rt.locate_many(solver, stations, T_obs, sigma=sigma,
+                          fields=fields)
+    t_many = time.perf_counter() - t0
+    counts = _counts()
+    assert counts["gridsearch"] == 1 and sum(counts.values()) == 1, counts
+    rec["gridsearch"]["launches"] = counts["gridsearch"]
+    w2 = torch.full((K,), 25.0, dtype=torch.float64, device="cuda")
+    T = torch.as_tensor(fields, device="cuda")
+    O = torch.as_tensor(T_obs, device="cuda")
+    t_search = _cuda_ms(lambda: GS.grid_search(T, O, w2, "expanded"), 20)
+    # the CPU route on the same fields: the same searches under the tie
+    # rule, and where the picks agree the same positions and origin times
+    cpu = rt.AnnulusSolver(gr, solver.A, solver.halo, solver.U,
+                           circulant=solver.circulant, device="cpu")
+    locs_cpu = rt.locate_many(cpu, stations, T_obs, sigma=sigma,
+                              fields=fields)
+    rows = _search_rows(torch.as_tensor(fields), torch.as_tensor(T_obs),
+                        w2.cpu(), "expanded")
+    j, t0j, mj = GS.grid_search(T, O, w2, "expanded")
+    assert j.tolist() == [l.node for l in locs]
+    agree = GC.search_agreement(rows, j, t0j, mj)
+    same = [a.node == b.node for a, b in zip(locs, locs_cpu)]
+    assert sum(same) >= agree["same_node"], (sum(same), agree)
+    dpos = max(float(np.hypot(a.x - b.x, a.z - b.z))
+               for a, b, s in zip(locs, locs_cpu, same) if s)
+    dt0 = max(abs(a.t0 - b.t0) for a, b, s in zip(locs, locs_cpu, same) if s)
+    assert dpos <= 1e-6 and dt0 <= 1e-9, (dpos, dt0)
+    x, z = np.asarray(gr.x), np.asarray(gr.z)
+    hits = sum(int(l.node) == int(e) for l, e in zip(locs, ev))
+    node_err = float(np.mean([np.hypot(x[l.node] - x[e], z[l.node] - z[e])
+                              for l, e in zip(locs, ev)]))
+    ref_err = float(np.mean([np.hypot(l.x - x[e], l.z - z[e])
+                             for l, e in zip(locs, ev)]))
+    assert abs(hits - JAX_LOCATE["hits"]) <= 2, (hits, node_err, ref_err)
+    for k, v in (("node_err", node_err), ("refined_err", ref_err)):
+        assert abs(v - JAX_LOCATE[k]) <= 0.1 * JAX_LOCATE[k] + 1.0, (k, v)
+    # bend=True on the first 8 events: 12 prev trees shared, a bend each
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bent = rt.locate_many(solver, stations, T_obs[:8], sigma=sigma,
+                          fields=fields, bend=True, profile=(prof.r, prof.Vp))
+    torch.cuda.synchronize()
+    t_bend = time.perf_counter() - t0
+    bcounts = _counts()
+    assert bcounts["gridsearch"] == 1 and bcounts["bend"] == 8, bcounts
+    assert all(np.isfinite([l.x, l.z, l.t0, l.rms]).all() for l in bent)
+    # one P+S event (the S fields are inf in the liquid core: the finite
+    # mask), exact picks at an on-grid node
+    Us = rt.interpolate_velocity(gr.r, rt.LinearInterpolation(prof.r,
+                                                              prof.Vs))
+    t0 = time.perf_counter()
+    solver_s = rt.AnnulusSolver(gr, solver.A, solver.halo, Us)
+    f_s = rt.station_fields(solver_s, stations)
+    t_s = time.perf_counter() - t0
+    assert not np.isfinite(f_s).all()
+    e0 = int(ev[0])
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lps = rt.locate_phases([solver, solver_s], [stations, stations],
+                           [fields[:, e0] + 3.0, f_s[:, e0] + 3.0],
+                           fields=[fields, f_s], refine=False)
+    t_ps = time.perf_counter() - t0
+    assert _counts()["gridsearch"] == 1
+    assert np.hypot(x[lps.node] - x[e0], z[lps.node] - z[e0]) < 1.0
+    assert abs(lps.t0 - 3.0) < 1e-6, lps.t0
+    # locate_many3d on a 64x64x32 wedge: 8 stations, 16 on-grid events
+    g3 = rt.grid3d((0.0, 0.0, rt.R - 1500.0),
+                   (np.deg2rad(40.0), np.deg2rad(40.0), rt.R), (64, 64, 32))
+    U3 = rt.interpolate_velocity(g3.r, rt.LinearInterpolation(prof.r,
+                                                              prof.Vp))
+    n0, n1, n2 = g3.nnods
+    rng = np.random.default_rng(21)
+    top = n0 * n1 * (n2 - 1)
+    st3 = (top + rng.integers(0, n0 * n1, 8)).tolist()
+    ev3 = rng.integers(0, g3.nnods_total, 16)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f3 = rt.station_fields3d(g3, U3, st3)
+    t_f3 = time.perf_counter() - t0
+    l3 = rt.locate_many3d(g3, U3, st3, f3[:, ev3].T + 4.0, fields=f3,
+                          refine=False)
+    t_l3 = time.perf_counter() - t0 - t_f3
+    c3 = _counts()
+    assert c3["gridsearch"] == 1, c3
+    p3 = np.stack([np.asarray(g3.x), np.asarray(g3.y), np.asarray(g3.z)],
+                  axis=1)
+    d3 = max(float(np.linalg.norm(p3[l.node] - p3[e]))
+             for l, e in zip(l3, ev3))
+    t03 = max(abs(l.t0 - 4.0) for l in l3)
+    assert d3 <= 1e-6 and t03 <= 1e-9, (d3, t03)
+    # example_location at its defaults on the card
+    _reset_counts()
+    t0 = time.perf_counter()
+    ex = example_location.run(verbose=False)
+    t_ex = time.perf_counter() - t0
+    assert _counts()["gridsearch"] == 1
+    assert ex["refined_err"] < ex["node_err"], ex
+    for k in ("node_err", "refined_err"):
+        assert abs(ex[k] - JAX_EXAMPLE_LOCATION[k]) <= \
+            0.1 * JAX_EXAMPLE_LOCATION[k], (k, ex)
+    # main_annulus --refine --q 600 --freq 1 at 180x63 (phase 20's run):
+    # the host columns within 1e-9 relative of the JAX CLI's, t* along
+    # the bent polylines within 5e-3.  A receiver whose predecessor walk
+    # on the sweep field meets a twin 2-cycle (ROADMAP C.9: 3 of the 150;
+    # the JAX CLI's CPU route, circulant, has none at these degrees) is
+    # bent from the walk's junk polyline: its t* is printed, not gated
+    amp = np.genfromtxt(os.path.join(tmp, "refine_amplitude.csv"),
+                        delimiter=",", skip_header=2)
+    arch = np.load(os.path.join(tmp, "refine.npz"))
+    n_nodes = arch["x"].shape[0]
+    worst, cycled = {}, []
+    for deg, want in JAX_AMPLITUDE.items():
+        i = int(np.argmin(np.abs(amp[:, 0] - deg)))
+        row = amp[i]
+        walk_ok = arch[f"path_{i}"].size <= n_nodes
+        if not walk_ok:
+            cycled.append(f"{deg:g} deg: t* {row[1]:.6f} s (JAX "
+                          f"{want[1]:.6f})")
+        for col, rtol in ((2, 1e-9), (4, 1e-9), (5, 1e-9), (1, 5e-3)):
+            if col == 1 and not walk_ok:
+                continue
+            assert _rel_close(row[col], want[col], rtol), (deg, col, row)
+            if np.isfinite(want[col]) and want[col]:
+                worst[col] = max(worst.get(col, 0.0),
+                                 abs(row[col] / want[col] - 1.0))
+    assert len(cycled) <= 1, cycled
+    print(f"phase 21 location at 180x63 ({gr.nnods} nodes, {K} stations, "
+          f"64 events): station_fields cold {t_cold:.3f} s, warm "
+          f"{t_warm:.3f} s; one gridsearch launch {t_search:.4f} ms; "
+          f"locate_many (Gauss-Newton) {t_many:.3f} s; hits {hits} (JAX "
+          f"{JAX_LOCATE['hits']}), mean node error {node_err:.3f} km "
+          f"(JAX {JAX_LOCATE['node_err']:.3f}), refined {ref_err:.3f} km "
+          f"(JAX {JAX_LOCATE['refined_err']:.3f}); the CPU route "
+          f"{agree['same_node']} same picks and {agree['tied']} tied, "
+          f"positions within {dpos:.1e} km and t0 within {dt0:.1e} s where "
+          f"the picks agree; bend=True on 8 events {t_bend:.3f} s (8 bend "
+          f"launches); P+S locate_phases {t_ps:.3f} s (the Vs solver and "
+          f"its fields {t_s:.2f} s); locate_many3d 64x64x32 (8 stations, "
+          f"16 events): fields {t_f3:.3f} s, locate {t_l3:.3f} s, on-grid "
+          f"within {d3:.1e} km and t0 {t03:.1e} s; example_location "
+          f"defaults {t_ex:.2f} s: node {ex['node_err']:.2f} km -> refined "
+          f"{ex['refined_err']:.2f} km (JAX "
+          f"{JAX_EXAMPLE_LOCATION['node_err']:.2f} -> "
+          f"{JAX_EXAMPLE_LOCATION['refined_err']:.2f}); main_annulus "
+          f"--refine --q 600 at 30/60/90/150 deg: spreading, pcp_p_ratio, "
+          f"valid within {max(worst.get(2, 0), worst.get(4, 0)):.1e} and "
+          f"tstar_s within {worst.get(1, 0):.1e} of the JAX CLI's"
+          + (f" (a cycled walk, C.9: {'; '.join(cycled)})" if cycled
+             else ""), flush=True)
+    rec["locate_split"] = dict(t_cold=t_cold, t_warm=t_warm,
+                               t_search=t_search, t_many=t_many,
+                               t_bend=t_bend, t_ps=t_ps, t_f3=t_f3,
+                               t_l3=t_l3, t_ex=t_ex)
+
+
 def main():
     faulthandler.dump_traceback_later(900, exit=True)
     t_start = time.perf_counter()
@@ -3984,6 +4413,7 @@ def main():
                       lambda: phase_staged_kernels(rec),
                       lambda: phase_banded_kernels(rec),
                       lambda: phase_paths_kernels(rec),
+                      lambda: phase_gridsearch_kernel(rec),
                       lambda: phase_main_path(rec, tmp),
                       lambda: phase_cli(tmp), lambda: phase_twrapped(rec),
                       lambda: phase_stream(rec), lambda: phase_tables(rec),
@@ -3997,7 +4427,8 @@ def main():
                       lambda: phase_graph_cli(tmp),
                       lambda: phase_staged(rec),
                       lambda: phase_staged_cli(tmp),
-                      lambda: phase_paths(rec, tmp)):
+                      lambda: phase_paths(rec, tmp),
+                      lambda: phase_locate(rec, tmp)):
             t0 = time.perf_counter()
             phase()
             print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -4056,6 +4487,11 @@ def main():
         "bend": ("raytracer_tpu_torch/csrc/bend.cu",
                  "raytracer_tpu/solvers/refine.py:104",
                  "main_annulus --refine 180x63"),
+        # the location slice's own kernel: the JAX package runs the
+        # catalogue search as XLA
+        "gridsearch": ("raytracer_tpu_torch/csrc/gridsearch.cu",
+                       "raytracer_tpu/solvers/locate.py:66",
+                       "locate_many 180x63, 64 events"),
     }
     kernels_line = {"kernels": [{
         "name": name,

@@ -29,22 +29,41 @@ tomography matrix `sensitivity_matrix` / `sensitivity_coo` (kernel
 `csrc/paths.cu`), the Adam bend of `refine_paths_batch` / `refine_fan`
 (kernel `csrc/bend.cu`), `AnnulusSolver.refined_travel_times`,
 `refined_travel_time_table` and `sensitivity_matrix`, and the 3-D
-`refine3d_travel_times` and `converted3d_refined`.
+`refine3d_travel_times` and `converted3d_refined`; and event location
+and amplitudes: the 2-D and 3-D locators (`locate`, `locate_phases`,
+`locate_many`, `locate_dd`, `locate3d`, `locate3d_phases`,
+`locate_many3d`) whose grid search is the kernel `csrc/gridsearch.cu`,
+and host copies of the amplitude models (t*, spreading, Zoeppritz
+coefficients, the flattened radial model, IASP91, the element
+interpolation).
 Entry points run on the card unless the caller passes `device="cpu"`.
 """
 from .config import DEFAULT_SOLVER_CONFIG, R, SolverConfig
+from .models.amplitude import (ak135_spreading, amplitude_factor,
+                               attenuation_factor, geometrical_spreading,
+                               tstar)
 from .models.annulus import Grid2D, closest_point, init_annulus, node_adjacency
 from .models.delaunay import (add_midpoints, structured_convex_hull,
                               triangle_annulus_2d,
                               unstructured_constrained_domain)
 from .models.fast_annulus import init_annulus_circulant
+from .models.flatearth import (RadialModel, cmb_radius,
+                               depth_from_depth_phase,
+                               depth_phase_first_arrival)
 from .models.grid3d import (Grid3D, closest_point3d, grid3d,
                             nodal_incidence3d, velocity3d)
+from .models.iasp91 import generate_iasp91_table, iasp91_velocity
+from .models.interpolation import (barycentric_coordinates, bilinear,
+                                   interpolate_elementwise)
 from .models.partition import (GridPartition, find_layer_number,
                                level_mask, partition_grid)
 from .models.velocity import (LinearInterpolation, dual_velocity,
                               interpolate_velocity, table_interface_radii,
                               velocity_profile)
+from .models.zoeppritz import (Medium, energy_coefficients,
+                               free_surface_receiver, interface_media,
+                               pcp_p_amplitude_ratio, prem_density,
+                               scattering)
 from .ops.banded import (BandedGraph, prepare_banded, solve_banded,
                         solve_banded_gs)
 from .ops.circulant import (CirculantGraph, PrevRecovery, build_circulant,
@@ -55,6 +74,10 @@ from .solvers.api import AnnulusSolver
 from .solvers.bfm import (bfm, bfm3d, bfm_gpu, bfm_tpu, prepare, solve,
                           solve_many)
 from .solvers.dijkstra import dijkstra, weight_matrix, weights
+from .solvers.locate import (Location, Location3D, locate, locate3d,
+                             locate3d_phases, locate_dd, locate_many,
+                             locate_many3d, locate_phases, station_fields,
+                             station_fields3d)
 from .solvers.multiphase import (bfm_ms, bfm_multiphase, boundary_velocity,
                                  directions)
 from .solvers.phases import (depth_phase_travel_times, phase_travel_times,
@@ -101,5 +124,16 @@ __all__ = [
     "path_sensitivity", "path_sensitivity_dual", "sensitivity_coo",
     "sensitivity_matrix",
     "refine3d_travel_times", "converted3d_refined",
+    "tstar", "attenuation_factor", "geometrical_spreading",
+    "ak135_spreading", "amplitude_factor",
+    "RadialModel", "cmb_radius", "depth_phase_first_arrival",
+    "depth_from_depth_phase",
+    "iasp91_velocity", "generate_iasp91_table",
+    "Medium", "scattering", "energy_coefficients", "free_surface_receiver",
+    "interface_media", "prem_density", "pcp_p_amplitude_ratio",
+    "bilinear", "barycentric_coordinates", "interpolate_elementwise",
+    "Location", "Location3D", "locate", "locate3d", "locate_dd",
+    "locate_many", "locate_many3d", "locate_phases", "locate3d_phases",
+    "station_fields", "station_fields3d",
     "save_solution_npz", "travel_times",
 ]

@@ -17,11 +17,23 @@ card unless `--device cpu` is given.
     python -m raytracer_tpu_torch.main_annulus --nr 63 --method ell
     python -m raytracer_tpu_torch.main_annulus --nr 63 --phases PcP,SKS
     python -m raytracer_tpu_torch.main_annulus --nr 63 --refine
+    python -m raytracer_tpu_torch.main_annulus --nr 63 --refine --q 600
 
 `--refine` adds `<prefix>_travel_times_refined.csv` (header
 `deg,refined_s`): the fan's paths bent to the continuous Fermat minimum
 under the AK135 Vp table (solvers/refine.py, the `bend` kernel on the
 card), in the CLI's `--dtype`.
+
+`--q Q` (with `--freq`, 1 Hz by default) adds `<prefix>_amplitude.csv`
+(header `deg,tstar_s,spreading_km,rel_amp,pcp_p_ratio,valid`, the JAX
+driver's): t* at the constant quality factor Q along the bent polylines
+when `--refine` ran, along the graph backtraces otherwise
+(models/amplitude.py); the geometrical spreading of the flattened
+piecewise-linear model (models/flatearth.py, 8000 ray parameters,
+diffracted past the CMB); the relative amplitude; the PcP/P amplitude
+ratio (models/zoeppritz.py); NaN with valid = 0 in the core shadow,
+where the first arrival is diffracted.  The model is AK135 and the wave
+Vp (the JAX driver's `--model` and `--wave` are not ported yet).
 
 `--phases` adds `<prefix>_phases.csv`: one first-arrival column per
 named phase over the receiver fan (solvers/phases.py; NaN where the
@@ -69,6 +81,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="bend the receiver-fan paths to the continuous "
                          "Fermat minimum (solvers/refine.py) and write "
                          "<prefix>_travel_times_refined.csv")
+    ap.add_argument("--q", type=float, default=None,
+                    help="constant quality factor; writes "
+                         "<prefix>_amplitude.csv with per-receiver t*, "
+                         "geometrical spreading and relative amplitude "
+                         "(models/amplitude.py)")
+    ap.add_argument("--freq", type=float, default=1.0,
+                    help="frequency (Hz) for the t* spectral decay")
     ap.add_argument("--phases", default=None,
                     help="comma-separated named phases (PcP,ScS,PP,SKS,"
                          "SKP,PKS,PKP,PKIKP,Pdiff,Sdiff,P,S); writes "
@@ -104,21 +123,59 @@ def write_phases(args, gr, A, halo, source, receivers, degs, cfg):
                "branch)", comments="")
 
 
-def write_refined(args, gr, paths, degs) -> np.ndarray:
+def write_refined(args, gr, paths, degs):
     """The `--refine` CSV: the fan's SPM polylines bent at the JAX
     driver's defaults (`refine_paths_batch`: m 128, 800 steps, quad 8,
     lr 3) under the AK135 Vp table, in the CLI's dtype, on its device;
-    returns the refined times."""
+    returns the bent polylines (n_paths, 128, 2), which `--q` integrates
+    t* along, and the refined times."""
     from .solvers.refine import refine_paths_batch
 
     prof = velocity_profile("ak135")
     pts = [np.stack([gr.x[p], gr.z[p]], axis=1) for p in paths]
-    _, t_ref = refine_paths_batch(pts, prof.r, prof.Vp, dtype=args.dtype,
-                                  device=args.device)
+    pts_bent, t_ref = refine_paths_batch(pts, prof.r, prof.Vp,
+                                         dtype=args.dtype, device=args.device)
     np.savetxt(f"{args.out_prefix}_travel_times_refined.csv",
                np.stack([degs, t_ref], axis=1), delimiter=",",
                header="deg,refined_s", comments="")
-    return t_ref
+    return pts_bent, t_ref
+
+
+def write_amplitude(args, gr, paths, degs, pts_bent=None):
+    """The `--q` CSV, as the JAX driver writes it: t* along the bent
+    polylines when `--refine` gave them (so the amplitude and refined CSVs
+    share one geometry), along the graph backtraces otherwise; the
+    spreading of the flattened model with the CMB-diffracted branch;
+    NaN and valid = 0 where the first arrival is diffracted."""
+    from .models.amplitude import attenuation_factor, tstar
+    from .models.flatearth import RadialModel, cmb_radius
+    from .models.zoeppritz import pcp_p_amplitude_ratio
+
+    model = "ak135"
+    prof = velocity_profile(model)
+    v = prof.Vp
+    dd = np.minimum(degs, 360.0 - degs)   # mirrored fan side
+    Rg = RadialModel(prof.r, v).spreading(dd, n_p=8000,
+                                          diff_radii=(cmb_radius(model),))
+    if pts_bent is not None:
+        polylines = list(pts_bent)
+    else:
+        polylines = [np.stack([gr.x[p], gr.z[p]], axis=1) for p in paths]
+    ts = np.array([tstar(pl, prof.r, v, args.q) for pl in polylines])
+    valid = np.isfinite(Rg)
+    amp = np.where(valid, attenuation_factor(ts, args.freq)
+                   / np.where(valid, Rg, 1.0), np.nan)
+    pcp_ratio = pcp_p_amplitude_ratio(dd, model=model, q_factor=args.q,
+                                      freq_hz=args.freq)
+    np.savetxt(
+        f"{args.out_prefix}_amplitude.csv",
+        np.stack([degs, ts, np.where(valid, Rg, np.nan), amp, pcp_ratio,
+                  valid.astype(float)], axis=1), delimiter=",",
+        header="deg,tstar_s,spreading_km,rel_amp,pcp_p_ratio,valid\n"
+               "# spreading/rel_amp are NaN with valid=0 where the "
+               "first arrival is interface-diffracted (core shadow); "
+               "pcp_p_ratio is NaN beyond the PcP branch",
+        comments="")
 
 
 def main(argv=None):
@@ -171,10 +228,13 @@ def main(argv=None):
         D, gr, receivers, isave=True,
         flname=f"{args.out_prefix}_travel_times.csv"))
     save_solution_npz(f"{args.out_prefix}.npz", D, gr, source, paths)
-    t_ref = None
+    pts_bent = t_ref = None
     if args.refine:
-        t_ref = section("bending refinement", lambda: write_refined(
+        pts_bent, t_ref = section("bending refinement", lambda: write_refined(
             args, gr, paths, degs))
+    if args.q is not None:
+        section("amplitude", lambda: write_amplitude(args, gr, paths, degs,
+                                                     pts_bent))
     if args.phases:
         section("named phases", lambda: write_phases(
             args, gr, A, halo, source, receivers, degs, cfg))
