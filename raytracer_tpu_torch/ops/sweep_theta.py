@@ -752,6 +752,244 @@ rsweep.launches = 0
 
 
 # ----------------------------------------------------------------------
+# the xla engine's sweeps: the theta-column sweep (CUDA kernel wrapper +
+# plain twin) and the plain radial sweep
+# ----------------------------------------------------------------------
+
+
+def _col_relax(cur, w0, d0, cfp, cbp, chain_spans):
+    """In-column relaxation: dc=0 taps (Gauss-Seidel) + chain scans."""
+    for i, dm in enumerate(d0):
+        cur = torch.minimum(cur, torch.roll(cur, -dm, dims=-1) + w0[i])
+    for k, s in enumerate(chain_spans):
+        cur = torch.minimum(cur, torch.roll(cur, s, dims=-1) + cfp[k])
+    for k, s in enumerate(chain_spans):
+        cur = torch.minimum(cur, torch.roll(cur, -s, dims=-1) + cbp[k])
+    return cur
+
+
+def _tap_groups(tbl: SweepTables, st: SweepStatic, reverse: bool):
+    """(g1_w, g1_d, g2_w, g2_d, w0, d0): the weight rows and slot offsets
+    of the dc = -1, -2 taps (forward) or +1, +2 (reverse), and of dc = 0."""
+    g = _DC_RANGE  # index of dc=0 in the group tuples
+    s1, s2 = (g + 1, g + 2) if reverse else (g - 1, g - 2)
+    return (tbl.wg[s1], st.dms[s1], tbl.wg[s2], st.dms[s2], tbl.wg[g],
+            st.dms[g])
+
+
+def _sweep(v, tbl: SweepTables, st: SweepStatic, reverse: bool,
+           col_relax: bool = True, carry_init=None):
+    """One directional Gauss-Seidel sweep over theta columns, plain
+    PyTorch: the JAX package's `_sweep` (a `lax.scan` there, a loop over
+    the columns here), and the twin of `tsweep`.
+
+    v: (S, nt, ML).  Forward applies the dc=-1,-2 taps (source column
+    already updated this sweep); backward the dc=+1,+2 taps.
+    col_relax=False drops the in-column work (the "kernel" modes: full
+    field ring/chain scans run between sweeps instead).  carry_init
+    optionally injects the two predecessor columns the scan starts from
+    -- ((S, ML) at distance 1, (S, ML) at distance 2) in processing
+    order; default is this field's own wrap columns (plain Gauss-Seidel
+    staleness).  The theta-sharded solver passes its neighbour block's
+    halo columns here (parallel/theta_shard.py).  The taps from the two
+    previous columns are taken as one gather and one minimum over the
+    taps: the same floats as the JAX package's tap-by-tap minima (one
+    add a candidate, the minimum is exact).
+    """
+    g1_w, g1_d, g2_w, g2_d, w0, d0 = _tap_groups(tbl, st, reverse)
+    ML = v.shape[-1]
+    lane = torch.arange(ML, device=v.device)
+    idx1 = (lane[None, :] + torch.tensor(g1_d, device=v.device)[:, None]) % ML
+    idx2 = (lane[None, :] + torch.tensor(g2_d, device=v.device)[:, None]) % ML
+    xs = v.transpose(0, 1)                              # (nt, S, ML)
+    if reverse:
+        xs = torch.flip(xs, dims=[0])
+    if carry_init is None:
+        carry_init = (xs[-1], xs[-2])
+    p1, p2 = carry_init
+    ys = []
+    for x in xs:
+        cur = torch.minimum(x, (p1[:, idx1] + g1_w).amin(dim=1))
+        cur = torch.minimum(cur, (p2[:, idx2] + g2_w).amin(dim=1))
+        if col_relax:
+            cur = _col_relax(cur, w0, d0, tbl.cfp, tbl.cbp, st.chain_spans)
+        ys.append(cur)
+        p1, p2 = cur, p1
+    ys = torch.stack(ys)
+    if reverse:
+        ys = torch.flip(ys, dims=[0])
+    return ys.transpose(0, 1).contiguous()
+
+
+TSWEEP_THREADS = 1024   # at most; fewer (a multiple of 32) for ML < 1024
+
+
+def _tsweep_offsets(d1, d2, d0, chain_spans, device) -> torch.Tensor:
+    """The kernel's int32 offsets: `_tap_groups`' d1, d2 and d0, then the
+    chain spans; cached per (offsets, device)."""
+    key = (d1, d2, d0, chain_spans, str(device))
+    offs = _TSWEEP_OFFS.get(key)
+    if offs is None:
+        offs = torch.tensor(d1 + d2 + d0 + chain_spans, dtype=torch.int32,
+                            device=device)
+        _TSWEEP_OFFS[key] = offs
+    return offs
+
+
+_TSWEEP_OFFS: dict = {}
+
+
+def tsweep_smem_bytes(ML: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block: the column, its two
+    predecessors and a ping-pong copy, ML values each."""
+    return 4 * ML * itemsize
+
+
+def _tsweep_lib() -> ctypes.CDLL:
+    lib = kernels.load("tsweep")
+    fn = lib.tsweep_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p])
+    return lib
+
+
+def tsweep(v: torch.Tensor, tbl: SweepTables, static: SweepStatic,
+           reverse: bool, col_relax: bool = True,
+           carry_init=None) -> torch.Tensor:
+    """One directional Gauss-Seidel sweep over the theta columns of the
+    (S, nt, ML) field (see `_sweep`); returns a new field.
+
+    A CUDA tensor goes to the hand-written kernel `csrc/tsweep.cu`, one
+    block a source marching the columns (launched on the current stream;
+    `tsweep.launches` counts the launches); a column whose four
+    shared-memory copies exceed an H100 block's shared memory raises
+    ValueError before the launch.  A CPU tensor goes to `_sweep`.  Any
+    other device raises.
+    """
+    if v.dim() != 3 or v.shape[1] != static.nt or v.shape[2] != static.ML:
+        raise ValueError(f"v must be (S, {static.nt}, {static.ML}), got "
+                         f"{tuple(v.shape)}")
+    if carry_init is not None:
+        carry_init = tuple(carry_init)
+        if len(carry_init) != 2 or any(
+                tuple(c.shape) != (v.shape[0], static.ML)
+                for c in carry_init):
+            raise ValueError(f"carry_init must be two ({v.shape[0]}, "
+                             f"{static.ML}) columns")
+    if v.device.type == "cpu":
+        return _sweep(v, tbl, static, reverse, col_relax, carry_init)
+    if v.device.type != "cuda":
+        raise ValueError(f"tsweep runs on cuda or cpu, not {v.device}")
+    kernels.require_float("tsweep", v.dtype)
+    g1_w, g1_d, g2_w, g2_d, w0, d0 = _tap_groups(tbl, static, reverse)
+    L = len(static.chain_spans)
+    tabs = (g1_w, g2_w, w0, tbl.cfp, tbl.cbp)
+    rows = (len(g1_d), len(g2_d), len(d0), L, L)
+    for a, n in zip(tabs, rows):
+        if (a.device != v.device or a.dtype != v.dtype
+                or tuple(a.shape) != (n, static.ML) or not a.is_contiguous()):
+            raise ValueError(f"a weight table ({a.device}, {a.dtype}, "
+                             f"{tuple(a.shape)}) does not fit the field "
+                             f"({v.device}, {v.dtype}, {n} x {static.ML})")
+    smem = tsweep_smem_bytes(static.ML, v.element_size())
+    if smem > BLOCK_SMEM:
+        raise ValueError(f"tsweep keeps 4 columns of {static.ML} lanes "
+                         f"({smem} bytes) in shared memory: over the "
+                         f"{BLOCK_SMEM} bytes an H100 block may have")
+    x = v.contiguous()
+    if carry_init is not None:
+        carry_init = tuple(c.to(v.dtype).contiguous() for c in carry_init)
+    out = torch.empty_like(x)
+    offs = _tsweep_offsets(g1_d, g2_d, d0, static.chain_spans, v.device)
+    threads = min(TSWEEP_THREADS, -(-static.ML // 32) * 32)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    rc = _tsweep_lib().tsweep_launch(
+        x.data_ptr(), out.data_ptr(),
+        0 if carry_init is None else carry_init[0].data_ptr(),
+        0 if carry_init is None else carry_init[1].data_ptr(),
+        g1_w.data_ptr(), g2_w.data_ptr(), w0.data_ptr(), tbl.cfp.data_ptr(),
+        tbl.cbp.data_ptr(), offs.data_ptr(), x.shape[0], static.nt,
+        static.ML, len(g1_d), len(g2_d), len(d0), L, int(reverse),
+        int(col_relax), threads, int(v.dtype == torch.float64), stream)
+    if rc != 0:
+        raise RuntimeError(f"tsweep kernel launch failed: CUDA error {rc}")
+    tsweep.launches += 1
+    return out
+
+
+tsweep.launches = 0
+
+
+def _sweep_r(v, tbl: SweepTables, st: SweepStatic, upward: bool,
+             row_relax: bool = True, seam_blind: bool = False):
+    """One radial Gauss-Seidel sweep over slot rows, plain PyTorch (the
+    JAX package's `_sweep_r`; its TPU kernel is `rsweep`, which the
+    pallas engine runs on the packed tables instead).
+
+    v: (S, nt, ML).  Downward (upward=False) processes slots in
+    DESCENDING order: destination row m reads rows m + dm with dm > 0
+    (already updated this sweep).  Upward is the mirror (dm < 0 taps,
+    ascending order).  Within each row, a full-reach theta ring scan
+    (log-doubling with the per-slot ring hop cost) plus the dm=0,
+    dc=+-2 taps.  `seam_blind` reads +inf where a theta shift crosses
+    the seam (the TPU kernel's non-wrapping lane shift).
+
+    Each row takes all its taps as one gather of the rows and lanes they
+    read and one minimum over the taps (the same floats as the JAX
+    package's tap-by-tap minima); the ring scan's step costs s * ring_f[m]
+    are the same products, taken for all rows at once.
+    """
+    S, nt, ML = v.shape
+    taps = st.taps_up if upward else st.taps_dn
+    wr = tbl.wr_up if upward else tbl.wr_dn
+    K = max(abs(dm) for dm, _ in taps)
+    dev = v.device
+    inf = float("inf")
+    buf = v.permute(2, 0, 1)                                # (ML, S, nt)
+    pad = torch.full((K, S, nt), inf, dtype=v.dtype, device=dev)
+    # the reading side: above (higher m) for down, below for up
+    buf_p = torch.cat([buf, pad] if not upward else [pad, buf], 0)
+    off = 0 if not upward else K                    # row m at buf_p[m + off]
+    t_dm = torch.tensor([dm for dm, _ in taps], device=dev)
+    t_dc = torch.tensor([dc for _, dc in taps], device=dev)
+    col = torch.arange(nt, device=dev)
+    src_lane = col[None, :] + t_dc[:, None]                 # (T, nt)
+    blind = (src_lane < 0) | (src_lane >= nt)
+    src_lane = src_lane % nt
+    w_all = wr[:, : len(taps)]
+    spans = []
+    s = 1
+    while s < nt:
+        spans.append(s)
+        s *= 2
+    rf = torch.stack([s * tbl.ring_f for s in spans])       # (n_sp, ML)
+    rb = torch.stack([s * tbl.ring_b for s in spans])
+    rows = range(ML) if upward else range(ML - 1, -1, -1)
+    for m in rows:
+        src = buf_p[(m + off + t_dm)[:, None], :, src_lane]    # (T, nt, S)
+        if seam_blind:
+            src = torch.where(blind[:, :, None], inf, src)
+        cand = (src + w_all[m][:, None, None]).amin(dim=0).T  # (S, nt)
+        cur = torch.minimum(buf_p[m + off], cand)
+        if row_relax:
+            for k, s in enumerate(spans):
+                cur = torch.minimum(cur,
+                                    torch.roll(cur, s, dims=-1) + rf[k, m])
+            for k, s in enumerate(spans):
+                cur = torch.minimum(cur,
+                                    torch.roll(cur, -s, dims=-1) + rb[k, m])
+            cur = torch.minimum(cur, torch.roll(cur, 2, dims=-1)
+                                + tbl.ring2_f[m])
+            cur = torch.minimum(cur, torch.roll(cur, -2, dims=-1)
+                                + tbl.ring2_b[m])
+        buf_p[m + off] = cur
+    out = buf_p[:ML] if not upward else buf_p[K:]
+    return out.permute(1, 2, 0).contiguous()
+
+
+# ----------------------------------------------------------------------
 # the round
 # ----------------------------------------------------------------------
 
@@ -902,19 +1140,82 @@ def _solve_sweep(src_m, src_c, src_cen, tbl: SweepTables, wtab_dn,
                  max_iters: int) -> SweepState:
     """Full solve of a source block on the tables' device: zero at each
     source's (column, slot), or at the centre for centre sources."""
-    dev = wtab_dn.device
-    dtype = wtab_dn.dtype
+    dist0, cen0 = _source_field(src_m, src_c, src_cen, static.nt,
+                                static.ML, wtab_dn.dtype, wtab_dn.device)
+    return _run_sweep_rounds(dist0, cen0, 0, tbl, wtab_dn, wtab_up, tol,
+                             static, rst, max_iters)
+
+
+# each xla-engine mode's sweep sequence of a round (the fan runs first):
+# "theta" = fwd+bwd column sweeps, "r" = down+up radial sweeps, "both" =
+# down, fwd, up, bwd; "kernel" and "kernel-r" apply raw taps only in the
+# sweeps, with the full-field ring/chain scans between them (kernel-r
+# also seam-blind, no column sweeps); "hclosure" is the pallas engine's
+# structure with exact wraps everywhere
+SWEEP_MODES = {
+    "theta": ("fwd", "bwd"),
+    "r": ("down", "up"),
+    "both": ("down", "fwd", "up", "bwd"),
+    "kernel": ("down", "scans", "up", "scans", "fwd", "bwd", "scans"),
+    "kernel-r": ("down", "scans", "up", "scans"),
+    "hclosure": ("down", "scans", "hscan", "up", "scans", "hscan"),
+}
+
+
+def _source_field(src_m, src_c, src_cen, ntl: int, ML: int, dtype, dev,
+                  col0: int = 0):
+    """(dist0, cen0) of the theta columns [col0, col0 + ntl): zero at
+    each source's (column, slot) that lies there, or at the centre for
+    centre sources, +inf elsewhere.  The whole field is col0 = 0, ntl =
+    nt; the theta-sharded solve builds its rank's block."""
     S = len(src_m)
-    dist0 = torch.full((S, static.nt, static.ML), float("inf"),
-                       dtype=dtype, device=dev)
+    dist0 = torch.full((S, ntl, ML), float("inf"), dtype=dtype, device=dev)
     cen0 = torch.full((S,), float("inf"), dtype=dtype, device=dev)
     for b in range(S):
         if src_cen[b]:
             cen0[b] = 0.0
-        else:
-            dist0[b, int(src_c[b]), int(src_m[b])] = 0.0
-    return _run_sweep_rounds(dist0, cen0, 0, tbl, wtab_dn, wtab_up, tol,
-                             static, rst, max_iters)
+        elif col0 <= int(src_c[b]) < col0 + ntl:
+            dist0[b, int(src_c[b]) - col0, int(src_m[b])] = 0.0
+    return dist0, cen0
+
+
+def _solve_sweep_xla(src_m, src_c, src_cen, tbl: SweepTables, tol,
+                     static: SweepStatic, max_iters: int,
+                     mode: str = "both") -> SweepState:
+    """The JAX package's xla engine (`_solve_sweep_jit`): rounds of
+    `mode`'s sweep sequence (SWEEP_MODES) from the source field until no
+    distance improves by more than `tol` (one host read a round).  The
+    column sweeps go through `tsweep` (the kernel on the card), the
+    radial sweeps and scans are plain tensor code."""
+    seq = SWEEP_MODES[mode]
+    bare = mode.startswith("kernel") or mode == "hclosure"
+    blind = mode == "kernel-r"
+    dist0, cen0 = _source_field(src_m, src_c, src_cen, static.nt,
+                                static.ML, tbl.cfp.dtype, tbl.cfp.device)
+    fan, fan_in = tbl.fan_w, tbl.fan_in
+    v, cen, it, changed = dist0, cen0, 0, True
+    while changed and it < max_iters:
+        v0, cen0 = v, cen
+        cen = torch.minimum(cen, (v + fan_in).amin(dim=(1, 2)))
+        v = torch.minimum(v, cen[:, None, None] + fan)
+        for step in seq:
+            if step in ("fwd", "bwd"):
+                v = tsweep(v, tbl, static, step == "bwd", col_relax=not bare)
+            elif step in ("down", "up"):
+                v = _sweep_r(v, tbl, static, step == "up",
+                             row_relax=not bare, seam_blind=blind)
+            elif step == "hscan":
+                v = _hscan(v, tbl, static)
+            else:
+                v = _ring_chain(v, tbl, static)
+        changed = bool(((v < v0 - tol).any()
+                        | (cen < cen0 - tol).any()).item())
+        it += 1
+    # settle the fan after the last round (a no-op after a no-change
+    # round; it matters only when max_iters cut the loop)
+    cen = torch.minimum(cen, (v + fan_in).amin(dim=(1, 2)))
+    v = torch.minimum(v, cen[:, None, None] + fan)
+    return SweepState(v, cen, changed, it)
 
 
 def device_tables(ws: TWStencil, cg: CirculantGraph, dtype, device):
@@ -943,15 +1244,29 @@ def solve_circulant_sweep(
     batch: int = 1,
     receivers=None,
     device_out: bool = False,
+    mode: str = "hclosure",
+    engine: str = "xla",
     device="cuda",
     _packed: TWStencil = None,
 ) -> Tuple[np.ndarray, int]:
-    """Directional-sweep solve on `device` (the JAX package's pallas
-    engine, hclosure structure).  Sources run in chunks of `batch`;
-    returns ((n_sources, n_out) host array, rounds), n_out = all nodes
-    or the `receivers`.  `device_out=True` returns the rows as a tensor
-    on the device.  The rounds count SWEEP ROUNDS (typically 2-4).
+    """Directional-sweep solve on `device`.  Sources run in chunks of
+    `batch`; returns ((n_sources, n_out) host array, rounds), n_out = all
+    nodes or the `receivers`.  `device_out=True` returns the rows as a
+    tensor on the device.  The rounds count SWEEP ROUNDS (typically 2-4).
+
+    engine="pallas" is the production structure (radial sweeps on the
+    `rsweep` kernel, hclosure rounds with the seamfix; `mode` is not
+    read), what `AnnulusSolver(method="sweep")` runs; "xla" is the JAX
+    package's pure-jnp engine with exact wraps everywhere, in any of the
+    SWEEP_MODES (its column sweeps on the `tsweep` kernel on the card).
+    The defaults are the JAX package's; there `interpret` picks the CPU
+    route, here `device` does.
     """
+    if engine not in ("xla", "pallas"):
+        raise ValueError(f"unknown engine {engine!r}: 'xla' or 'pallas'")
+    if engine == "xla" and mode not in SWEEP_MODES:
+        raise ValueError(f"unknown mode {mode!r}: one of "
+                         f"{', '.join(SWEEP_MODES)}")
     device = resolve_device(device)
     dtype = np.dtype(config.dtype)
     ws = _packed if _packed is not None else pack_twrapped_stencil(
@@ -967,8 +1282,12 @@ def solve_circulant_sweep(
         is_cen = chunk == cmap.center
         src_m = np.where(is_cen, 0, cmap.m_of[chunk])
         src_c = np.where(is_cen, 0, cmap.c_of[chunk])
-        st = _solve_sweep(src_m, src_c, is_cen, tbl, wdn, wup, tol, static,
-                          rst, config.max_iters)
+        if engine == "pallas":
+            st = _solve_sweep(src_m, src_c, is_cen, tbl, wdn, wup, tol,
+                              static, rst, config.max_iters)
+        else:
+            st = _solve_sweep_xla(src_m, src_c, is_cen, tbl, tol, static,
+                                  config.max_iters, mode)
         return _textract(st.dist, st.cen, st.it, *ext)
 
     return _pipelined_chunk_solve(sources, S, n_out, dtype, dispatch,

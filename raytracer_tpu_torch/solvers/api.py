@@ -255,7 +255,7 @@ class AnnulusSolver:
             dist, iters = solve_circulant_sweep(
                 self.circulant, sources, cfg,
                 batch=min(batch, len(sources)), receivers=receivers,
-                device_out=device_out, device=self.device,
+                device_out=device_out, engine="pallas", device=self.device,
                 _packed=self._packed(sweep=True))
             self.last_iterations = iters
             return dist

@@ -58,7 +58,8 @@ def test_matches_pallas_engine(problem, surface_pallas):
     _, _, cg, ws, sources = problem
     d_j, rounds_j = surface_pallas
     d, rounds = psw.solve_circulant_sweep(cg, sources["surface"], CFG,
-                                          device="cpu", _packed=ws)
+                                          engine="pallas", device="cpu",
+                                          _packed=ws)
     assert rounds == rounds_j
     np.testing.assert_allclose(d[0], d_j, atol=PALLAS_ATOL, rtol=0)
 
@@ -94,8 +95,8 @@ def test_matches_jacobi(problem, name):
     jcg, _, cg, ws, sources = problem
     src = sources[name]
     d_ref, _ = solve_circulant(jcg, src, JCFG)
-    d, rounds = psw.solve_circulant_sweep(cg, src, CFG, device="cpu",
-                                          _packed=ws)
+    d, rounds = psw.solve_circulant_sweep(cg, src, CFG, engine="pallas",
+                                          device="cpu", _packed=ws)
     assert rounds < 10, f"{name}: {rounds} rounds"
     np.testing.assert_allclose(d[0], d_ref, atol=TOL, rtol=0, err_msg=name)
 
@@ -106,14 +107,15 @@ def test_batched_and_receivers(problem):
     _, _, cg, ws, sources = problem
     srcs = [sources["surface"], sources["mid"], sources["center"]]
     full, _ = psw.solve_circulant_sweep(cg, srcs, CFG, batch=2,
-                                        device="cpu", _packed=ws)
+                                        engine="pallas", device="cpu",
+                                        _packed=ws)
     rec = np.asarray([0, 5, 17, cg.cmap.center, cg.n // 2])
     sub, _ = psw.solve_circulant_sweep(cg, srcs, CFG, batch=2,
-                                       receivers=rec, device="cpu",
-                                       _packed=ws)
+                                       receivers=rec, engine="pallas",
+                                       device="cpu", _packed=ws)
     for i, s in enumerate(srcs):
-        one, _ = psw.solve_circulant_sweep(cg, s, CFG, device="cpu",
-                                           _packed=ws)
+        one, _ = psw.solve_circulant_sweep(cg, s, CFG, engine="pallas",
+                                           device="cpu", _packed=ws)
         np.testing.assert_allclose(full[i], one[0], atol=TOL, rtol=0)
         np.testing.assert_array_equal(sub[i], full[i][rec])
 
@@ -121,10 +123,11 @@ def test_batched_and_receivers(problem):
 def test_device_out_returns_tensor(problem):
     _, _, cg, ws, sources = problem
     host, it_h = psw.solve_circulant_sweep(cg, sources["mid"], CFG,
-                                           device="cpu", _packed=ws)
+                                           engine="pallas", device="cpu",
+                                           _packed=ws)
     dev, it_d = psw.solve_circulant_sweep(cg, sources["mid"], CFG,
-                                          device="cpu", device_out=True,
-                                          _packed=ws)
+                                          engine="pallas", device="cpu",
+                                          device_out=True, _packed=ws)
     assert isinstance(dev, torch.Tensor) and it_d == it_h
     np.testing.assert_array_equal(dev.numpy(), host)
 
@@ -141,8 +144,8 @@ def test_lane_blocked_rounds_match_jacobi(monkeypatch):
     assert rst.NTB == 128 and rst.NTL == 256
     src = pt.closest_point(gr, np.deg2rad(179.0), pt.R, system="polar")
     d_ref, _ = solve_circulant(jcg, src, JCFG)
-    d, rounds = psw.solve_circulant_sweep(cg, src, CFG, device="cpu",
-                                          _packed=ws)
+    d, rounds = psw.solve_circulant_sweep(cg, src, CFG, engine="pallas",
+                                          device="cpu", _packed=ws)
     assert rounds < 40
     np.testing.assert_allclose(d[0], d_ref, atol=TOL, rtol=0)
 
@@ -151,4 +154,5 @@ def test_cuda_device_needs_cuda(problem, monkeypatch):
     _, _, cg, ws, sources = problem
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        psw.solve_circulant_sweep(cg, sources["surface"], CFG, _packed=ws)
+        psw.solve_circulant_sweep(cg, sources["surface"], CFG,
+                                  engine="pallas", _packed=ws)
