@@ -248,10 +248,31 @@ the exit code is non-zero):
      one-rank tables; the bend over 2 ranks equal to one rank's; then,
      in a group of its own, which gloo collectives take CUDA tensors
      (all_reduce, broadcast, barrier, all_gather, then isend/irecv, whose
-     failure may end the group: the probe reports where).
+     failure may end the group: the probe reports where);
+ 25. the reference-faithful mesh (init_annulus(..., faithful=True), the
+     reference mesher's duplicated coincident secondary nodes; constants
+     from tools/jax_faithful_reference.py): at 180x50 spacing 50 the
+     counts and digests of benchmarks/faithful_digests.json exactly and
+     the float64 auto field's 150 receiver times within 5.1e-5 s of its
+     4-decimal Dijkstra times; at 180x63 spacing 20 (205,021 nodes, its
+     adjacency on the native g++ builder, asserted) AnnulusSolver(method=
+     "auto") -> sweep with rsweep at M = 1,139 slots a column, float32
+     within 2e-3 s of the anchors, the prev tree, the paths and the CSV,
+     the receiver walks that reach the source equal to the JAX package's
+     count, rsweep on these tables bit-equal to its plain version (its
+     route and time a launch printed), the Chrome trace of
+     utils.profiling.trace naming the rsweep kernel; float64 auto in the
+     JAX package's rounds and walks within 1e-5 s of Dijkstra; twrapped
+     (the titer kernel) within ENGINE_ATOL of the sweep field;
+     main_annulus --model iasp91 --wave Vs --dtype float64 --nr 63
+     --cache-dir within 1e-5 s of Dijkstra, cold then warm (the cache
+     read, not rewritten; --plot writes the PNG, or refuses by name
+     where matplotlib cannot be imported); iteration_stats at 48x12 on
+     the card equal to the CPU route's.
 Every kernel-launch count is set to 0 just before each path (4, 6, 7,
 9, 10, 11, 13, 14, 15, 16, 17, each solve of 18, 19, each path of 20,
-21, 22, 23 and 24) and read just after it.  Then one JSON
+21, 22, 23, 24 and each solve and CLI run of 25) and read just after
+it.  Then one JSON
 line of kernel numbers, the card's name and power limit from nvidia-smi,
 and as the last line {"ok": true, "device": {...}}.  The kernels line
 lists eighteen kernels:
@@ -5038,6 +5059,357 @@ def phase_sharded_two_ranks(rec: dict, tmp: str):
           f"with CUDA tensors: {probe}", flush=True)
 
 
+# The reference-faithful mesh (init_annulus(..., faithful=True): the
+# reference mesher's duplicated coincident secondary nodes), the JAX
+# package's figures on the CPU (tools/jax_faithful_reference.py).
+# 180x50, spacing 50: the counts, digests and 4-decimal Dijkstra receiver
+# times of benchmarks/faithful_digests.json (the script reads no
+# benchmark file; the tool recomputes them equal)
+FAITHFUL_180x50 = {
+    "nodes": 71101, "edges": 6793560, "halo_rows": 13320,
+    "r_sorted_sha256_16": "28aaef367218fed5",
+    "degree_hist_sha256_16": "e82d19e1e8c88b9a"}
+FAITHFUL_180x50_TT = [
+    38.3411, 70.3745, 97.6563, 124.9299, 152.2117, 179.4853,
+    206.3409, 232.7643, 258.495, 281.2013, 302.4328, 322.8377,
+    341.0037, 358.9211, 376.5146, 394.1044, 411.447, 428.6785,
+    445.6456, 462.4838, 478.9455, 494.9714, 510.7908, 526.2668,
+    541.6221, 556.7068, 571.4659, 585.9044, 600.0951, 614.0208,
+    627.4771, 640.6652, 653.5287, 666.2369, 678.562, 690.7185,
+    702.6234, 714.1403, 725.4397, 736.2979, 746.764, 757.0309,
+    767.0172, 776.6304, 785.9769, 795.1913, 804.3444, 813.4047,
+    822.3994, 831.3513, 840.306, 849.2579, 858.2125, 867.1644,
+    876.119, 885.0709, 894.0255, 902.9774, 911.9321, 920.884,
+    929.8386, 938.7905, 947.7451, 956.697, 965.6516, 974.6035,
+    983.5581, 992.51, 1001.4647, 1010.4166, 1019.3712, 1028.3231,
+    1037.2777, 1046.2296, 1055.1842, 1055.1842, 1046.2296, 1037.2777,
+    1028.3231, 1019.3712, 1010.4166, 1001.4647, 992.51, 983.5581,
+    974.6035, 965.6516, 956.697, 947.7451, 938.7905, 929.8386,
+    920.884, 911.9321, 902.9774, 894.0255, 885.0709, 876.119,
+    867.1644, 858.2125, 849.2579, 840.306, 831.3513, 822.3994,
+    813.4047, 804.3444, 795.1913, 785.9769, 776.6304, 767.0172,
+    757.0309, 746.764, 736.2979, 725.4397, 714.1403, 702.6234,
+    690.7185, 678.562, 666.2369, 653.5287, 640.6652, 627.4771,
+    614.0208, 600.0951, 585.9044, 571.4659, 556.7068, 541.6221,
+    526.2668, 510.7908, 494.9714, 478.9455, 462.4838, 445.6456,
+    428.6785, 411.447, 394.1044, 376.5146, 358.9211, 341.0037,
+    322.8377, 302.4328, 281.2013, 258.495, 232.7643, 206.3409,
+    179.4853, 152.2117, 124.9299, 97.6563, 70.3745, 38.3411,
+]
+FAITHFUL_TT_ATOL = 5.1e-5     # the digests' 4 decimals, plus rounding
+# 180x63, spacing 20: nodes, slots a column; scipy Dijkstra's t(60) and
+# t(150) on the JAX package's weight_matrix with its default float32
+# weights and with float64 ones; the float64 and float32 sweep on the
+# JAX package's accelerator engine (pallas, interpret mode): rounds,
+# t(60), t(150), and the receiver walks (of 150) that reach the source
+# without a cycle (ROADMAP C.9)
+FAITHFUL_180x63 = {"nodes": 205021, "M": 1139,
+                   "dijkstra_f32w": (610.7424560934305, 1050.9944240003824),
+                   "dijkstra": (610.7424599684256, 1050.9944170319238),
+                   "float64": (16, 610.7424599684254, 1050.9944170319254,
+                               147),
+                   "float32": (4, 610.7423095703125, 1050.994384765625,
+                               134)}
+FAITHFUL_F64_ATOL = 1e-5
+# main_annulus --model iasp91 --wave Vs --dtype float64 --nr 63 (the
+# deduplicated 180x63 mesh): scipy Dijkstra's t(60) and t(150) on float64
+# and on the JAX package's default float32 weights
+CLI_IASP91_VS = {"dijkstra": (1108.1257431839629, 1943.3726225701846),
+                 "dijkstra_f32w": (1108.1257466971874, 1943.3726243674755)}
+
+
+def _mesh_digests(gr, A, halo) -> dict:
+    """The counts and digests of benchmarks/faithful_digests.json."""
+    import hashlib
+
+    import numpy as np
+
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+    return {"nodes": gr.nnods, "edges": A.nnz, "halo_rows": len(halo),
+            "r_sorted_sha256_16": digest(np.sort(np.round(gr.r, 6))),
+            "degree_hist_sha256_16": digest(np.bincount(np.diff(A.indptr)))}
+
+
+def _faithful_180x50() -> str:
+    """The frozen cross-check of the faithful mesh: its counts and
+    digests exactly, and the float64 auto field's 150 receiver times on
+    the card within FAITHFUL_TT_ATOL of the digests' Dijkstra times."""
+    import numpy as np
+
+    import raytracer_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    gr, A, halo = rt.init_annulus(180, 50, spacing=50.0, faithful=True)
+    t_build = time.perf_counter() - t0
+    dig = _mesh_digests(gr, A, halo)
+    assert dig == FAITHFUL_180x50, dig
+    source = rt.closest_point(gr, 0.0, rt.R, system="polar")
+    _, receivers = _fan(gr)
+    solver = rt.AnnulusSolver(gr, A, halo, _ak135_vp(gr),
+                              rt.SolverConfig(dtype="float64"),
+                              method="auto")
+    d = solver.solve(source, want_prev=False).dist
+    assert solver.method == "sweep", solver.method
+    err = float(np.abs(d[receivers] - np.asarray(FAITHFUL_180x50_TT)).max())
+    assert err <= FAITHFUL_TT_ATOL, err
+    return (f"faithful 180x50 spacing 50: {dig['nodes']} nodes, "
+            f"{dig['edges']} directed edges, {dig['halo_rows']} halo rows, "
+            f"digests {dig['r_sorted_sha256_16']} / "
+            f"{dig['degree_hist_sha256_16']} (the frozen ones; built in "
+            f"{t_build:.2f} s), float64 auto -> {solver.method} in "
+            f"{solver.last_iterations} rounds, the 150 receiver times within "
+            f"{err:.3g} s of the digests' Dijkstra times")
+
+
+def _faithful_cli(tmp: str) -> tuple:
+    """main_annulus --model iasp91 --wave Vs --dtype float64 --nr 63
+    --cache-dir: cold (builds and writes the cache), then warm (reads it,
+    with --plot where matplotlib imports).  Returns (line, rsweep
+    launches of both runs)."""
+    import importlib.util
+
+    import numpy as np
+
+    from raytracer_tpu_torch import main_annulus
+
+    cache = os.path.join(tmp, "cache25")
+    args = ["--ntheta", "180", "--nr", "63", "--dtype", "float64", "--model",
+            "iasp91", "--wave", "Vs", "--cache-dir", cache]
+    _reset_counts()
+    cold = main_annulus.main([*args, "--out-prefix",
+                              os.path.join(tmp, "iv_cold")])
+    launches = _counts()["rsweep"]
+    files = sorted(os.listdir(cache))
+    assert len(files) == 2 and files[0].startswith("annulus_v1_180x63") \
+        and files[1].startswith("circ_v1_180x"), files
+    stamps = {f: os.stat(os.path.join(cache, f)).st_mtime_ns for f in files}
+    warm_args = [*args, "--out-prefix", os.path.join(tmp, "iv_warm")]
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    if not has_mpl:
+        try:
+            main_annulus.main([*warm_args, "--plot"])
+        except ImportError as e:
+            assert "matplotlib" in str(e), e
+        else:
+            raise AssertionError("--plot ran without matplotlib")
+    _reset_counts()
+    warm = main_annulus.main(warm_args + ["--plot"] * has_mpl)
+    launches += _counts()["rsweep"]
+    assert {f: os.stat(os.path.join(cache, f)).st_mtime_ns
+            for f in os.listdir(cache)} == stamps, "the warm run rewrote"
+    if has_mpl:
+        size = os.path.getsize(os.path.join(tmp, "iv_warm_ray_paths.png"))
+        assert size > 0
+        plot = f"matplotlib imports: --plot wrote {size} bytes of PNG"
+    else:
+        plot = "matplotlib absent: --plot refused by name"
+
+    def build_s(timer):
+        return timer.totals["init_annulus"] + timer.totals["solver pack"]
+
+    assert build_s(warm) < build_s(cold), (build_s(warm), build_s(cold))
+    tab = {}
+    for name in ("cold", "warm"):
+        tab[name] = np.loadtxt(os.path.join(tmp, f"iv_{name}_travel_times.csv"),
+                               delimiter=",", skiprows=1)
+    assert np.array_equal(tab["cold"], tab["warm"])
+    tt = tab["warm"]
+    t60 = float(tt[np.argmin(np.abs(tt[:, 0] - 60.0)), 1])
+    t150 = float(tt[np.argmin(np.abs(tt[:, 0] - 150.0)), 1])
+    for pair in CLI_IASP91_VS.values():
+        assert abs(t60 - pair[0]) <= FAITHFUL_F64_ATOL and \
+            abs(t150 - pair[1]) <= FAITHFUL_F64_ATOL, (t60, t150, pair)
+    assert launches > 0
+    return (f"main_annulus --model iasp91 --wave Vs --dtype float64 --nr 63 "
+            f"--cache-dir: t(60)={t60!r} s, t(150)={t150!r} s (Dijkstra "
+            f"{t60 - CLI_IASP91_VS['dijkstra'][0]:+.3g} / "
+            f"{t150 - CLI_IASP91_VS['dijkstra'][1]:+.3g} s, on float32 "
+            f"weights {t60 - CLI_IASP91_VS['dijkstra_f32w'][0]:+.3g} / "
+            f"{t150 - CLI_IASP91_VS['dijkstra_f32w'][1]:+.3g} s), rsweep "
+            f"launches {launches}; grid + stencil build cold "
+            f"{build_s(cold):.2f} s (init_annulus "
+            f"{cold.totals['init_annulus']:.2f}, solver pack "
+            f"{cold.totals['solver pack']:.2f}), warm from the cache "
+            f"{build_s(warm):.2f} s, the cache files untouched; steady solve "
+            f"cold/warm {1e3 * cold.totals['solve (steady)']:.1f}/"
+            f"{1e3 * warm.totals['solve (steady)']:.1f} ms; {plot}"), launches
+
+
+def phase_faithful(rec: dict, tmp: str):
+    """Phase 25: the reference-faithful mesh through the main path, the
+    CLI's --model/--wave/--cache-dir/--plot, the trace and
+    iteration_stats."""
+    import json
+
+    import numpy as np
+    import torch
+
+    import raytracer_tpu_torch as rt
+    from raytracer_tpu_torch import native
+    from raytracer_tpu_torch.ops.sweep_theta import (_kernel_tables,
+                                                     device_tables, rsweep)
+    from raytracer_tpu_torch.utils.profiling import iteration_stats, trace
+
+    line50 = _faithful_180x50()
+
+    # the faithful 180x63 mesh, its adjacency on the native builder
+    calls = native.node_adjacency_native_flat.calls
+    t0 = time.perf_counter()
+    gr, A, halo = rt.init_annulus(180, 63, spacing=20.0, faithful=True)
+    t_build = time.perf_counter() - t0
+    assert native.available() and \
+        native.node_adjacency_native_flat.calls == calls + 1, \
+        "the host did not take the native adjacency builder"
+    assert gr.nnods == FAITHFUL_180x63["nodes"], gr.nnods
+    U = _ak135_vp(gr)
+    source = rt.closest_point(gr, 0.0, rt.R, system="polar")
+    degs, receivers = _fan(gr)
+
+    # float32 auto: the main path's kernel at M = 1,139
+    t0 = time.perf_counter()
+    solver = rt.AnnulusSolver(gr, A, halo, U, method="auto")
+    t_pack = time.perf_counter() - t0
+    M = solver.circulant.cmap.M
+    assert solver.method == "sweep" and M == FAITHFUL_180x63["M"], \
+        (solver.method, M)
+    _reset_counts()
+    t0 = time.perf_counter()
+    D = solver.solve(source)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    counts = _counts()
+    rounds = solver.last_iterations
+    assert counts["rsweep"] == 2 * rounds, (counts, rounds)
+    paths = [rt.recontruct_path(D.prev, source, r) for r in receivers]
+    tt = rt.travel_times(D, gr, receivers, isave=True,
+                         flname=os.path.join(tmp, "faithful_tt.csv"))
+    t60 = float(tt[np.argmin(np.abs(degs - 60.0))])
+    t150 = float(tt[np.argmin(np.abs(degs - 150.0))])
+    assert np.isfinite(D.dist).all() and D.dist.shape == (gr.nnods,)
+    assert abs(t60 - T60_REF) <= CPU_ATOL and abs(t150 - T150_REF) \
+        <= CPU_ATOL, (t60, t150)
+    for r, p in zip(receivers, paths):
+        assert p[0] == r and p[-1] == source, (r, p[:3])
+    reach32 = len(_reaching(D.prev, source, receivers))
+    jax32 = FAITHFUL_180x63["float32"]
+    assert reach32 == jax32[3], (reach32, jax32)
+    steady_ms = _steady_ms(solver, source, 5)
+    split = _kernel_split_ms(lambda: solver.solve(source, want_prev=False),
+                             2)
+    busy = sum(split.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prev = solver.recover_prev(D.dist)
+    torch.cuda.synchronize()
+    t_prev = time.perf_counter() - t0
+
+    # rsweep on the faithful tables: the route, bit-equal, its time
+    _, static, wdn, wup, rst = device_tables(
+        solver._sweep_stencil, solver.circulant, np.float32, "cuda")
+    routes = ["shared" if _kernel_tables(w, rst, up)[0].shared else "global"
+              for w, up in ((wdn, False), (wup, True))]
+    rng = np.random.default_rng(25)
+    err = _rsweep_check(rng, [(rst, 1, False), (rst, 1, True)], static.nt,
+                        wdn, wup)
+    ms, bound = [], []
+    for w, up in ((wdn, False), (wup, True)):
+        buf = _rsweep_buffer(rng, rst, static.nt, 1, up)
+        ms.append(_cuda_ms(lambda: rsweep(buf, w, rst, up), 10))
+        nbytes, ops, _ = _rsweep_work(w, rst, static.nt, 1, up)
+        bound.append(_bound_ms(nbytes, ops)[0])
+
+    # the trace of one main-path solve names the rsweep kernel
+    with trace(os.path.join(tmp, "trace25")) as prof:
+        solver.solve(source, want_prev=False)
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels_seen = sorted({e["name"] for e in events
+                           if e.get("cat") == "kernel"})
+    assert any("rsweep" in k for k in kernels_seen), kernels_seen[:10]
+
+    # float64 auto: the Dijkstra times; the JAX package's rounds and walks
+    s64 = rt.AnnulusSolver(gr, A, halo, U, rt.SolverConfig(dtype="float64"),
+                           method="auto")
+    _reset_counts()
+    t0 = time.perf_counter()
+    D64 = s64.solve(source)
+    torch.cuda.synchronize()
+    t64 = time.perf_counter() - t0
+    launches64 = _counts()["rsweep"]
+    assert s64.method == "sweep" and D64.dist.dtype == np.float64
+    tt64 = {deg: float(D64.dist[r]) for deg, r in zip(degs, receivers)
+            if deg in (60.0, 150.0)}
+    jax64 = FAITHFUL_180x63["float64"]
+    for pair in (FAITHFUL_180x63["dijkstra_f32w"],
+                 FAITHFUL_180x63["dijkstra"], jax64[1:3]):
+        assert abs(tt64[60.0] - pair[0]) <= FAITHFUL_F64_ATOL and \
+            abs(tt64[150.0] - pair[1]) <= FAITHFUL_F64_ATOL, (tt64, pair)
+    assert s64.last_iterations == jax64[0], (s64.last_iterations, jax64)
+    reach64 = len(_reaching(D64.prev, source, receivers))
+    assert reach64 == jax64[3], (reach64, jax64)
+
+    # twrapped on the same mesh (the titer kernel)
+    tw = rt.AnnulusSolver(gr, A, halo, U, method="twrapped")
+    _reset_counts()
+    Dt = tw.solve(source, want_prev=False)
+    torch.cuda.synchronize()
+    titer = _counts()["titer"]
+    assert tw.method == "twrapped" and titer > 0, (tw.method, titer)
+    err_tw = float(np.abs(Dt.dist - D.dist).max())
+    assert err_tw <= ENGINE_ATOL, err_tw
+
+    cli, cli_launches = _faithful_cli(tmp)
+
+    # iteration_stats on the card equal to the CPU route's, as many as
+    # the circulant solve's iterations
+    g48, cg48, U48 = rt.init_annulus_circulant(48, 12, 150.0)
+    s48 = rt.closest_point(g48, 0.0, rt.R, system="polar")
+    stats = iteration_stats(cg48, s48)
+    assert stats == iteration_stats(cg48, s48, device="cpu")
+    circ = rt.AnnulusSolver(g48, None, None, U48, method="circulant",
+                            circulant=cg48)
+    circ.solve(s48, want_prev=False)
+    assert len(stats) == circ.last_iterations, (len(stats),
+                                                circ.last_iterations)
+
+    rec["rsweep"]["launches"] += counts["rsweep"] + launches64 + cli_launches
+    rec["titer"]["launches"] += titer
+    rec["faithful_ms"] = steady_ms
+    print(f"phase 25 faithful mesh: {line50}; faithful 180x63 spacing 20: "
+          f"{gr.nnods} nodes, {A.nnz} directed edges, {len(halo)} halo rows "
+          f"(host build {t_build:.2f} s on the native adjacency builder, "
+          f"circulant layout + pack {t_pack:.2f} s), M = {M} slots a "
+          f"column; float32 auto -> {solver.method} on {solver.device}: "
+          f"{rounds} rounds, rsweep launches {counts['rsweep']}, "
+          f"t(60)={t60:.4f} s, t(150)={t150:.4f} s, {reach32} of 150 walks "
+          f"reach the source (the JAX package's {jax32[3]}); first "
+          f"solve+prev {t_first:.3f} s, steady solve median of 5 "
+          f"{steady_ms:.2f} ms, device {busy:.3f} ms of it (idle "
+          f"{100 * (1 - busy / steady_ms):.1f} %), prev recovery "
+          f"{1e3 * t_prev:.2f} ms; rsweep at these tables (MT={rst.MT}, "
+          f"NTL={rst.NTL}) routes down/up {routes[0]}/{routes[1]}, bit-equal "
+          f"to its plain version (max err {err}), {ms[0]:.4f}/{ms[1]:.4f} "
+          f"ms a launch (bound {bound[0]:.5f}/{bound[1]:.5f} ms); the trace "
+          f"names {[k for k in kernels_seen if 'rsweep' in k][0]!r} "
+          f"({len(kernels_seen)} kernels); float64 auto -> {s64.method} in "
+          f"{s64.last_iterations} rounds (the JAX package's {jax64[0]}), "
+          f"{t64:.3f} s with prev, t(60)={tt64[60.0]!r} s, "
+          f"t(150)={tt64[150.0]!r} s: Dijkstra "
+          f"{tt64[60.0] - FAITHFUL_180x63['dijkstra'][0]:+.3g} / "
+          f"{tt64[150.0] - FAITHFUL_180x63['dijkstra'][1]:+.3g} s (on float32 "
+          f"weights {tt64[60.0] - FAITHFUL_180x63['dijkstra_f32w'][0]:+.3g} / "
+          f"{tt64[150.0] - FAITHFUL_180x63['dijkstra_f32w'][1]:+.3g} s), the "
+          f"deduplicated mesh's JAX_F64_180 {tt64[60.0] - JAX_F64_180[1]:+.3g}"
+          f" / {tt64[150.0] - JAX_F64_180[2]:+.3g} s, {reach64} walks reach "
+          f"the source (the JAX package's {jax64[3]}); twrapped: "
+          f"{tw.last_iterations} iterations, titer launches {titer}, max "
+          f"|twrapped - sweep| {err_tw:.3g} s; {cli}; iteration_stats at "
+          f"48x12 on the card equal to the CPU route's, {len(stats)} "
+          f"iterations (the circulant solve's)", flush=True)
+
+
 def main():
     faulthandler.dump_traceback_later(900, exit=True)
     t_start = time.perf_counter()
@@ -5076,17 +5448,19 @@ def main():
                       lambda: phase_locate(rec, tmp),
                       lambda: phase_xla_engine(rec),
                       lambda: phase_sharded_one_rank(rec, tmp),
-                      lambda: phase_sharded_two_ranks(rec, tmp)):
+                      lambda: phase_sharded_two_ranks(rec, tmp),
+                      lambda: phase_faithful(rec, tmp)):
             t0 = time.perf_counter()
             phase()
             print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
     sources = {
         "rsweep": ("raytracer_tpu_torch/csrc/rsweep.cu",
                    "raytracer_tpu/ops/sweep_theta.py:551",
-                   "auto 180x63 -> sweep"),
+                   "auto 180x63 -> sweep; faithful 180x63 auto; "
+                   "main_annulus --model iasp91 --wave Vs"),
         "titer": ("raytracer_tpu_torch/csrc/titer.cu",
                   "raytracer_tpu/ops/wrapped_t.py:254",
-                  "twrapped 180x63"),
+                  "twrapped 180x63; twrapped on the faithful 180x63"),
         "band": ("raytracer_tpu_torch/csrc/band.cu",
                  "raytracer_tpu/ops/stream_t.py:253",
                  "stream 1080x300"),

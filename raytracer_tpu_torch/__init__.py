@@ -35,29 +35,36 @@ and amplitudes: the 2-D and 3-D locators (`locate`, `locate_phases`,
 `locate_many3d`) whose grid search is the kernel `csrc/gridsearch.cu`,
 and host copies of the amplitude models (t*, spreading, Zoeppritz
 coefficients, the flattened radial model, IASP91, the element
-interpolation).
+interpolation); and the multi-device package `parallel`; and the host
+utilities: the reference-faithful mesh (`init_annulus(faithful=True)`)
+on the native C++ adjacency builder (`native/graphbuild.cpp`, g++ at
+first use), the grid and stencil caches, the npz and MAT export, the
+ray-path figure (`plot_paths`, matplotlib), `Timer` and the profiling
+hooks (`utils.profiling.trace`, `iteration_stats`).
 Entry points run on the card unless the caller passes `device="cpu"`.
 """
-from .config import DEFAULT_SOLVER_CONFIG, R, SolverConfig
+from .config import DEFAULT_SOLVER_CONFIG, DISCONTINUITY_RADII, R, SolverConfig
 from .models.amplitude import (ak135_spreading, amplitude_factor,
                                attenuation_factor, geometrical_spreading,
                                tstar)
-from .models.annulus import Grid2D, closest_point, init_annulus, node_adjacency
+from .models.annulus import (Grid2D, circle, closest_point, init_annulus,
+                             node_adjacency, point_ids)
 from .models.delaunay import (add_midpoints, structured_convex_hull,
                               triangle_annulus_2d,
                               unstructured_constrained_domain)
-from .models.fast_annulus import init_annulus_circulant
+from .models.fast_annulus import init_annulus_circulant, wedge_annulus
 from .models.flatearth import (RadialModel, cmb_radius,
                                depth_from_depth_phase,
                                depth_phase_first_arrival)
-from .models.grid3d import (Grid3D, closest_point3d, grid3d,
+from .models.grid3d import (Grid3D, LazyGrid3D, closest_point3d,
+                            connectivity3d, grid3d, lazy_grid3d,
                             nodal_incidence3d, velocity3d)
 from .models.iasp91 import generate_iasp91_table, iasp91_velocity
 from .models.interpolation import (barycentric_coordinates, bilinear,
                                    interpolate_elementwise)
 from .models.partition import (GridPartition, find_layer_number,
                                level_mask, partition_grid)
-from .models.velocity import (LinearInterpolation, dual_velocity,
+from .models.velocity import (LinearInterpolation, VelProfile, dual_velocity,
                               interpolate_velocity, table_interface_radii,
                               velocity_profile)
 from .models.zoeppritz import (Medium, energy_coefficients,
@@ -66,8 +73,8 @@ from .models.zoeppritz import (Medium, energy_coefficients,
                                scattering)
 from .ops.banded import (BandedGraph, prepare_banded, solve_banded,
                         solve_banded_gs)
-from .ops.circulant import (CirculantGraph, PrevRecovery, build_circulant,
-                            recover_prev)
+from .ops.circulant import (CirculantError, CirculantGraph, PrevRecovery,
+                            build_circulant, recover_prev, solve_circulant)
 from .ops.graph import ELLGraph, csr_to_ell
 from .ops.relax import DeviceGraph
 from .solvers.api import AnnulusSolver
@@ -94,23 +101,26 @@ from .solvers.solve3d import (converted3d_refined, mask_region3d,
                               solve3d_converted, solve3d_reflection)
 from .solvers.radius_stepping import radius_stepping
 from .solvers.types import BellmanFordMoore, Dijkstra, RadiusStepping
-from .utils.io import save_solution_npz, travel_times
+from .utils.io import save_matfile, save_solution_npz, travel_times
+from .utils.plotting import layers2plot, plot_paths
 
 __all__ = [
-    "DEFAULT_SOLVER_CONFIG", "R", "SolverConfig",
-    "Grid2D", "closest_point", "init_annulus", "init_annulus_circulant",
-    "node_adjacency", "add_midpoints", "triangle_annulus_2d",
+    "DEFAULT_SOLVER_CONFIG", "DISCONTINUITY_RADII", "R", "SolverConfig",
+    "Grid2D", "circle", "closest_point", "init_annulus",
+    "init_annulus_circulant", "node_adjacency", "point_ids", "wedge_annulus", "add_midpoints", "triangle_annulus_2d",
     "structured_convex_hull", "unstructured_constrained_domain",
-    "Grid3D", "closest_point3d", "grid3d", "velocity3d", "nodal_incidence3d",
+    "Grid3D", "LazyGrid3D", "closest_point3d", "connectivity3d", "grid3d",
+    "lazy_grid3d", "velocity3d", "nodal_incidence3d",
     "prepare3d", "solve3d", "recover_prev3d", "mask_region3d",
     "solve3d_reflection", "solve3d_converted",
-    "LinearInterpolation", "interpolate_velocity", "table_interface_radii",
+    "LinearInterpolation", "VelProfile", "interpolate_velocity", "table_interface_radii",
     "velocity_profile", "dual_velocity",
     "GridPartition", "find_layer_number", "level_mask", "partition_grid",
     "bfm_ms", "bfm_multiphase", "boundary_velocity", "directions",
     "phase_travel_times", "depth_phase_travel_times",
     "reflected_travel_times",
-    "CirculantGraph", "build_circulant", "PrevRecovery", "recover_prev",
+    "CirculantError", "CirculantGraph", "build_circulant", "PrevRecovery",
+    "recover_prev", "solve_circulant",
     "ELLGraph", "csr_to_ell", "DeviceGraph",
     "BandedGraph", "prepare_banded", "solve_banded", "solve_banded_gs",
     "bfm", "bfm_gpu", "bfm_tpu", "bfm3d", "prepare", "solve", "solve_many",
@@ -135,5 +145,6 @@ __all__ = [
     "Location", "Location3D", "locate", "locate3d", "locate_dd",
     "locate_many", "locate_many3d", "locate_phases", "locate3d_phases",
     "station_fields", "station_fields3d",
-    "save_solution_npz", "travel_times",
+    "save_matfile", "save_solution_npz", "travel_times",
+    "layers2plot", "plot_paths",
 ]

@@ -1,9 +1,9 @@
 """Global constants and solver knobs of the PyTorch port.
 
-A copy of the parts of `raytracer_tpu/config.py` that the port's solvers
-need: the Earth radius, the AK135 discontinuity radii the mesh forces
-into every column, and `SolverConfig` with the same fields in the same
-order, the same defaults and the same `tol_value` rule.
+A copy of `raytracer_tpu/config.py`: the Earth radius, the AK135
+discontinuity radii the mesh forces into every column and their node
+mask, and `SolverConfig` with the same fields in the same order, the
+same defaults and the same `tol_value` rule.
 """
 from __future__ import annotations
 
@@ -71,3 +71,15 @@ class SolverConfig:
 
 
 DEFAULT_SOLVER_CONFIG = SolverConfig()
+
+
+def discontinuity_mask(r: np.ndarray) -> np.ndarray:
+    """Boolean mask of nodes lying exactly on one of the 7 discontinuities.
+
+    Exact float equality is intentional: grid construction places boundary
+    nodes at exactly these radii.
+    """
+    mask = np.zeros(r.shape, dtype=bool)
+    for rad in DISCONTINUITY_RADII:
+        mask |= r == rad
+    return mask

@@ -573,7 +573,7 @@ def device_pallas_tables(ts: TiledStencil, device) -> PallasTables:
         ts.offs, ts.u_of, ts.idx, ts.w, ts.ring_w, ts.fan_w)))
 
 
-class PallasState(NamedTuple):
+class PallasCircState(NamedTuple):
     dist: torch.Tensor    # (T, S, ntp, 128)
     dcen: torch.Tensor    # (S,)
     changed: bool
@@ -583,12 +583,12 @@ class PallasState(NamedTuple):
 def _solve_pallas(dist0: torch.Tensor, dcen0: torch.Tensor,
                   tbl: PallasTables, sc: SlotScanTables, tol: torch.Tensor,
                   T: int, nt: int, S: int, ntp: int, max_iters: int,
-                  ring_every: int) -> PallasState:
+                  ring_every: int) -> PallasCircState:
     """The loop of the JAX package's `_solve_pallas_jit`: (scans every
     `ring_every` iterations) + one `relax` + the centre fan, until no
     distance improves by more than `tol` (one host read per iteration)."""
     fan = tbl.fan_w[:, None, None, :]
-    s = PallasState(dist0, dcen0, True, 0)
+    s = PallasCircState(dist0, dcen0, True, 0)
     while s.changed and s.it < max_iters:
         d = s.dist
         if ring_every == 1 or (ring_every > 1 and s.it % ring_every == 0):
@@ -600,7 +600,7 @@ def _solve_pallas(dist0: torch.Tensor, dcen0: torch.Tensor,
         d = torch.minimum(d, s.dcen[None, :, None, None] + fan)
         changed = bool(((d < s.dist - tol).any()
                         | (dcen < s.dcen - tol).any()).item())
-        s = PallasState(d, dcen, changed, s.it + 1)
+        s = PallasCircState(d, dcen, changed, s.it + 1)
     return s
 
 

@@ -1,15 +1,23 @@
 """2-D annulus (Earth cross-section) mesh + graph builder.
 
-Host-side NumPy, a copy of the parts of `raytracer_tpu/models/annulus.py`
-that the circulant fast builder needs: primary polar lattice with the 7
-AK135 discontinuity radii forced into the radial column, quad elements +
-triangle fan to the core point, secondary nodes subdividing every element
-edge, layer constraining of element neighbours, and discontinuity node
-doubling with a halo (twin) table, plus `node_adjacency` and the ragged
-`element_neighbours` that the Delaunay mesher (models/delaunay.py)
-needs.  The node adjacency is the scipy triple product
-(`_node_adjacency_scipy`); the native C++ builder of the JAX package is
-not carried over (it builds the same matrix).
+Host-side NumPy, a copy of `raytracer_tpu/models/annulus.py`: primary
+polar lattice with the 7 AK135 discontinuity radii forced into the
+radial column, quad elements + triangle fan to the core point, secondary
+nodes subdividing every element edge, layer constraining of element
+neighbours, and discontinuity node doubling with a halo (twin) table.
+
+  * `edge_connectivity` dedupes edges by sorted node pair.  The reference
+    mesher (src/GridAnnulus.jl:515-595) writes slot 1 regardless of which
+    edge matched and so creates duplicated coincident secondary nodes;
+    `init_annulus(faithful=True)` reproduces them
+    (`edge_connectivity_faithful`), the default builds the intended
+    unique-edge set.
+  * element neighbours exclude links through the core-centre point, as
+    the reference's incidence loop over `1:nel` does.
+  * `node_adjacency` takes the native C++ builder of `..native`
+    (native/graphbuild.cpp, compiled with g++ at first use) and, where no
+    g++ is on PATH, the scipy triple product `_node_adjacency_scipy`,
+    which builds the same matrix.
 """
 from __future__ import annotations
 
@@ -234,16 +242,28 @@ def element_neighbours_flat(e2n_flat: np.ndarray, e2n_off: np.ndarray,
     return adj.indices.astype(np.int64), adj.indptr.astype(np.int64)
 
 
-# local edge maps (src/GridAnnulus.jl:519-524)
-_QUAD_EDGES = np.array([[0, 1], [1, 2], [2, 3], [3, 0]])
-_TRI_EDGES = np.array([[0, 1], [1, 2], [2, 0]])
-
-
 def element_neighbours(e2n: List[np.ndarray], nnods_shared: int) -> List[np.ndarray]:
     """Ragged-list wrapper around element_neighbours_flat."""
     flat, off = _ragged_to_flat(e2n)
     nbr_flat, nbr_off = element_neighbours_flat(flat, off, nnods_shared)
     return _flat_to_ragged(nbr_flat, nbr_off)
+
+
+# local edge maps (src/GridAnnulus.jl:519-524)
+_QUAD_EDGES = np.array([[0, 1], [1, 2], [2, 3], [3, 0]])
+_TRI_EDGES = np.array([[0, 1], [1, 2], [2, 0]])
+
+
+def edge_connectivity(gr: Grid2D):
+    """Unique mesh edges and the elements sharing them.
+
+    Returns (edges, edge2el) where edges is (E, 2) with node indices sorted
+    ascending per edge and edge2el maps edge id -> list of element ids.
+    Intended semantics of src/GridAnnulus.jl:515-595 (see module docstring
+    for the deviation from its buggy slot bookkeeping).
+    """
+    edges, e2el_flat, e2el_off = edge_connectivity_flat(gr)
+    return edges, _flat_to_ragged(e2el_flat, e2el_off)
 
 
 def edge_connectivity_flat(gr: Grid2D):
@@ -278,7 +298,58 @@ def edge_connectivity_flat(gr: Grid2D):
     return edges, owner_sorted, e2el_off
 
 
-def secondary_nodes(gr: Grid2D, spacing: float = 20.0) -> Grid2D:
+def edge_connectivity_faithful(gr: Grid2D):
+    """Bug-faithful replication of the reference's edge bookkeeping.
+
+    The reference edge_connectivity (src/GridAnnulus.jl:515-595) has two
+    intertwined defects that this function reproduces exactly:
+
+      * the neighbour-marking loop `for i in 1:nedge: if issubset(...)`
+        tests a condition independent of `i`, so it always writes
+        `el2edge[1, ieln]` (slot 1) regardless of WHICH local edge of the
+        neighbour actually coincides - later elements therefore re-create
+        geometric edges whose true slot is not 1 (every radial edge is
+        created twice, once per adjacent column);
+      * `issubset(edge, edge_neighbour)` only checks that both endpoints
+        are vertices of the neighbour, not that the neighbour has that
+        edge, so corner configurations (e.g. the k=0 quads against the
+        core triangle fan) can mark-and-suppress a slot whose edge is
+        only created much later by a different element.
+
+    The resulting duplicate coincident secondary nodes are what give the
+    reference mesher its node counts (205,021 at 180x63 spacing 20,
+    against 150,121 for the intended unique-edge mesh); travel times are
+    unaffected because duplicates are coincident and share parents.
+
+    Returns (edges, edge2el) like edge_connectivity, WITH duplicates.
+    """
+    nel = gr.nel
+    verts = [frozenset(int(v) for v in nodes) for nodes in gr.e2n]
+    local_edges = [nodes[_QUAD_EDGES if gr.is_quad[e] else _TRI_EDGES]
+                   for e, nodes in enumerate(gr.e2n)]
+
+    slot0_mark = np.zeros(nel, dtype=bool)   # el2edge[1, :] != 0 in the ref
+    edges_out = []
+    edge2el = []
+    for iel in range(nel):
+        led = local_edges[iel]
+        nbrs = gr.neighbours[iel]
+        for iedge in range(len(led)):
+            if iedge == 0 and slot0_mark[iel]:
+                continue
+            a, b = int(led[iedge, 0]), int(led[iedge, 1])
+            pair = (a, b) if a < b else (b, a)
+            parents = [iel]
+            for ieln in nbrs:
+                if a in verts[ieln] and b in verts[ieln]:
+                    slot0_mark[ieln] = True
+                    parents.append(int(ieln))
+            edges_out.append(pair)
+            edge2el.append(np.asarray(parents, dtype=np.int64))
+    return np.asarray(edges_out, dtype=np.int64), edge2el
+
+
+def secondary_nodes(gr: Grid2D, spacing: float = 20.0, faithful: bool = False) -> Grid2D:
     """Subdivide every element edge with nodes every `spacing` km.
 
     Vectorised equivalent of src/GridAnnulus.jl:607-698: per edge of length
@@ -286,8 +357,16 @@ def secondary_nodes(gr: Grid2D, spacing: float = 20.0) -> Grid2D:
     floor(L/spacing) interior points are placed at uniform parametric
     fractions and appended to the node set; each new node joins the
     element->node list of every element sharing the edge.
+
+    faithful=True walks the reference's duplicated edge list
+    (edge_connectivity_faithful) instead of the unique one, reproducing
+    its coincident duplicate secondary nodes and node counts.
     """
-    edges, e2el_flat, e2el_off = edge_connectivity_flat(gr)
+    if faithful:
+        edges, edge2el = edge_connectivity_faithful(gr)
+        e2el_flat, e2el_off = _ragged_to_flat(edge2el)
+    else:
+        edges, e2el_flat, e2el_off = edge_connectivity_flat(gr)
     th, r = gr.theta, gr.r
     icenter = gr.nr * gr.ntheta  # core centre node id
     period = gr.period
@@ -490,24 +569,42 @@ def discontinuous_boundaries(gr: Grid2D, spacing: float) -> Tuple[Grid2D, np.nda
 
 
 def node_adjacency(gr: Grid2D, star: int = 1) -> sp.csr_matrix:
-    """Node->node adjacency implied by the element-incidence relaxation,
-    as a deduplicated CSR matrix with sorted indices and boolean data.
+    """Node->node adjacency implied by the element-incidence relaxation.
 
-    star=0: neighbours = nodes sharing an element; star=1: also nodes of
-    layer-constrained neighbouring elements (the default of
-    init_annulus); star>1: further powers of the element-neighbour
-    expansion.  The JAX package's native builder gives the same matrix.
+    The reference never flattens this: its relax kernel walks
+    elements-of-node -> nodes-of-element two-hop lists with a redundancy
+    Set per node (src/SSSP/bfm.jl:113-159, element incidence built at
+    src/GridAnnulus.jl:420-452).  Flattening to a deduplicated CSR matrix
+    at build time is the TPU-first choice: the device sees only dense,
+    static-shape gathers.
+
+    star=0: neighbours = nodes sharing an element (unconstrained_element_
+            incidence, src/GridAnnulus.jl:454-471).
+    star=1: also nodes of layer-constrained neighbouring elements
+            (element_incidence, src/GridAnnulus.jl:420-452) - the default
+            used by init_annulus.
+    star>1: further powers of the element-neighbour expansion
+            (add_star_levels!, src/GridAnnulus.jl:248-258 analogue).
+
+    Uses the native C++ union-merge builder (native/graphbuild.cpp; the
+    scipy triple product below performs ~100x more work summing
+    duplicate contributions); both produce identical matrices (tested).
+    Without g++ on PATH it takes the scipy product; a failed build with
+    g++ present raises.
     """
+    from ..native import node_adjacency_native_flat
+
+    e2n_flat, e2n_off = gr.flat_e2n()
+    nbr_flat, nbr_off = gr.flat_neighbours()
+    A = node_adjacency_native_flat(e2n_flat, e2n_off, nbr_flat, nbr_off,
+                                   gr.nnods, star)
+    if A is not None:
+        return A
     return _node_adjacency_scipy(gr, star)
 
 
 def _node_adjacency_scipy(gr: Grid2D, star: int = 1) -> sp.csr_matrix:
-    """Node->node adjacency implied by the element-incidence relaxation.
-
-    star=0: neighbours = nodes sharing an element; star=1 (default): also
-    nodes of layer-constrained neighbouring elements; star>1: further
-    powers of the element-neighbour expansion.
-    """
+    """The scipy twin of node_adjacency (the same matrix)."""
     rows = np.concatenate([np.full(len(nodes), e, dtype=np.int64) for e, nodes in enumerate(gr.e2n)])
     cols = np.concatenate(gr.e2n)
     inc = sp.csr_matrix((np.ones(len(rows), np.int32), (rows, cols)), shape=(gr.nel, gr.nnods))
@@ -534,19 +631,24 @@ def _node_adjacency_scipy(gr: Grid2D, star: int = 1) -> sp.csr_matrix:
 
 
 def init_annulus(ntheta: int, nr: int, spacing: float = 20.0, star: int = 1,
-                 dtheta: Optional[float] = None):
+                 faithful: bool = False, dtheta: Optional[float] = None):
     """Build grid, adjacency and halo table (src/GridAnnulus.jl:57-70).
 
     Returns (gr, A, halo): the grid, the node-adjacency CSR matrix (the
     flattened equivalent of the reference's element-incidence graph G) and
     the (2*ntwins, 2) halo twin table.
 
+    faithful=True replicates the reference mesher's duplicated secondary
+    nodes (see edge_connectivity_faithful) for mesh-vs-mesh accuracy
+    comparisons against the Julia CPU output; default False builds the
+    intended deduplicated graph of the same physical task.
+
     dtheta != None builds a periodic WEDGE of ntheta columns at the given
     pitch (see primary_grid) - the O(M) circulant builder's substrate
     (models/fast_annulus.py); normal callers leave it None.
     """
     gr = primary_grid(ntheta, nr, R, dtheta=dtheta)
-    gr = secondary_nodes(gr, spacing=spacing)
+    gr = secondary_nodes(gr, spacing=spacing, faithful=faithful)
     constrain2layers(gr)
     gr, halo = discontinuous_boundaries(gr, spacing)
     A = node_adjacency(gr, star=star)
@@ -566,3 +668,24 @@ def closest_point(gr: Grid2D, px: float, pz: float, system: str = "cartesian") -
     else:
         raise ValueError("system must be 'cartesian' or 'polar'")
     return int(np.argmin((vx - px) ** 2 + (vz - pz) ** 2))
+
+
+def circle(n: int, radius: float, pop_end: bool = True, system: str = "cartesian"):
+    """n points on a circle (src/GridAnnulus.jl:842-856)."""
+    t = np.linspace(0, 2 * np.pi, n)
+    if system == "cartesian":
+        x, z = radius * np.sin(t), radius * np.cos(t)
+    else:
+        x, z = t, np.full(n, float(radius))
+    if pop_end:
+        x, z = x[:-1], z[:-1]
+    return x, z
+
+
+def point_ids(gr: Grid2D) -> np.ndarray:
+    """Label nodes 'outter'/'inner'/'inside' (src/GridAnnulus.jl:727-748)."""
+    rmin, rmax = gr.r.min(), gr.r.max()
+    out = np.full(gr.nnods, "inside", dtype=object)
+    out[gr.r == rmax] = "outter"
+    out[gr.r == rmin] = "inner"
+    return out

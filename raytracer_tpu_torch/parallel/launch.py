@@ -142,11 +142,15 @@ def run_group(fn: Callable, world: int, *args, backend: str = "gloo",
         deadline = time.monotonic() + timeout
         try:
             while len(got) < world:
+                # a rank flushes its result into the pipe before it exits,
+                # so only one that had exited before this wait began and
+                # still sent nothing during it has died without a result
+                # (one that exits during the wait may have just sent it)
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode is not None]
                 try:
                     rank, ok, val = results.get(timeout=1.0)
                 except queue.Empty:
-                    dead = [r for r, p in enumerate(procs)
-                            if r not in got and p.exitcode is not None]
                     if dead:
                         raise RuntimeError(
                             f"rank {dead[0]} of {world} exited with code "

@@ -335,3 +335,70 @@ def test_cli_amplitude_without_refine_follows_graph_paths(
     assert seen["bent"] is None and seen["spreading"] and seen["pcp"]
     _, tab = _read_csv(f"{prefix}_amplitude.csv")
     _check_columns(tab, _spm_lines(seen), jax_columns)
+
+
+def test_cli_model_and_wave_reach_the_bend_q_and_phases(tmp_path,
+                                                        monkeypatch):
+    """`--model iasp91 --wave Vs`, as the JAX driver threads them: the
+    bend takes the IASP91 Vs table, `--q` integrates t* under it and asks
+    for the spreading of the flattened IASP91 Vs model diffracted at
+    cmb_radius("iasp91") and for the IASP91 PcP ratio, and `--phases`
+    builds its Vp and Vs tables from IASP91.  The spreading, the PcP
+    ratio and the phases answer cheaply once their arguments are
+    recorded; the bend runs 5 of its 800 steps."""
+    import raytracer_tpu_torch.solvers.phases as p_phases
+
+    prof = pt.velocity_profile("iasp91")
+    seen = {}
+    plain_bend = p_refine.refine_paths_batch
+
+    def bend(pts, r, v, **kw):
+        seen["bend"] = (r, v)
+        out = plain_bend(pts, r, v, iters=5, **kw)
+        seen["bent"] = out[0]
+        return out
+
+    def spreading(self, d, n_p, diff_radii):
+        seen["spreading"] = (self, diff_radii)
+        return np.full(len(d), 2.0e4)
+
+    def pcp_ratio(d, model, q_factor, freq_hz):
+        seen["pcp"] = model
+        return np.full(len(d), 0.1)
+
+    def phases(A, halo, source, gr, U, name, cfg, receivers, device, Us,
+               _reuse):
+        seen.setdefault("phases", {})[name] = (gr, U, Us)
+        return np.zeros(len(receivers))
+
+    monkeypatch.setattr(p_refine, "refine_paths_batch", bend)
+    monkeypatch.setattr(p_flat.RadialModel, "spreading", spreading)
+    monkeypatch.setattr(p_zoep, "pcp_p_amplitude_ratio", pcp_ratio)
+    monkeypatch.setattr(p_phases, "phase_travel_times", phases)
+    prefix = str(tmp_path / "iv")
+    p_main.main(["--ntheta", "16", "--nr", "4", "--spacing", "400",
+                 "--device", "cpu", "--model", "iasp91", "--wave", "Vs",
+                 "--refine", "--q", "600", "--phases", "PcP,SKS",
+                 "--out-prefix", prefix])
+    r, v = seen["bend"]
+    np.testing.assert_array_equal(r, prof.r)
+    np.testing.assert_array_equal(v, prof.Vs)
+    model, diff = seen["spreading"]
+    want = p_flat.RadialModel(prof.r, prof.Vs)
+    for k, val in vars(want).items():
+        np.testing.assert_array_equal(getattr(model, k), val)
+    assert diff == (p_flat.cmb_radius("iasp91"),)
+    assert seen["pcp"] == "iasp91"
+    _, tab = _read_csv(f"{prefix}_amplitude.csv")
+    ts = np.array([rt.tstar(pl, prof.r, prof.Vs, 600.0)
+                   for pl in seen["bent"]])
+    np.testing.assert_array_equal(tab[:, 1], ts)
+    gr, U_pcp, _ = seen["phases"]["PcP"]
+    _, U_sks, Us_sks = seen["phases"]["SKS"]
+    vp = pt.interpolate_velocity(gr.r, pt.LinearInterpolation(prof.r,
+                                                              prof.Vp))
+    vs = pt.interpolate_velocity(gr.r, pt.LinearInterpolation(prof.r,
+                                                              prof.Vs))
+    np.testing.assert_array_equal(U_pcp, vp)
+    np.testing.assert_array_equal(U_sks, vp)
+    np.testing.assert_array_equal(Us_sks, vs)

@@ -650,3 +650,116 @@ def test_circulant_cache_round_trip_with_jax(tmp_path):
     solver = pt.AnnulusSolver(gr, A, halo, U, pt.SolverConfig(),
                               "diag", str(port_dir), device="cpu")
     np.testing.assert_array_equal(solver.circulant.w, j_cg.w)
+
+
+def test_main_annulus_model_wave_equal_the_jax_cli(tmp_path, capsys,
+                                                   monkeypatch):
+    """--model iasp91 --wave Vs (the JAX CLI's options): the port's CLI
+    solves the IASP91 Vs field and writes the JAX CLI's travel times at a
+    tiny grid in float64 (the same fixpoint within 1e-9 s, as above),
+    far from the AK135 Vp run's."""
+    import runpy
+    import sys
+
+    args = ["--ntheta", "16", "--nr", "4", "--spacing", "400", "--dtype",
+            "float64", "--model", "iasp91", "--wave", "Vs"]
+    monkeypatch.setattr(sys, "argv", ["main_annulus.py", *args,
+                                      "--out-prefix", str(tmp_path / "j")])
+    runpy.run_path(os.path.join(ROOT, "main_annulus.py"),
+                   run_name="__main__")
+    main_annulus.main([*args, "--device", "cpu", "--out-prefix",
+                       str(tmp_path / "p")])
+    main_annulus.main([*args[:6], "--device", "cpu", "--out-prefix",
+                       str(tmp_path / "vp")])
+    want = np.loadtxt(tmp_path / "j_travel_times.csv", delimiter=",",
+                      skiprows=1)
+    got = np.loadtxt(tmp_path / "p_travel_times.csv", delimiter=",",
+                     skiprows=1)
+    vp = np.loadtxt(tmp_path / "vp_travel_times.csv", delimiter=",",
+                    skiprows=1)
+    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=0, atol=1e-9)
+    assert (got[:, 1] > 1.5 * vp[:, 1]).all()     # S is slower than P
+    parser = main_annulus.build_parser()
+    assert (parser.parse_args([]).model, parser.parse_args([]).wave) == \
+        ("ak135", "Vp")
+
+
+def test_main_annulus_cache_dir_reads_the_jax_cache(tmp_path, capsys,
+                                                    monkeypatch):
+    """--cache-dir as in the JAX driver: init_annulus_cached for the grid
+    and the solver's stencil cache.  The port's CLI writes the JAX CLI's
+    files (same names), reads a cache the JAX CLI wrote without
+    rewriting it, and both give the same travel times."""
+    import runpy
+    import sys
+
+    args = ["--ntheta", "16", "--nr", "4", "--spacing", "400", "--dtype",
+            "float64"]
+    jdir, pdir = tmp_path / "jcache", tmp_path / "pcache"
+    monkeypatch.setattr(sys, "argv", ["main_annulus.py", *args,
+                                      "--cache-dir", str(jdir),
+                                      "--out-prefix", str(tmp_path / "j")])
+    runpy.run_path(os.path.join(ROOT, "main_annulus.py"),
+                   run_name="__main__")
+    main_annulus.main([*args, "--device", "cpu", "--cache-dir", str(pdir),
+                       "--out-prefix", str(tmp_path / "cold")])
+    assert sorted(os.listdir(pdir)) == sorted(os.listdir(jdir))
+    assert any(f.startswith("annulus_v1_16x4") for f in os.listdir(pdir))
+    assert any(f.startswith("circ_v1_16x") for f in os.listdir(pdir))
+    stamps = {f: os.path.getmtime(jdir / f) for f in os.listdir(jdir)}
+    out = capsys.readouterr().out
+    assert "solver method: sweep on cpu" in out and "init_annulus" in out
+    main_annulus.main([*args, "--device", "cpu", "--cache-dir", str(jdir),
+                       "--out-prefix", str(tmp_path / "warm")])
+    assert {f: os.path.getmtime(jdir / f) for f in os.listdir(jdir)} == stamps
+    want = np.loadtxt(tmp_path / "j_travel_times.csv", delimiter=",",
+                      skiprows=1)
+    for name in ("cold", "warm"):
+        got = np.loadtxt(tmp_path / f"{name}_travel_times.csv",
+                         delimiter=",", skiprows=1)
+        np.testing.assert_array_equal(got[:, 0], want[:, 0])
+        np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=0, atol=1e-9)
+
+
+def test_main_annulus_plot_writes_the_figure(tmp_path, capsys):
+    main_annulus.main(["--ntheta", "16", "--nr", "4", "--spacing", "400",
+                       "--device", "cpu", "--plot", "--out-prefix",
+                       str(tmp_path / "p")])
+    assert os.path.getsize(tmp_path / "p_ray_paths.png") > 0
+
+
+def test_main_annulus_plot_refuses_without_matplotlib(tmp_path, monkeypatch):
+    """Where matplotlib cannot be imported, --plot refuses by name before
+    any solve (nothing is installed in its place, nothing is skipped)."""
+    import builtins
+
+    real = builtins.__import__
+
+    def no_mpl(name, *a, **kw):
+        if name.split(".")[0] == "matplotlib":
+            raise ImportError("No module named 'matplotlib'")
+        return real(name, *a, **kw)
+
+    def no_solver(*a, **kw):
+        raise AssertionError("a solver was built before the refusal")
+
+    monkeypatch.setattr(builtins, "__import__", no_mpl)
+    monkeypatch.setattr(main_annulus, "AnnulusSolver", no_solver)
+    with pytest.raises(ImportError, match="matplotlib"):
+        main_annulus.main(["--ntheta", "16", "--nr", "4", "--spacing", "400",
+                           "--device", "cpu", "--plot", "--out-prefix",
+                           str(tmp_path / "p")])
+    assert not os.listdir(tmp_path)
+
+
+def test_main_annulus_prints_the_timer_report(tmp_path, capsys):
+    """The sections' table of utils.timing.Timer, as the JAX driver
+    prints it."""
+    timer = main_annulus.main(["--ntheta", "16", "--nr", "4", "--spacing",
+                               "400", "--device", "cpu", "--out-prefix",
+                               str(tmp_path / "p")])
+    out = capsys.readouterr().out
+    assert timer.report() in out
+    assert {"velocity", "init_annulus_circulant", "solver pack",
+            "solve (steady)", "receivers+paths", "outputs"} <= \
+        set(timer.totals)

@@ -135,6 +135,18 @@ _REFUSING_RUN = textwrap.dedent("""
     assert pt.backtrace_paths(Dt.prev, st, rt_, 8, device="cpu").shape == (2, 8)
     t_ref = sv.refined_travel_times(st, rt_, m=16, iters=5)
     assert np.all(t_ref <= Dt.dist[rt_])
+    # the faithful mesh on the native adjacency builder, the utilities
+    import shutil
+    from raytracer_tpu_torch import native
+    gf, Af, hf = pt.init_annulus(16, 6, spacing=200.0, faithful=True)
+    assert gf.nnods > gt.nnods and Af.nnz > 0
+    if shutil.which("g++"):
+        assert native.node_adjacency_native_flat.calls > 0
+    from raytracer_tpu_torch.utils.profiling import iteration_stats
+    from raytracer_tpu_torch.utils.timing import Timer
+    gc, cgc, Uc = init_annulus_circulant(16, 4, 400.0)
+    assert len(iteration_stats(cgc, 0, device="cpu")) > 1
+    assert "section" in Timer().report()
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("ISOLATED", len(names))
@@ -175,11 +187,13 @@ def test_sources_name_no_jax_and_no_cpp_extension(path):
 
 @pytest.mark.parametrize(
     "path", sorted(os.path.join(PKG, "csrc", f)
-                   for f in os.listdir(os.path.join(PKG, "csrc"))),
+                   for f in os.listdir(os.path.join(PKG, "csrc")))
+    + [os.path.join(PKG, "native", "graphbuild.cpp")],
     ids=lambda p: os.path.relpath(p, ROOT))
 def test_cuda_sources_include_no_pytorch_headers(path):
-    """The kernels build with plain nvcc behind a C interface: no
-    PyTorch or ATen header, which would put the build at minutes."""
+    """The kernels build with plain nvcc behind a C interface, and the
+    host adjacency builder with plain g++: no PyTorch or ATen header,
+    which would put the build at minutes."""
     with open(path) as f:
         includes = [ln for ln in f if ln.lstrip().startswith("#include")]
     assert includes

@@ -18,6 +18,9 @@ bend follows the JAX package's 50 steps within 1e-6 s and 1e-4 km, the
 tolerance tests/test_torch_refine.py holds `refine_paths_batch` to, and
 equals the port's unsharded bend.  Every rank returns the same table.
 """
+import queue
+import time
+
 import numpy as np
 import pytest
 
@@ -282,3 +285,44 @@ def test_sharded_bend_matches_jax(port, want):
     Pb, tb = want["bend_batch"]
     np.testing.assert_array_equal(ts, tb)
     np.testing.assert_array_equal(Ps, Pb)
+
+
+def _late_first_get(q):
+    """Make q's first wait time out only once a rank's result is in the
+    pipe and that rank has exited: the race of a rank that reports and
+    exits during the host's wait.  (An instance attribute: the queue the
+    ranks unpickle is the plain one.)"""
+    real_get = q.get
+
+    def get(timeout=None):
+        if q.get is get:
+            q.get = real_get
+            while q.empty():
+                time.sleep(0.05)
+            time.sleep(1.5)
+            raise queue.Empty
+        return real_get(timeout=timeout)
+
+    q.get = get
+    return q
+
+
+def test_run_group_takes_a_result_sent_during_the_wait(monkeypatch):
+    """A rank that sends its result and exits while the host waits is not
+    taken for a rank that died without one."""
+    import torch.distributed as dist
+
+    real = launch.mp.get_context
+
+    class Ctx:
+        def __init__(self, name):
+            self._ctx = real(name)
+
+        def Queue(self):
+            return _late_first_get(self._ctx.Queue())
+
+        def __getattr__(self, name):
+            return getattr(self._ctx, name)
+
+    monkeypatch.setattr(launch.mp, "get_context", Ctx)
+    assert launch.run_group(dist.get_rank, 2, device="cpu") == [0, 1]
