@@ -46,8 +46,10 @@ the exit code is non-zero):
      directional pass of the 3-D sweep engine) on the (9,6,5) test wedge
      at star 1 and 2, float32 and float64, every axis and direction, S=1
      and S=3 with carry_init across an opened face, on (35,5,61) (odd
-     lines), on planes of which only two or one fit in shared memory, and
-     one pass along each axis at 128x128x64, timed; (3d) relax at
+     lines) on one block and on clusters of 2, 4 and 8, on planes of
+     which only two or one fit in one block's shared memory and on a
+     256x256 plane that none holds (clusters of 16), and one pass along
+     each axis at 128x128x64 at S=1 and S=8, timed; (3d) relax at
      180x63 (S=1 and S=8, finite pad rows in the input) and in float64
      at 24x12 (S=2), fused (the whole
      solve in one cooperative launch) at 24x12 (S=2, T=3: ntheta 24 takes
@@ -226,7 +228,8 @@ the exit code is non-zero):
      (3k: tsweep bit-equal to its plain twin _sweep in float32 and
      float64, both directions, col_relax on and off, with and without
      carry_init, at 48x12 (every case) and 180x63 (four covering
-     cases), S=1 and S=8; timed);
+     cases), S=1 and S=8, at 90x80 (1,664 lanes: two a thread) and with
+     two and four lanes a thread forced at 180x63; timed);
  23. a one-rank NCCL group on cuda:0 (a one-rank mesh runs no
      collective, as a one-device JAX mesh): every multisource table at
      180x63, 8 x 150 (ell, twrapped, stream, sweep, circulant; the 3-D
@@ -2053,7 +2056,7 @@ def phase_plane3d_kernel(rec: dict):
     from raytracer_tpu_torch.solvers import solve3d as s3
 
     rng = np.random.default_rng(13)
-    max_err, n_cases = 0.0, 0
+    max_err, n_cases, routes = 0.0, 0, set()
 
     def check(d, lay, axis, down, ci, shifts, what):
         nonlocal max_err, n_cases
@@ -2101,65 +2104,92 @@ def phase_plane3d_kernel(rec: dict):
                         check(d, lay, axis, down, ci, shifts,
                               f"(9,6,5) star {star} {np.dtype(dtype).name} "
                               f"S={S} carry={carry}")
+    # lines of 35 and 61 (odd) at star 1: one block a source (the route
+    # plane3d_plan takes for planes under 4,096 nodes), and forced onto
+    # clusters of 2, 4 and 8 blocks (the 61-row planes in bands of 31/30,
+    # 16/16/16/13 and 8 x 7 + 5 rows; the 5-row planes on at most 2 blocks,
+    # 3/2 rows, since a band holds at least its 2 halo rows)
     g, U = _wedge3d((35, 5, 61), 80.0, 100.0, 600.0)
     W = torch.from_numpy(s3._shifted_weights(g, U, np.float32)).cuda()
     sc = s3._scan_costs_of(W, s3.SHIFTS)
-    for axis in (0, 1, 2):
-        lay = s3._sweep_layout3d(W, sc, axis)
-        d = field((1,) + tuple(W.shape[1:]), np.float32)
-        for down in (True, False):
-            check(d, lay, axis, down, None, s3.SHIFTS, "(35,5,61) star 1")
+    keep = plane3d.PLANE3D_CLUSTER, plane3d.PLANE3D_CLUSTER_NODES
+    try:
+        for cluster in (1, 2, 4, 8):
+            plane3d.PLANE3D_CLUSTER = cluster
+            plane3d.PLANE3D_CLUSTER_NODES = 1
+            for axis in (0, 1, 2):
+                lay = s3._sweep_layout3d(W, sc, axis)
+                d = field((1,) + tuple(W.shape[1:]), np.float32)
+                p0, p1 = (m for a, m in enumerate(W.shape[1:]) if a != axis)
+                routes.add(plane3d.plane3d_plan(p0, p1, 4).cluster)
+                for down in (True, False):
+                    check(d, lay, axis, down, None, s3.SHIFTS,
+                          f"(35,5,61) star 1, cluster {cluster}")
+    finally:
+        plane3d.PLANE3D_CLUSTER, plane3d.PLANE3D_CLUSTER_NODES = keep
 
-    # planes too large for three in shared memory: two (float32 planes of
-    # 160x128 along axis 0, float64 96x128: the in-plane ping-pong, the
-    # scans one direction after the other) and one (float64 160x128: the
-    # second plane in device memory)
+    # planes that took two or one shared-memory planes on one block
+    # (float32 160x128 along axis 0, float64 96x128 and 160x128), and a
+    # 256x256 float32 plane (256 KB), over what one block may hold: on
+    # clusters of 16 (the non-portable size)
     for dims, dtype in (((128, 160, 3), np.float32), ((128, 96, 3), np.float64),
-                        ((128, 160, 3), np.float64)):
+                        ((128, 160, 3), np.float64), ((256, 256, 3), np.float32)):
         g, U = _wedge3d(dims, 80.0, 100.0, 600.0)
         W = torch.from_numpy(s3._shifted_weights(g, U, dtype)).cuda()
         sc = s3._scan_costs_of(W, s3.SHIFTS)
         lay = s3._sweep_layout3d(W, sc, 0)
         d = field((2,) + tuple(W.shape[1:]), dtype)
-        planes = plane3d.plane3d_smem_bytes(dims[1], dims[0],
-                                            W.element_size())[1]
-        assert planes == (1 if (dims[1], dtype) == (160, np.float64) else 2)
+        cluster = plane3d.plane3d_plan(dims[1], dims[0],
+                                       W.element_size()).cluster
+        assert cluster == 16, (dims, cluster)
+        routes.add(cluster)
         for down in (True, False):
             check(d, lay, 0, down, None, s3.SHIFTS,
-                  f"{dims} {np.dtype(dtype).name} S=2, {planes} shared planes")
+                  f"{dims} {np.dtype(dtype).name} S=2, cluster {cluster}")
 
-    # a pass at the 3-D path's 128x128x64 along each axis, S=1, timed
+    # a pass at the 3-D path's 128x128x64 along each axis, S=1 and S=8,
+    # timed (clusters of 16 blocks a source)
     g, U, packed, _, _ = rec["wedge"]
     lays = s3._device_layout(packed, "sweep", torch.device("cuda"))
-    d = field((1,) + packed.shape, np.float32)
     rows = []
-    for axis in (0, 1, 2):
-        check(d, lays[axis], axis, True, None, packed.shifts,
-              "128x128x64 star 1")
-        ms = _cuda_ms(lambda: plane3d.plane_sweep3d(
-            d, lays[axis], axis, True, None, packed.shifts), 5)
-        plain = _cuda_ms(lambda: plane3d.plane_sweep3d_reference(
-            d, lays[axis], axis, True, None, packed.shifts), 1)
-        taps = plane3d._tap_table(packed.shifts, axis, True, "cuda")
-        nbytes, ops = _plane3d_work(lays[axis], taps, 1)
-        bound, by = _bound_ms(nbytes, ops)
-        rows.append(dict(axis=axis, planes=lays[axis].W.shape[0],
-                         ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                         nbytes=nbytes, ops=ops))
-    rec["plane3d"] = {k: statistics.mean(r[k] for r in rows)
+    for S in (1, 8):
+        d = field((S,) + packed.shape, np.float32)
+        for axis in (0, 1, 2):
+            check(d, lays[axis], axis, True, None, packed.shifts,
+                  f"128x128x64 star 1 S={S}")
+            ms = _cuda_ms(lambda: plane3d.plane_sweep3d(
+                d, lays[axis], axis, True, None, packed.shifts), 5)
+            plain = _cuda_ms(lambda: plane3d.plane_sweep3d_reference(
+                d, lays[axis], axis, True, None, packed.shifts), 1)
+            taps = plane3d._tap_table(packed.shifts, axis, True, "cuda")
+            nbytes, ops = _plane3d_work(lays[axis], taps, S)
+            bound, by = _bound_ms(nbytes, ops)
+            _, p0, p1 = lays[axis].W.shape[0], *lays[axis].W.shape[2:]
+            cluster = plane3d.plane3d_plan(p0, p1, 4).cluster
+            routes.add(cluster)
+            rows.append(dict(axis=axis, S=S, planes=lays[axis].W.shape[0],
+                             cluster=cluster, ms=ms, plain_ms=plain,
+                             bound_ms=bound, bound_by=by, nbytes=nbytes,
+                             ops=ops))
+    assert routes == {1, 2, 4, 8, 16}, routes
+    one = [r for r in rows if r["S"] == 1]
+    rec["plane3d"] = {k: statistics.mean(r[k] for r in one)
                       for k in ("ms", "plain_ms", "bound_ms")}
     rec["plane3d"]["bound_by"] = rows[0]["bound_by"]
     rec["plane3d"]["max_abs_err"] = max_err
     print(f"phase 3e kernels: plane3d bit-equal to plane_sweep3d_reference "
           f"in {n_cases} passes ((9,6,5) star 1 and 2, float32 and float64, "
           f"S=1 and S=3 with carry_init, every axis and direction; (35,5,61) "
-          f"star 1; axis-0 planes of 160x128 in float32 and 96x128 in "
-          f"float64 (two in shared memory) and 160x128 in float64 (one)); at {WEDGE_DIMS} star 1 S=1, down: " + "; ".join(
-              f"axis {r['axis']} ({r['planes']} planes): kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
-              f"{r['nbytes'] / 1e6:.1f} MB, {r['ops'] / 1e6:.1f} M ops)"
-              for r in rows), flush=True)
+          f"star 1 on one block and on clusters of 2, 4 and 8; axis-0 planes of "
+          f"160x128 in float32 and 96x128 and 160x128 in float64, and "
+          f"256x256 float32 (over one block's shared memory); {WEDGE_DIMS} "
+          f"S=1 and S=8) on clusters of {sorted(routes)} blocks; at "
+          f"{WEDGE_DIMS} star 1, down: " + "; ".join(
+              f"axis {r['axis']} S={r['S']} ({r['planes']} planes, cluster "
+              f"{r['cluster']}): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}, {r['nbytes'] / 1e6:.1f} MB, "
+              f"{r['ops'] / 1e6:.1f} M ops)" for r in rows), flush=True)
 
 
 def phase_grid3d(rec: dict):
@@ -4490,6 +4520,15 @@ def _tsweep_work(tbl, st, S, nt, reverse, itemsize, carry):
     return nbytes, 2 * S * nt * finite
 
 
+def _tsweep_route(tbl, st, reverse, col_relax, v):
+    """The lanes a thread of the plan tsweep launches."""
+    from raytracer_tpu_torch.ops import sweep_theta as sw
+
+    _, d1, _, d2, _, d0 = sw._tap_groups(tbl, st, reverse)
+    return sw.tsweep_plan(st.ML, v.element_size(), d1, d2, d0,
+                          st.chain_spans, col_relax).lpt
+
+
 def phase_tsweep_kernel(rec: dict):
     import numpy as np
     import torch
@@ -4505,21 +4544,28 @@ def phase_tsweep_kernel(rec: dict):
     # (a plain sweep at 180x63 takes ~1 s of small launches)
     cover = [(False, True, False), (False, False, True), (True, True, True),
              (True, False, False)]
-    n_cases, max_err, rows = 0, 0.0, []
+    n_cases, max_err, rows, routes = 0, 0.0, [], set()
     # every direction, col_relax and carry case at 48x12 (S=2) in both
     # dtypes, the covering four at 180x63 (S=1); S=8 at 180x63 in float32
     # with the theta-sharded solve's calls (col_relax, carry)
+    # the routes tsweep_plan picks by shape: 90x80 (1,664 lanes: two lanes
+    # a thread); forced at 180x63 S=2 float32 after the loop: two and four
+    # lanes a thread
     for (nt, nr, sp), dtype, S, cases in (
             ((48, 12, 150.0), np.float32, 2, every),
             ((48, 12, 150.0), np.float64, 2, every),
             ((180, 63, 20.0), np.float32, 1, cover),
             ((180, 63, 20.0), np.float64, 1, cover),
             ((180, 63, 20.0), np.float32, 8,
-             [(False, True, True), (True, True, True)])):
+             [(False, True, True), (True, True, True)]),
+            ((90, 80, 20.0), np.float32, 2, cover[:2]),
+            ((90, 80, 20.0), np.float64, 1, cover[2:])):
         gr, cg, _ = rt.init_annulus_circulant(nt, nr, sp, dtype=dtype)
         ws = pack_twrapped_stencil(cg, dtype=dtype, band_closure=0)
         t, st = sw.pack_sweep_tables(ws, cg, dtype)
         tbl = sw.tables_to_device(t, "cuda")
+        if (nt, dtype) == (180, np.float32):
+            _tsweep_tables_180 = (tbl, st)
         v = rng.uniform(0.0, 1500.0, (S, st.nt, st.ML)).astype(dtype)
         v[rng.random(v.shape) < 0.4] = np.inf
         v = torch.from_numpy(v).cuda()
@@ -4533,11 +4579,14 @@ def phase_tsweep_kernel(rec: dict):
             err = _max_err(got, want)
             max_err = max(max_err, err)
             n_cases += 1
+            plan = _tsweep_route(tbl, st, reverse, col_relax, v)
+            routes.add(plan)
             if not torch.equal(got, want):
                 raise AssertionError(
                     f"tsweep != _sweep at {nt}x{nr} {np.dtype(dtype).name} "
                     f"S={S} reverse={reverse} col_relax={col_relax} "
-                    f"carry={with_carry}: max abs err {err}")
+                    f"carry={with_carry} ({plan} lanes a thread): "
+                    f"max abs err {err}")
         if (nt, S) == (180, 1):
             ms = _cuda_ms(lambda: sw.tsweep(v, tbl, st, False), 20)
             plain = _cuda_ms(lambda: sw._sweep(v, tbl, st, False), 1)
@@ -4549,6 +4598,28 @@ def phase_tsweep_kernel(rec: dict):
             rows.append(dict(dtype=np.dtype(dtype).name, ms=ms,
                              plain_ms=plain, bound_ms=bound, bound_by=by,
                              nbytes=nbytes, ops=ops))
+    # the forced routes at 180x63 S=2 float32, forward, col_relax, carry
+    tbl, st = _tsweep_tables_180
+    v = torch.from_numpy(rng.uniform(0.0, 1500.0, (2, st.nt, st.ML)).astype(
+        np.float32)).cuda()
+    carry = tuple(torch.from_numpy(rng.uniform(0.0, 1500.0, (2, st.ML)).astype(
+        np.float32)).cuda() for _ in range(2))
+    want = sw._sweep(v, tbl, st, False, True, carry)
+    keep = sw.TSWEEP_THREADS
+    try:
+        for threads in (448, 224):
+            sw.TSWEEP_THREADS = threads
+            got = sw.tsweep(v, tbl, st, False, True, carry)
+            torch.cuda.synchronize()
+            plan = _tsweep_route(tbl, st, False, True, v)
+            routes.add(plan)
+            n_cases += 1
+            if not torch.equal(got, want):
+                raise AssertionError(f"tsweep != _sweep at 180x63 S=2 with "
+                                     f"{plan} lanes a thread")
+    finally:
+        sw.TSWEEP_THREADS = keep
+    assert routes == {1, 2, 4}, routes
     rec["tsweep"] = dict(ms=rows[0]["ms"], plain_ms=rows[0]["plain_ms"],
                          bound_ms=rows[0]["bound_ms"],
                          bound_by=rows[0]["bound_by"], max_abs_err=max_err)
@@ -4556,7 +4627,9 @@ def phase_tsweep_kernel(rec: dict):
           f"(48x12 S=2 float32 and float64: forward and backward, "
           f"col_relax on and off, with and without carry_init; 180x63 S=1 "
           f"float32 and float64: four covering each of those; 180x63 S=8 "
-          f"float32 both directions); "
+          f"float32 both directions; 90x80 (1,664 lanes) S=2 float32 and "
+          f"S=1 float64; 180x63 S=2 float32 on forced routes) with "
+          f"{sorted(routes)} lanes a thread; "
           f"one forward sweep with col_relax at 180x63 S=1: " + "; ".join(
               f"{r['dtype']} kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms "

@@ -1,5 +1,5 @@
 // cp.async helpers (global -> shared copies that bypass the registers),
-// shared by every kernel source but plane3d.cu.
+// shared by the kernel sources.
 #pragma once
 
 #include <cuda_runtime.h>

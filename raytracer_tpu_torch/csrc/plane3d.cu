@@ -2,10 +2,10 @@
 //
 // A kernel of the port's own choice: the JAX package runs this pass as
 // XLA, a lax.scan over the planes (raytracer_tpu/solvers/solve3d.py
-// _plane_sweep3d), with no Pallas kernel.  Python wrapper, tables and
-// plain PyTorch twin: raytracer_tpu_torch/ops/plane3d.py (plane_sweep3d,
-// scan_sum_trees, plane_sweep3d_reference; plane3d_scan_reference replays
-// the scans' levels).
+// _plane_sweep3d), with no Pallas kernel.  Python wrapper, launch planner,
+// tables and plain PyTorch twin: raytracer_tpu_torch/ops/plane3d.py
+// (plane_sweep3d, plane3d_plan, scan_sum_trees, plane_sweep3d_reference;
+// plane3d_scan_reference replays the scans' levels).
 //
 // What it computes.  d (S, nA, p0, p1) float32 or float64 (one template
 // build a type): the field with the sweep axis first (the wrapper moves
@@ -36,43 +36,72 @@
 // min(m[p - 2^l] + s_l[2i+1], m[p]) at p = (2i+2) 2^l - 1, down them m[q]
 // = min(m[q - 2^l] + s_l[2i], m[q]) at q = (2i+1) 2^l - 1, i >= 1; the
 // backward direction on the reversed line (index arithmetic, no copy).
+// Every update only lowers a value, so a scan's result is at most x, and
+// min(x, forward, backward) is min(forward, backward).
 //
 // What bounds it on an H100.  At 128x128x64 and star 1 a pass reads the
 // field once and writes it once (8.4 MB), reads 17 of the 26 weight
 // planes a node (71 MB) and the four scan-cost stacks (16.8 MB): ~0.03
-// ms at 3.35 TB/s; its ~30 M adds and minima are 0.5 us at 67 TFLOP/s
+// ms at 3.35 TB/s; its ~51 M adds and minima are ~1 us at 67 TFLOP/s
 // f32.  But the planes depend on each other (plane p's cross taps read
 // plane p -/+ 1), the in-plane taps are one Jacobi step after another,
-// and each scan level waits on the last: a plane costs ~80 block
-// barriers, and one SM runs every instruction of a source's pass.  So
-// the design is simple and right, and latency-bound: one block of 1,024
-// threads a source marches the planes; the current plane lives in shared
-// memory (64 KB in float32, 128 KB in float64 at 16,384 nodes), and as
-// many as three planes where they fit in 227 KB (`planes`): with two,
-// the in-plane taps ping-pong between them (no copy back a tap); with
-// three, an axis's forward and backward scans run in the same level
-// steps, which halves the scans' barriers; with one, the second plane
-// lives in device memory (one plane a source).  The previous planes are
-// read back from the output, which the L2 holds.  While a plane runs, one
-// thread asks the L2 for the next plane's input, weight rows and sum
-// trees with bulk prefetches (cp.async.bulk.prefetch.L2); each thread
-// starts the loads of kG nodes (or scan items) before it takes their
-// minima; plane coordinates come from a multiply-high division.  A
-// cluster of blocks sharing one plane through distributed shared memory
-// is the obvious next step.
+// and each scan level waits on the last.  The first design ran a source
+// on one block of 1,024 threads (one SM), the line scans level by level
+// with a block barrier a level (~80 block barriers a plane), and every
+// thread worked through 16 nodes a step: latency on one SM.
+//
+// The design.  A cluster of `cs` blocks (thread-block clusters, 8 for the
+// production planes, up to 16 with the non-portable size; 1 for small
+// planes: ops/plane3d.plane3d_plan) runs a source; block `rank` owns the
+// rows [rank R, rank R + R) of every plane (R = ceil(p0 / cs)) in its
+// shared memory, in three band buffers, and the columns [rank Cw, rank Cw
+// + Cw) for the axis-0 scans (Cw = ceil(p1 / cs)).
+//   1. the cross taps of its rows (and its edge rows into the
+//      neighbours' halos), reading the previous planes back from the
+//      output (the L2 holds them);
+//   2. the in-plane taps, in band buffers with hh halo rows each side
+//      (twice the taps' reach across rows): a block writes its edge rows
+//      into its neighbours' halo rows through distributed shared memory
+//      (the cluster's map_shared_rank) as it computes them, so every read
+//      is local; two taps a cluster barrier (the first of a pair also
+//      computes the halo rows the second reads: the same floats), the
+//      barrier split into its arrive and its wait with the next tap's
+//      weight loads between them;
+//   3. the axis-0 scans: the block gathers its columns from every band
+//      through distributed shared memory into its two free buffers
+//      (forward and backward copies); a warp owns whole columns and runs
+//      the levels of both with __syncwarp only; the block writes
+//      min(forward, backward) back into the owning bands; a cluster
+//      barrier;
+//   4. the axis-1 scans: a warp owns whole rows of its band, the same
+//      warp-level levels, and writes its output rows; a cluster barrier
+//      (the next plane's cross taps read them).
+// So a plane costs 3 + ceil(n_inpl / 2) cluster barriers and a block
+// barrier a pair of taps and two around the axis-0 levels, and no barrier
+// inside a scan.  The plane's
+// sum trees for its columns and rows come into shared memory by cp.async
+// when the plane starts (waited before the first barrier); the next
+// plane's input and weight rows of its band go to the L2 by bulk
+// prefetches (cp.async.bulk.prefetch.L2); each thread starts the loads of
+// kG nodes before it takes their minima; plane coordinates come from a
+// multiply-high division.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "minplus.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using minplus::add_rn;
 using minplus::min_of;
 
-constexpr int kThreads = 1024;
-constexpr int kMaxLevels = 31;
-constexpr int kG = 4;                  // nodes (scan items) a thread loads at once
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxCluster = 16;
+constexpr int kG = 4;  // nodes a thread loads at once
 
 // n / d for 0 <= n < 2^31 by a multiply-high (d >= 1 fixed): shift =
 // ceil(log2 d), mul = floor(2^32 (2^shift - d) / d) + 1
@@ -96,180 +125,179 @@ __device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
 }
 
 // sum of the level lengths of a line of n values (the tree's length)
-__device__ __forceinline__ int tree_len(int n) {
+__host__ __device__ __forceinline__ int tree_len(int n) {
   int t = 0;
   for (int m = n; m >= 2; m >>= 1) t += m;
   return t;
 }
 
-// One scan direction in place: its buffer, its tree ((T0, p1) for plane
-// axis 0, (p0, T1) for axis 1) and whether it runs over the reversed
-// lines.
-template <typename T>
-struct Dir {
-  T* buf;
-  const T* tree;
-  bool rev;
-};
+// values of one block's shared memory (ops/plane3d.py plane3d_smem_bytes):
+// three band buffers of max((R + 2 hh) p1, Cw (p0 + 1)) values (its rows
+// with hh halo rows each side, or its columns at a line stride of p0 +
+// 1), the axis-0 trees of its columns (2 x Cw x T0) and the axis-1 trees
+// of its rows (2 x R x T1)
+__host__ __device__ __forceinline__ long long smem_values(int p0, int p1, int cs, int hh) {
+  const long long R = (p0 + cs - 1) / cs, Cw = (p1 + cs - 1) / cs;
+  const long long rows = (R + 2 * hh) * p1, cols = Cw * (p0 + 1);
+  const long long band = rows > cols ? rows : cols;
+  return 3 * band + 2LL * tree_len(p0) * Cw + 2LL * R * tree_len(p1);
+}
 
-// the scans of `nd` directions (1 or 2) along plane axis `ax` of the
-// (p0, p1) plane, each in place in its own buffer, the levels of both
-// between the same barriers
+// The forward scan of the line F[0 .. n) and the backward scan of G (the
+// same line, reversed by index arithmetic), in place, by the 32 lanes of
+// one warp, level by level with __syncwarp; the sums of level value k at
+// sf[k] and sb[k]
 template <typename T>
-__device__ void scan_levels(const Dir<T>* dirs, int nd, int ax, int p0, int p1) {
-  const int n = ax == 0 ? p0 : p1;    // line length
-  const int nl = ax == 0 ? p1 : p0;   // lines
-  const int tl = tree_len(n);
-  const FastDiv by_nl(nl);
-  int offs[kMaxLevels], lens[kMaxLevels], L = 0;
-  for (int m = n, off = 0; m >= 2; m >>= 1, ++L) {
-    offs[L] = off;
-    lens[L] = m;
-    off += m;
-  }
-  const auto at = [&](int t, int line, bool rev) {
-    const int u = rev ? n - 1 - t : t;
-    return ax == 0 ? u * p1 + line : line * p1 + u;
-  };
-  const auto sum = [&](const T* tree, int k, int line) {
-    return ax == 0 ? tree[static_cast<size_t>(k) * p1 + line]
-                   : tree[static_cast<size_t>(line) * tl + k];
-  };
-  // one level: `cnt` pairs a line; pair i updates t = (2(i+i0)+1+up) 2^l - 1
-  // from t - 2^l with sum s_l[2(i+i0) + up]
-  const auto level = [&](int l, int cnt, int i0, int up) {
-    const int items = cnt * nl;
-    const FastDiv by_cnt(cnt > 0 ? cnt : 1);
-    for (int it0 = threadIdx.x; it0 < items; it0 += kG * blockDim.x) {
-      int i[kG], line[kG];
-#pragma unroll
-      for (int g = 0; g < kG; ++g) {
-        const int it = it0 + g * blockDim.x;
-        if (ax == 0) {
-          i[g] = by_nl.div(it);
-          line[g] = it - i[g] * nl;
-        } else {
-          line[g] = by_cnt.div(it);
-          i[g] = it - line[g] * cnt;
-        }
-        i[g] += i0;
-      }
-      for (int d = 0; d < nd; ++d) {
-        const Dir<T> dr = dirs[d];
-        T sv[kG];
-        int dst[kG], src[kG];
-#pragma unroll
-        for (int g = 0; g < kG; ++g) {
-          dst[g] = -1;
-          if (it0 + g * blockDim.x < items) {
-            const int t = ((2 * i[g] + 1 + up) << l) - 1;
-            dst[g] = at(t, line[g], dr.rev);
-            src[g] = at(t - (1 << l), line[g], dr.rev);
-            sv[g] = sum(dr.tree, offs[l] + 2 * i[g] + up, line[g]);
-          }
-        }
-#pragma unroll
-        for (int g = 0; g < kG; ++g)
-          if (dst[g] >= 0)
-            dr.buf[dst[g]] = min_of(add_rn(dr.buf[src[g]], sv[g]), dr.buf[dst[g]]);
-      }
+__device__ void scan_line(T* F, T* G, int n, const T* sf, const T* sb, int lane) {
+  int L = 0, off = 0;
+  for (int m = n; m >= 2; m >>= 1) ++L;
+  for (int l = 0; l < L; ++l) {  // up
+    const int len = n >> l, h = 1 << l;
+    for (int i = lane; i < len >> 1; i += 32) {
+      const int p = ((2 * i + 2) << l) - 1;
+      const int k = off + 2 * i + 1;
+      F[p] = min_of(add_rn(F[p - h], sf[k]), F[p]);
+      G[n - 1 - p] = min_of(add_rn(G[n - 1 - p + h], sb[k]), G[n - 1 - p]);
     }
-    __syncthreads();
-  };
-  for (int l = 0; l < L; ++l) level(l, lens[l] >> 1, 0, 1);                // up
-  for (int l = L - 1; l >= 0; --l) level(l, (lens[l] - 1) >> 1, 1, 0);     // down
-}
-
-// cur = min(x, forward scan of x, backward scan of x) along plane axis
-// `ax`.  With Y (a third shared plane) both scans run together on copies
-// of x in X and Y; else one after the other in cur, X holding x and then
-// min(x, forward) (each thread touches only its own nodes of X)
-template <typename T>
-__device__ void scan_axis(T* cur, T* X, T* Y, const T* tf, const T* tb, int ax, int p0,
-                          int p1) {
-  const int P = p0 * p1;
-  if (Y) {
-    for (int i = threadIdx.x; i < P; i += blockDim.x) X[i] = Y[i] = cur[i];
-    __syncthreads();
-    const Dir<T> dirs[2] = {{X, tf, false}, {Y, tb, true}};
-    scan_levels(dirs, 2, ax, p0, p1);
-    for (int i = threadIdx.x; i < P; i += blockDim.x)
-      cur[i] = min_of(cur[i], min_of(X[i], Y[i]));
-    __syncthreads();
-    return;
+    off += len;
+    __syncwarp();
   }
-  for (int i = threadIdx.x; i < P; i += blockDim.x) X[i] = cur[i];
-  __syncthreads();
-  const Dir<T> fwd[1] = {{cur, tf, false}}, bwd[1] = {{cur, tb, true}};
-  scan_levels(fwd, 1, ax, p0, p1);
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const T x = X[i];
-    X[i] = min_of(x, cur[i]);
-    cur[i] = x;
+  for (int l = L - 1; l >= 0; --l) {  // down
+    const int len = n >> l, h = 1 << l;
+    off -= len;
+    for (int i = lane + 1; i <= (len - 1) >> 1; i += 32) {
+      const int q = ((2 * i + 1) << l) - 1;
+      const int k = off + 2 * i;
+      F[q] = min_of(add_rn(F[q - h], sf[k]), F[q]);
+      G[n - 1 - q] = min_of(add_rn(G[n - 1 - q + h], sb[k]), G[n - 1 - q]);
+    }
+    __syncwarp();
   }
-  __syncthreads();
-  scan_levels(bwd, 1, ax, p0, p1);
-  for (int i = threadIdx.x; i < P; i += blockDim.x) cur[i] = min_of(X[i], cur[i]);
-  __syncthreads();
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  cp_async_ca<sizeof(T)>(dst, src);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
 plane3d_kernel(const T* __restrict__ din, T* __restrict__ dout, const T* __restrict__ W,
                const T* __restrict__ t0f, const T* __restrict__ t0b,
                const T* __restrict__ t1f, const T* __restrict__ t1b,
-               const T* __restrict__ carry, T* xglob, const int* __restrict__ taps,
-               int nA, int p0, int p1, int ns, int nc, int n_cross, int n_inpl,
-               int down, int planes) {
+               const T* __restrict__ carry, const int* __restrict__ taps, int nA, int p0,
+               int p1, int ns, int nc, int n_cross, int n_inpl, int down, int hh) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int cs = static_cast<int>(cl.num_blocks());
+  const int rank = static_cast<int>(cl.block_rank());
+  const int s = blockIdx.x / cs;
   const int P = p0 * p1;
-  const int s = blockIdx.x;
-  T* cur = reinterpret_cast<T*>(smem_raw);
-  T* X = planes >= 2 ? cur + P : xglob + static_cast<size_t>(s) * P;
-  T* Y = planes == 3 ? cur + 2 * P : nullptr;
+  const int R = (p0 + cs - 1) / cs, Cw = (p1 + cs - 1) / cs;
+  const int r0 = rank * R, c0 = rank * Cw;
+  const int nrows = max(0, min(p0, r0 + R) - r0), ncols = max(0, min(p1, c0 + Cw) - c0);
+  const int Pb = nrows * p1;
+  const int T0 = tree_len(p0), T1 = tree_len(p1);
+  const int ls0 = p0 + 1;  // line stride of the column copies
+  const int band = max((R + 2 * hh) * p1, Cw * ls0);
+  T* bufs[3];
+  bufs[0] = reinterpret_cast<T*>(smem_raw);
+  bufs[1] = bufs[0] + band;
+  bufs[2] = bufs[1] + band;
+  T* tr0f = bufs[2] + band;  // (Cw, T0): column c0 + c at c * T0 + k
+  T* tr0b = tr0f + static_cast<size_t>(Cw) * T0;
+  T* tr1f = tr0b + static_cast<size_t>(Cw) * T0;  // (R, T1): row r0 + r at r * T1 + k
+  T* tr1b = tr1f + static_cast<size_t>(R) * T1;
   const T* in = din + static_cast<size_t>(s) * nA * P;
   T* out = dout + static_cast<size_t>(s) * nA * P;
   const T* car = carry ? carry + static_cast<size_t>(s) * nc * P : nullptr;
   const int sgn = down ? 1 : -1;
-  const int T0 = tree_len(p0), T1 = tree_len(p1);
-  const int nth = blockDim.x;
-  const FastDiv by_p1(p1);
-  // plane q's input, tap weight rows and sum trees into the L2 (rows of
-  // a multiple of 16 bytes only: the bulk prefetch takes no other)
-  const size_t tr0 = static_cast<size_t>(T0) * p1, tr1 = static_cast<size_t>(T1) * p0;
-  const bool can_prefetch = (static_cast<size_t>(P) * sizeof(T)) % 16 == 0 &&
-                            (tr0 * sizeof(T)) % 16 == 0 && (tr1 * sizeof(T)) % 16 == 0;
-  const auto prefetch_plane = [&](int q) {
-    if (!can_prefetch || threadIdx.x != 0) return;
-    const size_t row = static_cast<size_t>(P) * sizeof(T);
-    prefetch_l2(in + static_cast<size_t>(q) * P, row);
-    for (int t = 0; t < n_cross + n_inpl; ++t)
-      prefetch_l2(W + (static_cast<size_t>(q) * ns + __ldg(&taps[4 * t])) * P, row);
-    if (tr0) {
-      prefetch_l2(t0f + q * tr0, tr0 * sizeof(T));
-      prefetch_l2(t0b + q * tr0, tr0 * sizeof(T));
-    }
-    if (tr1) {
-      prefetch_l2(t1f + q * tr1, tr1 * sizeof(T));
-      prefetch_l2(t1b + q * tr1, tr1 * sizeof(T));
+  const int nth = blockDim.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = nth >> 5;
+  const FastDiv by_p1(p1), by_cols(max(ncols, 1));
+  const auto csync = [&]() {
+    if (cs == 1)
+      __syncthreads();
+    else
+      cl.sync();
+  };
+  // a cluster barrier with `f` run between its arrive and its wait (loads
+  // that stay in flight over the wait)
+  const auto csync_over = [&](auto f) {
+    if (cs == 1) {
+      f();
+      __syncthreads();
+    } else {
+      asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+      f();
+      asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
     }
   };
+  // A band buffer holds rows [r0 - hh, r0 + R + hh): its own and hh halo
+  // rows each side, copies of the neighbours' edge rows (none on a
+  // cluster of one).  Row a of the
+  // buffer `buf` (this block's offset of it) in whichever block of the
+  // cluster owns that row:
+  const auto row_of = [&](T* buf, int a) -> T* {
+    const int q = a / R;
+    T* base = q == rank ? buf : cl.map_shared_rank(buf, q);
+    return base + static_cast<size_t>(a - q * R + hh) * p1;
+  };
+  // value x of own row r0 + q, column b, into `buf`, and into the halo
+  // rows of the neighbour blocks whose halo it is (R >= hh: only the two
+  // next to this one)
+  const auto store = [&](T* buf, int q, int b, T x) {
+    buf[(q + hh) * p1 + b] = x;
+    if (q < hh && rank > 0) cl.map_shared_rank(buf, rank - 1)[(q + R + hh) * p1 + b] = x;
+    if (q >= nrows - hh && r0 + R < p0)
+      cl.map_shared_rank(buf, rank + 1)[(q - R + hh) * p1 + b] = x;
+  };
+  // plane q's input and tap weight rows of this band into the L2 (rows
+  // of a multiple of 16 bytes only: the bulk prefetch takes no other)
+  const bool can_prefetch = (static_cast<size_t>(p1) * sizeof(T)) % 16 == 0 && Pb > 0;
+  const auto prefetch_plane = [&](int q) {
+    if (!can_prefetch || threadIdx.x != 0) return;
+    const size_t bytes = static_cast<size_t>(Pb) * sizeof(T);
+    const size_t at = static_cast<size_t>(r0) * p1;
+    prefetch_l2(in + static_cast<size_t>(q) * P + at, bytes);
+    for (int t = 0; t < n_cross + n_inpl; ++t)
+      prefetch_l2(W + (static_cast<size_t>(q) * ns + __ldg(&taps[4 * t])) * P + at, bytes);
+  };
+
+  cl.sync();  // every block of the cluster runs before any reads another's memory
   prefetch_plane(down ? nA - 1 : 0);
   for (int j = 0; j < nA; ++j) {
     const int p = down ? nA - 1 - j : j;
     const T* Wp = W + static_cast<size_t>(p) * ns * P;
+    // 0. this plane's sum trees of the band's columns and rows
+    {
+      const size_t b0 = static_cast<size_t>(p) * T0 * p1 + c0;
+      for (int e = threadIdx.x; e < T0 * ncols; e += nth) {
+        const int k = e / ncols, c = e - k * ncols;
+        copy_async(tr0f + c * T0 + k, t0f + b0 + static_cast<size_t>(k) * p1 + c);
+        copy_async(tr0b + c * T0 + k, t0b + b0 + static_cast<size_t>(k) * p1 + c);
+      }
+      const size_t b1 = (static_cast<size_t>(p) * p0 + r0) * T1;
+      for (int e = threadIdx.x; e < nrows * T1; e += nth) {
+        copy_async(tr1f + e, t1f + b1 + e);
+        copy_async(tr1b + e, t1b + b1 + e);
+      }
+      cp_async_commit();
+    }
     if (j + 1 < nA) prefetch_plane(down ? p - 1 : p + 1);
-    // 1. the input plane and the cross taps, kG nodes a thread at once
-    for (int i0 = threadIdx.x; i0 < P; i0 += kG * nth) {
+    // 1. the input plane and the cross taps of the band, kG nodes a
+    // thread at once, into bufs[0]
+    T* cur = bufs[0];
+    for (int i0 = threadIdx.x; i0 < Pb; i0 += kG * nth) {
       T v[kG];
       int a[kG], b[kG];
 #pragma unroll
       for (int g = 0; g < kG; ++g) {
-        const int idx = i0 + g * nth;
-        const int q = by_p1.div(idx);
-        a[g] = idx < P ? q : -p0 - 2;  // a node past the plane takes no tap
-        b[g] = idx - q * p1;
-        v[g] = idx < P ? in[static_cast<size_t>(p) * P + idx] : T(0);
+        const int li = i0 + g * nth;
+        const int q = by_p1.div(li);
+        a[g] = li < Pb ? r0 + q : -p0 - 2;  // a node past the band takes no tap
+        b[g] = li - q * p1;
+        v[g] = li < Pb ? in[static_cast<size_t>(p) * P + r0 * p1 + li] : T(0);
       }
       for (int t = 0; t < n_cross; ++t) {
         const int m = __ldg(&taps[4 * t + 1]);
@@ -282,7 +310,7 @@ plane3d_kernel(const T* __restrict__ din, T* __restrict__ dout, const T* __restr
           if (c >= nc) continue;  // +inf plane
           prev = car + static_cast<size_t>(c) * P;
         }
-        const T* Ws = Wp + static_cast<size_t>(__ldg(&taps[4 * t])) * P;
+        const T* Ws = Wp + static_cast<size_t>(__ldg(&taps[4 * t])) * P + r0 * p1;
         T src[kG], w[kG];
         bool ok[kG];
 #pragma unroll
@@ -300,73 +328,150 @@ plane3d_kernel(const T* __restrict__ din, T* __restrict__ dout, const T* __restr
       }
 #pragma unroll
       for (int g = 0; g < kG; ++g)
-        if (i0 + g * nth < P) cur[i0 + g * nth] = v[g];
+        if (i0 + g * nth < Pb) store(cur, a[g] - r0, b[g], v[g]);
     }
-    __syncthreads();
-    // 2. the in-plane taps, one Jacobi update of the plane each: from A
-    // into B, then B is the plane (ping-pong between two shared planes;
-    // with one, B is the device-memory plane, copied back a tap)
-    T* A = cur;
-    T* B = X;
-    for (int t = n_cross; t < n_cross + n_inpl; ++t) {
+    cp_async_wait_all();
+    // 2. the in-plane taps, one Jacobi update of the plane each, two at a
+    // time between cluster barriers: the first of a pair also computes
+    // the hr = hh / 2 halo rows each side (the neighbours' edge rows: the
+    // same floats), so the second needs nothing from another block; its
+    // edge rows go hh deep into the neighbours' halos.  A lone last tap
+    // (an odd count) goes from A into M with its edge rows pushed.
+    const int te = n_cross + n_inpl, hr = hh / 2;
+    const int qlo = max(-hr, -r0), qhi = min(nrows + hr, p0 - r0);
+    const int Pe = nrows > 0 ? (qhi - qlo) * p1 : 0;  // a pair's first tap's nodes
+    // the weights of tap t for this thread's first kG nodes of rows
+    // [q0, ...) (Pn nodes), loaded while a barrier completes
+    T wn[kG], wn2[kG];
+    const auto load_w = [&](T (&w)[kG], int t, int q0, int Pn) {
+      if (t >= te) return;
+      const T* Ws = Wp + static_cast<size_t>(__ldg(&taps[4 * t])) * P + (r0 + q0) * p1;
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        const int li = threadIdx.x + g * nth;
+        if (li < Pn) w[g] = Ws[li];
+      }
+    };
+    const auto load_first = [&](int t) {  // tap t heads a pair, or is alone
+      if (t + 1 < te)
+        load_w(wn, t, qlo, Pe);
+      else
+        load_w(wn, t, 0, Pb);
+    };
+    // one tap from X into Y over rows [q0, ...) (Pn nodes); with `push`
+    // the own rows go through store (edge rows into the neighbours'
+    // halos), else into Y's rows only
+    const auto tap = [&](const T* X, T* Y, int t, int q0, int Pn, const T (&w0)[kG],
+                         bool push) {
       const int sft = __ldg(&taps[4 * t]);
       const int da = __ldg(&taps[4 * t + 2]), db = __ldg(&taps[4 * t + 3]);
-      const T* Ws = Wp + static_cast<size_t>(sft) * P;
-      for (int i0 = threadIdx.x; i0 < P; i0 += kG * nth) {
-        T w[kG];
+      const T* Ws = Wp + static_cast<size_t>(sft) * P + (r0 + q0) * p1;
+      for (int i0 = threadIdx.x; i0 < Pn; i0 += kG * nth) {
+        T w[kG], src[kG];
         int nbr[kG];
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
-          const int idx = i0 + g * nth;
-          const int a = by_p1.div(idx), b = idx - a * p1;
-          const int na = a + da, nb = b + db;
-          nbr[g] = idx < P && na >= 0 && na < p0 && nb >= 0 && nb < p1 ? na * p1 + nb : -1;
-          if (nbr[g] >= 0) w[g] = Ws[idx];
+          const int li = i0 + g * nth;
+          const int q = q0 + by_p1.div(li);
+          const int na = r0 + q + da, nb = li - (q - q0) * p1 + db;
+          nbr[g] = li < Pn && na >= 0 && na < p0 && nb >= 0 && nb < p1;
+          if (nbr[g]) {
+            w[g] = i0 == threadIdx.x ? w0[g] : Ws[li];
+            src[g] = X[(na - r0 + hh) * p1 + nb];  // own or halo row
+          }
         }
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
-          const int idx = i0 + g * nth;
-          if (idx < P) {
-            T v = A[idx];
-            if (nbr[g] >= 0) v = min_of(v, add_rn(A[nbr[g]], w[g]));
-            B[idx] = v;
+          const int li = i0 + g * nth;
+          if (li < Pn) {
+            const int q = q0 + by_p1.div(li), b = li - (q - q0) * p1;
+            T v = X[(q + hh) * p1 + b];
+            if (nbr[g]) v = min_of(v, add_rn(src[g], w[g]));
+            if (push)
+              store(Y, q, b, v);
+            else
+              Y[(q + hh) * p1 + b] = v;
           }
         }
       }
-      __syncthreads();
-      if (planes >= 2) {
-        T* tmp = A;
-        A = B;
-        B = tmp;
-      } else {
-        for (int idx = threadIdx.x; idx < P; idx += nth) cur[idx] = X[idx];
+    };
+    csync_over([&] { load_first(n_cross); });
+    T* A = bufs[0];  // the plane
+    T* M = bufs[1];
+    T* D = bufs[2];
+    for (int t = n_cross; t < te; t += 2) {
+      if (t + 1 < te) {
+        load_w(wn2, t + 1, 0, Pb);
+        tap(A, M, t, qlo, Pe, wn, false);
         __syncthreads();
+        tap(M, D, t + 1, 0, Pb, wn2, true);
+        csync_over([&] { load_first(t + 2); });
+        T* tmp = A;
+        A = D;
+        D = tmp;
+      } else {
+        tap(A, M, t, 0, Pb, wn, true);
+        csync_over([] {});
+        T* tmp = A;
+        A = M;
+        M = tmp;
       }
     }
-    if (A != cur) {  // an odd number of ping-pong taps
-      for (int idx = threadIdx.x; idx < P; idx += nth) cur[idx] = A[idx];
-      __syncthreads();
+    // the two buffers A is not: the scans' forward and backward copies
+    T* F = M;
+    T* G = D;
+    // 3. the axis-0 scans: the block's columns gathered from every band
+    // (neighbouring threads on neighbouring columns of a row), a warp a
+    // column for the levels, then written back
+    for (int e = threadIdx.x; e < p0 * ncols; e += nth) {
+      const int a = by_cols.div(e), c = e - a * ncols;
+      const T x = row_of(A, a)[c0 + c];
+      F[c * ls0 + a] = x;
+      G[c * ls0 + a] = x;
     }
-    // 3. the scans along plane axis 0, then along plane axis 1
-    scan_axis(cur, X, Y, t0f + static_cast<size_t>(p) * tr0, t0b + static_cast<size_t>(p) * tr0,
-              0, p0, p1);
-    scan_axis(cur, X, Y, t1f + static_cast<size_t>(p) * tr1, t1b + static_cast<size_t>(p) * tr1,
-              1, p0, p1);
-    // 4. the output plane, which later planes read as their prev
-    for (int idx = threadIdx.x; idx < P; idx += nth)
-      out[static_cast<size_t>(p) * P + idx] = cur[idx];
     __syncthreads();
+    for (int c = warp; c < ncols; c += nwarps)
+      scan_line(F + c * ls0, G + c * ls0, p0, tr0f + static_cast<size_t>(c) * T0,
+                tr0b + static_cast<size_t>(c) * T0, lane);
+    __syncthreads();
+    for (int e = threadIdx.x; e < p0 * ncols; e += nth) {
+      const int a = by_cols.div(e), c = e - a * ncols;
+      row_of(A, a)[c0 + c] = min_of(F[c * ls0 + a], G[c * ls0 + a]);
+    }
+    csync();
+    // 4. the axis-1 scans: a warp a row of the band; the output rows
+    for (int r = warp; r < nrows; r += nwarps) {
+      const T* Al = A + static_cast<size_t>(r + hh) * p1;
+      T* Fl = F + static_cast<size_t>(r) * p1;
+      T* Gl = G + static_cast<size_t>(r) * p1;
+      for (int b = lane; b < p1; b += 32) {
+        const T x = Al[b];
+        Fl[b] = x;
+        Gl[b] = x;
+      }
+      __syncwarp();
+      scan_line(Fl, Gl, p1, tr1f + static_cast<size_t>(r) * T1,
+                tr1b + static_cast<size_t>(r) * T1, lane);
+      T* o = out + static_cast<size_t>(p) * P + static_cast<size_t>(r0 + r) * p1;
+      for (int b = lane; b < p1; b += 32) o[b] = min_of(Fl[b], Gl[b]);
+    }
+    // the output rows reach the cluster's next cross taps, and the
+    // buffers and trees are free again
+    csync();
   }
+  cl.sync();  // no block leaves while another may still read its memory
 }
 
 template <typename T>
 int launch(const void* din, void* dout, const void* W, const void* t0f, const void* t0b,
-           const void* t1f, const void* t1b, const void* carry, void* xbuf, int S, int nA,
-           int p0, int p1, int ns, int nc, int n_cross, int n_inpl, int down, int planes,
-           int smem, const void* taps, cudaStream_t st) {
-  const size_t plane = static_cast<size_t>(p0) * p1 * sizeof(T);
-  if (planes < 1 || planes > 3 || static_cast<size_t>(smem) != planes * plane ||
-      (planes == 1 && !xbuf))
+           const void* t1f, const void* t1b, const void* carry, int S, int nA, int p0, int p1,
+           int ns, int nc, int n_cross, int n_inpl, int down, int hh, int cs, int threads,
+           int smem,
+           const void* taps, cudaStream_t st) {
+  if (cs < 1 || cs > kMaxCluster || cs > p0 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 ||
+      hh < 0 || hh % 2 || (cs > 1 && (p0 + cs - 1) / cs < hh) || (cs == 1 && hh) ||
+      static_cast<long long>(smem) != smem_values(p0, p1, cs, hh) * static_cast<long long>(sizeof(T)))
     return static_cast<int>(cudaErrorInvalidValue);
   static int smem_set = 0;
   if (smem > 48 * 1024 && smem > smem_set) {
@@ -375,36 +480,59 @@ int launch(const void* din, void* dout, const void* W, const void* t0f, const vo
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = smem;
   }
-  plane3d_kernel<T><<<S, kThreads, smem, st>>>(
-      static_cast<const T*>(din), static_cast<T*>(dout), static_cast<const T*>(W),
-      static_cast<const T*>(t0f), static_cast<const T*>(t0b), static_cast<const T*>(t1f),
-      static_cast<const T*>(t1b), static_cast<const T*>(carry), static_cast<T*>(xbuf),
-      static_cast<const int*>(taps), nA, p0, p1, ns, nc, n_cross, n_inpl, down, planes);
+  static bool non_portable = false;
+  if (cs > 8 && !non_portable) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(plane3d_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    non_portable = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S * cs);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, plane3d_kernel<T>, static_cast<const T*>(din), static_cast<T*>(dout),
+      static_cast<const T*>(W), static_cast<const T*>(t0f), static_cast<const T*>(t0b),
+      static_cast<const T*>(t1f), static_cast<const T*>(t1b), static_cast<const T*>(carry),
+      static_cast<const int*>(taps), nA, p0, p1, ns, nc, n_cross, n_inpl, down, hh);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches one directional pass on `stream`; returns the CUDA error as an
-// int (0 when the launch was accepted).  din and dout (S, nA, p0, p1), W
-// (nA, ns, p0, p1), the trees of ops/plane3d.scan_sum_trees, carry (S,
-// nc, p0, p1) or null when nc is 0, xbuf (S, p0*p1) when `planes` is 1
-// (else null): float32, or float64 when is_double; taps (n_cross +
-// n_inpl, 4) int32 rows (shift, m, da, db); all contiguous device memory.
-// smem is the block's dynamic shared memory, `planes` planes (1-3).  One
-// block of 1,024 threads a source.
+// int (0 when the launch was accepted; a refused cluster launch returns
+// its error, never another route).  din and dout (S, nA, p0, p1), W (nA,
+// ns, p0, p1), the trees of ops/plane3d.scan_sum_trees, carry (S, nc, p0,
+// p1) or null when nc is 0: float32, or float64 when is_double; taps
+// (n_cross + n_inpl, 4) int32 rows (shift, m, da, db), |da| <= hh / 2 for
+// the in-plane taps on a cluster; all contiguous device memory.  S
+// clusters of `cs` blocks (1-16, at most p0; ceil(p0 / cs) >= hh when cs >
+// 1, hh = 0 when cs is 1) of `threads`
+// threads, each block with `smem` bytes of dynamic shared memory
+// (ops/plane3d.plane3d_plan).
 extern "C" int plane3d_launch(const void* din, void* dout, const void* W, const void* t0f,
                               const void* t0b, const void* t1f, const void* t1b,
-                              const void* carry, void* xbuf, int S, int nA, int p0, int p1,
-                              int ns, int nc, int n_cross, int n_inpl, int down, int planes,
+                              const void* carry, int S, int nA, int p0, int p1, int ns, int nc,
+                              int n_cross, int n_inpl, int down, int hh, int cs, int threads,
                               int smem, int is_double, const void* taps, void* stream) {
   if (S < 1 || nA < 1 || p0 < 1 || p1 < 1 || ns < 1 || nc < 0 || (nc > 0 && !carry) ||
       n_cross < 0 || n_inpl < 0 || smem < 1 || static_cast<size_t>(smem) > minplus::kBlockSmem ||
       static_cast<long long>(p0) * p1 > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_double ? launch<double>(din, dout, W, t0f, t0b, t1f, t1b, carry, xbuf, S, nA, p0,
-                                    p1, ns, nc, n_cross, n_inpl, down, planes, smem, taps, st)
-                   : launch<float>(din, dout, W, t0f, t0b, t1f, t1b, carry, xbuf, S, nA, p0,
-                                   p1, ns, nc, n_cross, n_inpl, down, planes, smem, taps, st);
+  return is_double ? launch<double>(din, dout, W, t0f, t0b, t1f, t1b, carry, S, nA, p0, p1, ns,
+                                    nc, n_cross, n_inpl, down, hh, cs, threads, smem, taps, st)
+                   : launch<float>(din, dout, W, t0f, t0b, t1f, t1b, carry, S, nA, p0, p1, ns,
+                                   nc, n_cross, n_inpl, down, hh, cs, threads, smem, taps, st);
 }

@@ -247,20 +247,89 @@ def _tap_table(shifts, axis: int, down: bool, device) -> torch.Tensor:
 _TAPS: dict = {}
 
 
-def plane3d_smem_bytes(p0: int, p1: int, itemsize: int) -> Tuple[int, int]:
-    """(shared bytes, planes) of one kernel block: as many (p0, p1)
-    planes as fit in BLOCK_SMEM, at most 3 - the current plane;
-    a second one for the in-plane taps' ping-pong and the scans (else it
-    lives in device memory, one plane a source); a third one lets an
-    axis's forward and backward scans run together.  Raises ValueError,
-    naming the limit, for a plane that does not fit alone."""
-    one = p0 * p1 * itemsize
-    if one > BLOCK_SMEM:
-        raise ValueError(f"plane3d keeps a {p0}x{p1} plane ({one} bytes) in "
-                         f"shared memory: over the {BLOCK_SMEM} "
-                         f"bytes an H100 block may have")
-    planes = min(3, BLOCK_SMEM // one)
-    return planes * one, planes
+# The kernel's route: a cluster of PLANE3D_CLUSTER blocks a source for a
+# plane of at least PLANE3D_CLUSTER_NODES nodes, one block for a smaller
+# one; more blocks (up to PLANE3D_MAX_CLUSTER, 16 being the H100's
+# non-portable cluster size) while a block's share does not fit its
+# shared memory.
+PLANE3D_CLUSTER = 16
+PLANE3D_CLUSTER_NODES = 4096
+PLANE3D_MAX_CLUSTER = 16
+PLANE3D_NODES_A_THREAD = 4      # csrc/plane3d.cu kG
+
+
+class Plane3DPlan(NamedTuple):
+    """One plane3d launch: `cluster` blocks a source, each owning `rows`
+    rows of every plane (with `halo` rows each side) and `cols` columns
+    for the axis-0 scans, of `threads` threads and `smem` bytes of
+    dynamic shared memory."""
+
+    cluster: int
+    threads: int
+    smem: int
+    rows: int
+    cols: int
+    halo: int
+
+
+def _tree_len(n: int) -> int:
+    return sum(m for _, m in tree_levels(n))
+
+
+def plane3d_smem_bytes(p0: int, p1: int, itemsize: int, cluster: int,
+                       halo: int) -> int:
+    """Dynamic shared memory of one block of a `cluster`-block source: three
+    band buffers of max((R + 2 halo) p1, Cw (p0 + 1)) values (R = ceil(p0
+    / cluster) rows and `halo` rows each side, or Cw = ceil(p1 / cluster)
+    columns at a line stride of p0 + 1), its columns' axis-0 sum trees
+    (2 Cw T0) and its rows' axis-1 trees (2 R T1)."""
+    R, Cw = -(-p0 // cluster), -(-p1 // cluster)
+    band = max((R + 2 * halo) * p1, Cw * (p0 + 1))
+    return itemsize * (3 * band + 2 * Cw * _tree_len(p0)
+                       + 2 * R * _tree_len(p1))
+
+
+def plane3d_plan(p0: int, p1: int, itemsize: int,
+                 reach: int = 1) -> Plane3DPlan:
+    """The launch of a pass over (p0, p1) planes whose in-plane taps reach
+    `reach` rows: one block for a plane under PLANE3D_CLUSTER_NODES
+    nodes, else a cluster of PLANE3D_CLUSTER, doubled (a power of 2, at
+    most PLANE3D_MAX_CLUSTER blocks, and bands of at least 2 `reach`
+    rows) until a block's share fits an H100 block's shared memory (its
+    rows with 2 `reach` halo rows each side on a cluster: the kernel
+    runs the in-plane taps two a cluster barrier); ceil(rows p1 / 4)
+    threads rounded up to a multiple of 32, and a warp for each of its
+    rows and columns (the scans' lines), 64 to 1,024.  Raises
+    ValueError, naming the limit, for a plane no cluster fits."""
+    halo = 2 * reach
+    top = 1 << (max(1, min(PLANE3D_MAX_CLUSTER, p0 // max(halo, 1)))
+                .bit_length() - 1)
+    c = PLANE3D_CLUSTER if p0 * p1 >= PLANE3D_CLUSTER_NODES else 1
+    c = max(1, min(c, top))
+
+    def smem_of(c):
+        return plane3d_smem_bytes(p0, p1, itemsize, c,
+                                  halo if c > 1 else 0)
+
+    while smem_of(c) > BLOCK_SMEM and c < top:
+        c = min(2 * c, top)
+    smem = smem_of(c)
+    if smem > BLOCK_SMEM:
+        raise ValueError(f"plane3d splits a {p0}x{p1} plane over at most "
+                         f"{top} blocks, and a block's share ({smem} bytes "
+                         f"of shared memory) is over the {BLOCK_SMEM} bytes "
+                         f"an H100 block may have")
+    R, Cw = -(-p0 // c), -(-p1 // c)
+    per = -(-R * p1 // PLANE3D_NODES_A_THREAD)
+    threads = min(1024, max(64, (per + 31) // 32 * 32, 32 * max(R, Cw)))
+    return Plane3DPlan(c, threads, smem, R, Cw, halo if c > 1 else 0)
+
+
+def plane3d_reach(shifts, axis: int) -> int:
+    """How many rows (plane axis 0) the in-plane taps of a pass along
+    `axis` reach: the halo a band of the cluster route keeps."""
+    oaxis = [a for a in (0, 1, 2) if a != axis][0]
+    return max((abs(sh[oaxis]) for sh in shifts if sh[axis] == 0), default=0)
 
 
 def _plane3d_lib() -> ctypes.CDLL:
@@ -268,7 +337,7 @@ def _plane3d_lib() -> ctypes.CDLL:
     fn = lib.plane3d_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
                        + [ctypes.c_void_p] * 2)
     return lib
 
@@ -291,9 +360,11 @@ def plane_sweep3d(d: torch.Tensor, layout: PlaneLayout3D, axis: int,
     passes the neighbour block's halo plane.
 
     A CUDA tensor (float32 or float64) goes to the hand-written kernel
-    `csrc/plane3d.cu`, one block a source marching the planes
-    (`plane_sweep3d.launches` counts its launches); a plane larger than
-    an H100 block's shared memory raises ValueError before the launch.
+    `csrc/plane3d.cu`, a cluster of blocks (or one block) a source
+    marching the planes, as `plane3d_plan` chooses
+    (`plane_sweep3d.launches` counts its launches); a plane no cluster
+    fits raises ValueError before the launch, and a refused launch
+    raises RuntimeError.
     A CPU tensor goes to `plane_sweep3d_reference`.  Any other device
     raises.
     """
@@ -322,8 +393,9 @@ def plane_sweep3d(d: torch.Tensor, layout: PlaneLayout3D, axis: int,
     if tuple(W.shape) != (nA, len(shifts), p0, p1):
         raise ValueError(f"layout W {tuple(W.shape)} does not fit planes "
                          f"({nA}, {p0}, {p1}) of {len(shifts)} shifts")
-    smem, planes = plane3d_smem_bytes(p0, p1, d.element_size())
     reach, cross, inpl, _ = plane_taps(shifts, axis, down)
+    plan = plane3d_plan(p0, p1, d.element_size(), plane3d_reach(
+        shifts, axis))
     taps = _tap_table(shifts, axis, down, d.device)
     carry = None
     nc = 0
@@ -338,17 +410,15 @@ def plane_sweep3d(d: torch.Tensor, layout: PlaneLayout3D, axis: int,
                             dim=1).to(d.dtype).contiguous()
         nc = len(seeds)
     out = torch.empty_like(xs)
-    xbuf = None if planes > 1 else torch.empty((S, p0 * p1), dtype=d.dtype,
-                                               device=d.device)
     t0f, t0b, t1f, t1b = layout.trees
     stream = torch.cuda.current_stream(d.device).cuda_stream
     rc = _plane3d_lib().plane3d_launch(
         xs.data_ptr(), out.data_ptr(), W.data_ptr(), t0f.data_ptr(),
         t0b.data_ptr(), t1f.data_ptr(), t1b.data_ptr(),
         0 if carry is None else carry.data_ptr(),
-        0 if xbuf is None else xbuf.data_ptr(),
         S, nA, p0, p1, len(shifts), nc, sum(len(c) for c in cross),
-        len(inpl), int(down), planes, smem,
+        len(inpl), int(down), plan.halo, plan.cluster, plan.threads,
+        plan.smem,
         int(d.dtype == torch.float64), taps.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"plane3d kernel launch failed: CUDA error {rc}")

@@ -821,28 +821,86 @@ def _sweep(v, tbl: SweepTables, st: SweepStatic, reverse: bool,
     return ys.transpose(0, 1).contiguous()
 
 
-TSWEEP_THREADS = 1024   # at most; fewer (a multiple of 32) for ML < 1024
+# The kernel's block: at most TSWEEP_THREADS threads, holding the fewest
+# lanes a thread (of TSWEEP_LPT) that cover the column.
+TSWEEP_THREADS = 1024
+TSWEEP_LPT = (1, 2, 4, 8, 16)
 
 
-def _tsweep_offsets(d1, d2, d0, chain_spans, device) -> torch.Tensor:
-    """The kernel's int32 offsets: `_tap_groups`' d1, d2 and d0, then the
-    chain spans; cached per (offsets, device)."""
-    key = (d1, d2, d0, chain_spans, str(device))
-    offs = _TSWEEP_OFFS.get(key)
-    if offs is None:
-        offs = torch.tensor(d1 + d2 + d0 + chain_spans, dtype=torch.int32,
-                            device=device)
-        _TSWEEP_OFFS[key] = offs
-    return offs
+class TSweepPlan(NamedTuple):
+    """One tsweep launch: `offs` the int32 offsets (the n1 + n2 step-1
+    offsets as they are, then with col_relax the n0 + 2L in-column
+    offsets reduced mod ML: d0, then -s, then +s for the chain spans),
+    `halo` lanes each side of the p1 / p2 columns (the largest step-1
+    offset), `lpt` lanes a thread, `threads` a block and `smem` bytes of
+    shared memory a block."""
+
+    offs: np.ndarray
+    halo: int
+    lpt: int
+    threads: int
+    smem: int
+
+
+def tsweep_offsets(d1, d2, d0, chain_spans, ML: int,
+                   col_relax: bool) -> np.ndarray:
+    """The kernel's offsets of one column (the same for every column): the
+    dc = -+1 and -+2 taps as they are, then, with col_relax, the
+    in-column steps reduced mod ML."""
+    steps = []
+    if col_relax:
+        steps = ([int(d) % ML for d in d0]
+                 + [(-int(s)) % ML for s in chain_spans]
+                 + [int(s) % ML for s in chain_spans])
+    return np.asarray([int(d) for d in d1] + [int(d) for d in d2] + steps,
+                      np.int32)
+
+
+def tsweep_smem_bytes(ML: int, itemsize: int, halo: int, rows: int) -> int:
+    """Dynamic shared memory of one block: a pointer (8 bytes) and an
+    offset (4 bytes) a weight row of a column, the chain's two columns,
+    and three columns with `halo` lanes each side (p1, p2 and the
+    next)."""
+    return 12 * rows + (2 * ML + 3 * (ML + 2 * halo)) * itemsize
+
+
+def tsweep_plan(ML: int, itemsize: int, d1, d2, d0, chain_spans,
+                col_relax: bool) -> TSweepPlan:
+    """The launch of one sweep: the fewest lanes a thread whose lanes fit
+    TSWEEP_THREADS threads (a multiple of 32).  Raises ValueError, naming
+    the limit, when no plan fits an H100 block (shared memory, threads,
+    the halo)."""
+    if not len(d1) and not len(d2):
+        raise ValueError("tsweep needs at least one dc = -+1 or -+2 tap")
+    offs = tsweep_offsets(d1, d2, d0, chain_spans, ML, col_relax)
+    halo = max(abs(int(d)) for d in list(d1) + list(d2))
+    lpt = next((k for k in TSWEEP_LPT if -(-ML // k) <= TSWEEP_THREADS),
+               None)
+    if lpt is None:
+        raise ValueError(f"tsweep cannot cover {ML} lanes with at most "
+                         f"{TSWEEP_LPT[-1]} lanes a thread and "
+                         f"{TSWEEP_THREADS} threads")
+    smem = tsweep_smem_bytes(ML, itemsize, halo, len(offs))
+    if smem > BLOCK_SMEM or halo > ML:
+        raise ValueError(f"tsweep keeps 5 columns of {ML} lanes, 2 x {halo} "
+                         f"halo lanes and {len(offs)} rows ({smem} bytes) "
+                         f"in shared memory: over the {BLOCK_SMEM} bytes an "
+                         f"H100 block may have (or a halo over {ML} lanes)")
+    threads = max(32, (-(-ML // lpt) + 31) // 32 * 32)
+    return TSweepPlan(offs, halo, lpt, threads, smem)
+
+
+def _tsweep_offs_on(plan: TSweepPlan, device) -> torch.Tensor:
+    """The plan's offsets on `device`, cached by their bytes."""
+    key = (plan.offs.tobytes(), str(device))
+    t = _TSWEEP_OFFS.get(key)
+    if t is None:
+        t = torch.from_numpy(plan.offs).to(device)
+        _TSWEEP_OFFS[key] = t
+    return t
 
 
 _TSWEEP_OFFS: dict = {}
-
-
-def tsweep_smem_bytes(ML: int, itemsize: int) -> int:
-    """Dynamic shared memory of one block: the column, its two
-    predecessors and a ping-pong copy, ML values each."""
-    return 4 * ML * itemsize
 
 
 def _tsweep_lib() -> ctypes.CDLL:
@@ -850,7 +908,7 @@ def _tsweep_lib() -> ctypes.CDLL:
     fn = lib.tsweep_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 14
                        + [ctypes.c_void_p])
     return lib
 
@@ -862,11 +920,11 @@ def tsweep(v: torch.Tensor, tbl: SweepTables, static: SweepStatic,
     (S, nt, ML) field (see `_sweep`); returns a new field.
 
     A CUDA tensor goes to the hand-written kernel `csrc/tsweep.cu`, one
-    block a source marching the columns (launched on the current stream;
-    `tsweep.launches` counts the launches); a column whose four
-    shared-memory copies exceed an H100 block's shared memory raises
-    ValueError before the launch.  A CPU tensor goes to `_sweep`.  Any
-    other device raises.
+    block a source marching the columns as `tsweep_plan` lays it out
+    (launched on the current stream; `tsweep.launches` counts the
+    launches); a column that no plan fits in an H100 block raises
+    ValueError before the launch, and a refused launch RuntimeError.  A CPU tensor goes to `_sweep`.
+    Any other device raises.
     """
     if v.dim() != 3 or v.shape[1] != static.nt or v.shape[2] != static.ML:
         raise ValueError(f"v must be (S, {static.nt}, {static.ML}), got "
@@ -893,17 +951,13 @@ def tsweep(v: torch.Tensor, tbl: SweepTables, static: SweepStatic,
             raise ValueError(f"a weight table ({a.device}, {a.dtype}, "
                              f"{tuple(a.shape)}) does not fit the field "
                              f"({v.device}, {v.dtype}, {n} x {static.ML})")
-    smem = tsweep_smem_bytes(static.ML, v.element_size())
-    if smem > BLOCK_SMEM:
-        raise ValueError(f"tsweep keeps 4 columns of {static.ML} lanes "
-                         f"({smem} bytes) in shared memory: over the "
-                         f"{BLOCK_SMEM} bytes an H100 block may have")
+    plan = tsweep_plan(static.ML, v.element_size(), g1_d, g2_d, d0,
+                       static.chain_spans, col_relax)
     x = v.contiguous()
     if carry_init is not None:
         carry_init = tuple(c.to(v.dtype).contiguous() for c in carry_init)
     out = torch.empty_like(x)
-    offs = _tsweep_offsets(g1_d, g2_d, d0, static.chain_spans, v.device)
-    threads = min(TSWEEP_THREADS, -(-static.ML // 32) * 32)
+    offs = _tsweep_offs_on(plan, v.device)
     stream = torch.cuda.current_stream(v.device).cuda_stream
     rc = _tsweep_lib().tsweep_launch(
         x.data_ptr(), out.data_ptr(),
@@ -911,8 +965,9 @@ def tsweep(v: torch.Tensor, tbl: SweepTables, static: SweepStatic,
         0 if carry_init is None else carry_init[1].data_ptr(),
         g1_w.data_ptr(), g2_w.data_ptr(), w0.data_ptr(), tbl.cfp.data_ptr(),
         tbl.cbp.data_ptr(), offs.data_ptr(), x.shape[0], static.nt,
-        static.ML, len(g1_d), len(g2_d), len(d0), L, int(reverse),
-        int(col_relax), threads, int(v.dtype == torch.float64), stream)
+        static.ML, len(g1_d), len(g2_d), len(d0), L, plan.halo,
+        int(reverse), int(col_relax), plan.lpt, plan.threads, plan.smem,
+        int(v.dtype == torch.float64), stream)
     if rc != 0:
         raise RuntimeError(f"tsweep kernel launch failed: CUDA error {rc}")
     tsweep.launches += 1

@@ -6,8 +6,10 @@ The port's `_plane_sweep3d` (on the CPU the plain twin
 with and without `carry_init`, in float32 and float64, one source and a
 batch (the JAX package vmaps).  The CUDA kernel `csrc/plane3d.cu` cannot
 run here, so what it reads and where is replayed in NumPy on the same
-tables (its skipped out-of-plane taps, its carry planes, its sum trees
-and in-place scan levels) and held to the twin; the premise that lets it
+tables (its skipped out-of-plane taps, its carry planes, the band split
+over a cluster of blocks, the column exchange, its sum trees and
+warp-owned scan levels) and held to the twin and to the JAX package;
+the launch planner's routes, bytes and refusals are checked by hand; the premise that lets it
 skip the taps that leave the plane (every such weight is +inf) is
 asserted on the weights used; the scan levels alone
 (`plane3d_scan_reference`) equal `_axis_scan` at odd and even line
@@ -231,92 +233,179 @@ def test_scan_levels_equal_axis_scan(n, dtype):
         assert tf.shape[axis] == sum(m for _, m in pp3.tree_levels(n))
 
 
-def _replay(d, W, trees, taps, down, carry):
-    """csrc/plane3d.cu replayed in NumPy, one block a source: d (S, nA, p0,
-    p1) with the sweep axis first, W (nA, ns, p0, p1), the four trees,
-    the tap rows (shift, m, da, db), carry (S, nc, p0, p1) or None.
-    Output planes not yet written are NaN, so reading one fails."""
+def _scan_line(F, G, tf, tb):
+    """One warp's line scans of csrc/plane3d.cu, in place: the forward scan
+    of F and the backward scan of G (the reversed line by index), level
+    by level; all items of a level at once (they write disjoint values
+    and read none of them)."""
+    n = len(F)
+    levels = pp3.tree_levels(n)
+    for lev, (off, m) in enumerate(levels):
+        i = np.arange(m // 2)
+        p, h = ((2 * i + 2) << lev) - 1, 1 << lev
+        F[p] = np.minimum(F[p - h] + tf[off + 2 * i + 1], F[p])
+        G[n - 1 - p] = np.minimum(G[n - 1 - p + h] + tb[off + 2 * i + 1],
+                                  G[n - 1 - p])
+    for lev in range(len(levels) - 1, -1, -1):
+        off, m = levels[lev]
+        i = np.arange(1, (m - 1) // 2 + 1)
+        q, h = ((2 * i + 1) << lev) - 1, 1 << lev
+        F[q] = np.minimum(F[q - h] + tf[off + 2 * i], F[q])
+        G[n - 1 - q] = np.minimum(G[n - 1 - q + h] + tb[off + 2 * i],
+                                  G[n - 1 - q])
+
+
+def _replay(d, W, trees, taps, down, carry, cluster=1, reach=1):
+    """csrc/plane3d.cu replayed in NumPy, a cluster of `cluster` blocks a
+    source: d (S, nA, p0, p1) with the sweep axis first, W (nA, ns, p0,
+    p1), the four trees, the tap rows (shift, m, da, db), carry (S, nc,
+    p0, p1) or None.  Block q holds rows [q R, q R + R) of the plane (R =
+    ceil(p0 / cluster)) in its own band buffers, with 2 `reach` halo rows
+    each side on a cluster, which the neighbour blocks write as they
+    compute their edge rows, and reads only those: the in-plane taps two
+    at a time, the first of a pair also over `reach` halo rows each side
+    (the same floats as the neighbour's), the second from those; it
+    scans the columns
+    [q Cw, q Cw + Cw) along axis 0 (gathered from every band into its
+    free buffers, written back as min(forward, backward)) and its rows
+    along axis 1.  Output planes not yet written, and a block's buffers
+    (halos too) at the start of each plane, are NaN, so reading one
+    fails."""
     S, nA, p0, p1 = d.shape
-    P = p0 * p1
     t0f, t0b, t1f, t1b = trees
     out = np.full_like(d, np.nan)
-    a_of, b_of = np.divmod(np.arange(P), p1)
+    R, Cw = -(-p0 // cluster), -(-p1 // cluster)
+    hh = 2 * reach if cluster > 1 else 0
+    hr = hh // 2
+    assert R >= hh
+    rows = [range(q * R, min(p0, q * R + R)) for q in range(cluster)]
+    cols = [range(q * Cw, min(p1, q * Cw + Cw)) for q in range(cluster)]
     sgn = 1 if down else -1
     nc = 0 if carry is None else carry.shape[1]
     cross = [t for t in taps if t[1] >= 1]
     inpl = [t for t in taps if t[1] == 0]
-
-    def scan_dir(cur, tree, ax, rev):
-        n, nl = (p0, p1) if ax == 0 else (p1, p0)
-        levels = pp3.tree_levels(n)
-
-        def at(t, line):
-            u = n - 1 - t if rev else t
-            return u * p1 + line if ax == 0 else line * p1 + u
-
-        def tsum(k, line):
-            return tree[k, line] if ax == 0 else tree[line, k]
-
-        for lev, (off, m) in enumerate(levels):
-            i, line = np.meshgrid(np.arange(m // 2), np.arange(nl),
-                                  indexing="ij")
-            p = ((2 * i + 2) << lev) - 1
-            ip = at(p, line)
-            cur[ip] = np.minimum(cur[at(p - (1 << lev), line)]
-                                 + tsum(off + 2 * i + 1, line), cur[ip])
-        for lev in range(len(levels) - 1, -1, -1):
-            off, m = levels[lev]
-            i, line = np.meshgrid(np.arange(1, (m - 1) // 2 + 1),
-                                  np.arange(nl), indexing="ij")
-            q = ((2 * i + 1) << lev) - 1
-            iq = at(q, line)
-            cur[iq] = np.minimum(cur[at(q - (1 << lev), line)]
-                                 + tsum(off + 2 * i, line), cur[iq])
-
-    def scan_axis(cur, tf, tb, ax):
-        X = cur.copy()
-        scan_dir(cur, tf, ax, False)
-        X, cur[:] = np.minimum(X, cur), X
-        scan_dir(cur, tb, ax, True)
-        cur[:] = np.minimum(X, cur)
+    bb = np.arange(p1)
 
     for s in range(S):
         for j in range(nA):
             p = nA - 1 - j if down else j
-            cur = d[s, p].reshape(-1).copy()
-            for sft, m, da, db in cross:
-                na, nb = a_of + da, b_of + db
-                ok = (na >= 0) & (na < p0) & (nb >= 0) & (nb < p1)
-                if j >= m:
-                    prev = out[s, p + m * sgn].reshape(-1)
-                elif m - 1 - j < nc:
-                    prev = carry[s, m - 1 - j].reshape(-1)
+            bufs = [np.full((3, R + 2 * hh, p1), np.nan, d.dtype)
+                    for _ in range(cluster)]
+
+            def store(q, bi, r, x):      # own row, and the neighbours' halos
+                bufs[q][bi, r + hh] = x
+                if r < hh and q > 0:
+                    bufs[q - 1][bi, r + R + hh] = x
+                if r >= len(rows[q]) - hh and (q + 1) * R < p0:
+                    bufs[q + 1][bi, r - R + hh] = x
+
+            def own(bi, a):              # row a in its owner's buffer bi
+                return bufs[a // R][bi, a - (a // R) * R + hh]
+
+            # 1. each block's rows: the input and the cross taps
+            for q in range(cluster):
+                for r, a in enumerate(rows[q]):
+                    cur = d[s, p, a].copy()
+                    for sft, m, da, db in cross:
+                        na, nb = a + da, bb + db
+                        ok = (0 <= na < p0) & (nb >= 0) & (nb < p1)
+                        if j >= m:
+                            prev = out[s, p + m * sgn]
+                        elif m - 1 - j < nc:
+                            prev = carry[s, m - 1 - j]
+                        else:
+                            continue
+                        if not ok.any():
+                            continue
+                        src = prev[na][np.where(ok, nb, 0)]
+                        assert not np.isnan(src[ok]).any()
+                        cur = np.where(ok, np.minimum(cur, src + W[p, sft, a]),
+                                       cur)
+                    store(q, 0, r, cur)
+            # 2. the in-plane taps, two at a time: the first of a pair
+            # over each block's rows and hr halo rows each side (local, no
+            # exchange), the second over its own rows, its edge rows hh
+            # deep into the neighbours' halos; a lone last tap the same
+            # way from A
+            def one_tap(q, src_i, dst_i, sft, da, db, r, push):
+                a = q * R + r
+                na, nb = a + da, bb + db
+                v = bufs[q][src_i, r + hh].copy()
+                ok = (0 <= na < p0) & (nb >= 0) & (nb < p1)
+                if ok.any():
+                    src = bufs[q][src_i, na - q * R + hh]
+                    assert not np.isnan(src[ok]).any()
+                    cand = src[np.where(ok, nb, 0)] + W[p, sft, a]
+                    v = np.where(ok, np.minimum(v, cand), v)
+                if push:
+                    store(q, dst_i, r, v)
                 else:
-                    continue
-                src = prev[np.where(ok, na * p1 + nb, 0)]
-                assert not np.isnan(src[ok]).any()
-                cand = src + W[p, sft].reshape(-1)
-                cur = np.where(ok, np.minimum(cur, cand), cur)
-            for sft, _, da, db in inpl:
-                na, nb = a_of + da, b_of + db
-                ok = (na >= 0) & (na < p0) & (nb >= 0) & (nb < p1)
-                cand = cur[np.where(ok, na * p1 + nb, 0)] + W[p, sft].reshape(-1)
-                cur = np.where(ok, np.minimum(cur, cand), cur)
-            scan_axis(cur, t0f[p], t0b[p], 0)
-            scan_axis(cur, t1f[p], t1b[p], 1)
-            out[s, p] = cur.reshape(p0, p1)
+                    bufs[q][dst_i, r + hh] = v
+
+            ia, im, idn = 0, 1, 2
+            t = 0
+            while t < len(inpl):
+                if t + 1 < len(inpl):
+                    sft, _, da, db = inpl[t]
+                    for q in range(cluster):
+                        r0q = q * R
+                        if not rows[q]:
+                            continue
+                        for r in range(max(-hr, -r0q),
+                                       min(len(rows[q]) + hr, p0 - r0q)):
+                            one_tap(q, ia, im, sft, da, db, r, False)
+                    sft, _, da, db = inpl[t + 1]
+                    for q in range(cluster):
+                        for r in range(len(rows[q])):
+                            one_tap(q, im, idn, sft, da, db, r, True)
+                    ia, idn = idn, ia
+                    t += 2
+                else:
+                    sft, _, da, db = inpl[t]
+                    for q in range(cluster):
+                        for r in range(len(rows[q])):
+                            one_tap(q, ia, im, sft, da, db, r, True)
+                    ia, im = im, ia
+                    t += 1
+            # 3. the axis-0 scans: block q's columns from every band
+            for q in range(cluster):
+                for b in cols[q]:
+                    x = np.array([own(ia, a)[b] for a in range(p0)])
+                    F, G = x.copy(), x.copy()
+                    _scan_line(F, G, t0f[p][:, b], t0b[p][:, b])
+                    for a in range(p0):
+                        own(ia, a)[b] = min(F[a], G[a])
+            # 4. the axis-1 scans of each block's rows: the output
+            for q in range(cluster):
+                for r, a in enumerate(rows[q]):
+                    x = bufs[q][ia, r + hh]
+                    F, G = x.copy(), x.copy()
+                    _scan_line(F, G, t1f[p][a], t1b[p][a])
+                    out[s, p, a] = np.minimum(F, G)
     return out
 
 
+_JAX_PASSES: dict = {}
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("star,carry", [(1, "none"), (1, "plane"),
                                         (2, "none"), (2, "tuple")])
 @pytest.mark.parametrize("axis", [0, 1, 2])
-def test_kernel_replay_equals_twin(axis, star, carry, dtype):
+def test_kernel_replay_equals_twin(axis, star, carry, dtype, cluster):
     """What csrc/plane3d.cu reads and where, replayed on the host on the
     kernel's own tables (the tap rows, the sum trees) for S = 3 sources,
-    both directions, equals the plain twin."""
-    _, pk, _, _, Wt, sct = _both(star, dtype)
+    both directions, on one block and on clusters of two and four (the
+    test planes' rows split into bands of 5, 3 and 2, and an empty one,
+    with two halo rows each side at star 1; star 2's four halo rows do
+    not fit these bands, so it takes one block here and a taller plane
+    in the next test),
+    equals the plain twin, and (star 2 down, float64, without
+    carry_init) the JAX package's `_plane_sweep3d` for each source."""
+    import jax
+
+    jp, pk, Wj, scj, Wt, sct = _both(star, dtype)
     if carry != "none":
         Wt = torch.from_numpy(_opened(pk, axis))
         sct = ps._scan_costs_of(Wt, pk.shifts)
@@ -335,9 +424,42 @@ def test_kernel_replay_equals_twin(axis, star, carry, dtype):
         if ct is not None:
             planes = ct if isinstance(ct, tuple) else (ct,)
             carry_np = np.stack([p.numpy() for p in planes], axis=1)
+        reach = pp3.plane3d_reach(pk.shifts, axis)
+        p0 = _plane_shape(pk.shape, axis)[0]
+        while cluster > 1 and -(-p0 // cluster) < 2 * reach:
+            cluster //= 2      # the planner's bands hold 2 reach rows
         got = _replay(np.moveaxis(d, 1 + axis, 1), lt.W.numpy(), trees,
-                      taps, down, carry_np)
-        assert np.array_equal(np.moveaxis(got, 1, 1 + axis), want), down
+                      taps, down, carry_np, cluster, reach)
+        got = np.moveaxis(got, 1, 1 + axis)
+        assert np.array_equal(got, want), down
+        if carry == "none" and dtype == "float64" and down and star == 2:
+            key = (axis, star, dtype, down)
+            if key not in _JAX_PASSES:
+                lj = js._sweep_layout3d(Wj, scj, axis)
+                _JAX_PASSES[key] = np.asarray(jax.vmap(
+                    lambda x: js._plane_sweep3d(x, lj, axis, down,
+                                                shifts=jp.shifts))(
+                    jnp.asarray(d)))
+            assert np.array_equal(got, _JAX_PASSES[key]), down
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_kernel_replay_star2_cluster_equals_twin(dtype):
+    """Star 2 on clusters of two blocks: axis-0 planes of 8 rows in bands
+    of 4 with four halo rows each side (twice the in-plane taps' reach of
+    2), S = 2 sources, both directions, equal to the plain twin."""
+    _, pk, _, _, Wt, sct = _both(2, dtype, dims=(9, 8, 5))
+    lt = ps._sweep_layout3d(Wt, sct, 0)
+    trees = [t.numpy() for t in pp3.scan_sum_trees(*lt[1:5])]
+    d = _field(np.random.default_rng(5), (2,) + pk.shape, dtype)
+    assert pp3.plane3d_reach(pk.shifts, 0) == 2 and pk.shape[1] == 8
+    for down in (True, False):
+        want = pp3.plane_sweep3d_reference(torch.from_numpy(d), lt, 0, down,
+                                           None, pk.shifts).numpy()
+        taps = pp3._tap_table(pk.shifts, 0, down, "cpu").numpy().tolist()
+        got = _replay(np.moveaxis(d, 1, 1), lt.W.numpy(), trees, taps, down,
+                      None, 2, 2)
+        assert np.array_equal(got, want), down
 
 
 def test_tap_table_lists_cross_then_in_plane_taps():
@@ -364,20 +486,50 @@ def test_tap_table_lists_cross_then_in_plane_taps():
 
 
 def test_plane_fits_shared_memory_or_is_refused():
-    """One plane always sits in shared memory, up to three where they fit
-    (a second for the in-plane ping-pong, a third for the scans of both
-    directions together); a plane larger than an H100 block's 227 KB is
+    """A plane of 4,096 nodes or more runs on a cluster of 16 blocks a
+    source (the non-portable size: faster than 8 on the card), a smaller
+    one on one block; the cluster doubles (up to 16, and bands of at
+    least twice the in-plane taps' reach) until a block's share fits:
+    three band buffers of max((R + 2 halo) p1, Cw (p0 + 1)) values (R =
+    ceil(p0 / cluster) rows with halo = 2 reach rows each side, Cw =
+    ceil(p1 / cluster) columns), its columns' and rows' forward and
+    backward sum trees (T = n + n/2 + ... over the levels of a line of
+    n); a thread for 4 nodes of its rows and a warp for each of its
+    lines.  Planes over 227 KB that one block refused now fit a cluster
+    (171x171 float64, 256x256 float32); one that no cluster fits is
     refused by name before any launch."""
-    assert pp3.plane3d_smem_bytes(128, 128, 4) == (196608, 3)
-    assert pp3.plane3d_smem_bytes(128, 128, 8) == (131072, 1)
-    assert pp3.plane3d_smem_bytes(64, 128, 8) == (196608, 3)
-    assert pp3.plane3d_smem_bytes(100, 128, 8) == (204800, 2)
-    assert pp3.plane3d_smem_bytes(170, 170, 8) == (231200, 1)
-    assert pp3.plane3d_smem_bytes(6, 5, 4) == (360, 3)
+    def plan(*a):
+        return tuple(pp3.plane3d_plan(*a))
+
+    T128, T64, T100, T170, T6, T5 = 254, 126, 196, 335, 9, 7
+    assert [pp3._tree_len(n) for n in (128, 64, 100, 170, 6, 5)] == [
+        T128, T64, T100, T170, T6, T5]
+    # the 3-D path's 128x128 planes (axis 0): 8 rows and two halo rows
+    # each side, 8 columns a block
+    assert plan(128, 128, 4) == (16, 256, 4 * (3 * 12 * 128 + 4 * 8 * T128),
+                                 8, 8, 2)
+    assert plan(128, 128, 8) == (16, 256, 8 * (3 * 12 * 128 + 4 * 8 * T128),
+                                 8, 8, 2)
+    # its 64x128 planes (axes 1 and 2), at star 1 and star 2
+    assert plan(64, 128, 8) == (16, 256, 8 * (3 * 8 * 128 + 2 * 8 * T64
+                                              + 2 * 4 * T128), 4, 8, 2)
+    assert plan(64, 128, 8, 2) == (16, 256, 8 * (3 * 12 * 128 + 2 * 8 * T64
+                                                 + 2 * 4 * T128), 4, 8, 4)
+    assert plan(100, 128, 8) == (16, 256, 8 * (3 * 11 * 128 + 2 * 8 * T100
+                                              + 2 * 7 * T128), 7, 8, 2)
+    assert plan(170, 170, 8) == (16, 480, 8 * (3 * 15 * 170
+                                               + 4 * 11 * T170), 11, 11, 2)
+    assert plan(6, 5, 4) == (1, 192, 4 * (3 * 5 * 7 + 2 * 5 * T6
+                                          + 2 * 6 * T5), 6, 5, 0)
+    assert plan(171, 171, 8)[:2] == (16, 480)
+    assert plan(256, 256, 4)[:3] == (16, 1024, 192000)
     with pytest.raises(ValueError, match="232448 bytes"):
-        pp3.plane3d_smem_bytes(171, 171, 8)
+        pp3.plane3d_plan(256, 256, 8)
     with pytest.raises(ValueError, match="shared memory"):
-        pp3.plane3d_smem_bytes(256, 256, 4)
+        pp3.plane3d_plan(1024, 1024, 4)
+    # the route by size, and bands no thinner than twice the reach
+    assert plan(63, 64, 4)[0] == 1 and plan(64, 64, 4)[0] == 16
+    assert plan(24, 256, 4, 2)[0] == 4
 
 
 def test_cpu_tensor_takes_the_twin_without_a_launch():

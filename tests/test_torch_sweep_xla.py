@@ -18,7 +18,13 @@ the 48x12 annulus (spacing 150 km), as tests/test_theta_shard.py uses:
     1000 s is 6e-5 s);
   * the production route is unchanged: `engine="pallas"` is what
     `AnnulusSolver(method="sweep")` runs, and the defaults are the JAX
-    package's (engine "xla", mode "hclosure").
+    package's (engine "xla", mode "hclosure");
+  * the kernel's launch planner (`tsweep_plan`: lanes a thread, threads,
+    halo, shared bytes, its refusals by name) on the 180x63 column, and a
+    NumPy replay of the kernel's order (the weight rows in batches of one
+    kind, step 1 from halo columns, the chain's ping-pong, the three
+    rotating columns) equal to `_sweep` and to the JAX package's
+    `_sweep`.
 """
 import inspect
 
@@ -159,4 +165,158 @@ def test_tsweep_checks_its_arguments(tables64):
         psw.tsweep(v[:, :-1], T["t"], T["s"], False)
     with pytest.raises(ValueError, match="carry_init"):
         psw.tsweep(v, T["t"], T["s"], False, carry_init=(v[:, 0],))
-    assert psw.tsweep_smem_bytes(896, 8) == 28672
+    # the kernel's shared memory at 180x63 in float64: a pointer and an
+    # offset a weight row (264), two chain columns, three columns with 42
+    # halo lanes each side
+    assert psw.tsweep_smem_bytes(896, 8, 42, 264) == (
+        12 * 264 + (2 * 896 + 3 * (896 + 84)) * 8)
+
+def _taps_180x63():
+    """The 180x63 column's tap offsets as pack_sweep_tables gives them
+    (forward): 85 dc = -1 taps, 75 dc = -2, 84 dc = 0, ten chain spans."""
+    gr, cg, _ = pt.init_annulus_circulant(180, 63, 20.0)
+    ws = ppack(cg, dtype=np.float32, band_closure=0)
+    t, s = psw.pack_sweep_tables(ws, cg, np.float32)
+    _, d1, _, d2, _, d0 = psw._tap_groups(t, s, False)
+    return s.ML, d1, d2, d0, s.chain_spans
+
+
+def test_tsweep_plan_at_180x63(monkeypatch):
+    """The launch planner at the xla engine's 180x63 column: one lane a
+    thread (896 threads); the offsets (85 dc = -1, 75 dc = -2 as they
+    are, then 84 dc = 0 steps and the ten chain spans back and forth
+    reduced mod 896); a halo of 42 lanes.  A smaller thread cap or a
+    wider column takes more lanes a thread; a column no plan fits is
+    refused by name."""
+    ML, d1, d2, d0, spans = _taps_180x63()
+    assert (ML, len(d1), len(d2), len(d0), len(spans)) == (896, 85, 75, 84, 10)
+    p = psw.tsweep_plan(ML, 4, d1, d2, d0, spans, True)
+    assert (p.halo, p.lpt, p.threads) == (42, 1, 896)
+    assert p.smem == 12 * 264 + (2 * 896 + 3 * (896 + 84)) * 4 == 22096
+    assert p.offs[:85].tolist() == list(d1) and p.offs[85:160].tolist() == list(d2)
+    assert p.offs[160] == d0[0] % ML and p.offs[160 + 84] == ML - 1
+    assert p.offs[-1] == 512 and len(p.offs) == 264
+    p64 = psw.tsweep_plan(ML, 8, d1, d2, d0, spans, True)
+    assert (p64.lpt, p64.threads, p64.smem) == (1, 896, 41024)
+    q = psw.tsweep_plan(ML, 4, d1, d2, d0, spans, False)
+    assert (len(q.offs), q.smem) == (160, 22096 - 12 * 104)
+    # more lanes a thread: a thread cap, or a wider column
+    monkeypatch.setattr(psw, "TSWEEP_THREADS", 448)
+    assert psw.tsweep_plan(ML, 4, d1, d2, d0, spans, True)[2:4] == (2, 448)
+    monkeypatch.setattr(psw, "TSWEEP_THREADS", 1024)
+    p = psw.tsweep_plan(1152, 8, d1, d2, d0, spans, True)
+    assert (p.lpt, p.threads, p.smem) == (
+        2, 576, 12 * 264 + (2 * 1152 + 3 * (1152 + 84)) * 8)
+    assert psw.tsweep_plan(3328, 8, d1, d2, d0, spans, True)[2:4] == (4, 832)
+    with pytest.raises(ValueError, match="232448 bytes"):
+        psw.tsweep_plan(6000, 8, d1, d2, d0, spans, True)
+    monkeypatch.setattr(psw, "TSWEEP_THREADS", 32)
+    with pytest.raises(ValueError, match="lanes a thread"):
+        psw.tsweep_plan(ML, 4, d1, d2, d0, spans, True)
+
+
+def _tsweep_replay(v, tabs, plan, n1, reverse, carry, K):
+    """csrc/tsweep.cu replayed in NumPy, one block a source, all lanes of a
+    step at once: a column's weight rows in batches of K of one kind
+    (step 1's taps, or in-column steps; a batch loaded while the one
+    before runs, across column ends: a read checks its batch holds its
+    row), step 1 from p1 and p2 kept with halos (no wrap), the commit,
+    the in-column steps on two ping-pong columns (offsets reduced mod
+    ML), and three rotating halo columns.  Buffers the kernel does not
+    read yet are NaN."""
+    S_, nt, ML = v.shape
+    w_all = np.concatenate(tabs)
+    offs, H = plan.offs, plan.halo
+    n_t1 = len(tabs[0]) + len(tabs[1])
+    assert len(tabs[0]) == n1
+    R = len(offs)
+    S = R - n_t1
+    nb1, nbS = -(-n_t1 // K), -(-S // K)
+    batches = ([list(range(b * K, min(n_t1, b * K + K))) for b in range(nb1)]
+               + [list(range(n_t1 + b * K, min(R, n_t1 + b * K + K)))
+                  for b in range(nbS)])
+    lane = np.arange(ML)
+    out = np.full_like(v, np.nan)
+
+    def col(k):
+        return nt - 1 - k if reverse else k
+
+    def halo(x):
+        return np.concatenate([x[ML - H:], x, x[:H]])
+
+    for s in range(S_):
+        P = [halo(carry[0][s] if carry else v[s, col(nt - 1)]),
+             halo(carry[1][s] if carry else v[s, col(nt - 2)]),
+             np.full(ML + 2 * H, np.nan, v.dtype)]
+        A = np.full(ML, np.nan, v.dtype)
+        r = v[s, col(0)].copy()
+        cur = {i: w_all[i] for i in batches[0]}
+        for k in range(nt):
+            p1, p2, pn = P
+            for b, rows in enumerate(batches):
+                last = b + 1 == len(batches)
+                nxt = ({} if last and k + 1 == nt else
+                       {i: w_all[i] for i in batches[0 if last else b + 1]})
+                for i in rows:
+                    w = cur.pop(i)
+                    if i < n_t1:
+                        r = np.minimum(r, (p1 if i < n1 else p2)
+                                       [H + lane + offs[i]] + w)
+                    else:
+                        assert 0 <= offs[i] < ML
+                        r = np.minimum(r, A[(lane + offs[i]) % ML] + w)
+                        if i + 1 < R:
+                            A = r.copy()
+                        else:
+                            pn[:] = halo(r)
+                    if i + 1 == n_t1:
+                        if S:
+                            A = r.copy()
+                        else:
+                            pn[:] = halo(r)
+                assert not cur
+                cur = nxt
+            out[s, col(k)] = r
+            if k + 1 < nt:
+                r = v[s, col(k + 1)].copy()
+            p2[:] = np.nan
+            P = [pn, p1, p2]
+    return out
+
+
+_JAX_SWEEPS: dict = {}
+
+
+@pytest.mark.parametrize("lpt", [1, 4])
+@pytest.mark.parametrize("with_carry", [False, True], ids=["wrap", "carry"])
+@pytest.mark.parametrize("col_relax", [True, False])
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "bwd"])
+def test_tsweep_replay_equals_twin(monkeypatch, tables, reverse, col_relax,
+                                   with_carry, lpt):
+    """The kernel's order of updates, replayed on its own plan (one and
+    four lanes a thread: batches of 8 and 2 weight rows), equals `_sweep`
+    and the JAX package's `_sweep` bit for bit, in float64 and
+    float32."""
+    T = tables
+    s = T["s"]
+    g1_w, g1_d, g2_w, g2_d, w0, d0 = psw._tap_groups(T["t"], s, reverse)
+    monkeypatch.setattr(psw, "TSWEEP_THREADS", s.ML // lpt)
+    plan = psw.tsweep_plan(s.ML, T["v"].itemsize, g1_d, g2_d, d0,
+                           s.chain_spans, col_relax)
+    assert plan.lpt == lpt and plan.halo < s.ML
+    ci = T["carry"] if with_carry else None
+    tabs = [a.numpy() for a in (g1_w, g2_w, w0, T["t"].cfp, T["t"].cbp)]
+    if not col_relax:
+        tabs = tabs[:2]
+    got = _tsweep_replay(T["v"], tabs, plan, len(g1_d), reverse, ci,
+                         max(1, 8 // lpt))
+    want = psw._sweep(torch.from_numpy(T["v"]), T["t"], s, reverse,
+                      col_relax, None if ci is None
+                      else tuple(map(torch.from_numpy, ci))).numpy()
+    np.testing.assert_array_equal(got, want)
+    key = (T["dt"], reverse, col_relax, with_carry)
+    if key not in _JAX_SWEEPS:
+        _JAX_SWEEPS[key] = np.asarray(jsw._sweep(
+            jnp.asarray(T["v"]), T["jt"], T["js"], reverse, col_relax,
+            None if ci is None else tuple(map(jnp.asarray, ci))))
+    np.testing.assert_array_equal(got, _JAX_SWEEPS[key])

@@ -40,13 +40,28 @@ DIR holds the earlier sources, unpacked from an earlier commit (e.g.
   fused   the whole-solve kernel at 180x63 S=1, 24x12 S=2 and 180x63
           S=8, per solve (both with the package's launch interface);
   plane3d one directional pass of the 3-D sweep engine at 128x128x64
-          (star 1, down): along each axis at S=1 and along axis 0 at S=8
-          in float32, along axis 0 in float64 (both with the package's
-          launch interface); with --breakdown the package's source built
-          with one step of a pass left out at a time (the cross taps, the
-          in-plane taps, the scans, the L2 prefetch, and all three steps:
-          timing only, each computes another function), along axes 0
-          and 1.
+          (star 1, down): along each axis at S=1 and S=8 in float32,
+          along axis 0 in float64 (the earlier plane3d.cu, one block a
+          source, with plane3d_launch(din, dout, W, t0f, t0b, t1f, t1b,
+          carry, xbuf, S, nA, p0, p1, ns, nc, n_cross, n_inpl, down,
+          planes, smem, is_double, taps, stream); the package's through
+          its wrapper); with --breakdown both built with one step of a
+          pass left out at a time (timing only: each computes another
+          function), and the package's on clusters of 4, 8 and 16
+          blocks (8 and 16 also at S=8), along axes 0 and 1;
+  tsweep  one theta-column sweep of the xla engine at 180x63: S=1 and S=8
+          in float32 and S=1 in float64, forward and backward, with and
+          without carry_init, and S=1 float32 without col_relax (the
+          earlier tsweep.cu with tsweep_launch(v, out, carry1, carry2,
+          w1, w2, w0, cfp, cbp, offs, S, nt, ML, n1, n2, n0, L, reverse,
+          col_relax, threads, is_double, stream)); with --breakdown the
+          earlier one with one piece of its in-column step left out
+          (the weight load, the `%`, the neighbour read, the barrier),
+          the package's at 1, 2 and 4 lanes a thread, with one weight
+          row, batches of half and twice the rows and without the step
+          barrier, and one dependent step alone in a block of 896 threads
+          and in clusters of 2 and 4 (distributed shared memory, a
+          cluster barrier a step), with the us a step.
 Both versions are built with the package's nvcc flags into a temporary
 directory, run on the same inputs and held bit-equal to the plain
 versions (fused with the same iterations); then each shape is timed
@@ -439,9 +454,11 @@ def relax_ab(lib_old, reps, rows):
         print(json.dumps(rows[-1]), flush=True)
 
 
-# --breakdown for plane3d: the (anchor, replacement) pairs in
-# csrc/plane3d.cu that leave one step of a pass out
-_PLANE3D_SKIP = {
+# --breakdown for plane3d: the (anchor, replacement) pairs that leave one
+# step of a pass out (timing only: each computes another function).  The
+# earlier csrc/plane3d.cu (one block a source, scans with a block barrier
+# a level):
+_PLANE3D_OLD_SKIP = {
     "no cross taps": [("      for (int t = 0; t < n_cross; ++t) {\n",
                        "      for (int t = 0; t < 0; ++t) {\n")],
     "no in-plane taps": [
@@ -454,9 +471,41 @@ _PLANE3D_SKIP = {
     "no prefetch": [("    if (!can_prefetch || threadIdx.x", "    if (true || "
                      "!can_prefetch || threadIdx.x")],
 }
+# the package's (a cluster of blocks a source, warp-owned line scans):
+_PLANE3D_GATHER = "    for (int e = threadIdx.x; e < p0 * ncols; e += nth) {\n"
+_PLANE3D_NEW_SKIP = {
+    "no cross taps": _PLANE3D_OLD_SKIP["no cross taps"],
+    "no in-plane taps": [("    for (int t = n_cross; t < te; t += 2) {\n",
+                          "    for (int t = n_cross; t < n_cross; t += 2) {\n")],
+    "no axis-0 levels": [("    for (int c = warp; c < ncols; c += nwarps)\n",
+                          "    for (int c = warp; c < 0; c += nwarps)\n")],
+    "no axis-0 exchange": [(_PLANE3D_GATHER, _PLANE3D_GATHER.replace(
+        "p0 * ncols", "0"))] * 2,
+    "no axis-1 levels": [("      scan_line(Fl, Gl, p1,",
+                          "      if (false) scan_line(Fl, Gl, p1,")],
+    "no cluster barrier": [
+        ("    if (cs == 1)\n      __syncthreads();\n    else\n      cl.sync();\n",
+         "    __syncthreads();\n"),
+        ('      asm volatile("barrier.cluster.arrive.release.aligned;\\n" ::: '
+         '"memory");\n      f();\n      asm volatile("barrier.cluster.wait.'
+         'acquire.aligned;\\n" ::: "memory");\n',
+         "      f();\n      __syncthreads();\n")],
+    "no tree copies": [("      cp_async_commit();\n    }\n",
+                        "    }\n"),
+                       ("        copy_async(tr0f", "        if (false) "
+                        "copy_async(tr0f"),
+                       ("        copy_async(tr0b", "        if (false) "
+                        "copy_async(tr0b"),
+                       ("        copy_async(tr1f", "        if (false) "
+                        "copy_async(tr1f"),
+                       ("        copy_async(tr1b", "        if (false) "
+                        "copy_async(tr1b")],
+    "no prefetch": [("    if (!can_prefetch || threadIdx.x", "    if (true || "
+                     "!can_prefetch || threadIdx.x")],
+}
 
 
-def _plane3d_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _plane3d_old_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.plane3d_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
@@ -464,48 +513,63 @@ def _plane3d_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _plane3d_variants(tmp: str) -> dict:
-    """The package's plane3d.cu with the steps of _PLANE3D_SKIP left out,
-    one at a time and the three of a plane together, built in parallel."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    with open(kernels.source_path("plane3d")) as f:
-        text = f.read()
-    variants = {"full": []}
-    variants.update({k: [k] for k in _PLANE3D_SKIP})
-    variants["only the write"] = ["no cross taps", "no in-plane taps",
-                                  "no scans"]
-
-    def make(item):
-        name, skips = item
-        t = text
-        for k in skips:
-            for anchor, repl in _PLANE3D_SKIP[k]:
-                assert anchor in t, (k, anchor)
-                t = t.replace(anchor, repl, 1)
-        tag = "plane3d_" + name.replace(" ", "_").replace("-", "_")
-        src = os.path.join(tmp, tag + ".cu")
-        with open(src, "w") as f:
-            f.write(t)
-        return name, _plane3d_bind(_build(src, tmp, tag, "-I",
-                                          kernels.CSRC_DIR))
-
-    with ThreadPoolExecutor(len(variants)) as ex:
-        return dict(ex.map(make, variants.items()))
+def _plane3d_new_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn = lib.plane3d_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
+                   + [ctypes.c_void_p] * 2)
+    return lib
 
 
-def plane3d_ab(lib_old, reps, rows, breakdown, tmp):
+def _plane3d_old_pass(lib, d, lay, axis, shifts):
+    """run() of one pass (down) of the earlier plane3d.cu: one block of
+    1,024 threads a source, up to three planes in shared memory (launch
+    interface plane3d_launch(din, dout, W, t0f, t0b, t1f, t1b, carry,
+    xbuf, S, nA, p0, p1, ns, nc, n_cross, n_inpl, down, planes, smem,
+    is_double, taps, stream))."""
+    from raytracer_tpu_torch.ops import plane3d as p3
+
+    xs = torch.movedim(d, 1 + axis, 1).contiguous()
+    S, nA, p0, p1 = xs.shape
+    one = p0 * p1 * d.element_size()
+    planes = min(3, kernels.BLOCK_SMEM // one)
+    _, cross, inpl, _ = p3.plane_taps(shifts, axis, True)
+    taps = p3._tap_table(shifts, axis, True, d.device)
+    xbuf = torch.empty((S, p0 * p1), dtype=d.dtype, device=d.device)
+    t0f, t0b, t1f, t1b = lay.trees
+
+    def run():
+        out = torch.empty_like(xs)
+        rc = lib.plane3d_launch(
+            xs.data_ptr(), out.data_ptr(), lay.W.data_ptr(), t0f.data_ptr(),
+            t0b.data_ptr(), t1f.data_ptr(), t1b.data_ptr(), 0,
+            xbuf.data_ptr() if planes == 1 else 0, S, nA, p0, p1,
+            len(shifts), 0, sum(len(c) for c in cross), len(inpl), 1, planes,
+            planes * one, int(d.dtype == torch.float64), taps.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        return torch.movedim(out, 1, 1 + axis)
+    return run
+
+
+def plane3d_ab(old_dir, reps, rows, breakdown, tmp):
     """The earlier plane3d kernel and the package's, in turns, one pass
-    at chip_smoke's 128x128x64 wedge: along each axis (S=1) and along
-    axis 0 at S=8 in float32, along axis 0 in float64, both held
-    bit-equal to plane_sweep3d_reference first.  The wrapper
-    plane_sweep3d launches both (its library swapped in turn), so both
-    versions take the package's launch interface."""
+    (down) at chip_smoke's 128x128x64 wedge: along each axis at S=1 and
+    S=8 in float32, along axis 0 in float64, both held bit-equal to
+    plane_sweep3d_reference first; the package's through the wrapper
+    plane_sweep3d (its route as plane3d_plan picks it), the earlier
+    through its own launch interface.  With `breakdown`, both sources
+    built with one step of a pass left out at a time (and the three taps
+    and scans together, the earlier's), and the package's at clusters of
+    4, 8 and 16 blocks (8 and 16 also at S=8), along axes 0 and 1 in
+    float32."""
     from raytracer_tpu_torch.ops import plane3d as p3
     from raytracer_tpu_torch.solvers import solve3d as s3
 
+    with open(os.path.join(old_dir, "plane3d.cu")) as f:
+        old_text = f.read()
+    old_lib = _plane3d_old_bind(_old_lib(old_dir, "plane3d", tmp))
     own = p3._plane3d_lib
-    libs = {"old": _plane3d_bind(lib_old), "new": own()}
     rng = np.random.default_rng(14)
     g, U = chip_smoke._wedge3d(chip_smoke.WEDGE_DIMS, 60.0, 120.0, 2500.0)
     dev = torch.device("cuda")
@@ -515,22 +579,26 @@ def plane3d_ab(lib_old, reps, rows, breakdown, tmp):
         v[rng.random(v.shape) < 0.3] = np.inf
         return torch.from_numpy(v).cuda()
 
-    def pass_of(lib, d, lay, axis, shifts):
+    def new_pass(lib, d, lay, axis, shifts):
         def run():
             p3._plane3d_lib = lambda: lib
             return p3.plane_sweep3d(d, lay, axis, True, None, shifts)
         return run
 
     try:
-        for dtype, cases in ((np.float32, ((0, 1), (1, 1), (2, 1), (0, 8))),
+        new_lib = _plane3d_new_bind(own())
+        for dtype, cases in ((np.float32, ((0, 1), (1, 1), (2, 1), (0, 8),
+                                           (1, 8), (2, 8))),
                              (np.float64, ((0, 1),))):
             pk = rt.prepare3d(g, U, rt.SolverConfig(dtype=np.dtype(dtype)
                                                     .name))
             lays = s3._device_layout(pk, "sweep", dev)
             for axis, S in cases:
                 d = field(S, pk.shape, dtype)
-                runs = {k: pass_of(lib, d, lays[axis], axis, pk.shifts)
-                        for k, lib in libs.items()}
+                runs = {"old": _plane3d_old_pass(old_lib, d, lays[axis], axis,
+                                                 pk.shifts),
+                        "new": new_pass(new_lib, d, lays[axis], axis,
+                                        pk.shifts)}
                 want = p3.plane_sweep3d_reference(d, lays[axis], axis, True,
                                                   None, pk.shifts)
                 for k, run in runs.items():
@@ -538,22 +606,60 @@ def plane3d_ab(lib_old, reps, rows, breakdown, tmp):
                     torch.cuda.synchronize()
                     assert torch.equal(got, want), (k, axis, S, dtype)
                 o, n = _turns(runs["old"], runs["new"], reps)
+                pl = p3.plane3d_plan(*want.movedim(1 + axis, 1).shape[2:],
+                                     d.element_size())
                 rows.append(dict(kernel="plane3d", grid="128x128x64",
                                  axis=axis, S=S, dtype=np.dtype(dtype).name,
                                  planes=int(lays[axis].W.shape[0]),
-                                 old_ms=o, new_ms=n, bit_equal=True))
+                                 cluster=pl.cluster, threads=pl.threads,
+                                 smem=pl.smem, old_ms=o, new_ms=n,
+                                 bit_equal=True))
                 print(json.dumps(rows[-1]), flush=True)
             if breakdown and dtype == np.float32:
-                variants = _plane3d_variants(tmp)
+                with open(kernels.source_path("plane3d")) as f:
+                    new_text = f.read()
+                old_skip = dict(_PLANE3D_OLD_SKIP)
+                old_skip["only the write"] = [
+                    pair for k in ("no cross taps", "no in-plane taps",
+                                   "no scans") for pair in old_skip[k]]
+                old_vars = _variants(old_text, old_skip, tmp, "plane3d_old",
+                                     _plane3d_old_bind)
+                new_vars = _variants(new_text, _PLANE3D_NEW_SKIP, tmp,
+                                     "plane3d_new", _plane3d_new_bind)
+                d1 = field(1, pk.shape, dtype)
+                d8 = field(8, pk.shape, dtype)
                 for rep in range(2):
-                    for name, lib in variants.items():
-                        ms = [_ms(pass_of(lib, field(1, pk.shape, dtype),
-                                          lays[ax], ax, pk.shifts), reps)
-                              for ax in (0, 1)]
-                        rows.append(dict(kernel="plane3d", split=name,
-                                         turn=rep, axis0_ms=ms[0],
-                                         axis1_ms=ms[1]))
-                        print(json.dumps(rows[-1]), flush=True)
+                    split = {}
+                    for ax in (0, 1):
+                        lay = lays[ax]
+                        split[f"old full axis {ax}"] = _ms(_plane3d_old_pass(
+                            old_lib, d1, lay, ax, pk.shifts), reps)
+                        for name, lib in old_vars.items():
+                            split[f"old {name} axis {ax}"] = _ms(
+                                _plane3d_old_pass(lib, d1, lay, ax,
+                                                  pk.shifts), reps)
+                        split[f"new full axis {ax}"] = _ms(new_pass(
+                            new_lib, d1, lay, ax, pk.shifts), reps)
+                        for name, lib in new_vars.items():
+                            split[f"new {name} axis {ax}"] = _ms(new_pass(
+                                lib, d1, lay, ax, pk.shifts), reps)
+                        keep = p3.PLANE3D_CLUSTER
+                        try:
+                            for c, S in ((4, 1), (8, 1), (16, 1), (8, 8),
+                                         (16, 8)):
+                                p3.PLANE3D_CLUSTER = c
+                                key = f"new cluster {c} S={S} axis {ax}"
+                                try:
+                                    split[key] = _ms(new_pass(
+                                        new_lib, d1 if S == 1 else d8, lay,
+                                        ax, pk.shifts), reps)
+                                except RuntimeError as e:  # a refused launch
+                                    split[key] = str(e)
+                        finally:
+                            p3.PLANE3D_CLUSTER = keep
+                    rows.append(dict(kernel="plane3d", split_ms=split,
+                                     turn=rep))
+                    print(json.dumps(rows[-1]), flush=True)
             pk.dcache.clear()
     finally:
         p3._plane3d_lib = own
@@ -778,6 +884,340 @@ print(json.dumps(out))
 """
 
 
+# --breakdown for tsweep: the (anchor, replacement) pairs that leave one
+# piece of an in-column step out of the earlier csrc/tsweep.cu (the
+# one-block, one-barrier-a-step design; timing only: each computes
+# another function but "no %", whose wrap is the same)
+_TSWEEP_OLD_STEP = ("          nxt[m] = min_of(cur[m], add_rn(cur[wrap(m + d, "
+                    "ML)], w[m]));\n")
+_TSWEEP_OLD_SKIP = {
+    "no weight load": [(_TSWEEP_OLD_STEP, _TSWEEP_OLD_STEP.replace(
+        "w[m]", "T(1)"))],
+    "no %": [("  i %= n;\n  return i < 0 ? i + n : i;\n",
+              "  return i < 0 ? i + n : (i >= n ? i - n : i);\n")],
+    "no neighbour read": [(_TSWEEP_OLD_STEP, _TSWEEP_OLD_STEP.replace(
+        "cur[wrap(m + d, ML)]", "cur[m]"))],
+    "no barrier": [("        __syncthreads();\n        T* tmp = cur;\n",
+                    "        T* tmp = cur;\n")],
+    "barrier only": [("        for (int m = threadIdx.x; m < ML; m += nth)\n"
+                      + _TSWEEP_OLD_STEP, "")],
+}
+# the package's csrc/tsweep.cu without the barrier of an in-column step,
+# with every row reading the first weight row (timing only), and with
+# batches of half and twice the rows
+_TSWEEP_NEW_SKIP = {
+    "no chain barrier": [("          __syncthreads();\n          T* tmp = A;\n",
+                          "          T* tmp = A;\n")],
+    "one weight row": [("    wrow[i] = p;\n", "    wrow[i] = w1;\n")],
+    "batches of half": [("  constexpr int K = 8 / LPT > 0 ? 8 / LPT : 1;",
+                         "  constexpr int K = 4 / LPT > 0 ? 4 / LPT : 1;")],
+    "batches of twice": [("  constexpr int K = 8 / LPT > 0 ? 8 / LPT : 1;",
+                          "  constexpr int K = 16 / LPT;")],
+}
+
+# the cost of one dependent step alone: a neighbour read, a min-plus
+# update, a write and a barrier, in one block of `threads` threads (a
+# lane each) or in a cluster of `cs` blocks each holding ML / cs lanes,
+# the neighbour read through distributed shared memory and a cluster
+# barrier a step (timing only)
+_STEP_PROBE = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+namespace cg = cooperative_groups;
+__global__ void step_block(float* out, int n, int ml, int off) {
+  extern __shared__ float buf[];
+  float* A = buf;
+  float* B = buf + ml;
+  const int m = threadIdx.x;
+  float r = static_cast<float>(m);
+  A[m] = r;
+  __syncthreads();
+  for (int i = 0; i < n; ++i) {
+    int j = m + off;
+    j = j >= ml ? j - ml : j;
+    r = fminf(r, __fadd_rn(A[j], 1.0f));
+    B[m] = r;
+    __syncthreads();
+    float* t = A;
+    A = B;
+    B = t;
+  }
+  out[blockIdx.x * blockDim.x + m] = r;
+}
+__global__ void step_cluster(float* out, int n, int ml, int off) {
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ float buf[];
+  const int loc = blockDim.x, rank = static_cast<int>(cl.block_rank());
+  float* A = buf;
+  float* B = buf + loc;
+  const int m = rank * loc + threadIdx.x;
+  float r = static_cast<float>(m);
+  A[threadIdx.x] = r;
+  cl.sync();
+  for (int i = 0; i < n; ++i) {
+    int j = m + off;
+    j = j >= ml ? j - ml : j;
+    const float* src = cl.map_shared_rank(A, j / loc);
+    r = fminf(r, __fadd_rn(src[j % loc], 1.0f));
+    B[threadIdx.x] = r;
+    cl.sync();
+    float* t = A;
+    A = B;
+    B = t;
+  }
+  out[blockIdx.x * blockDim.x + threadIdx.x] = r;
+}
+extern "C" int step_block_run(float* out, int n, int ml, int off) {
+  step_block<<<1, ml, 2 * ml * sizeof(float)>>>(out, n, ml, off);
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int step_cluster_run(float* out, int n, int ml, int off, int cs) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs);
+  cfg.blockDim = dim3(ml / cs);
+  cfg.dynamicSmemBytes = 2 * (ml / cs) * sizeof(float);
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cs;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, step_cluster, out, n, ml, off));
+}
+"""
+
+
+def _variants(text: str, skips: dict, tmp: str, tag: str, bind) -> dict:
+    """`text` with each entry of `skips` applied (the entries whose anchors
+    it lacks are left out), built in parallel with the package's flags;
+    name -> the bound library."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    todo = {}
+    for name, pairs in skips.items():
+        t = text
+        if all(a in t for a, _ in pairs):
+            for a, b in pairs:
+                t = t.replace(a, b, 1)
+            todo[name] = t
+
+    def make(item):
+        name, t = item
+        stem = f"{tag}_" + "".join(c if c.isalnum() else "_" for c in name)
+        src = os.path.join(tmp, stem + ".cu")
+        with open(src, "w") as f:
+            f.write(t)
+        return name, bind(_build(src, tmp, stem, "-I", kernels.CSRC_DIR))
+
+    with ThreadPoolExecutor(max(1, len(todo))) as ex:
+        return dict(ex.map(make, todo.items()))
+
+
+def _tsweep_old_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn = lib.tsweep_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [
+        ctypes.c_void_p]
+    return lib
+
+
+def _tsweep_new_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn = lib.tsweep_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [
+        ctypes.c_void_p]
+    return lib
+
+
+def _tsweep_tables(nt, nr, sp, dtype):
+    from raytracer_tpu_torch.ops import sweep_theta as sw
+    from raytracer_tpu_torch.ops.wrapped_t import pack_twrapped_stencil
+
+    _, cg, _ = rt.init_annulus_circulant(nt, nr, sp, dtype=dtype)
+    ws = pack_twrapped_stencil(cg, dtype=dtype, band_closure=0)
+    t, st = sw.pack_sweep_tables(ws, cg, dtype)
+    return sw.tables_to_device(t, "cuda"), st
+
+
+def _tsweep_old_run(lib, v, tbl, st, reverse, col_relax, carry):
+    """run() of the earlier tsweep.cu (launch interface tsweep_launch(v,
+    out, carry1, carry2, w1, w2, w0, cfp, cbp, offs, S, nt, ML, n1, n2,
+    n0, L, reverse, col_relax, threads, is_double, stream))."""
+    from raytracer_tpu_torch.ops import sweep_theta as sw
+
+    g1_w, g1_d, g2_w, g2_d, w0, d0 = sw._tap_groups(tbl, st, reverse)
+    offs = torch.tensor(g1_d + g2_d + d0 + st.chain_spans,
+                        dtype=torch.int32, device="cuda")
+    threads = min(1024, -(-st.ML // 32) * 32)
+    L = len(st.chain_spans)
+
+    def run():
+        out = torch.empty_like(v)
+        rc = lib.tsweep_launch(
+            v.data_ptr(), out.data_ptr(),
+            carry[0].data_ptr() if carry else 0,
+            carry[1].data_ptr() if carry else 0, g1_w.data_ptr(),
+            g2_w.data_ptr(), w0.data_ptr(), tbl.cfp.data_ptr(),
+            tbl.cbp.data_ptr(), offs.data_ptr(), v.shape[0], st.nt, st.ML,
+            len(g1_d), len(g2_d), len(d0), L, int(reverse), int(col_relax),
+            threads, int(v.dtype == torch.float64),
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        return out
+    return run
+
+
+def _tsweep_new_run(lib, v, tbl, st, reverse, col_relax, carry, lpt=None):
+    """run() of the package's tsweep.cu build `lib` on the plan of
+    tsweep_plan (its lanes a thread forced when given)."""
+    from raytracer_tpu_torch.ops import sweep_theta as sw
+
+    g1_w, g1_d, g2_w, g2_d, w0, d0 = sw._tap_groups(tbl, st, reverse)
+    keep = sw.TSWEEP_THREADS
+    try:  # the thread cap that gives `lpt` lanes a thread
+        if lpt:
+            sw.TSWEEP_THREADS = (-(-st.ML // lpt) + 31) // 32 * 32
+        plan = sw.tsweep_plan(st.ML, v.element_size(), g1_d, g2_d, d0,
+                              st.chain_spans, col_relax)
+    finally:
+        sw.TSWEEP_THREADS = keep
+    assert lpt is None or plan.lpt == lpt, (lpt, plan.lpt)
+    offs = torch.from_numpy(plan.offs).cuda()
+    L = len(st.chain_spans)
+
+    def run():
+        out = torch.empty_like(v)
+        rc = lib.tsweep_launch(
+            v.data_ptr(), out.data_ptr(),
+            carry[0].data_ptr() if carry else 0,
+            carry[1].data_ptr() if carry else 0, g1_w.data_ptr(),
+            g2_w.data_ptr(), w0.data_ptr(), tbl.cfp.data_ptr(),
+            tbl.cbp.data_ptr(), offs.data_ptr(), v.shape[0], st.nt, st.ML,
+            len(g1_d), len(g2_d), len(d0), L, plan.halo, int(reverse),
+            int(col_relax), plan.lpt, plan.threads, plan.smem,
+            int(v.dtype == torch.float64),
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        return out
+    run.plan = plan
+    return run
+
+
+def tsweep_ab(old_dir, reps, rows, breakdown, tmp):
+    """The earlier tsweep kernel and the package's, in turns, one sweep at
+    180x63 (the xla engine's column): S=1 and S=8 float32 and S=1 float64,
+    forward and backward, with and without carry_init, with col_relax;
+    and S=1 float32 forward without col_relax; both held bit-equal to
+    _sweep first.  With `breakdown`: the earlier kernel built with one
+    piece of its in-column step left out at a time, the package's at
+    each lanes-a-thread route, with every row on the first weight row (no
+    weight stream), with batches of half and twice the rows and without
+    the barrier of an in-column step, and one
+    dependent step alone (a shared-memory neighbour read, update, write
+    and barrier) in one block of 896 threads and in clusters of 2 and 4
+    blocks through distributed shared memory, all at S=1 float32
+    forward; per-step figures are ms over the sweep's nt * (n0 + 2L)
+    in-column steps."""
+    from raytracer_tpu_torch.ops import sweep_theta as sw
+
+    with open(os.path.join(old_dir, "tsweep.cu")) as f:
+        old_text = f.read()
+    old_lib = _tsweep_old_bind(_old_lib(old_dir, "tsweep", tmp))
+    new_lib = _tsweep_new_bind(sw._tsweep_lib())
+    rng = np.random.default_rng(20)
+    cases = [(np.float32, 1, rev, c, True) for rev in (False, True)
+             for c in (False, True)]
+    cases += [(np.float32, 8, rev, c, True) for rev in (False, True)
+              for c in (False, True)]
+    cases += [(np.float64, 1, rev, c, True) for rev in (False, True)
+              for c in (False, True)]
+    cases += [(np.float32, 1, False, False, False)]
+    tabs = {}
+    for dtype, S, rev, with_carry, col_relax in cases:
+        if dtype not in tabs:
+            tabs[dtype] = _tsweep_tables(180, 63, 20.0, dtype)
+        tbl, st = tabs[dtype]
+        v = rng.uniform(0.0, 1500.0, (S, st.nt, st.ML)).astype(dtype)
+        v[rng.random(v.shape) < 0.4] = np.inf
+        v = torch.from_numpy(v).cuda()
+        carry = tuple(torch.from_numpy(rng.uniform(0.0, 1500.0, (
+            S, st.ML)).astype(dtype)).cuda() for _ in range(2)) \
+            if with_carry else None
+        want = sw._sweep(v, tbl, st, rev, col_relax, carry)
+        old = _tsweep_old_run(old_lib, v, tbl, st, rev, col_relax, carry)
+        new = _tsweep_new_run(new_lib, v, tbl, st, rev, col_relax, carry)
+        for k, run in (("old", old), ("new", new)):
+            got = run()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (k, dtype, S, rev, with_carry)
+        o, n = _turns(old, new, reps)
+        rows.append(dict(kernel="tsweep", grid="180x63", S=S,
+                         dtype=np.dtype(dtype).name, reverse=rev,
+                         carry=with_carry, col_relax=col_relax,
+                         lpt=new.plan.lpt, threads=new.plan.threads,
+                         old_ms=o, new_ms=n, bit_equal=True))
+        print(json.dumps(rows[-1]), flush=True)
+    if not breakdown:
+        return
+    tbl, st = tabs[np.float32]
+    n0 = len(sw._tap_groups(tbl, st, False)[5])
+    steps = st.nt * (n0 + 2 * len(st.chain_spans))
+    v = torch.from_numpy(rng.uniform(0.0, 1500.0, (1, st.nt, st.ML)).astype(
+        np.float32)).cuda()
+    with open(kernels.source_path("tsweep")) as f:
+        new_text = f.read()
+    old_vars = _variants(old_text, _TSWEEP_OLD_SKIP, tmp, "tsweep_old",
+                         _tsweep_old_bind)
+    new_vars = _variants(new_text, _TSWEEP_NEW_SKIP, tmp, "tsweep_new",
+                         _tsweep_new_bind)
+    probe = _build_probe(tmp)
+    out = torch.empty(4096, device="cuda")
+    for turn in range(2):
+        split = {"old full": _ms(_tsweep_old_run(old_lib, v, tbl, st, False,
+                                                 True, None), reps),
+                 "old without col_relax": _ms(_tsweep_old_run(
+                     old_lib, v, tbl, st, False, False, None), reps)}
+        for name, lib in old_vars.items():
+            split["old " + name] = _ms(_tsweep_old_run(lib, v, tbl, st, False,
+                                                       True, None), reps)
+        for lpt in (1, 2, 4):
+            split[f"new lpt {lpt}"] = _ms(_tsweep_new_run(
+                new_lib, v, tbl, st, False, True, None, lpt), reps)
+        split["new without col_relax"] = _ms(_tsweep_new_run(
+            new_lib, v, tbl, st, False, False, None), reps)
+        for name, lib in new_vars.items():
+            split["new " + name] = _ms(_tsweep_new_run(lib, v, tbl, st, False,
+                                                       True, None), reps)
+        def step(cs):
+            def run():
+                rc = (probe.step_block_run(out.data_ptr(), steps, st.ML, 7)
+                      if cs == 1 else probe.step_cluster_run(
+                          out.data_ptr(), steps, st.ML, 7, cs))
+                assert rc == 0, (cs, rc)
+            return run
+
+        split["step alone, one block"] = _ms(step(1), reps)
+        for cs in (2, 4):
+            split[f"step alone, cluster of {cs}"] = _ms(step(cs), reps)
+        rows.append(dict(kernel="tsweep", split_ms=split, turn=turn,
+                         steps=steps, us_per_step={
+                             k: 1e3 * x / steps for k, x in split.items()}))
+        print(json.dumps(rows[-1]), flush=True)
+
+
+def _build_probe(tmp):
+    src = os.path.join(tmp, "step_probe.cu")
+    with open(src, "w") as f:
+        f.write(_STEP_PROBE)
+    lib = _build(src, tmp, "step_probe")
+    lib.step_block_run.restype = ctypes.c_int
+    lib.step_block_run.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
+    lib.step_cluster_run.restype = ctypes.c_int
+    lib.step_cluster_run.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4
+    return lib
+
+
 def solves_ab(old_root, rows):
     """The twrapped solve at 180x63 and the diag solve at 127x63 of the
     package in `old_root` and of this one, each in its own process, in
@@ -797,7 +1237,7 @@ def main(argv=None):
                     help="directory with the earlier kernel sources")
     ap.add_argument("--kernels", default="titer,diag",
                     help="comma-separated: titer, diag, witer, relax, fused, "
-                         "plane3d")
+                         "plane3d, tsweep")
     ap.add_argument("--old-pkg", default=None,
                     help="directory holding an earlier raytracer_tpu_torch, "
                          "to time whole solves against")
@@ -830,9 +1270,10 @@ def main(argv=None):
                      a.breakdown)
         if "relax" in want:
             relax_ab(_old_lib(a.old, "relax", tmp), a.reps, rows)
+        if "tsweep" in want:
+            tsweep_ab(a.old, a.reps, rows, a.breakdown, tmp)
         if "plane3d" in want:
-            plane3d_ab(_old_lib(a.old, "plane3d", tmp), a.reps, rows,
-                       a.breakdown, tmp)
+            plane3d_ab(a.old, a.reps, rows, a.breakdown, tmp)
         if a.breakdown and "fused" in want:
             fused_breakdown(tmp, {"old": a.old, "new": kernels.CSRC_DIR},
                             max(1, a.reps // 4), rows)
