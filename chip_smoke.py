@@ -515,7 +515,8 @@ JAX_TOMO = {'misfit0': 166.3869370505062, 'misfit1': 12.6883003705345,
 # wrapper -> the CUDA kernels it launches, by their names in a profile
 KERNEL_NAMES = {"band": ("band_kernel",),
                 "rsweep": ("rsweep_shared", "rsweep_global"),
-                "bfm_step": ("relax_merge_kernel", "frontier_kernel"),
+                "bfm_step": ("push_step_kernel", "relax_merge_kernel",
+                             "frontier_kernel"),
                 "gridsearch": ("search_kernel", "finish_kernel")}
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # f32 outside the tensor cores, same sheet
@@ -2147,6 +2148,63 @@ def phase_plane3d_kernel(rec: dict):
             check(d, lay, 0, down, None, s3.SHIFTS,
                   f"{dims} {np.dtype(dtype).name} S=2, cluster {cluster}")
 
+    # the global route (ROADMAP C.15): forced (no shared memory) on the
+    # test wedge, every case above; then the smallest planes no cluster
+    # holds, 256x256 float64 (S=2, and S=2 with carry_init across an
+    # opened face) and 1024x1024 float32 (S=1), both directions, timed
+    keep = plane3d.BLOCK_SMEM
+    try:
+        plane3d.BLOCK_SMEM = 0
+        g, U = _wedge3d((9, 6, 5), 80.0, 100.0, 600.0)
+        for star in (1, 2):
+            shifts = s3.shifts_star(star)
+            for dtype in (np.float32, np.float64):
+                Wn = s3._shifted_weights(g, U, dtype, shifts)
+                shape = Wn.shape[1:]
+                for axis in (0, 1, 2):
+                    pshape = tuple(m for a, m in enumerate(shape) if a != axis)
+                    W = torch.from_numpy(_opened_faces(Wn, shifts, axis)).cuda()
+                    lay = s3._sweep_layout3d(W, s3._scan_costs_of(W, shifts),
+                                             axis)
+                    d = field((3,) + shape, dtype)
+                    planes = tuple(field((3,) + pshape, dtype, 0.2)
+                                   for _ in range(star))
+                    for ci in (None, planes[0] if star == 1 else planes):
+                        for down in (True, False):
+                            check(d, lay, axis, down, ci, shifts,
+                                  f"(9,6,5) star {star} "
+                                  f"{np.dtype(dtype).name} S=3, forced onto "
+                                  f"the global route")
+        routes.add(plane3d.plane3d_plan(6, 5, 4).cluster)
+    finally:
+        plane3d.BLOCK_SMEM = keep
+    glob = []
+    for dims, dtype, S in (((256, 256, 3), np.float64, 2),
+                           ((1024, 1024, 2), np.float32, 1)):
+        g, U = _wedge3d(dims, 80.0, 100.0, 600.0)
+        Wn = s3._shifted_weights(g, U, dtype)
+        for carry in ((False, True) if S == 2 else (False,)):
+            W = torch.from_numpy(_opened_faces(Wn, s3.SHIFTS, 0) if carry
+                                 else Wn).cuda()
+            lay = s3._sweep_layout3d(W, s3._scan_costs_of(W, s3.SHIFTS), 0)
+            cluster = plane3d.plane3d_plan(dims[1], dims[0],
+                                           W.element_size()).cluster
+            assert cluster == 0, (dims, cluster)
+            routes.add(cluster)
+            d = field((S,) + tuple(W.shape[1:]), dtype)
+            ci = field((S, dims[1], dims[0]), dtype, 0.2) if carry else None
+            for down in (True, False):
+                check(d, lay, 0, down, ci, s3.SHIFTS,
+                      f"{dims} {np.dtype(dtype).name} S={S} carry={carry} "
+                      f"on the global route")
+            if not carry:
+                ms = _cuda_ms(lambda: plane3d.plane_sweep3d(
+                    d, lay, 0, True, None, s3.SHIFTS), 3)
+                glob.append(f"{dims[1]}x{dims[0]} x {dims[2]} planes "
+                            f"{np.dtype(dtype).name} S={S} {ms:.3f} ms a pass")
+            del W, lay
+        del Wn
+
     # a pass at the 3-D path's 128x128x64 along each axis, S=1 and S=8,
     # timed (clusters of 16 blocks a source)
     g, U, packed, _, _ = rec["wedge"]
@@ -2171,7 +2229,7 @@ def phase_plane3d_kernel(rec: dict):
                              cluster=cluster, ms=ms, plain_ms=plain,
                              bound_ms=bound, bound_by=by, nbytes=nbytes,
                              ops=ops))
-    assert routes == {1, 2, 4, 8, 16}, routes
+    assert routes == {0, 1, 2, 4, 8, 16}, routes
     one = [r for r in rows if r["S"] == 1]
     rec["plane3d"] = {k: statistics.mean(r[k] for r in one)
                       for k in ("ms", "plain_ms", "bound_ms")}
@@ -2182,8 +2240,11 @@ def phase_plane3d_kernel(rec: dict):
           f"S=1 and S=3 with carry_init, every axis and direction; (35,5,61) "
           f"star 1 on one block and on clusters of 2, 4 and 8; axis-0 planes of "
           f"160x128 in float32 and 96x128 and 160x128 in float64, and "
-          f"256x256 float32 (over one block's shared memory); {WEDGE_DIMS} "
-          f"S=1 and S=8) on clusters of {sorted(routes)} blocks; at "
+          f"256x256 float32 (over one block's shared memory); the global "
+          f"route (cluster 0 below) forced on the (9,6,5) cases and taken by "
+          f"256x256 float64 and 1024x1024 float32 ({'; '.join(glob)}); "
+          f"{WEDGE_DIMS} S=1 and S=8) on clusters of {sorted(routes)} "
+          f"blocks; at "
           f"{WEDGE_DIMS} star 1, down: " + "; ".join(
               f"axis {r['axis']} S={r['S']} ({r['planes']} planes, cluster "
               f"{r['cluster']}): kernel {r['ms']:.4f} ms, plain "
@@ -2880,11 +2941,26 @@ def _ell_work(g, front, itemsize):
     return state + 4 * int(deg.sum()) + itemsize * union, 2 * per_field
 
 
+def _ell_work_push(g, front, itemsize):
+    """(bytes, operations) of one BFM iteration with the push frontier
+    on a symmetric graph: the state read and written once, the neighbour
+    ids and weights of the real slots of the frontier rows only (the
+    relaxation reads them, and an improved row pushes from the ids it
+    has just read: no row outside the frontier reads its list); the
+    operations as `_ell_work`."""
+    S, n_pad = front.shape
+    deg = g.deg.long()
+    union = int(deg[front.any(0)].sum())
+    per_field = int((deg[None, :] * front).sum())
+    state = 2 * S * n_pad * (itemsize + 4 + 1)
+    return state + (4 + itemsize) * union, 2 * per_field
+
+
 def _ell_lockstep(g, srcs, dtype, what):
     """bfm_step (the kernel) and bfm_step_reference (its plain version)
     from init_state until the frontier empties, every field of the two
     states equal after every step; returns the steps and each step's
-    (bytes, operations)."""
+    (bytes, operations) by `_ell_work`, then by `_ell_work_push`."""
     import torch
 
     from raytracer_tpu_torch.ops import relax
@@ -2893,7 +2969,8 @@ def _ell_lockstep(g, srcs, dtype, what):
     work = []
     while True:
         front = sr.front if sr.front.dim() == 2 else sr.front[None]
-        work.append(_ell_work(g, front, g.w.element_size()))
+        work.append(_ell_work(g, front, g.w.element_size())
+                    + _ell_work_push(g, front, g.w.element_size()))
         sk = relax.bfm_step(sk, g)
         sr = relax.bfm_step_reference(sr, g)
         for f in sk._fields:
@@ -2902,6 +2979,25 @@ def _ell_lockstep(g, srcs, dtype, what):
                                      f"({what}, {f}, step {len(work)})")
         if not int(sr.live):
             return len(work), work
+
+
+def _asym_graph(g, n_cut, seed):
+    """A copy of the DeviceGraph `g` on its device with `n_cut` directed
+    edges taken out (the slot pointed back at its row, weight +inf): its
+    real slots are no longer symmetric, so bfm_step takes the pull."""
+    import numpy as np
+
+    from raytracer_tpu_torch.ops import relax
+
+    nbr, w = g.nbr.cpu().numpy().copy(), g.w.cpu().numpy().copy()
+    rng = np.random.default_rng(seed)
+    r = np.flatnonzero(g.deg.cpu().numpy() > 1)[:g.n]
+    for i in rng.choice(r, n_cut, replace=False):
+        nbr[i, 0], w[i, 0] = i, np.inf
+    h = relax.device_graph(nbr, w, g.halo_src.cpu().numpy(),
+                           g.halo_dst.cpu().numpy(), g.n, g.nbr.device)
+    assert not h.symmetric
+    return h
 
 
 def _steps_ms(step, state, n):
@@ -2952,9 +3048,17 @@ def phase_graph_kernels(rec: dict):
     gs, As, hs = rt.init_annulus(48, 12, spacing=150.0)
     g48 = rt.prepare(As, hs, gs, _ak135_vp(gs), rt.SolverConfig(
         dtype="float64"))
-    n, _ = _ell_lockstep(g48, [rt.closest_point(gs, 0.0, rt.R, system="polar"),
-                               11], "float64", "48x12 float64")
+    src48 = rt.closest_point(gs, 0.0, rt.R, system="polar")
+    n, _ = _ell_lockstep(g48, [src48, 11], "float64", "48x12 float64")
     cases.append(f"48x12 float64 S=2 ({n})")
+    # the pull route: the 48x12 graph with 7 directed edges taken out,
+    # with and without a level mask
+    ga = _asym_graph(g48, 7, 3)
+    n, _ = _ell_lockstep(ga, [src48, 11], "float64", "48x12 pull")
+    nm = _ell_masked_lockstep(ga, src48, "float64", gs, "48x12 pull masked")
+    cases.append(f"the pull route on 48x12 float64 less 7 directed edges "
+                 f"S=2 ({n}; level-masked {nm[0]} + {nm[1]})")
+    assert G.symmetric and g48.symmetric and not ga.symmetric
     dg = rt.add_midpoints(rt.triangle_annulus_2d(**DELAUNAY))
     dA = rt.node_adjacency(dg, star=0)
     dsrc = rt.closest_point(dg, 0.0, rt.R, system="polar")
@@ -2979,25 +3083,43 @@ def phase_graph_kernels(rec: dict):
     st = relax.init_state(G, src, "float32")
     ms = _steps_ms(lambda s: relax.bfm_step(s, G), st, n1)
     plain = _steps_ms(lambda s: relax.bfm_step_reference(s, G), st, n1)
-    nbytes = sum(b for b, _ in work1) / n1
-    ops = sum(o for _, o in work1) / n1
-    bound, by = _bound_ms(nbytes, ops)
+    nbytes = sum(w[0] for w in work1) / n1
+    ops = sum(w[1] for w in work1) / n1
+    bound_pull, by_pull = _bound_ms(nbytes, ops)
+    nbytes_push = sum(w[2] for w in work1) / n1
+    bound, by = _bound_ms(nbytes_push, ops)
     ms8 = _steps_ms(lambda s: relax.bfm_step(s, G),
                     relax.init_state(G, srcs8, "float32"), n8)
     split = _kernel_split_ms(lambda: _steps_ms(
         lambda s: relax.bfm_step(s, G), st, n1), 1)
+    # the pull route (two launches) on the same graph and state
+    Gp = G._replace(symmetric=False)
+    pull = _steps_ms(lambda s: relax.bfm_step(s, Gp), st, n1)
+    split_pull = _kernel_split_ms(lambda: _steps_ms(
+        lambda s: relax.bfm_step(s, Gp), st, n1), 1)
+    st48 = relax.init_state(g48, src48, "float64")
+    n48 = _ell_lockstep(g48, src48, "float64", "48x12 float64 S=1")[0]
+    ms48 = _steps_ms(lambda s: relax.bfm_step(s, g48), st48, n48)
     rec["bfm_step"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                            bound_by=by, max_abs_err=0.0)
     print(f"phase 3f kernels: bfm_step bit-equal to bfm_step_reference "
           f"(dist, prev, front, it, live after every step) on "
           + ", ".join(cases) + f". 180x63 ({G.nbr.shape[0]} x "
           f"{G.nbr.shape[1]} ELL, {int(G.deg.sum())} real slots; "
-          f"init_annulus {t_build:.2f} s, prepare {t_prep:.2f} s): a call "
-          f"{ms:.4f} ms on average over the {n1} steps of a solve (S=8: "
-          f"{ms8:.4f} ms), plain {plain:.3f} ms, bound {bound:.5f} ms "
-          f"({by}, {nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} M ops a step "
-          f"on average); device ms a solve by kernel: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(split.items())),
+          f"init_annulus {t_build:.2f} s, prepare {t_prep:.2f} s with its "
+          f"symmetry check): a call on the push route {ms:.4f} ms on "
+          f"average over the {n1} steps of a solve (S=8: {ms8:.4f} ms; "
+          f"float64 48x12 S=1 {ms48:.4f} ms over {n48} steps), the pull "
+          f"route on the same steps {pull:.4f} ms, plain {plain:.3f} ms, "
+          f"bound {bound:.5f} ms ({by}, {nbytes_push / 1e6:.1f} MB, "
+          f"{ops / 1e6:.1f} M ops a step on average: the push's reads; "
+          f"by the pull's formula, every real slot's id once, "
+          f"{bound_pull:.5f} ms, {by_pull}, {nbytes / 1e6:.1f} MB); device "
+          f"ms a solve by "
+          f"kernel, push: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(split.items()))
+          + "; pull: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                   sorted(split_pull.items())),
           flush=True)
 
 
@@ -3018,10 +3140,11 @@ def _dense_on_card(bg):
     return bg._replace(W=bg.W.to(bg.tw.device))
 
 
-def _banded_lockstep(bg, srcs, cfg, what):
-    """banded_step and banded_gs (the kernels) against their plain
-    versions from the sources' start field to the fixpoint, equal after
-    every call; returns (Jacobi steps, Gauss-Seidel rounds)."""
+def _banded_lockstep(bg, srcs, cfg, what, jacobi=True):
+    """banded_step (unless not `jacobi`) and banded_gs (the kernels)
+    against their plain versions from the sources' start field to the
+    fixpoint, equal after every call; returns (Jacobi steps, Gauss-Seidel
+    rounds)."""
     import torch
 
     from raytracer_tpu_torch.ops import banded as pb
@@ -3031,7 +3154,7 @@ def _banded_lockstep(bg, srcs, cfg, what):
     one = torch.ones((), dtype=torch.int32, device=d0.device)
     sk = sr = pb.BandedState(d0, one, torch.zeros_like(one))
     n = 0
-    while int(sr.changed):
+    while jacobi and int(sr.changed):
         sk, sr = pb.banded_step(sk, bg), pb.banded_step_reference(sr, twin)
         n += 1
         for f in sk._fields:
@@ -3055,6 +3178,7 @@ def _banded_lockstep(bg, srcs, cfg, what):
 
 
 def phase_banded_kernels(rec: dict):
+    import numpy as np
     import torch
 
     import raytracer_tpu_torch as rt
@@ -3062,7 +3186,7 @@ def phase_banded_kernels(rec: dict):
 
     dg, dA, dsrc = rec["delaunay"]
     U = _ak135_vp(dg)
-    cases = []
+    cases, routes = [], set()
     for dtype in ("float32", "float64"):
         cfg = rt.SolverConfig(dtype=dtype)
         t0 = time.perf_counter()
@@ -3072,10 +3196,46 @@ def phase_banded_kernels(rec: dict):
         n, rounds = _banded_lockstep(bg, [dsrc], cfg, f"Delaunay {dtype}")
         cases.append(f"the production Delaunay mesh {dtype} ({n} steps, "
                      f"{rounds} rounds)")
+        routes.add((dtype, "rcm", pb._gs_route(bg, 512).plan.route))
         if dtype == "float32":
             assert (n, rounds) == (JAX_BANDED["jacobi"][0],
                                    JAX_BANDED["gs"][0]), (n, rounds)
             bg32, n32, r32, t_prep32 = bg, n, rounds, t_prep
+        else:
+            bg64 = bg
+    # the wide-band route with its rows in global memory (forced: no
+    # shared memory) on the production mesh in float64
+    keep = pb.BLOCK_SMEM
+    try:
+        pb.BLOCK_SMEM = 0
+        bgw = bg64._replace(gs={})
+        assert pb._gs_route(bgw, 512) == pb.GsPlan("wide", 512, 0)
+        cfg = rt.SolverConfig(dtype="float64")
+        _, rounds = _banded_lockstep(bgw, [dsrc], cfg,
+                                     "Delaunay float64, wide route forced",
+                                     jacobi=False)
+        cases.append(f"the production mesh float64 on the wide route with "
+                     f"its rows in global memory ({rounds} rounds)")
+        routes.add(("float64", "rcm", "wide, global rows"))
+    finally:
+        pb.BLOCK_SMEM = keep
+    # order="natural" (a band of 2,918 rows) on the nr=12 Delaunay mesh:
+    # the window route in float32, the wide one in float64
+    sg = rt.add_midpoints(rt.triangle_annulus_2d(nr=12, spacing=500.0))
+    sA = rt.node_adjacency(sg, star=0)
+    for dtype in ("float32", "float64"):
+        cfg = rt.SolverConfig(dtype=dtype)
+        bg = rt.prepare_banded(sA, _no_halo(), sg, _ak135_vp(sg), cfg,
+                               order="natural")
+        route = pb._gs_route(bg, 512)
+        route = getattr(route, "plan", route).route
+        routes.add((dtype, "natural", route))
+        n, rounds = _banded_lockstep(bg, [0, 17], cfg,
+                                     f"natural nr=12 {dtype}")
+        cases.append(f"order='natural' on the nr=12 Delaunay mesh {dtype} "
+                     f"S=2 ({n}, {rounds}; {route} route)")
+    assert {r for *_, r in routes} == {"window", "wide",
+                                       "wide, global rows"}, routes
     gs, As, hs = rt.init_annulus(16, 6, spacing=200.0)
     for dtype in ("float32", "float64"):
         cfg = rt.SolverConfig(dtype=dtype)
@@ -3083,7 +3243,8 @@ def phase_banded_kernels(rec: dict):
         n, rounds = _banded_lockstep(
             bg, [rt.closest_point(gs, 0.0, rt.R, system="polar"), 40], cfg,
             f"16x6 {dtype}")
-        cases.append(f"16x6 with its halo {dtype} S=2 ({n}, {rounds})")
+        cases.append(f"16x6 with its halo {dtype} S=2 ({n}, {rounds}; "
+                     f"{pb._gs_route(bg, 512).route} route)")
 
     cfg = rt.SolverConfig()
     d0 = pb._sources(bg32, [dsrc], cfg)
@@ -3111,6 +3272,15 @@ def phase_banded_kernels(rec: dict):
     gms = _steps_ms(gs_calls(pb.banded_gs, bg32), d0, 1) / calls
     gplain = _steps_ms(gs_calls(pb.banded_gs_reference, twin32), d0,
                        1) / calls
+    cfg64 = rt.SolverConfig(dtype="float64")
+    gms64 = _steps_ms(gs_calls(pb.banded_gs, bg64),
+                      pb._sources(bg64, [dsrc], cfg64), 1) / calls
+    srcs8 = [rt.closest_point(dg, np.deg2rad(d), rt.R, system="polar")
+             for d in np.linspace(0.0, 175.0, 8)]
+    gms8 = _steps_ms(gs_calls(pb.banded_gs, bg32),
+                     pb._sources(bg32, srcs8, cfg), 1) / calls
+    gsplit = _kernel_split_ms(lambda: gs_calls(pb.banded_gs, bg32)(d0), 1)
+    lay = pb._gs_route(bg32, 512)
     gbytes, gops = _banded_work(bg32, 1, passes=2)
     gbound, gby = _bound_ms(gbytes, gops)
     rec["banded_gs"] = dict(ms=gms, plain_ms=gplain, bound_ms=gbound,
@@ -3124,9 +3294,14 @@ def phase_banded_kernels(rec: dict):
           f"{bound:.5f} ms ({by}, {nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} M "
           f"ops); device ms a solve by kernel: "
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(split.items()))
-          + f"; banded_gs a call (a direction, B=512, P=2) {gms:.4f} ms, "
-          f"plain {gplain:.3f} ms, bound {gbound:.5f} ms ({gby})",
-          flush=True)
+          + f"; banded_gs a call (a direction, B=512, P=2, the window "
+          f"route: ring {lay.plan.Wr} rows, {lay.plan.nmax} tap slots the "
+          f"fullest block, {lay.plan.smem} bytes) {gms:.4f} ms (float64 "
+          f"{gms64:.4f}, S=8 {gms8:.4f}), plain {gplain:.3f} ms, bound "
+          f"{gbound:.5f} ms ({gby}); device ms over {calls} directions by "
+          f"kernel: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                  sorted(gsplit.items()))
+          + f"; routes {sorted(routes)}", flush=True)
 
 
 def phase_graph_bfm(rec: dict):
@@ -3265,7 +3440,11 @@ def phase_graph_banded(rec: dict):
     f64 = rt.SolverConfig(dtype="float64")
     bg64 = rt.prepare_banded(dA, _no_halo(), dg, U, f64)
     d64, it64 = rt.solve_banded(bg64, [dsrc], f64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     g64, r64 = rt.solve_banded_gs(bg64, [dsrc], f64)
+    torch.cuda.synchronize()
+    t_gs64 = time.perf_counter() - t0
     err_gs64 = float(np.abs(g64 - d64).max())
     assert err_gs64 <= 1e-9, err_gs64
     t0 = time.perf_counter()
@@ -3285,6 +3464,15 @@ def phase_graph_banded(rec: dict):
     for row in (0, 5):
         single = solver.solve(srcs8[row], want_prev=False).dist
         assert np.array_equal(table[row], single[receivers]), row
+    # the 8 sources in one Gauss-Seidel solve (a block of threads each)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gs8, r8 = rt.solve_banded_gs(solver.banded, srcs8)
+    torch.cuda.synchronize()
+    t_gs8 = time.perf_counter() - t0
+    for row in (0, 5):
+        single, _ = rt.solve_banded_gs(solver.banded, [srcs8[row]])
+        assert np.array_equal(gs8[row], single[0]), row
     print(f"phase 16 banded: the production Delaunay annulus ({dg.nnods} "
           f"nodes, {dA.nnz} edges), AnnulusSolver(method='auto') warns and "
           f"routes to banded (packed in {t_pack:.2f} s), {it_ref} "
@@ -3295,9 +3483,12 @@ def phase_graph_banded(rec: dict):
           f"source; solve_banded_gs {rounds} rounds in {counts['banded_gs']} "
           f"banded_gs calls ({1e3 * t_gs:.1f} ms, the JAX package's "
           f"digest; float32 max |gs - jacobi| = {gs_err32:.3g} s); float64: "
-          f"{it64} iterations, gs {r64} rounds within {err_gs64:.3g} s, "
+          f"{it64} iterations, gs {r64} rounds ({1e3 * t_gs64:.1f} ms) "
+          f"within {err_gs64:.3g} s, "
           f"dijkstra ({t_dij:.2f} s on the host) within {err_dij:.3g} s; "
-          f"8 x {len(receivers)} table {1e3 * t_table:.1f} ms", flush=True)
+          f"8 x {len(receivers)} table {1e3 * t_table:.1f} ms; "
+          f"solve_banded_gs of the 8 sources at once {r8} rounds, "
+          f"{1e3 * t_gs8:.1f} ms", flush=True)
 
 
 def phase_graph_cli(tmp: str):
@@ -3424,6 +3615,9 @@ def phase_staged_kernels(rec: dict):
     # rsweep on every destination-masked stage table of bfm_ms (levels 1
     # and 15) and of PcP at 180x63, both directions, float32 and float64
     gr, A, halo, U, src, G, t_build, t_prep = rec["graph_180"]
+    # and the masked push route at 180x63
+    steps["180x63 float32"] = _ell_masked_lockstep(G, src, "float32", gr,
+                                                   "180x63 float32")
     part = rt.partition_grid(gr)
     rng = np.random.default_rng(18)
     tables, max_err, lines = 0, 0.0, []
@@ -3463,7 +3657,8 @@ def phase_staged_kernels(rec: dict):
     print(f"phase 3h kernels: the level-masked bfm_step bit-equal to its "
           f"plain version (dist, prev, front, it, live after every step) "
           f"over bfm_ms's two masked stages at 48x12 (spacing 150, halo): "
-          f"float32 {steps['float32']} steps, float64 {steps['float64']}; "
+          f"float32 {steps['float32']} steps, float64 {steps['float64']}, "
+          f"and at 180x63 float32 {steps['180x63 float32']}; "
           f"rsweep bit-equal to rsweep_reference on {tables} "
           f"destination-masked stage tables at 180x63 (S=1, both "
           f"directions, max abs err {max_err}): " + "; ".join(lines)
@@ -4521,12 +4716,23 @@ def _tsweep_work(tbl, st, S, nt, reverse, itemsize, carry):
 
 
 def _tsweep_route(tbl, st, reverse, col_relax, v):
-    """The lanes a thread of the plan tsweep launches."""
+    """The lanes a thread of the plan tsweep launches (0 on the global
+    route)."""
     from raytracer_tpu_torch.ops import sweep_theta as sw
 
     _, d1, _, d2, _, d0 = sw._tap_groups(tbl, st, reverse)
     return sw.tsweep_plan(st.ML, v.element_size(), d1, d2, d0,
                           st.chain_spans, col_relax).lpt
+
+
+def _wide_tsweep_tables(tbl, st, reps, nt):
+    """The sweep tables `tbl`, `st` with every weight row's lanes repeated
+    `reps` times (a column of ML * reps lanes) and `nt` columns: a column
+    over what tsweep's shared route holds, for its global route."""
+    tw = tbl._replace(wg=tuple(a.repeat(1, reps) for a in tbl.wg),
+                      cfp=tbl.cfp.repeat(1, reps),
+                      cbp=tbl.cbp.repeat(1, reps))
+    return tw, st._replace(ML=st.ML * reps, nt=nt)
 
 
 def phase_tsweep_kernel(rec: dict):
@@ -4544,7 +4750,7 @@ def phase_tsweep_kernel(rec: dict):
     # (a plain sweep at 180x63 takes ~1 s of small launches)
     cover = [(False, True, False), (False, False, True), (True, True, True),
              (True, False, False)]
-    n_cases, max_err, rows, routes = 0, 0.0, [], set()
+    n_cases, max_err, rows, routes, wide = 0, 0.0, [], set(), []
     # every direction, col_relax and carry case at 48x12 (S=2) in both
     # dtypes, the covering four at 180x63 (S=1); S=8 at 180x63 in float32
     # with the theta-sharded solve's calls (col_relax, carry)
@@ -4566,6 +4772,9 @@ def phase_tsweep_kernel(rec: dict):
         tbl = sw.tables_to_device(t, "cuda")
         if (nt, dtype) == (180, np.float32):
             _tsweep_tables_180 = (tbl, st)
+        if nt == 180 and S == 1:
+            wide.append(_wide_tsweep_tables(tbl, st, 14 if dtype == np.float32
+                                            else 7, 12) + (dtype, 2))
         v = rng.uniform(0.0, 1500.0, (S, st.nt, st.ML)).astype(dtype)
         v[rng.random(v.shape) < 0.4] = np.inf
         v = torch.from_numpy(v).cuda()
@@ -4619,7 +4828,50 @@ def phase_tsweep_kernel(rec: dict):
                                      f"{plan} lanes a thread")
     finally:
         sw.TSWEEP_THREADS = keep
-    assert routes == {1, 2, 4}, routes
+    # the global route (ROADMAP C.15): forced (no shared memory) on every
+    # 48x12 case in both dtypes; taken by a column over what the shared
+    # route holds: the 180x63 rows' lanes repeated 14 times in float32
+    # (12,544 lanes) and 7 times in float64 (6,272), 12 columns, S=2,
+    # every case, timed
+    for dtype in (np.float32, np.float64):
+        gr, cg, _ = rt.init_annulus_circulant(48, 12, 150.0, dtype=dtype)
+        ws = pack_twrapped_stencil(cg, dtype=dtype, band_closure=0)
+        t, st = sw.pack_sweep_tables(ws, cg, dtype)
+        wide.append((sw.tables_to_device(t, "cuda"), st, dtype, 2))
+    keep, glob = sw.BLOCK_SMEM, []
+    for k, (tbl, st, dtype, S) in enumerate(wide):
+        forced = k >= 2
+        v = rng.uniform(0.0, 1500.0, (S, st.nt, st.ML)).astype(dtype)
+        v[rng.random(v.shape) < 0.4] = np.inf
+        v = torch.from_numpy(v).cuda()
+        carry = tuple(torch.from_numpy(rng.uniform(
+            0.0, 1500.0, (S, st.ML)).astype(dtype)).cuda() for _ in range(2))
+        try:
+            if forced:
+                sw.BLOCK_SMEM = 0
+            for reverse, col_relax, with_carry in every:
+                ci = carry if with_carry else None
+                got = sw.tsweep(v, tbl, st, reverse, col_relax, ci)
+                want = sw._sweep(v, tbl, st, reverse, col_relax, ci)
+                torch.cuda.synchronize()
+                err = _max_err(got, want)
+                max_err = max(max_err, err)
+                n_cases += 1
+                plan = _tsweep_route(tbl, st, reverse, col_relax, v)
+                routes.add(plan)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"tsweep != _sweep on the global route ({st.ML} "
+                        f"lanes, {np.dtype(dtype).name}, reverse={reverse}, "
+                        f"col_relax={col_relax}, carry={with_carry}): max "
+                        f"abs err {err}")
+            if not forced:
+                ms = _cuda_ms(lambda: sw.tsweep(v[:1], tbl, st, False), 3)
+                glob.append(f"{st.ML} lanes x {st.nt} columns "
+                            f"{np.dtype(dtype).name} {ms:.3f} ms a sweep")
+        finally:
+            sw.BLOCK_SMEM = keep
+    assert routes == {0, 1, 2, 4}, routes
     rec["tsweep"] = dict(ms=rows[0]["ms"], plain_ms=rows[0]["plain_ms"],
                          bound_ms=rows[0]["bound_ms"],
                          bound_by=rows[0]["bound_by"], max_abs_err=max_err)
@@ -4628,8 +4880,10 @@ def phase_tsweep_kernel(rec: dict):
           f"col_relax on and off, with and without carry_init; 180x63 S=1 "
           f"float32 and float64: four covering each of those; 180x63 S=8 "
           f"float32 both directions; 90x80 (1,664 lanes) S=2 float32 and "
-          f"S=1 float64; 180x63 S=2 float32 on forced routes) with "
-          f"{sorted(routes)} lanes a thread; "
+          f"S=1 float64; 180x63 S=2 float32 on forced routes; the global "
+          f"route, 0 below, forced on every 48x12 case and taken by "
+          f"{'; '.join(glob)}, S=2, every case) with {sorted(routes)} lanes "
+          f"a thread; "
           f"one forward sweep with col_relax at 180x63 S=1: " + "; ".join(
               f"{r['dtype']} kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms "

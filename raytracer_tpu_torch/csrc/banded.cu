@@ -26,34 +26,63 @@
 //     changed_out = 1 where v < dist0[i], it_out = it_in + 1.  When not
 //     active the field is copied through and it_out = it_in, changed_out
 //     = changed_in, so the host reads the flag every few iterations.
-//   banded_gs_kernel, a block of threads a field: the row blocks of B rows
-//     strictly in order (ascending when forward), each block's rows in
-//     shared memory twice; P passes a block, each a Jacobi update of the
-//     block over its rows' taps that reads the block's rows as they stood
-//     at the pass's start (the shared copy) and a row outside as it stood
-//     when the block began: din for a block not yet reached in this
-//     direction, the output for one already written; then the block's
-//     rows go to the output.  halo_min_kernel then copies the field with
-//     each halo destination's minimum over itself and its sources (every
-//     source read from the copy before the merge).
+//   banded_gs (one direction), a block of threads a field: the row
+//     blocks of B rows strictly in order (ascending when forward); P
+//     passes a block, each a Jacobi update of the block over its rows'
+//     taps that reads the block's rows as they stood at the pass's start
+//     and a row outside as it stood when the block began: the output for
+//     a block already done in this direction, din for one not yet
+//     reached; then the block's rows go to the output.  halo_min_kernel
+//     then copies the field with each halo destination's minimum over
+//     itself and its sources (every source read from the copy before the
+//     merge).  Two routes, chosen by ops/banded.gs_plan from the shapes:
+//     gs_window_kernel (below) where its window and tap buffers fit a
+//     block's shared memory, gs_wide_kernel otherwise.
 //
 // What bounds them on an H100.  On the production Delaunay annulus
 // (47,616 rows, 496,032 finite taps, mean 10.4 a row) a Jacobi iteration
 // reads the taps once (~4 MB in float32 with their rows and offsets) and
 // the field: ~0.0012 ms at 3.35 TB/s, so one launch (~3 us) bounds it;
 // the gathers of dist0 at i+o stay within the band and in L1/L2.  The
-// Gauss-Seidel direction is a chain of 93 blocks x 2 passes, each waiting
-// on the last (a block barrier between passes), on one SM a field: it is
-// latency-bound by design (it takes ~6x fewer sweeps than Jacobi).
+// Gauss-Seidel direction is a chain of NB x P = 93 x 2 = 186 dependent
+// phases on one SM a field: latency, not bandwidth.  Its first design
+// (gs_wide_kernel, now the wide-band route) walked every tap as a chain
+// of dependent global loads (toff, tcol, the source row from in or out,
+// tw), an L2 round trip each: 0.77 ms a direction, ~4.1 us a phase.
+//
+// The window route (gs_window_kernel) takes every global load off that
+// chain.  With K the band's reach (the largest |offset|), block [b, b+B)
+// reads rows [b - K, b + B + K) only.  Shared memory holds
+//   - a ring of Wr rows (2K + 2B rounded up to a power of 2; row j in slot
+//     j mod Wr): the window
+//     and the rows the next block adds, loaded from din by cp.async one
+//     block ahead; a block's rows, once done, stay in the ring (its
+//     result is what later blocks read), so out is never read back;
+//   - the block's taps, laid out once on the host (ops/banded.gs_layout)
+//     and streamed by cp.async one block ahead into a double buffer: the
+//     block's rows sorted by tap count, 32 rows (a warp) a group padded
+//     to the group's largest count, tap k of the group's lane l at slot
+//     32 k + l (conflict-free reads), each a ring slot (int16) and a
+//     weight (padding: the row's own slot and +inf, which never wins);
+//     per thread slot its row and its group's start and width;
+//   - the pass's new values (B rows).
+// A pass then reads only shared memory: the taps and the ring, into
+// registers (eight taps' loads ahead of their minima, two running minima),
+// then a block barrier, the new values into the ring, and a barrier.  The wide route keeps the first design: for a band as wide as
+// order="natural" gives, rows out of the window's reach come from global
+// memory, and the block's two row buffers sit in shared memory where they
+// fit, in global memory (one pair a field) where they do not.
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "minplus.cuh"
 
 namespace {
 
 using minplus::add_rn;
 using minplus::min_of;
+using minplus::pos_inf;
 
 constexpr int kThreads = 256;
 constexpr int kGsMaxThreads = 1024;
@@ -100,13 +129,17 @@ __global__ void __launch_bounds__(kThreads)
   if (v < x) *changed_out = 1;
 }
 
+// The wide-band route: rows out of the block read from global memory;
+// the block's rows twice (the pass's snapshot and its result) in `rowbuf`,
+// shared memory or, where 2 B values do not fit it, a global pair a field.
 template <typename T>
 __global__ void __launch_bounds__(kGsMaxThreads)
-    banded_gs_kernel(const T* __restrict__ din, T* __restrict__ dout,
-                     const int* __restrict__ toff, const int* __restrict__ tcol,
-                     const T* __restrict__ tw, int n_pad, int B, int P, int forward) {
+    gs_wide_kernel(const T* __restrict__ din, T* __restrict__ dout,
+                   const int* __restrict__ toff, const int* __restrict__ tcol,
+                   const T* __restrict__ tw, T* __restrict__ gbuf, int n_pad, int B, int P,
+                   int forward) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* buf0 = reinterpret_cast<T*>(smem_raw);
+  T* buf0 = gbuf ? gbuf + static_cast<size_t>(blockIdx.x) * 2 * B : reinterpret_cast<T*>(smem_raw);
   T* buf1 = buf0 + B;
   const T* in = din + static_cast<size_t>(blockIdx.x) * n_pad;
   T* out = dout + static_cast<size_t>(blockIdx.x) * n_pad;
@@ -146,6 +179,144 @@ __global__ void __launch_bounds__(kGsMaxThreads)
   }
 }
 
+// The window route's shared memory (ops/banded.gs_plan): the ring (Wr
+// values), the pass's new values (B), then two tap buffers, each the
+// per-slot metadata (G32 int2), the weights and the ring slots (nmax
+// each); every region a multiple of 16 bytes.
+__host__ __device__ __forceinline__ size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
+
+template <typename T>
+struct GsSmem {
+  size_t ring, nxt, meta, w, idx, buf;  // byte offsets; buf: one tap buffer
+  __host__ __device__ GsSmem(int Wr, int B, int G32, int nmax) {
+    ring = 0;
+    nxt = align16(static_cast<size_t>(Wr) * sizeof(T));
+    meta = nxt + align16(static_cast<size_t>(B) * sizeof(T));
+    w = static_cast<size_t>(G32) * sizeof(int2);
+    idx = w + static_cast<size_t>(nmax) * sizeof(T);
+    buf = align16(idx + static_cast<size_t>(nmax) * sizeof(short));
+  }
+  __host__ __device__ size_t total() const { return meta + 2 * buf; }
+};
+
+// The window route (see the head of this file).  meta (NB, G32) int2: a
+// thread slot's row in the block (-1: none) and (its first tap's slot |
+// its group's width << 20); idx (int16 ring slots) and tw the taps, block
+// rb's at [blk[rb], blk[rb+1]), a multiple of 32 each; Wr a power of 2.
+template <typename T>
+__global__ void __launch_bounds__(kGsMaxThreads)
+    gs_window_kernel(const T* __restrict__ din, T* __restrict__ dout,
+                     const int2* __restrict__ meta, const short* __restrict__ idx,
+                     const T* __restrict__ tw, const int* __restrict__ blk, int n_pad, int B,
+                     int P, int forward, int K, int Wr, int G32, int nmax) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const GsSmem<T> L(Wr, B, G32, nmax);
+  T* ring = reinterpret_cast<T*>(smem_raw + L.ring);
+  T* nxt = reinterpret_cast<T*>(smem_raw + L.nxt);
+  const T* in = din + static_cast<size_t>(blockIdx.x) * n_pad;
+  T* out = dout + static_cast<size_t>(blockIdx.x) * n_pad;
+  const int NB = n_pad / B;
+  const int nth = blockDim.x;
+  const int wm = Wr - 1;  // row j in ring slot j & wm
+  const auto tap_buf = [&](int q) { return smem_raw + L.meta + (q & 1) * L.buf; };
+  // rows [lo, hi) of din (within [0, n_pad)) into their ring slots
+  const auto stage_rows = [&](int lo, int hi) {
+    lo = max(lo, 0);
+    hi = min(hi, n_pad);
+    for (int j = lo + threadIdx.x; j < hi; j += nth) cp_async_ca<sizeof(T)>(ring + (j & wm), in + j);
+  };
+  // row block rb's metadata and taps ([t0, t1) of idx and tw) into tap
+  // buffer q & 1, 16 bytes a copy
+  const auto stage_taps = [&](int q, int rb, int t0, int t1) {
+    unsigned char* dst = tap_buf(q);
+    const int n = t1 - t0;
+    const auto copy = [&](unsigned char* d, const void* s, int bytes) {
+      const unsigned char* sb = static_cast<const unsigned char*>(s);
+      for (int e = 16 * threadIdx.x; e < bytes; e += 16 * nth) cp_async16(d + e, sb + e);
+    };
+    copy(dst, meta + static_cast<size_t>(rb) * G32, G32 * static_cast<int>(sizeof(int2)));
+    copy(dst + L.w, tw + t0, n * static_cast<int>(sizeof(T)));
+    copy(dst + L.idx, idx + t0, n * static_cast<int>(sizeof(short)));
+  };
+  const auto rb_of = [&](int q) { return forward ? q : NB - 1 - q; };
+  const int rb0 = rb_of(0);
+  stage_rows(rb0 * B - K, rb0 * B + B + K);
+  stage_taps(0, rb0, __ldg(blk + rb0), __ldg(blk + rb0 + 1));
+  cp_async_commit();
+  // the next block's tap range, read a block ahead (off the staging's path)
+  int n0 = 0, n1 = 0;
+  if (NB > 1) {
+    n0 = __ldg(blk + rb_of(1));
+    n1 = __ldg(blk + rb_of(1) + 1);
+  }
+  for (int q = 0; q < NB; ++q) {
+    const int b = rb_of(q) * B;
+    cp_async_wait_all();
+    __syncthreads();  // this block's taps and window are in; the last block's rows too
+    if (q + 1 < NB) {  // the next block's taps and the rows its window adds
+      if (forward)
+        stage_rows(b + B + K, b + 2 * B + K);
+      else
+        stage_rows(b - B - K, b - K);
+      stage_taps(q + 1, rb_of(q + 1), n0, n1);
+      cp_async_commit();
+      if (q + 2 < NB) {
+        n0 = __ldg(blk + rb_of(q + 2));
+        n1 = __ldg(blk + rb_of(q + 2) + 1);
+      }
+    }
+    const unsigned char* buf = tap_buf(q);
+    const int2* mt = reinterpret_cast<const int2*>(buf);
+    const T* wt = reinterpret_cast<const T*>(buf + L.w);
+    const short* it = reinterpret_cast<const short*>(buf + L.idx);
+    for (int p = 0; p < P; ++p) {
+      for (int t = threadIdx.x; t < G32; t += nth) {
+        const int2 m = mt[t];
+        if (m.x < 0) continue;
+        const int D = m.y >> 20;
+        const short* ip = it + (m.y & 0xfffff);
+        const T* wp = wt + (m.y & 0xfffff);
+        // two running minima and eight taps' loads ahead of their use
+        T v0 = ring[(b + m.x) & wm], v1 = pos_inf<T>();
+        int k = 0;
+        for (; k + 8 <= D; k += 8) {
+          int j[8];
+          T w[8], r[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            j[u] = ip[32 * (k + u)];
+            w[u] = wp[32 * (k + u)];
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) r[u] = ring[j[u]];
+#pragma unroll
+          for (int u = 0; u < 8; u += 2) {
+            v0 = min_of(v0, add_rn(r[u], w[u]));
+            v1 = min_of(v1, add_rn(r[u + 1], w[u + 1]));
+          }
+        }
+        for (; k < D; ++k) v0 = min_of(v0, add_rn(ring[ip[32 * k]], wp[32 * k]));
+        nxt[m.x] = min_of(v0, v1);
+      }
+      __syncthreads();
+      const bool last = p + 1 == P;
+      for (int t = threadIdx.x; t < G32; t += nth) {
+        const int r = mt[t].x;
+        if (r < 0) continue;
+        const T v = nxt[r];
+        ring[(b + r) & wm] = v;
+        if (last) out[b + r] = v;
+      }
+      if (!last) __syncthreads();
+    }
+    if (P == 0)  // the block's rows out as they came in
+      for (int t = threadIdx.x; t < G32; t += nth) {
+        const int r = mt[t].x;
+        if (r >= 0) out[b + r] = ring[(b + r) & wm];
+      }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     halo_min_kernel(const T* __restrict__ x, T* __restrict__ y, const int* __restrict__ didx,
@@ -182,29 +353,64 @@ int launch_sweep(const void* dist0, void* dist1, const void* toff, const void* t
 }
 
 template <typename T>
-int launch_gs(const void* din, void* dtmp, void* dout, const void* toff, const void* tcol,
-              const void* tw, const void* didx, const void* hoff, const void* hsrc, int n_dest,
-              int S, int n_pad, int B, int P, int forward, int smem, cudaStream_t st) {
-  if (static_cast<size_t>(smem) != 2 * static_cast<size_t>(B) * sizeof(T))
-    return static_cast<int>(cudaErrorInvalidValue);
-  static int smem_set = 0;
-  if (smem > 48 * 1024 && smem > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        banded_gs_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = smem;
-  }
-  const int threads = B >= kGsMaxThreads ? kGsMaxThreads : ((B + 31) / 32) * 32;
-  T* swept_out = static_cast<T*>(n_dest > 0 ? dtmp : dout);
-  banded_gs_kernel<T><<<S, threads, smem, st>>>(
-      static_cast<const T*>(din), swept_out, static_cast<const int*>(toff),
-      static_cast<const int*>(tcol), static_cast<const T*>(tw), n_pad, B, P, forward);
+int halo_after(const T* swept, void* dout, const void* didx, const void* hoff, const void* hsrc,
+               int n_dest, int S, int n_pad, cudaStream_t st) {
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_dest == 0) return static_cast<int>(e);
   halo_min_kernel<T><<<grid_of(S, n_pad), kThreads, 0, st>>>(
-      swept_out, static_cast<T*>(dout), static_cast<const int*>(didx),
+      swept, static_cast<T*>(dout), static_cast<const int*>(didx),
       static_cast<const int*>(hoff), static_cast<const int*>(hsrc), S, n_pad);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, int smem, int& done) {
+  if (smem > 48 * 1024 && smem > done) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    done = smem;
+  }
+  return 0;
+}
+
+int gs_threads(int rows) { return rows >= kGsMaxThreads ? kGsMaxThreads : ((rows + 31) / 32) * 32; }
+
+template <typename T>
+int launch_wide(const void* din, void* dtmp, void* dout, const void* toff, const void* tcol,
+                const void* tw, const void* didx, const void* hoff, const void* hsrc, void* gbuf,
+                int n_dest, int S, int n_pad, int B, int P, int forward, int smem,
+                cudaStream_t st) {
+  if (gbuf ? smem != 0 : static_cast<size_t>(smem) != 2 * static_cast<size_t>(B) * sizeof(T))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int smem_set = 0;
+  const int rc = set_smem(gs_wide_kernel<T>, smem, smem_set);
+  if (rc) return rc;
+  T* swept_out = static_cast<T*>(n_dest > 0 ? dtmp : dout);
+  gs_wide_kernel<T><<<S, gs_threads(B), smem, st>>>(
+      static_cast<const T*>(din), swept_out, static_cast<const int*>(toff),
+      static_cast<const int*>(tcol), static_cast<const T*>(tw), static_cast<T*>(gbuf), n_pad, B,
+      P, forward);
+  return halo_after<T>(swept_out, dout, didx, hoff, hsrc, n_dest, S, n_pad, st);
+}
+
+template <typename T>
+int launch_window(const void* din, void* dtmp, void* dout, const void* meta, const void* idx,
+                  const void* tw, const void* blk, const void* didx, const void* hoff,
+                  const void* hsrc, int n_dest, int S, int n_pad, int B, int P, int forward,
+                  int K, int Wr, int G32, int nmax, int smem, cudaStream_t st) {
+  if (K < 1 || Wr < 2 * K + 2 * B || Wr > 32768 || (Wr & (Wr - 1)) || G32 < B || G32 % 32 || nmax < 0 ||
+      nmax % 32 || static_cast<size_t>(smem) != GsSmem<T>(Wr, B, G32, nmax).total())
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int smem_set = 0;
+  const int rc = set_smem(gs_window_kernel<T>, smem, smem_set);
+  if (rc) return rc;
+  T* swept_out = static_cast<T*>(n_dest > 0 ? dtmp : dout);
+  gs_window_kernel<T><<<S, gs_threads(G32), smem, st>>>(
+      static_cast<const T*>(din), swept_out, static_cast<const int2*>(meta),
+      static_cast<const short*>(idx), static_cast<const T*>(tw), static_cast<const int*>(blk),
+      n_pad, B, P, forward, K, Wr, G32, nmax);
+  return halo_after<T>(swept_out, dout, didx, hoff, hsrc, n_dest, S, n_pad, st);
 }
 
 }  // namespace
@@ -234,24 +440,51 @@ extern "C" int banded_sweep_launch(const void* dist0, void* dist1, const void* t
                                          max_iters, st);
 }
 
-// Launches one Gauss-Seidel direction (and, with n_dest halo destinations,
-// the merge) on `stream`; returns the CUDA error as an int.  din, dout
-// (S, n_pad) and dtmp (the swept field before the merge; unused when
-// n_dest is 0) of one type; the tap lists and halo groups as for
-// banded_sweep_launch; B divides n_pad; smem = 2 B sizeof(T) bytes.  One
-// block a field.
+// Launches one Gauss-Seidel direction on the wide-band route (and, with
+// n_dest halo destinations, the merge) on `stream`; returns the CUDA
+// error as an int.  din, dout (S, n_pad) and dtmp (the swept field before
+// the merge; unused when n_dest is 0) of one type; the tap lists and halo
+// groups as for banded_sweep_launch; B divides n_pad; the block's two row
+// buffers in shared memory (smem = 2 B sizeof(T) bytes, gbuf null) or in
+// gbuf (S, 2, B) of the field's type (smem 0).  One block a field.
 extern "C" int banded_gs_launch(const void* din, void* dtmp, void* dout, const void* toff,
                                 const void* tcol, const void* tw, const void* didx,
-                                const void* hoff, const void* hsrc, int n_dest, int S,
-                                int n_pad, int B, int P, int forward, int smem, int is_double,
-                                void* stream) {
-  if (S < 1 || n_pad < 1 || B < 1 || n_pad % B != 0 || P < 0 || n_dest < 0 || smem < 1 ||
+                                const void* hoff, const void* hsrc, void* gbuf, int n_dest,
+                                int S, int n_pad, int B, int P, int forward, int smem,
+                                int is_double, void* stream) {
+  if (S < 1 || n_pad < 1 || B < 1 || n_pad % B != 0 || P < 0 || n_dest < 0 || smem < 0 ||
       static_cast<size_t>(smem) > minplus::kBlockSmem || !din || !dout || (n_dest > 0 && !dtmp) ||
       !toff || !didx || !hoff)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_double ? launch_gs<double>(din, dtmp, dout, toff, tcol, tw, didx, hoff, hsrc, n_dest,
-                                       S, n_pad, B, P, forward, smem, st)
-                   : launch_gs<float>(din, dtmp, dout, toff, tcol, tw, didx, hoff, hsrc, n_dest,
-                                      S, n_pad, B, P, forward, smem, st);
+  return is_double ? launch_wide<double>(din, dtmp, dout, toff, tcol, tw, didx, hoff, hsrc, gbuf,
+                                         n_dest, S, n_pad, B, P, forward, smem, st)
+                   : launch_wide<float>(din, dtmp, dout, toff, tcol, tw, didx, hoff, hsrc, gbuf,
+                                        n_dest, S, n_pad, B, P, forward, smem, st);
+}
+
+// Launches one Gauss-Seidel direction on the window route (and the
+// merge, as banded_gs_launch) on `stream`; returns the CUDA error as an
+// int.  meta (NB, G32) int2, idx int16 and tw (of the field's type) the
+// tap layout of ops/banded.gs_layout, blk (NB+1) int32 its block starts;
+// K the band's reach, Wr the ring (a power of 2, 2K + 2B to 32768), G32 the thread
+// slots a block (a multiple of 32, >= B), nmax the most taps a block
+// holds (a multiple of 32); smem the bytes GsSmem gives.  One block a
+// field.
+extern "C" int banded_gs_window_launch(const void* din, void* dtmp, void* dout,
+                                       const void* meta, const void* idx, const void* tw,
+                                       const void* blk, const void* didx, const void* hoff,
+                                       const void* hsrc, int n_dest, int S, int n_pad, int B,
+                                       int P, int forward, int K, int Wr, int G32, int nmax,
+                                       int smem, int is_double, void* stream) {
+  if (S < 1 || n_pad < 1 || B < 1 || n_pad % B != 0 || P < 0 || n_dest < 0 || smem < 1 ||
+      static_cast<size_t>(smem) > minplus::kBlockSmem || !din || !dout || (n_dest > 0 && !dtmp) ||
+      !meta || !idx || !tw || !blk || !didx || !hoff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_double
+             ? launch_window<double>(din, dtmp, dout, meta, idx, tw, blk, didx, hoff, hsrc, n_dest,
+                                     S, n_pad, B, P, forward, K, Wr, G32, nmax, smem, st)
+             : launch_window<float>(din, dtmp, dout, meta, idx, tw, blk, didx, hoff, hsrc, n_dest,
+                                    S, n_pad, B, P, forward, K, Wr, G32, nmax, smem, st);
 }

@@ -44,23 +44,51 @@
 // __dadd_rn and the minimum does not depend on order, so the floats and
 // ids are those of the twin.
 //
+// Two routes, chosen on the host from a property of the graph
+// (ops/relax.device_graph's `symmetric`: j is among i's real slots if and
+// only if i is among j's):
+//   the pull route (any graph): relax_merge_kernel, then frontier_kernel
+//     as above, two launches;
+//   the push route (a symmetric graph): push_step_kernel, one
+//     cooperative launch.  Phase 1 copies dist and prev through and
+//     clears front1 (coalesced, a thread an entry); a grid sync; phase 2
+//     relaxes the rows that can change (the frontier and the halo
+//     destinations) as relax_merge_kernel does, and the warp that finds
+//     row i improved sets front1[i] and front1[nbr[i,k]] for k < deg[i]
+//     (where the level mask holds) and live_out.  On a symmetric graph
+//     that is the pull's front1 exactly: i is flagged when i or one of
+//     its neighbours improved.  front1 needs no launch of its own to be
+//     cleared, and stays a plain 0/1 byte field.
+//
 // What bounds it on an H100.  At 180x63 (150,528 rows, K = 1,264, 24.6M
 // real slots, mean degree 164, max 1,260) an iteration with the whole
 // graph in the frontier reads nbr and w of the real slots once (8 B a
 // slot, ~197 MB: ~0.059 ms at 3.35 TB/s) and gathers dist0[nbr], which
-// the 50 MB L2 holds (0.6 MB a field); the frontier pass reads nbr again
-// (~98 MB).  Rows outside the frontier cost only their copy, so the
-// early iterations, with a small frontier, are latency-bound.  The design
-// is the simple one: a warp a row, coalesced over the row's slots, the
-// field loop outside (nbr and w of a row come from L1/L2 for the second
-// field on).
+// the 50 MB L2 holds (0.6 MB a field).  Rows outside the frontier cost
+// only their copy, so the early iterations, with a small frontier, are
+// latency-bound.  The pull route launches a warp for every row twice a
+// step: the relaxation's (most only copy their state) and the
+// frontier's, which reads nbr of every in-level row that did not improve
+// (~98 MB at full width) through dependent improved[nbr] gathers; 0.120-
+// 0.124 ms a step at 180x63 S=1 on an H100 (0.050 relaxation, 0.070
+// frontier).  The
+// push route reads nbr only of the rows that improved (the relaxation has
+// just read it: L1/L2), visits only the rows that can change, and copies
+// the rest at full bandwidth.  Its phase 2 hands each warp the items
+// gw, gw + W, gw + 2W, ... (W warps in the grid; an item a (field, row)),
+// 32 at a time: each lane reads one item's frontier bit and halo index,
+// a ballot names the items to relax, and the warp takes them in turn, so
+// a frontier that sits in one part of the graph spreads over the warps.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <climits>
 
 #include "minplus.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -211,6 +239,167 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// the relaxed and merged (value, prev) of row i (relax_merge_kernel's
+// steps 1-2); every lane returns the same pair
+template <typename T>
+__device__ __forceinline__ void relaxed_merged(int i, int g, const T* __restrict__ d0,
+                                               const int* __restrict__ p0,
+                                               const uint8_t* __restrict__ f0,
+                                               const int* __restrict__ nbr,
+                                               const T* __restrict__ w,
+                                               const int* __restrict__ deg,
+                                               const int* __restrict__ hoff,
+                                               const int* __restrict__ hsrc, int K, int lane,
+                                               T& v, int& p) {
+  relaxed(i, d0, p0, f0, nbr, w, deg, K, true, lane, v, p);
+  if (g < 0) return;
+  const T vd = v;
+  T m = vd;
+  int pm = p;
+  for (int h = hoff[g]; h < hoff[g + 1]; ++h) {
+    const int s = hsrc[h];
+    T vs;
+    int ps;
+    relaxed(s, d0, p0, f0, nbr, w, deg, K, true, lane, vs, ps);
+    if (vs < d0[s] && vd > vs) {
+      if (vs < m) {
+        m = vs;
+        pm = ps;
+      } else if (vs == m) {
+        pm = ps;  // the last winning row in table order
+      }
+    }
+  }
+  v = m;
+  p = pm;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    push_step_kernel(const T* __restrict__ dist0, const int* __restrict__ prev0,
+                     const uint8_t* __restrict__ front0, const int* __restrict__ nbr,
+                     const T* __restrict__ w, const int* __restrict__ deg,
+                     const int* __restrict__ didx, const int* __restrict__ hoff,
+                     const int* __restrict__ hsrc, const uint8_t* __restrict__ mask, Ctl ctl,
+                     T* __restrict__ dist1, int* __restrict__ prev1, uint8_t* __restrict__ front1,
+                     int* __restrict__ it_out, int* __restrict__ live_out, int S, int n_pad,
+                     int K) {
+  const bool active = ctl.active();
+  const long long total = static_cast<long long>(S) * n_pad;
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long nth = static_cast<long long>(gridDim.x) * blockDim.x;
+  // 1. the state through, the new frontier cleared
+  if (tid == 0) {
+    *it_out = *ctl.it_in + (active ? 1 : 0);
+    *live_out = active ? 0 : *ctl.live_in;
+  }
+  for (long long e = tid; e < total; e += nth) {
+    dist1[e] = dist0[e];
+    prev1[e] = prev0[e];
+    front1[e] = active ? 0 : front0[e];
+  }
+  if (!active) return;  // the whole grid alike
+  cg::this_grid().sync();
+  // 2. the rows that can change, 32 items a warp at a time
+  const int lane = threadIdx.x & 31;
+  const long long W = nth >> 5, gw = tid >> 5;
+  for (long long t0 = 0; gw + t0 * W < total; t0 += 32) {
+    const long long e = gw + (t0 + lane) * W;
+    int g = -1;
+    bool need = false;
+    if (e < total) {
+      const int i = static_cast<int>(e % n_pad);
+      g = didx[i];
+      need = front0[e] != 0 || g >= 0;
+    }
+    unsigned todo = __ballot_sync(kFull, need);
+    while (todo) {
+      const int l = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const long long ei = gw + (t0 + l) * W;
+      const int gi = __shfl_sync(kFull, g, l);
+      const int b = static_cast<int>(ei / n_pad);
+      const int i = static_cast<int>(ei - static_cast<long long>(b) * n_pad);
+      const size_t base = static_cast<size_t>(b) * n_pad;
+      const T* d0 = dist0 + base;
+      T v;
+      int p;
+      relaxed_merged(i, gi, d0, prev0 + base, front0 + base, nbr, w, deg, hoff, hsrc, K, lane,
+                     v, p);
+      if (!(v < d0[i])) continue;  // unchanged: the copy stands
+      if (lane == 0) {
+        dist1[base + i] = v;
+        prev1[base + i] = p;
+      }
+      // i improved: it and its neighbours join the frontier (in the level)
+      uint8_t* f1 = front1 + base;
+      const size_t row = static_cast<size_t>(i) * K;
+      const int dg = deg[i];
+      bool any = lane == 0 && (mask == nullptr || mask[i] != 0);
+      if (any) f1[i] = 1;
+      for (int k = lane; k < dg; k += 32) {
+        const int j = nbr[row + k];
+        if (mask == nullptr || mask[j] != 0) {
+          f1[j] = 1;
+          any = true;
+        }
+      }
+      if (__any_sync(kFull, any) && lane == 0) *live_out = 1;
+    }
+  }
+}
+
+template <typename T>
+int push_blocks(int& blocks) {
+  static int cached = 0;
+  if (!cached) {
+    int dev = 0, sms = 0, coop = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, push_step_kernel<T>, kThreads, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (!coop) return static_cast<int>(cudaErrorNotSupported);
+    if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    cached = per_sm * sms;
+  }
+  blocks = cached;
+  return 0;
+}
+
+template <typename T>
+int launch_push(const void* dist0, const void* prev0, const void* front0, const void* nbr,
+                const void* w, const void* deg, const void* didx, const void* hoff,
+                const void* hsrc, const void* mask, Ctl ctl, void* dist1, void* prev1,
+                void* front1, void* it_out, void* live_out, int S, int n_pad, int K,
+                cudaStream_t st) {
+  int blocks = 0;
+  const int rc = push_blocks<T>(blocks);
+  if (rc) return rc;
+  const T* a0 = static_cast<const T*>(dist0);
+  const int* a1 = static_cast<const int*>(prev0);
+  const uint8_t* a2 = static_cast<const uint8_t*>(front0);
+  const int* a3 = static_cast<const int*>(nbr);
+  const T* a4 = static_cast<const T*>(w);
+  const int* a5 = static_cast<const int*>(deg);
+  const int* a6 = static_cast<const int*>(didx);
+  const int* a7 = static_cast<const int*>(hoff);
+  const int* a8 = static_cast<const int*>(hsrc);
+  const uint8_t* a9 = static_cast<const uint8_t*>(mask);
+  T* b0 = static_cast<T*>(dist1);
+  int* b1 = static_cast<int*>(prev1);
+  uint8_t* b2 = static_cast<uint8_t*>(front1);
+  int* b3 = static_cast<int*>(it_out);
+  int* b4 = static_cast<int*>(live_out);
+  void* args[] = {&a0, &a1, &a2, &a3, &a4, &a5, &a6, &a7, &a8, &a9, &ctl,
+                  &b0, &b1, &b2, &b3, &b4, &S, &n_pad, &K};
+  const cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(push_step_kernel<T>),
+                                                    dim3(blocks), dim3(kThreads), args, 0, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* dist0, const void* prev0, const void* front0, const void* nbr,
            const void* w, const void* deg, const void* didx, const void* hoff, const void* hsrc,
@@ -236,7 +425,8 @@ int launch(const void* dist0, const void* prev0, const void* front0, const void*
 
 }  // namespace
 
-// Launches one iteration on `stream` (the two kernels above); returns the
+// Launches one iteration on the pull route on `stream` (relax_merge_kernel
+// and frontier_kernel); returns the
 // CUDA error as an int (0 when both launches were accepted).  dist0/dist1
 // (S, n_pad) float32, or float64 when is_double; prev0/prev1 (S, n_pad)
 // int32; front0/front1/improved (S, n_pad) bytes (improved is scratch);
@@ -263,4 +453,30 @@ extern "C" int ell_bfm_step_launch(const void* dist0, const void* prev0, const v
                    : launch<float>(dist0, prev0, front0, nbr, w, deg, didx, hoff, hsrc, mask,
                                    ctl, dist1, prev1, improved, front1, it_out, live_out, S,
                                    n_pad, K, st);
+}
+
+// Launches one iteration on the push route on `stream` (push_step_kernel,
+// one cooperative launch); returns the CUDA error as an int.  The
+// arguments as for ell_bfm_step_launch, without `improved`; the real
+// slots of nbr must be symmetric (ops/relax.device_graph checks it), and
+// live_out needs no zeroing.
+extern "C" int ell_bfm_push_launch(const void* dist0, const void* prev0, const void* front0,
+                                   const void* nbr, const void* w, const void* deg,
+                                   const void* didx, const void* hoff, const void* hsrc,
+                                   const void* mask, const void* it_in, const void* live_in,
+                                   void* dist1, void* prev1, void* front1, void* it_out,
+                                   void* live_out, int S, int n_pad, int K, int max_iters,
+                                   int is_double, void* stream) {
+  if (S < 1 || n_pad < 1 || K < 1 || max_iters < 0 || !dist0 || !prev0 || !front0 || !nbr ||
+      !w || !deg || !didx || !hoff || !it_in || !live_in || !dist1 || !prev1 || !front1 ||
+      !it_out || !live_out)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Ctl ctl{static_cast<const int*>(it_in), static_cast<const int*>(live_in), max_iters};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_double ? launch_push<double>(dist0, prev0, front0, nbr, w, deg, didx, hoff, hsrc,
+                                         mask, ctl, dist1, prev1, front1, it_out, live_out, S,
+                                         n_pad, K, st)
+                   : launch_push<float>(dist0, prev0, front0, nbr, w, deg, didx, hoff, hsrc,
+                                        mask, ctl, dist1, prev1, front1, it_out, live_out, S,
+                                        n_pad, K, st);
 }

@@ -86,6 +86,19 @@
 // kG nodes before it takes their minima; plane coordinates come from a
 // multiply-high division.
 
+//
+// The global route (plane3d_global_launch) takes a plane that no cluster
+// of up to 16 blocks holds in shared memory (ops/plane3d.plane3d_plan
+// picks it from the shapes).  The plane lives in global memory, two
+// buffers of (S, p0, p1), and the steps that the cluster design separates
+// by cluster barriers become separate launches, enqueued by the host
+// function a plane at a time: the input plane with its cross taps (a
+// thread a node), each in-plane tap (a Jacobi update, a thread a node),
+// the axis-0 line scans and the axis-1 line scans (a warp a line, the
+// same levels as scan_line, the line's forward copy in place and its
+// backward copy in the other buffer, the output min(forward, backward)).
+// Correctness first: 3 + n_inpl launches a plane.
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -462,6 +475,152 @@ plane3d_kernel(const T* __restrict__ din, T* __restrict__ dout, const T* __restr
   cl.sync();  // no block leaves while another may still read its memory
 }
 
+// ---- the global route ----
+
+constexpr int kGlobalThreads = 256;
+
+// node (s, li) of plane p, li = a p1 + b: its input and the cross taps
+template <typename T>
+__global__ void __launch_bounds__(kGlobalThreads)
+    g_cross_kernel(const T* __restrict__ din, const T* dout, const T* __restrict__ W,
+                   const T* __restrict__ carry, const int* __restrict__ taps, T* A, int nA,
+                   int p0, int p1, int ns, int nc, int n_cross, int down, int p, int j) {
+  const int P = p0 * p1;
+  const int li = blockIdx.x * blockDim.x + threadIdx.x;
+  if (li >= P) return;
+  const int s = blockIdx.y;
+  const int a = li / p1, b = li - (li / p1) * p1;
+  const int sgn = down ? 1 : -1;
+  const T* Wp = W + static_cast<size_t>(p) * ns * P;
+  T v = din[(static_cast<size_t>(s) * nA + p) * P + li];
+  for (int t = 0; t < n_cross; ++t) {
+    const int m = __ldg(&taps[4 * t + 1]);
+    const int na = a + __ldg(&taps[4 * t + 2]), nb = b + __ldg(&taps[4 * t + 3]);
+    if (na < 0 || na >= p0 || nb < 0 || nb >= p1) continue;  // a +inf weight
+    const T* prev;
+    if (j >= m) {
+      prev = dout + (static_cast<size_t>(s) * nA + p + m * sgn) * P;
+    } else {
+      const int c = m - 1 - j;
+      if (c >= nc) continue;  // +inf plane
+      prev = carry + (static_cast<size_t>(s) * nc + c) * P;
+    }
+    const T w = Wp[static_cast<size_t>(__ldg(&taps[4 * t])) * P + li];
+    v = min_of(v, add_rn(prev[na * p1 + nb], w));
+  }
+  A[static_cast<size_t>(s) * P + li] = v;
+}
+
+// one in-plane tap t, X into Y
+template <typename T>
+__global__ void __launch_bounds__(kGlobalThreads)
+    g_inpl_kernel(const T* X, T* Y, const T* __restrict__ W, const int* __restrict__ taps,
+                  int p0, int p1, int ns, int p, int t) {
+  const int P = p0 * p1;
+  const int li = blockIdx.x * blockDim.x + threadIdx.x;
+  if (li >= P) return;
+  const size_t o = static_cast<size_t>(blockIdx.y) * P;
+  const int a = li / p1, b = li - (li / p1) * p1;
+  const int na = a + __ldg(&taps[4 * t + 2]), nb = b + __ldg(&taps[4 * t + 3]);
+  T v = X[o + li];
+  if (na >= 0 && na < p0 && nb >= 0 && nb < p1) {
+    const T w = W[(static_cast<size_t>(p) * ns + __ldg(&taps[4 * t])) * P + li];
+    v = min_of(v, add_rn(X[o + na * p1 + nb], w));
+  }
+  Y[o + li] = v;
+}
+
+// a warp a line of n values at stride ls (line q of field s at X + s P +
+// q qs): F = the line in place, G its copy in G's same place; the levels
+// of scan_line with the sums at sf[k ts], sb[k ts]; then dst = min(F, G)
+template <typename T>
+__global__ void __launch_bounds__(kGlobalThreads)
+    g_scan_kernel(T* X, T* G, T* dst, size_t dst_s, const T* __restrict__ tf,
+                  const T* __restrict__ tb, int P, int lines, int n, int ls, int qs, int tq,
+                  int ts, int S) {
+  const int lane = threadIdx.x & 31;
+  const long long wq = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (wq >= static_cast<long long>(S) * lines) return;  // the whole warp
+  const int s = static_cast<int>(wq / lines), q = static_cast<int>(wq % lines);
+  T* F = X + static_cast<size_t>(s) * P + static_cast<size_t>(q) * qs;
+  T* Gl = G + static_cast<size_t>(s) * P + static_cast<size_t>(q) * qs;
+  const T* sf = tf + static_cast<size_t>(q) * tq;
+  const T* sb = tb + static_cast<size_t>(q) * tq;
+  for (int i = lane; i < n; i += 32) Gl[static_cast<size_t>(i) * ls] = F[static_cast<size_t>(i) * ls];
+  __syncwarp();
+  int L = 0, off = 0;
+  for (int m = n; m >= 2; m >>= 1) ++L;
+  const auto at = [&](T* Z, int i) -> T& { return Z[static_cast<size_t>(i) * ls]; };
+  for (int l = 0; l < L; ++l) {  // up
+    const int len = n >> l, h = 1 << l;
+    for (int i = lane; i < len >> 1; i += 32) {
+      const int pp = ((2 * i + 2) << l) - 1;
+      const size_t k = static_cast<size_t>(off + 2 * i + 1) * ts;
+      at(F, pp) = min_of(add_rn(at(F, pp - h), sf[k]), at(F, pp));
+      at(Gl, n - 1 - pp) = min_of(add_rn(at(Gl, n - 1 - pp + h), sb[k]), at(Gl, n - 1 - pp));
+    }
+    off += len;
+    __syncwarp();
+  }
+  for (int l = L - 1; l >= 0; --l) {  // down
+    const int len = n >> l, h = 1 << l;
+    off -= len;
+    for (int i = lane + 1; i <= (len - 1) >> 1; i += 32) {
+      const int qq = ((2 * i + 1) << l) - 1;
+      const size_t k = static_cast<size_t>(off + 2 * i) * ts;
+      at(F, qq) = min_of(add_rn(at(F, qq - h), sf[k]), at(F, qq));
+      at(Gl, n - 1 - qq) = min_of(add_rn(at(Gl, n - 1 - qq + h), sb[k]), at(Gl, n - 1 - qq));
+    }
+    __syncwarp();
+  }
+  T* D = dst + static_cast<size_t>(s) * dst_s + static_cast<size_t>(q) * qs;
+  for (int i = lane; i < n; i += 32)
+    D[static_cast<size_t>(i) * ls] = min_of(F[static_cast<size_t>(i) * ls], Gl[static_cast<size_t>(i) * ls]);
+}
+
+template <typename T>
+int launch_global(const void* din_, void* dout_, const void* W_, const void* t0f_,
+                  const void* t0b_, const void* t1f_, const void* t1b_, const void* carry_,
+                  void* scratch_, int S, int nA, int p0, int p1, int ns, int nc, int n_cross,
+                  int n_inpl, int down, const void* taps_, cudaStream_t st) {
+  const T* din = static_cast<const T*>(din_);
+  T* dout = static_cast<T*>(dout_);
+  const T* W = static_cast<const T*>(W_);
+  const T *t0f = static_cast<const T*>(t0f_), *t0b = static_cast<const T*>(t0b_);
+  const T *t1f = static_cast<const T*>(t1f_), *t1b = static_cast<const T*>(t1b_);
+  const T* carry = static_cast<const T*>(carry_);
+  const int* taps = static_cast<const int*>(taps_);
+  const int P = p0 * p1;
+  T* bufs[2] = {static_cast<T*>(scratch_), static_cast<T*>(scratch_) + static_cast<size_t>(S) * P};
+  const dim3 nodes((P + kGlobalThreads - 1) / kGlobalThreads, S);
+  const int T0 = tree_len(p0), T1 = tree_len(p1);
+  const auto warps = [&](int lines) {
+    return static_cast<unsigned>((static_cast<long long>(S) * lines * 32 + kGlobalThreads - 1) /
+                                 kGlobalThreads);
+  };
+  for (int j = 0; j < nA; ++j) {
+    const int p = down ? nA - 1 - j : j;
+    g_cross_kernel<T><<<nodes, kGlobalThreads, 0, st>>>(din, dout, W, carry, taps, bufs[0], nA, p0,
+                                                        p1, ns, nc, n_cross, down, p, j);
+    int x = 0;
+    for (int t = n_cross; t < n_cross + n_inpl; ++t, x ^= 1)
+      g_inpl_kernel<T><<<nodes, kGlobalThreads, 0, st>>>(bufs[x], bufs[x ^ 1], W, taps, p0, p1, ns,
+                                                         p, t);
+    // axis 0: a line a column b (stride p1), the trees at (p, k, b)
+    g_scan_kernel<T><<<warps(p1), kGlobalThreads, 0, st>>>(
+        bufs[x], bufs[x ^ 1], bufs[x], static_cast<size_t>(P), t0f + static_cast<size_t>(p) * T0 * p1,
+        t0b + static_cast<size_t>(p) * T0 * p1, P, p1, p0, p1, 1, 1, p1, S);
+    // axis 1: a line a row a (stride 1), the trees at (p, a, k); into the output plane
+    g_scan_kernel<T><<<warps(p0), kGlobalThreads, 0, st>>>(
+        bufs[x], bufs[x ^ 1], dout + static_cast<size_t>(p) * P, static_cast<size_t>(nA) * P,
+        t1f + static_cast<size_t>(p) * p0 * T1, t1b + static_cast<size_t>(p) * p0 * T1, P, p0, p1, 1,
+        p1, T1, 1, S);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
 template <typename T>
 int launch(const void* din, void* dout, const void* W, const void* t0f, const void* t0b,
            const void* t1f, const void* t1b, const void* carry, int S, int nA, int p0, int p1,
@@ -535,4 +694,25 @@ extern "C" int plane3d_launch(const void* din, void* dout, const void* W, const 
                                     nc, n_cross, n_inpl, down, hh, cs, threads, smem, taps, st)
                    : launch<float>(din, dout, W, t0f, t0b, t1f, t1b, carry, S, nA, p0, p1, ns,
                                    nc, n_cross, n_inpl, down, hh, cs, threads, smem, taps, st);
+}
+
+// Launches one directional pass on the global route on `stream` (3 +
+// n_inpl launches a plane); returns the CUDA error as an int.  The
+// arguments as for plane3d_launch, with scratch (2, S, p0, p1) of the
+// field's type and no cluster, threads or shared memory.
+extern "C" int plane3d_global_launch(const void* din, void* dout, const void* W,
+                                     const void* t0f, const void* t0b, const void* t1f,
+                                     const void* t1b, const void* carry, void* scratch, int S,
+                                     int nA, int p0, int p1, int ns, int nc, int n_cross,
+                                     int n_inpl, int down, int is_double, const void* taps,
+                                     void* stream) {
+  if (S < 1 || S > 65535 || nA < 1 || p0 < 1 || p1 < 1 || ns < 1 || nc < 0 ||
+      (nc > 0 && !carry) || n_cross < 0 || n_inpl < 0 || !scratch || !taps ||
+      static_cast<long long>(p0) * p1 > (1LL << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_double ? launch_global<double>(din, dout, W, t0f, t0b, t1f, t1b, carry, scratch, S, nA,
+                                           p0, p1, ns, nc, n_cross, n_inpl, down, taps, st)
+                   : launch_global<float>(din, dout, W, t0f, t0b, t1f, t1b, carry, scratch, S, nA,
+                                          p0, p1, ns, nc, n_cross, n_inpl, down, taps, st);
 }

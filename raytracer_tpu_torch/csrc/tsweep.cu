@@ -66,6 +66,17 @@
 //     thread, a template build each; K = 8 / LPT rows a batch), and the
 //     loops stay small (each kind of batch once, unrolled K times).
 
+//
+// The global route (tsweep_global_kernel) takes a column that the design
+// above cannot hold: five columns over a block's shared memory, or more
+// lanes than 16 a thread for 1,024 threads (ops/sweep_theta.tsweep_plan
+// picks it from the shapes).  Still one block a source: p1 and p2 are
+// read back from the output (the columns just written), the in-column
+// steps ping-pong between two columns of global scratch (S, 2, ML), and a
+// block barrier ends each step as before (it orders the block's global
+// writes for its own reads); step 1's offsets wrap by a compare each way.
+// Correctness first: each step is an L2 round trip.
+
 #include <cuda_runtime.h>
 
 #include "minplus.cuh"
@@ -261,6 +272,61 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
 }
 
+// The global route: the same sweep with every column in global memory
+// (no __restrict__: the kernel reads back what it writes).
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+    tsweep_global_kernel(const T* v, T* out, const T* carry1, const T* carry2, const T* w1,
+                         const T* w2, const T* w0, const T* cfp, const T* cbp, const int* offs,
+                         T* scratch, int n1, int n2, int n0, int L, int nt, int ML, int reverse,
+                         int col_relax) {
+  const size_t col = static_cast<size_t>(ML);
+  const T* vs = v + static_cast<size_t>(blockIdx.x) * nt * col;
+  T* os = out + static_cast<size_t>(blockIdx.x) * nt * col;
+  T* A = scratch + static_cast<size_t>(blockIdx.x) * 2 * col;
+  T* Bc = A + col;
+  const int n_t1 = n1 + n2;
+  const int S = col_relax ? n0 + 2 * L : 0;
+  const int nth = blockDim.x;
+  const auto col_of = [&](int k) { return reverse ? nt - 1 - k : k; };
+  const T* src1 = carry1 ? carry1 + blockIdx.x * col : vs + col_of(nt - 1) * col;
+  const T* src2 = carry2 ? carry2 + blockIdx.x * col : vs + col_of(nt - 2) * col;
+#pragma unroll 1
+  for (int k = 0; k < nt; ++k) {
+    const size_t c = static_cast<size_t>(col_of(k));
+    const T* p1 = k >= 1 ? os + col_of(k - 1) * col : src1;
+    const T* p2 = k >= 2 ? os + col_of(k - 2) * col : (k == 1 ? src1 : src2);
+    T* dst = S ? A : os + c * col;
+    // 1. the taps of the two columns before
+    for (int m = threadIdx.x; m < ML; m += nth) {
+      T r = vs[c * col + m];
+      for (int i = 0; i < n_t1; ++i) {
+        int j = m + offs[i];
+        j = j < 0 ? j + ML : (j >= ML ? j - ML : j);
+        const T* src = i < n1 ? p1 : p2;
+        const T* w = i < n1 ? w1 + i * col : w2 + (i - n1) * col;
+        r = min_of(r, add_rn(src[j], w[m]));
+      }
+      dst[m] = r;
+    }
+    __syncthreads();
+    // 2. the in-column steps, a Jacobi update of the column each
+    for (int t = 0; t < S; ++t) {
+      const T* X = t % 2 == 0 ? A : Bc;
+      T* Y = t + 1 == S ? os + c * col : (t % 2 == 0 ? Bc : A);
+      const T* w = t < n0 ? w0 + t * col : (t < n0 + L ? cfp + (t - n0) * col
+                                                       : cbp + (t - n0 - L) * col);
+      const int d = offs[n_t1 + t];
+      for (int m = threadIdx.x; m < ML; m += nth) {
+        int j = m + d;
+        j = j >= ML ? j - ML : j;
+        Y[m] = min_of(X[m], add_rn(X[j], w[m]));
+      }
+      __syncthreads();
+    }
+  }
+}
+
 template <typename T, int LPT>
 int launch_lpt(const void* v, void* out, const void* carry1, const void* carry2, const void* w1,
                const void* w2, const void* w0, const void* cfp, const void* cbp,
@@ -340,4 +406,35 @@ extern "C" int tsweep_launch(const void* v, void* out, const void* carry1, const
                    : launch<float>(v, out, carry1, carry2, w1, w2, w0, cfp, cbp, offs, S, nt,
                                    ML, n1, n2, n0, L, H, reverse, col_relax, lpt, threads, smem,
                                    st);
+}
+
+// Launches one sweep on the global route on `stream`; returns the CUDA
+// error as an int.  The arguments as for tsweep_launch (offs the same
+// table; no lanes a thread or shared memory), with scratch (S, 2, ML) of
+// the field's type when col_relax; `threads` a multiple of 32, 32-1,024.
+extern "C" int tsweep_global_launch(const void* v, void* out, const void* carry1,
+                                    const void* carry2, const void* w1, const void* w2,
+                                    const void* w0, const void* cfp, const void* cbp,
+                                    const void* offs, void* scratch, int S, int nt, int ML,
+                                    int n1, int n2, int n0, int L, int H, int reverse,
+                                    int col_relax, int threads, int is_double, void* stream) {
+  if (S < 1 || nt < 2 || ML < 1 || n1 < 0 || n2 < 0 || n1 + n2 < 1 || n0 < 0 || L < 0 ||
+      H < 0 || H > ML || (!carry1) != (!carry2) || (col_relax && !scratch) || threads < 32 ||
+      threads > kMaxThreads || threads % 32 ||
+      static_cast<long long>(nt) * ML > (1LL << 31) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TSWEEP_GLOBAL(T)                                                                      \
+  tsweep_global_kernel<T><<<S, threads, 0, st>>>(                                            \
+      static_cast<const T*>(v), static_cast<T*>(out), static_cast<const T*>(carry1),         \
+      static_cast<const T*>(carry2), static_cast<const T*>(w1), static_cast<const T*>(w2),   \
+      static_cast<const T*>(w0), static_cast<const T*>(cfp), static_cast<const T*>(cbp),     \
+      static_cast<const int*>(offs), static_cast<T*>(scratch), n1, n2, n0, L, nt, ML, reverse, \
+      col_relax)
+  if (is_double)
+    TSWEEP_GLOBAL(double);
+  else
+    TSWEEP_GLOBAL(float);
+#undef TSWEEP_GLOBAL
+  return static_cast<int>(cudaGetLastError());
 }

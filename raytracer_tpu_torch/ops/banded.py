@@ -33,7 +33,11 @@ runs them as XLA) on a CUDA field and its plain twin on a CPU one:
     `_solve_banded_gs_jit`'s `sweep`, blocks of B rows strictly in order
     with P passes a block (a pass reads the block's own rows as they
     stood at its start, the rows outside as they stood when the block
-    began), then the halo merge.
+    began), then the halo merge.  `gs_plan` picks its route from the
+    shapes: the window route (the rows a block's taps reach, and its
+    taps laid out by `gs_layout`, in shared memory) where they fit, the
+    wide-band route (rows out of the block from global memory) where
+    they do not; neither refuses a graph for its size.
 """
 from __future__ import annotations
 
@@ -68,6 +72,9 @@ class BandedGraph(NamedTuple):
              taps are tcol[toff[i]:toff[i+1]] (the source rows i+o,
              int32) with weights tw, in offset order
     didx, hoff, hsrc : the halo grouped by destination
+    gs     : banded_gs's window layouts on the device, by (B, dtype):
+             `gs_layout`, built at prepare time on a CUDA device for the
+             default block, else at first use
     """
 
     offs: torch.Tensor
@@ -85,6 +92,7 @@ class BandedGraph(NamedTuple):
     didx: torch.Tensor
     hoff: torch.Tensor
     hsrc: torch.Tensor
+    gs: dict
 
 
 def tap_lists(offs: np.ndarray, W: np.ndarray):
@@ -113,14 +121,17 @@ def banded_graph(offs, W, halo_src, halo_dst, perm, iperm, n: int,
                          "dense roll would wrap it")
     didx, hoff, hsrc = halo_by_destination(hs, hd, n_pad)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return BandedGraph(offs=t(offs), W=torch.from_numpy(W), halo_src=t(hs),
-                       halo_dst=t(hd),
-                       perm=np.asarray(perm, dtype=np.int64),
-                       iperm=np.asarray(iperm, dtype=np.int64), n=int(n),
-                       n_pad=int(n_pad),
-                       offsets_np=np.asarray(offsets_np, dtype=np.int64),
-                       toff=t(toff), tcol=t(tcol), tw=t(tw), didx=t(didx),
-                       hoff=t(hoff), hsrc=t(hsrc))
+    bg = BandedGraph(offs=t(offs), W=torch.from_numpy(W), halo_src=t(hs),
+                     halo_dst=t(hd),
+                     perm=np.asarray(perm, dtype=np.int64),
+                     iperm=np.asarray(iperm, dtype=np.int64), n=int(n),
+                     n_pad=int(n_pad),
+                     offsets_np=np.asarray(offsets_np, dtype=np.int64),
+                     toff=t(toff), tcol=t(tcol), tw=t(tw), didx=t(didx),
+                     hoff=t(hoff), hsrc=t(hsrc), gs={})
+    if bg.tw.device.type == "cuda":
+        _gs_route(bg, _gs_block(bg.n_pad, 512))
+    return bg
 
 
 def prepare_banded(
@@ -280,7 +291,10 @@ def _banded_lib() -> ctypes.CDLL:
             [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.banded_gs_launch.restype = ctypes.c_int
         lib.banded_gs_launch.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib.banded_gs_window_launch.restype = ctypes.c_int
+        lib.banded_gs_window_launch.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     return lib
 
 
@@ -338,8 +352,10 @@ banded_step.launches = 0
 
 
 def gs_smem_bytes(B: int, itemsize: int) -> int:
-    """Shared memory of a banded_gs block: the block's rows twice (the
-    pass's snapshot and its result)."""
+    """Shared memory of a wide-band banded_gs block that keeps its rows
+    there: the block's rows twice (the pass's snapshot and its result).
+    Raises over an H100 block's shared memory (the route then keeps them
+    in global memory)."""
     smem = 2 * B * itemsize
     if smem > BLOCK_SMEM:
         raise ValueError(f"a banded_gs block of {B} rows needs {smem} bytes "
@@ -348,32 +364,218 @@ def gs_smem_bytes(B: int, itemsize: int) -> int:
     return smem
 
 
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+# the window route's int16 ring slots and the metadata's packing of a
+# group's first slot (20 bits) and width (11 bits)
+GS_MAX_RING = 32768
+GS_MAX_START = 1 << 20
+GS_MAX_WIDTH = 1 << 11
+
+
+class GsPlan(NamedTuple):
+    """One banded_gs direction: `route` "window" (K the band's reach, a
+    ring of Wr rows, 2K + 2B rounded up to a power of 2, G32 thread slots
+    a block, nmax the most
+    tap slots a block holds) or "wide"; `threads` a block and `smem`
+    bytes of dynamic shared memory (0 on the wide route when the block's
+    rows go to global memory)."""
+
+    route: str
+    threads: int
+    smem: int
+    K: int = 0
+    Wr: int = 0
+    G32: int = 0
+    nmax: int = 0
+
+
+def gs_window_smem(Wr: int, B: int, G32: int, nmax: int,
+                   itemsize: int) -> int:
+    """csrc/banded.cu GsSmem: the ring, the pass's new values and two tap
+    buffers (per-slot metadata, weights, int16 ring slots), each region a
+    multiple of 16 bytes."""
+    buf = _align16(8 * G32 + nmax * itemsize + 2 * nmax)
+    return _align16(Wr * itemsize) + _align16(B * itemsize) + 2 * buf
+
+
+def _gs_threads(rows: int) -> int:
+    return 1024 if rows >= 1024 else (rows + 31) // 32 * 32
+
+
+def gs_plan(B: int, K: int, nmax: int, width: int,
+            itemsize: int) -> GsPlan:
+    """The route of a banded_gs direction from the shapes alone: blocks of
+    B rows, the band's reach K, the most tap slots a block's layout holds
+    (nmax) and its widest group (width).  The window route where its ring
+    (2K + 2B rows rounded up to a power of 2) fits int16 slots and the
+    whole of it an H100 block's shared memory;
+    else the wide-band route, its rows in shared memory where 2 B values
+    fit and in global memory where they do not.  Never raises for size."""
+    K = max(int(K), 1)
+    Wr = 1 << (2 * K + 2 * B - 1).bit_length()
+    G32 = -(-B // 32) * 32
+    if Wr <= GS_MAX_RING and nmax < GS_MAX_START and width < GS_MAX_WIDTH:
+        smem = gs_window_smem(Wr, B, G32, nmax, itemsize)
+        if smem <= BLOCK_SMEM:
+            return GsPlan("window", _gs_threads(G32), smem, K, Wr, G32, nmax)
+    try:
+        smem = gs_smem_bytes(B, itemsize)
+    except ValueError:
+        smem = 0    # the block's rows in global memory
+    return GsPlan("wide", _gs_threads(B), smem)
+
+
+class GsLayout(NamedTuple):
+    """banded_gs's window layout of one block size B (`gs_layout`): the
+    row blocks' taps, each block's rows sorted by tap count (descending,
+    ties by row) onto G32 thread slots, 32 slots a group padded to the
+    group's most taps; tap k of slot t (group t // 32, lane t % 32) at
+    blk[rb] + start[rb, t] + 32 k.
+      meta : (NB, G32, 2) int32: the slot's row in the block (-1: none),
+             and start | width << 20 (width: its group's most taps)
+      idx  : (total,) int16 the source row's ring slot (row mod Wr, Wr a
+             power of 2);
+             padding: the slot's own row's, with weight +inf
+      w    : (total,) the weights
+      blk  : (NB + 1,) int32 block starts, multiples of 32"""
+
+    meta: torch.Tensor
+    idx: torch.Tensor
+    w: torch.Tensor
+    blk: torch.Tensor
+    plan: GsPlan
+
+
+def _gs_shape(toff: np.ndarray, n_pad: int, B: int):
+    """(order, width, goff, nmax): each block's rows by tap count
+    (NB, G32; -1 past B), each group's width (NB, G), its first slot in
+    the block (NB, G) and the most slots a block holds."""
+    deg = np.diff(np.asarray(toff, dtype=np.int64))
+    NB, G = n_pad // B, -(-B // 32)
+    db = deg.reshape(NB, B)
+    order = np.full((NB, G * 32), -1, dtype=np.int64)
+    order[:, :B] = np.argsort(-db, axis=1, kind="stable")
+    ds = np.zeros((NB, G * 32), dtype=np.int64)
+    ds[:, :B] = np.take_along_axis(db, order[:, :B], axis=1)
+    width = ds.reshape(NB, G, 32).max(axis=2)
+    goff = np.zeros((NB, G), dtype=np.int64)
+    np.cumsum(32 * width[:, :-1], axis=1, out=goff[:, 1:])
+    nmax = int((32 * width).sum(axis=1).max()) if NB else 0
+    return order, width, goff, nmax
+
+
+def gs_layout(toff, tcol, tw, n_pad: int, B: int, K: int, itemsize: int,
+              device):
+    """The window layout of banded_gs for blocks of B rows (see
+    `GsLayout`), from the tap lists (host arrays or tensors), on
+    `device`, with its plan from `gs_plan`; where the shapes take the
+    wide-band route, that GsPlan alone (the route needs no layout)."""
+    toff, tcol, tw = (np.asarray(a.cpu() if torch.is_tensor(a) else a)
+                      for a in (toff, tcol, tw))
+    order, width, goff, nmax = _gs_shape(toff, n_pad, B)
+    plan = gs_plan(B, K, nmax, int(width.max(initial=0)), itemsize)
+    if plan.route != "window":
+        return plan
+    NB, G32, Wr = n_pad // B, plan.G32, plan.Wr
+    G = G32 // 32
+    counts = 32 * width                                    # (NB, G)
+    blk = np.zeros(NB + 1, dtype=np.int64)
+    np.cumsum(counts.sum(axis=1), out=blk[1:])
+    total = int(blk[-1])
+    # every slot position: (block, group, lane, k); padding first
+    gstart = (blk[:-1, None] + goff).reshape(-1)
+    n_of = counts.reshape(-1)
+    gid = np.repeat(np.arange(NB * G), n_of)
+    q = np.arange(total) - np.repeat(gstart, n_of)
+    rb = gid // G
+    t = (gid % G) * 32 + q % 32
+    row = order[rb, t]
+    own = np.where(row >= 0, (rb * B + np.maximum(row, 0)) % Wr, 0)
+    idx = own.astype(np.int16)
+    w = np.full(total, np.inf, dtype=np.asarray(tw).dtype)
+    # the real taps: tap k of row r at its slot's position
+    deg = np.diff(toff.astype(np.int64))
+    r = np.repeat(np.arange(n_pad), deg)
+    k = np.arange(len(tcol)) - np.repeat(toff[:-1].astype(np.int64), deg)
+    slot_of = np.empty((NB, B), dtype=np.int64)
+    np.put_along_axis(slot_of, order[:, :B], np.arange(B)[None, :], axis=1)
+    rbt, lr = r // B, r % B
+    ts = slot_of[rbt, lr]
+    pos = blk[rbt] + goff[rbt, ts // 32] + ts % 32 + 32 * k
+    idx[pos] = (np.asarray(tcol, dtype=np.int64) % Wr).astype(np.int16)
+    w[pos] = tw
+    meta = np.zeros((NB, G32, 2), dtype=np.int32)
+    meta[..., 0] = order
+    lane = np.arange(G32) % 32
+    start = goff[:, np.arange(G32) // 32] + lane[None, :]
+    meta[..., 1] = start | (width[:, np.arange(G32) // 32] << 20)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return GsLayout(meta=dev(meta), idx=dev(idx), w=dev(w),
+                    blk=dev(blk.astype(np.int32)), plan=plan)
+
+
+def _gs_reach(bg: BandedGraph) -> int:
+    o = bg.offsets_np
+    return max(int(np.abs(o).max()) if len(o) else 1, 1)
+
+
+def _gs_route(bg: BandedGraph, B: int):
+    """The plan of a direction in blocks of B rows on bg (a GsLayout for
+    the window route, built once and kept in bg.gs; a GsPlan for the
+    wide-band route)."""
+    key = (B, str(bg.tw.dtype))
+    got = bg.gs.get(key)
+    if got is None:
+        got = gs_layout(bg.toff, bg.tcol, bg.tw, bg.n_pad, B, _gs_reach(bg),
+                        bg.tw.element_size(), bg.tw.device)
+        bg.gs[key] = got
+    return got
+
+
 def banded_gs(dist: torch.Tensor, bg: BandedGraph, forward: bool,
               block: int = 512, passes: int = 2) -> torch.Tensor:
     """One Gauss-Seidel direction of the banded solve (blocks ascending
     when `forward`, descending otherwise) and the halo merge, on a
     (S, n_pad) field in permuted order; returns a new field, the input
     untouched.  A CUDA field (float32 or float64) goes to the hand-written
-    kernel `banded_gs` of `csrc/banded.cu` (one block of threads a source
-    marching the row blocks, the block's rows double-buffered in shared
-    memory, then a copy with the halo min; `banded_gs.launches` counts
-    the calls), a CPU field to `banded_gs_reference`.  Any other device
-    raises."""
+    kernel `banded_gs` of `csrc/banded.cu`, one block of threads a source
+    marching the row blocks, on the route `gs_plan` picks from the
+    shapes: the window route (the ring of rows the block's taps reach
+    and its taps, streamed one block ahead, in shared memory) or the
+    wide-band route (rows out of the block from global memory); then a
+    copy with the halo min (`banded_gs.launches` counts the calls).  A
+    CPU field goes to `banded_gs_reference`.  Any other device raises."""
     if not _check_field(dist, bg, "banded_gs"):
         return banded_gs_reference(dist, bg, forward, block, passes)
     d = dist.contiguous()
     S, n_pad = d.shape
     B = _gs_block(n_pad, block)
-    smem = gs_smem_bytes(B, d.element_size())
+    route = _gs_route(bg, B)
     n_dest = int(bg.hoff.shape[0]) - 1
     out = torch.empty_like(d)
     tmp = torch.empty_like(d) if n_dest > 0 else out
     stream = torch.cuda.current_stream(d.device).cuda_stream
-    rc = _banded_lib().banded_gs_launch(
-        d.data_ptr(), tmp.data_ptr(), out.data_ptr(), bg.toff.data_ptr(),
-        bg.tcol.data_ptr(), bg.tw.data_ptr(), bg.didx.data_ptr(),
-        bg.hoff.data_ptr(), bg.hsrc.data_ptr(), n_dest, S, n_pad, B,
-        passes, int(forward), smem, int(d.dtype == torch.float64), stream)
+    is_double = int(d.dtype == torch.float64)
+    if isinstance(route, GsLayout):
+        p = route.plan
+        rc = _banded_lib().banded_gs_window_launch(
+            d.data_ptr(), tmp.data_ptr(), out.data_ptr(),
+            route.meta.data_ptr(), route.idx.data_ptr(), route.w.data_ptr(),
+            route.blk.data_ptr(), bg.didx.data_ptr(), bg.hoff.data_ptr(),
+            bg.hsrc.data_ptr(), n_dest, S, n_pad, B, passes, int(forward),
+            p.K, p.Wr, p.G32, p.nmax, p.smem, is_double, stream)
+    else:
+        gbuf = (torch.empty((S, 2, B), dtype=d.dtype, device=d.device)
+                if route.smem == 0 else None)
+        rc = _banded_lib().banded_gs_launch(
+            d.data_ptr(), tmp.data_ptr(), out.data_ptr(), bg.toff.data_ptr(),
+            bg.tcol.data_ptr(), bg.tw.data_ptr(), bg.didx.data_ptr(),
+            bg.hoff.data_ptr(), bg.hsrc.data_ptr(),
+            None if gbuf is None else gbuf.data_ptr(), n_dest, S, n_pad, B,
+            passes, int(forward), route.smem, is_double, stream)
     if rc != 0:
         raise RuntimeError(f"banded_gs kernel launch failed: CUDA error {rc}")
     banded_gs.launches += 1

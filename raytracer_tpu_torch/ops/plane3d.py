@@ -262,7 +262,9 @@ class Plane3DPlan(NamedTuple):
     """One plane3d launch: `cluster` blocks a source, each owning `rows`
     rows of every plane (with `halo` rows each side) and `cols` columns
     for the axis-0 scans, of `threads` threads and `smem` bytes of
-    dynamic shared memory."""
+    dynamic shared memory.  `cluster` 0 (and every other field 0) is the
+    global route, for a plane no cluster holds: the plane in global
+    memory, a launch a step of a plane."""
 
     cluster: int
     threads: int
@@ -299,8 +301,9 @@ def plane3d_plan(p0: int, p1: int, itemsize: int,
     rows with 2 `reach` halo rows each side on a cluster: the kernel
     runs the in-plane taps two a cluster barrier); ceil(rows p1 / 4)
     threads rounded up to a multiple of 32, and a warp for each of its
-    rows and columns (the scans' lines), 64 to 1,024.  Raises
-    ValueError, naming the limit, for a plane no cluster fits."""
+    rows and columns (the scans' lines), 64 to 1,024.  A plane that no
+    cluster fits takes the global route (Plane3DPlan of zeros): no
+    plane is refused for its size."""
     halo = 2 * reach
     top = 1 << (max(1, min(PLANE3D_MAX_CLUSTER, p0 // max(halo, 1)))
                 .bit_length() - 1)
@@ -315,10 +318,7 @@ def plane3d_plan(p0: int, p1: int, itemsize: int,
         c = min(2 * c, top)
     smem = smem_of(c)
     if smem > BLOCK_SMEM:
-        raise ValueError(f"plane3d splits a {p0}x{p1} plane over at most "
-                         f"{top} blocks, and a block's share ({smem} bytes "
-                         f"of shared memory) is over the {BLOCK_SMEM} bytes "
-                         f"an H100 block may have")
+        return Plane3DPlan(0, 0, 0, 0, 0, 0)
     R, Cw = -(-p0 // c), -(-p1 // c)
     per = -(-R * p1 // PLANE3D_NODES_A_THREAD)
     threads = min(1024, max(64, (per + 31) // 32 * 32, 32 * max(R, Cw)))
@@ -339,6 +339,10 @@ def _plane3d_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
                        + [ctypes.c_void_p] * 2)
+        g = lib.plane3d_global_launch
+        g.restype = ctypes.c_int
+        g.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+                      + [ctypes.c_void_p] * 2)
     return lib
 
 
@@ -361,10 +365,10 @@ def plane_sweep3d(d: torch.Tensor, layout: PlaneLayout3D, axis: int,
 
     A CUDA tensor (float32 or float64) goes to the hand-written kernel
     `csrc/plane3d.cu`, a cluster of blocks (or one block) a source
-    marching the planes, as `plane3d_plan` chooses
-    (`plane_sweep3d.launches` counts its launches); a plane no cluster
-    fits raises ValueError before the launch, and a refused launch
-    raises RuntimeError.
+    marching the planes, or for a plane no cluster holds the global
+    route (the plane in global memory, a launch a step of a plane), as
+    `plane3d_plan` chooses (`plane_sweep3d.launches` counts the calls);
+    a refused launch raises RuntimeError.
     A CPU tensor goes to `plane_sweep3d_reference`.  Any other device
     raises.
     """
@@ -412,14 +416,24 @@ def plane_sweep3d(d: torch.Tensor, layout: PlaneLayout3D, axis: int,
     out = torch.empty_like(xs)
     t0f, t0b, t1f, t1b = layout.trees
     stream = torch.cuda.current_stream(d.device).cuda_stream
-    rc = _plane3d_lib().plane3d_launch(
-        xs.data_ptr(), out.data_ptr(), W.data_ptr(), t0f.data_ptr(),
-        t0b.data_ptr(), t1f.data_ptr(), t1b.data_ptr(),
-        0 if carry is None else carry.data_ptr(),
-        S, nA, p0, p1, len(shifts), nc, sum(len(c) for c in cross),
-        len(inpl), int(down), plan.halo, plan.cluster, plan.threads,
-        plan.smem,
-        int(d.dtype == torch.float64), taps.data_ptr(), stream)
+    if plan.cluster == 0:
+        scratch = torch.empty((2, S, p0, p1), dtype=d.dtype, device=d.device)
+        rc = _plane3d_lib().plane3d_global_launch(
+            xs.data_ptr(), out.data_ptr(), W.data_ptr(), t0f.data_ptr(),
+            t0b.data_ptr(), t1f.data_ptr(), t1b.data_ptr(),
+            0 if carry is None else carry.data_ptr(), scratch.data_ptr(),
+            S, nA, p0, p1, len(shifts), nc, sum(len(c) for c in cross),
+            len(inpl), int(down), int(d.dtype == torch.float64),
+            taps.data_ptr(), stream)
+    else:
+        rc = _plane3d_lib().plane3d_launch(
+            xs.data_ptr(), out.data_ptr(), W.data_ptr(), t0f.data_ptr(),
+            t0b.data_ptr(), t1f.data_ptr(), t1b.data_ptr(),
+            0 if carry is None else carry.data_ptr(),
+            S, nA, p0, p1, len(shifts), nc, sum(len(c) for c in cross),
+            len(inpl), int(down), plan.halo, plan.cluster, plan.threads,
+            plan.smem, int(d.dtype == torch.float64), taps.data_ptr(),
+            stream)
     if rc != 0:
         raise RuntimeError(f"plane3d kernel launch failed: CUDA error {rc}")
     plane_sweep3d.launches += 1

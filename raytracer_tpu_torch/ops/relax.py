@@ -35,7 +35,14 @@ kernel (or raises).  The kernel reads only the first `deg[i]` slots of a
 row (`csr_to_ell` fills slots 0..deg-1 and pads with self-pointing +inf
 slots, which never win) and gives each halo destination one warp over
 its rows in table order (`ops/graph.halo_by_destination`), so its floats
-and ids are the twin's.
+and ids are the twin's.  Its frontier takes one of two routes, by a
+property of the graph that `device_graph` checks once on the host
+(`DeviceGraph.symmetric`): on a graph whose real slots are symmetric (j
+among i's if and only if i among j's, as every mesh adjacency of the
+package is) each improved row pushes its flag to its neighbours in the
+relaxation's own launch; on any other graph a second launch pulls it,
+each row scanning its neighbours.  The two give the same frontier where
+both apply.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from .. import kernels
@@ -66,6 +74,8 @@ class DeviceGraph(NamedTuple):
                past its last slot that does not point at the row itself
     didx, hoff, hsrc : the halo grouped by destination
                (`ops/graph.halo_by_destination`)
+    symmetric : whether the real slots are symmetric (`real_slots_symmetric`):
+               the kernel's frontier is then a push, else a pull
     """
 
     nbr: torch.Tensor
@@ -77,6 +87,7 @@ class DeviceGraph(NamedTuple):
     didx: torch.Tensor
     hoff: torch.Tensor
     hsrc: torch.Tensor
+    symmetric: bool
 
 
 class BFMState(NamedTuple):
@@ -97,18 +108,44 @@ def row_degrees(nbr: np.ndarray) -> np.ndarray:
     return np.where(real.any(axis=1), last, 0).astype(np.int32)
 
 
+def real_slots_symmetric(nbr: np.ndarray, deg: np.ndarray) -> bool:
+    """Whether the real slots of the ELL rows (k < deg[i], nbr[i, k] != i)
+    are symmetric: j among row i's if and only if i among row j's
+    (repeats and self-pointing slots aside).  On such a graph the
+    frontier's pull (a row joins where one of its neighbours improved)
+    is a push (an improved row flags its neighbours)."""
+    n_pad, k = nbr.shape
+    deg = deg.astype(np.int64)
+    r = np.repeat(np.arange(n_pad, dtype=np.int64), deg)
+    first = np.repeat(np.arange(n_pad, dtype=np.int64) * k
+                      - (np.cumsum(deg) - deg), deg)
+    c = nbr.ravel()[first + np.arange(r.size)]
+    keep = c != r
+    indptr = np.zeros(n_pad + 1, dtype=np.int64)
+    np.cumsum(np.bincount(r[keep], minlength=n_pad), out=indptr[1:])
+    a = sp.csr_matrix((np.ones(int(indptr[-1]), dtype=bool), c[keep],
+                       indptr), shape=(n_pad, n_pad))
+    a.sum_duplicates()
+    at = a.T.tocsr()
+    at.sum_duplicates()
+    return (np.array_equal(a.indptr, at.indptr)
+            and np.array_equal(a.indices, at.indices))
+
+
 def device_graph(nbr, w, halo_src, halo_dst, n: int, device) -> DeviceGraph:
     """A DeviceGraph on `device` from host arrays (any dtype of w is kept:
-    float32 or float64)."""
+    float32 or float64); its real slots checked for symmetry once."""
     nbr = np.ascontiguousarray(nbr, dtype=np.int32)
     w = np.ascontiguousarray(w)
     hs = np.ascontiguousarray(halo_src, dtype=np.int32)
     hd = np.ascontiguousarray(halo_dst, dtype=np.int32)
     didx, hoff, hsrc = halo_by_destination(hs, hd, nbr.shape[0])
+    deg = row_degrees(nbr)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return DeviceGraph(nbr=t(nbr), w=t(w), halo_src=t(hs), halo_dst=t(hd),
-                       n=int(n), deg=t(row_degrees(nbr)), didx=t(didx),
-                       hoff=t(hoff), hsrc=t(hsrc))
+                       n=int(n), deg=t(deg), didx=t(didx), hoff=t(hoff),
+                       hsrc=t(hsrc),
+                       symmetric=real_slots_symmetric(nbr, deg))
 
 
 def _set_last(base: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
@@ -227,6 +264,10 @@ def _ell_bfm_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
+        push = lib.ell_bfm_push_launch
+        push.restype = ctypes.c_int
+        push.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
     return lib
 
 
@@ -242,10 +283,14 @@ def bfm_step(state: BFMState, g: DeviceGraph,
     few steps stops where the JAX package's masked loop stops).
 
     A CUDA state (float32 or float64) goes to the hand-written kernel
-    `csrc/ell_bfm.cu`: two launches, the relaxation with the halo merge
+    `csrc/ell_bfm.cu`, `it` and `live` on the device (`bfm_step.launches`
+    counts the calls): on a graph with `symmetric` real slots one
+    cooperative launch, the state copied through and the frontier
+    cleared, then the rows that can change relaxed with the halo merge
     (a warp a row, a halo destination's warp also relaxing its sources),
-    then the frontier with `it` and `live`, all on the device
-    (`bfm_step.launches` counts the calls).  A CPU state goes to
+    each improved row flagging itself and its neighbours; on any other
+    graph two launches, that relaxation over every row, then the
+    frontier pulled, a warp a row.  A CPU state goes to
     `bfm_step_reference`.  Any other device raises.
     """
     d = state.dist
@@ -258,38 +303,50 @@ def bfm_step(state: BFMState, g: DeviceGraph,
         raise ValueError(f"bfm_step runs on cuda or cpu, not {d.device}")
     kernels.require_float("ell_bfm", d.dtype)
     _check_mask(mask, g)
-    (dist0, prev0, front0), one = _batched(state)
-    S, n_pad = dist0.shape
-    if g.nbr.shape[0] != n_pad or prev0.dtype != torch.int32:
-        raise ValueError(f"state ({S}, {n_pad}) {prev0.dtype} does not fit "
-                         f"the graph ({tuple(g.nbr.shape)})")
-    dist0, prev0 = dist0.contiguous(), prev0.contiguous()
-    front0 = front0.contiguous().view(torch.uint8)
-    it_in = state.it.to(torch.int32).contiguous()
-    live_in = state.live.to(torch.int32).contiguous()
+    n_pad = g.nbr.shape[0]
+    if (d.dim() not in (1, 2) or d.shape[-1] != n_pad
+            or state.prev.shape != d.shape or state.front.shape != d.shape
+            or state.prev.dtype != torch.int32):
+        raise ValueError(f"state {tuple(d.shape)} {state.prev.dtype} does "
+                         f"not fit the graph ({tuple(g.nbr.shape)})")
+    # A step's host call (~0.05 ms) is as long as its kernel at 180x63,
+    # so the fields go to the kernel as they are (1-D or 2-D, the bool
+    # frontier as its bytes) and `it` and `live` share one allocation.
+    dist0, prev0 = d.contiguous(), state.prev.contiguous()
+    front0 = state.front.contiguous()
+    it_in, live_in = state.it, state.live
+    if it_in.dtype != torch.int32:
+        it_in = it_in.to(torch.int32)
+    if live_in.dtype != torch.int32:
+        live_in = live_in.to(torch.int32)
     dist1 = torch.empty_like(dist0)
     prev1 = torch.empty_like(prev0)
     front1 = torch.empty_like(front0)
-    improved = torch.empty_like(front0)
-    it_out = torch.empty((), dtype=torch.int32, device=d.device)
-    live_out = torch.zeros((), dtype=torch.int32, device=d.device)
     cap = _INT32_MAX if max_iters is None else int(max_iters)
-    stream = torch.cuda.current_stream(d.device).cuda_stream
-    rc = _ell_bfm_lib().ell_bfm_step_launch(
-        dist0.data_ptr(), prev0.data_ptr(), front0.data_ptr(),
-        g.nbr.data_ptr(), g.w.data_ptr(), g.deg.data_ptr(),
-        g.didx.data_ptr(), g.hoff.data_ptr(), g.hsrc.data_ptr(),
-        None if mask is None else mask.contiguous().data_ptr(),
-        it_in.data_ptr(), live_in.data_ptr(), dist1.data_ptr(),
-        prev1.data_ptr(), improved.data_ptr(), front1.data_ptr(),
-        it_out.data_ptr(), live_out.data_ptr(), S, n_pad, g.nbr.shape[1],
-        cap, int(d.dtype == torch.float64), stream)
+    stream = torch._C._cuda_getCurrentRawStream(d.device.index)
+    mask_p = None if mask is None else mask.contiguous().data_ptr()
+    head = (dist0.data_ptr(), prev0.data_ptr(), front0.data_ptr(),
+            g.nbr.data_ptr(), g.w.data_ptr(), g.deg.data_ptr(),
+            g.didx.data_ptr(), g.hoff.data_ptr(), g.hsrc.data_ptr(), mask_p,
+            it_in.data_ptr(), live_in.data_ptr(), dist1.data_ptr(),
+            prev1.data_ptr())
+    tail = (d.shape[0] if d.dim() == 2 else 1, n_pad, g.nbr.shape[1], cap,
+            int(d.dtype == torch.float64), stream)
+    if g.symmetric:
+        ctl = torch.empty(2, dtype=torch.int32, device=d.device)
+        rc = _ell_bfm_lib().ell_bfm_push_launch(
+            *head, front1.data_ptr(), ctl.data_ptr(), ctl.data_ptr() + 4,
+            *tail)
+    else:
+        improved = torch.empty_like(front0)
+        ctl = torch.zeros(2, dtype=torch.int32, device=d.device)
+        rc = _ell_bfm_lib().ell_bfm_step_launch(
+            *head, improved.data_ptr(), front1.data_ptr(), ctl.data_ptr(),
+            ctl.data_ptr() + 4, *tail)
     if rc != 0:
         raise RuntimeError(f"ell_bfm kernel launch failed: CUDA error {rc}")
     bfm_step.launches += 1
-    front1 = front1.view(torch.bool)
-    if one:
-        dist1, prev1, front1 = dist1[0], prev1[0], front1[0]
+    it_out, live_out = ctl.unbind()
     return BFMState(dist=dist1, prev=prev1, front=front1, it=it_out,
                     live=live_out)
 

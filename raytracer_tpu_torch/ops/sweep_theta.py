@@ -833,13 +833,16 @@ class TSweepPlan(NamedTuple):
     offsets reduced mod ML: d0, then -s, then +s for the chain spans),
     `halo` lanes each side of the p1 / p2 columns (the largest step-1
     offset), `lpt` lanes a thread, `threads` a block and `smem` bytes of
-    shared memory a block."""
+    shared memory a block; `route` "shared" (the columns in shared
+    memory, lanes in registers) or "global" (the columns in global
+    memory, for a column the shared route cannot hold; lpt and smem 0)."""
 
     offs: np.ndarray
     halo: int
     lpt: int
     threads: int
     smem: int
+    route: str = "shared"
 
 
 def tsweep_offsets(d1, d2, d0, chain_spans, ML: int,
@@ -866,26 +869,26 @@ def tsweep_smem_bytes(ML: int, itemsize: int, halo: int, rows: int) -> int:
 
 def tsweep_plan(ML: int, itemsize: int, d1, d2, d0, chain_spans,
                 col_relax: bool) -> TSweepPlan:
-    """The launch of one sweep: the fewest lanes a thread whose lanes fit
-    TSWEEP_THREADS threads (a multiple of 32).  Raises ValueError, naming
-    the limit, when no plan fits an H100 block (shared memory, threads,
-    the halo)."""
+    """The launch of one sweep: on the shared route, the fewest lanes a
+    thread whose lanes fit TSWEEP_THREADS threads (a multiple of 32),
+    where its five columns fit an H100 block's shared memory; else the
+    global route (a thread a lane, up to TSWEEP_THREADS, looping).
+    Raises ValueError only for tables no route takes: no dc = -+1 or -+2
+    tap, or a step-1 offset (the halo) over ML lanes."""
     if not len(d1) and not len(d2):
         raise ValueError("tsweep needs at least one dc = -+1 or -+2 tap")
     offs = tsweep_offsets(d1, d2, d0, chain_spans, ML, col_relax)
     halo = max(abs(int(d)) for d in list(d1) + list(d2))
+    if halo > ML:
+        raise ValueError(f"a tsweep tap reaches {halo} lanes: over the "
+                         f"column's {ML} lanes")
     lpt = next((k for k in TSWEEP_LPT if -(-ML // k) <= TSWEEP_THREADS),
                None)
-    if lpt is None:
-        raise ValueError(f"tsweep cannot cover {ML} lanes with at most "
-                         f"{TSWEEP_LPT[-1]} lanes a thread and "
-                         f"{TSWEEP_THREADS} threads")
     smem = tsweep_smem_bytes(ML, itemsize, halo, len(offs))
-    if smem > BLOCK_SMEM or halo > ML:
-        raise ValueError(f"tsweep keeps 5 columns of {ML} lanes, 2 x {halo} "
-                         f"halo lanes and {len(offs)} rows ({smem} bytes) "
-                         f"in shared memory: over the {BLOCK_SMEM} bytes an "
-                         f"H100 block may have (or a halo over {ML} lanes)")
+    if lpt is None or smem > BLOCK_SMEM:
+        return TSweepPlan(offs, halo, 0, min(TSWEEP_THREADS,
+                                             (ML + 31) // 32 * 32), 0,
+                          "global")
     threads = max(32, (-(-ML // lpt) + 31) // 32 * 32)
     return TSweepPlan(offs, halo, lpt, threads, smem)
 
@@ -910,6 +913,10 @@ def _tsweep_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 14
                        + [ctypes.c_void_p])
+        g = lib.tsweep_global_launch
+        g.restype = ctypes.c_int
+        g.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
+                      + [ctypes.c_void_p])
     return lib
 
 
@@ -920,11 +927,11 @@ def tsweep(v: torch.Tensor, tbl: SweepTables, static: SweepStatic,
     (S, nt, ML) field (see `_sweep`); returns a new field.
 
     A CUDA tensor goes to the hand-written kernel `csrc/tsweep.cu`, one
-    block a source marching the columns as `tsweep_plan` lays it out
-    (launched on the current stream; `tsweep.launches` counts the
-    launches); a column that no plan fits in an H100 block raises
-    ValueError before the launch, and a refused launch RuntimeError.  A CPU tensor goes to `_sweep`.
-    Any other device raises.
+    block a source marching the columns as `tsweep_plan` lays it out:
+    the columns in shared memory, or in global memory for a column too
+    wide for that (launched on the current stream; `tsweep.launches`
+    counts the launches); a refused launch raises RuntimeError.  A CPU
+    tensor goes to `_sweep`.  Any other device raises.
     """
     if v.dim() != 3 or v.shape[1] != static.nt or v.shape[2] != static.ML:
         raise ValueError(f"v must be (S, {static.nt}, {static.ML}), got "
@@ -959,15 +966,24 @@ def tsweep(v: torch.Tensor, tbl: SweepTables, static: SweepStatic,
     out = torch.empty_like(x)
     offs = _tsweep_offs_on(plan, v.device)
     stream = torch.cuda.current_stream(v.device).cuda_stream
-    rc = _tsweep_lib().tsweep_launch(
-        x.data_ptr(), out.data_ptr(),
-        0 if carry_init is None else carry_init[0].data_ptr(),
-        0 if carry_init is None else carry_init[1].data_ptr(),
-        g1_w.data_ptr(), g2_w.data_ptr(), w0.data_ptr(), tbl.cfp.data_ptr(),
-        tbl.cbp.data_ptr(), offs.data_ptr(), x.shape[0], static.nt,
-        static.ML, len(g1_d), len(g2_d), len(d0), L, plan.halo,
-        int(reverse), int(col_relax), plan.lpt, plan.threads, plan.smem,
-        int(v.dtype == torch.float64), stream)
+    ptrs = (x.data_ptr(), out.data_ptr(),
+            0 if carry_init is None else carry_init[0].data_ptr(),
+            0 if carry_init is None else carry_init[1].data_ptr(),
+            g1_w.data_ptr(), g2_w.data_ptr(), w0.data_ptr(),
+            tbl.cfp.data_ptr(), tbl.cbp.data_ptr(), offs.data_ptr())
+    dims = (x.shape[0], static.nt, static.ML, len(g1_d), len(g2_d),
+            len(d0), L, plan.halo, int(reverse), int(col_relax))
+    is_double = int(v.dtype == torch.float64)
+    if plan.route == "global":
+        scratch = torch.empty((x.shape[0], 2, static.ML), dtype=x.dtype,
+                              device=x.device)
+        rc = _tsweep_lib().tsweep_global_launch(
+            *ptrs, scratch.data_ptr(), *dims, plan.threads, is_double,
+            stream)
+    else:
+        rc = _tsweep_lib().tsweep_launch(
+            *ptrs, *dims, plan.lpt, plan.threads, plan.smem, is_double,
+            stream)
     if rc != 0:
         raise RuntimeError(f"tsweep kernel launch failed: CUDA error {rc}")
     tsweep.launches += 1

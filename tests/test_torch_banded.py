@@ -10,8 +10,12 @@ annulus with its halo twins, dual velocities, the S-wave zero-velocity
 core, a source batch, the natural order) and on a mesh smaller than one
 Gauss-Seidel block; a NumPy replay of csrc/banded.cu's Gauss-Seidel read
 rule (the block's rows from the pass's snapshot, rows outside from the
-input or the output) bit-equal to the twin.  The kernels themselves run
-only on the card (chip_smoke.py).
+input or the output) bit-equal to the twin; the window route's per-block
+tap layout (`gs_layout`) decoded back to exactly the taps of `tap_lists`
+at RCM and natural orders, the route `gs_plan` picks from the shapes,
+and a NumPy replay of the window kernel (a ring of rows staged one block
+ahead, read through the layout) bit-equal to the twin.  The kernels
+themselves run only on the card (chip_smoke.py).
 """
 import numpy as np
 import pytest
@@ -276,3 +280,167 @@ def test_banded_refuses_other_devices_and_wide_blocks(meshes):
     with pytest.raises(ValueError, match="shared memory"):
         pb.gs_smem_bytes(16384, 8)
     assert pb.gs_smem_bytes(512, 8) == 8192
+
+
+# ----------------------------------------------------------------------
+# banded_gs's window route: the per-block tap layout, its route choice
+# and a NumPy replay of csrc/banded.cu gs_window_kernel
+# ----------------------------------------------------------------------
+
+LAYOUTS = [("delaunay", "rcm", 512), ("delaunay", "natural", 256),
+           ("delaunay", "rcm", 128), ("16x6", "rcm", 64),
+           ("16x6", "natural", 64), ("tiny", "natural", 512)]
+
+
+def _layout_of(meshes, name, order, B, dtype="float32"):
+    _, _, pbg = _pair(meshes, name, "Vp", dtype, order)
+    K = pb._gs_reach(pbg)
+    lay = pb.gs_layout(pbg.toff, pbg.tcol, pbg.tw, pbg.n_pad, B, K,
+                       pbg.tw.element_size(), "cpu")
+    return pbg, K, lay
+
+
+@pytest.mark.parametrize("case", LAYOUTS, ids=lambda c: "-".join(map(str, c)))
+def test_gs_layout_holds_exactly_the_tap_lists(meshes, case):
+    """Decoded slot by slot, the window layout holds each row's taps of
+    `tap_lists` in their order (the ring slot back to the source row: the
+    one row of the block's window [b - K, b + B + K) in that slot), each
+    row once on a thread slot, groups of 32 slots padded to their widest
+    row with the row's own slot at +inf; every block's taps start on a
+    multiple of 32."""
+    name, order, B = case
+    pbg, K, lay = _layout_of(meshes, name, order, B)
+    toff, tcol, tw = (pbg.toff.numpy(), pbg.tcol.numpy(), pbg.tw.numpy())
+    meta, idx, w, blk = (lay.meta.numpy(), lay.idx.numpy(), lay.w.numpy(),
+                         lay.blk.numpy())
+    Wr, NB = lay.plan.Wr, pbg.n_pad // B
+    assert lay.plan.route == "window" and Wr & (Wr - 1) == 0
+    assert Wr // 2 < 2 * K + 2 * B <= Wr
+    assert meta.shape == (NB, lay.plan.G32, 2) and (blk % 32 == 0).all()
+    assert int(np.diff(blk).max()) == lay.plan.nmax
+    assert blk[-1] == len(idx) == len(w) >= len(tw)
+    for rb in range(NB):
+        b = rb * B
+        rows = meta[rb, :, 0]
+        assert sorted(rows[rows >= 0].tolist()) == list(range(B))
+        degs = np.diff(toff)[b + np.maximum(rows, 0)] * (rows >= 0)
+        assert (np.diff(degs[:B]) <= 0).all()        # by tap count
+        for t in range(lay.plan.G32):
+            start, width = meta[rb, t, 1] & 0xFFFFF, meta[rb, t, 1] >> 20
+            assert start == meta[rb, t // 32 * 32, 1] % (1 << 20) + t % 32
+            assert width == degs[t // 32 * 32: t // 32 * 32 + 32].max()
+            if rows[t] < 0:
+                continue
+            r = b + rows[t]
+            pos = blk[rb] + start + 32 * np.arange(width)
+            got_w = w[pos]
+            slots = idx[pos].astype(np.int64)
+            n = toff[r + 1] - toff[r]
+            win = np.arange(b - K, b + B + K)
+            src = np.array([win[(win % Wr == s) & (win >= 0)][0]
+                            for s in slots[:n]], dtype=np.int64)
+            _same(src, tcol[toff[r]:toff[r + 1]].astype(np.int64),
+                  f"row {r} sources")
+            _same(got_w[:n], tw[toff[r]:toff[r + 1]], f"row {r} weights")
+            assert np.isinf(got_w[n:]).all() and (slots[n:] == r % Wr).all()
+
+
+def test_gs_route_follows_the_shapes(meshes):
+    """The window route where its ring (2K + 2B rows rounded up to a power
+    of 2, int16 slots) and two tap buffers fit a block's 227 KB; the
+    wide-band route otherwise, its rows in shared memory where 2B values
+    fit and in global memory where they do not: no shape is refused.  At
+    the production Delaunay annulus's RCM shapes (K = 629: a ring of
+    4,096; 5,760 slots the fullest block, widest group 24) the window
+    route, 95,744 bytes in float32 and 160,256 in float64; at its natural
+    order (K = 35,860) the wide one."""
+    plan = pb.gs_plan
+    assert plan(512, 629, 5760, 24, 4) == pb.GsPlan(
+        "window", 512, 95744, 629, 4096, 512, 5760)
+    assert plan(512, 629, 5760, 24, 8).smem == 160256 == pb.gs_window_smem(
+        4096, 512, 512, 5760, 8)
+    assert plan(512, 35860, 5760, 24, 4) == pb.GsPlan("wide", 512, 4096)
+    assert plan(16384, 10, 64, 1, 8) == pb.GsPlan("wide", 1024, 0)
+    assert plan(100, 3, 32, 1, 8) == pb.GsPlan("window", 128,
+                                               pb.gs_window_smem(
+                                                   256, 100, 128, 32, 8),
+                                               3, 256, 128, 32)
+    # the tap buffers over the budget, the ring at its int16 limit, a
+    # group too wide for the metadata's 11 bits
+    assert plan(512, 629, 20000, 24, 8).route == "wide"
+    assert plan(512, 15872, 32, 1, 4).route == "window"
+    assert plan(512, 15873, 32, 1, 4).route == "wide"
+    assert plan(512, 10, 4096 * 32, 2048, 4).route == "wide"
+    # the meshes: the routes _gs_route keeps, the layout only for the
+    # window (16x6's rows hold up to 207 taps: 78,624 slots a block of
+    # 512)
+    _, _, pbg = _pair(meshes, "delaunay", "Vp", "float64")
+    got = pb._gs_route(pbg, 512)
+    assert isinstance(got, pb.GsLayout) and got.plan.route == "window"
+    assert pb._gs_route(pbg, 512) is got
+    _, _, pbg = _pair(meshes, "16x6", "Vp", "float64")
+    assert pb._gs_route(pbg, 512) == pb.GsPlan("wide", 512, 8192)
+    # at B = 64 its float32 layout fits (tested above), float64 not
+    assert pb._gs_route(pbg, 64) == pb.GsPlan("wide", 64, 1024)
+    assert pb.gs_layout(pbg.toff, pbg.tcol, pbg.tw, pbg.n_pad, 512, 320, 8,
+                        "cpu") == pb.GsPlan("wide", 512, 8192)
+
+
+def _gs_window_replay(d, lay, K, forward, P, n_pad, B):
+    """gs_window_kernel in NumPy, one field: the ring of Wr rows starts as
+    NaN (a read of a slot never loaded shows), rows staged from d one
+    block ahead as the kernel stages them, each pass reading only the
+    ring through the layout, the new values written back after it; the
+    block's rows out at its end."""
+    meta, idx, w, blk = (lay.meta.numpy(), lay.idx.numpy().astype(np.int64),
+                         lay.w.numpy(), lay.blk.numpy())
+    Wr, NB = lay.plan.Wr, n_pad // B
+    ring = np.full(Wr, np.nan, dtype=d.dtype)
+    out = np.full_like(d, np.nan)
+
+    def stage(lo, hi):
+        j = np.arange(max(lo, 0), min(hi, n_pad))
+        ring[j % Wr] = d[j]
+
+    rb0 = 0 if forward else NB - 1
+    stage(rb0 * B - K, rb0 * B + B + K)
+    for q in range(NB):
+        rb = q if forward else NB - 1 - q
+        b = rb * B
+        if q + 1 < NB:
+            if forward:
+                stage(b + B + K, b + 2 * B + K)
+            else:
+                stage(b - B - K, b - K)
+        rows = meta[rb, :, 0]
+        for _ in range(P):
+            nxt = {}
+            for t in np.flatnonzero(rows >= 0):
+                start, width = meta[rb, t, 1] & 0xFFFFF, meta[rb, t, 1] >> 20
+                pos = blk[rb] + start + 32 * np.arange(width)
+                v = ring[(b + rows[t]) % Wr]
+                cand = ring[idx[pos]] + w[pos]
+                nxt[rows[t]] = min(v, cand.min()) if width else v
+            for r, v in nxt.items():
+                ring[(b + r) % Wr] = v
+        out[b: b + B] = ring[(b + np.arange(B)) % Wr]
+    return out
+
+
+@pytest.mark.parametrize("name,order,B,P", [("delaunay", "rcm", 512, 2),
+                                            ("delaunay", "natural", 256, 3),
+                                            ("16x6", "rcm", 64, 2),
+                                            ("tiny", "rcm", 512, 0)])
+def test_gs_window_replay_equals_twin(meshes, name, order, B, P):
+    """The window route's reads (the ring, staged one block ahead, and
+    the layout) give banded_gs_reference's floats, both directions (the
+    halo merge aside: 16x6's twin runs without its halo here)."""
+    pbg, K, lay = _layout_of(meshes, name, order, B)
+    pbg = pbg._replace(halo_src=pbg.halo_src[:0], halo_dst=pbg.halo_dst[:0])
+    rng = np.random.default_rng(21)
+    d = _random_field(rng, 1, pbg.n_pad, pbg.n, np.float32)
+    for forward in (True, False):
+        want = pb.banded_gs_reference(torch.from_numpy(d), pbg, forward,
+                                      block=B, passes=P).numpy()[0]
+        got = _gs_window_replay(d[0], lay, K, forward, P, pbg.n_pad, B)
+        _same(got, want, f"forward={forward}")

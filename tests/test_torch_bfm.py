@@ -11,7 +11,13 @@ pinned against the JAX package in and out of its jitted loop; `bfm`,
 DeviceGraph through `convert`; and a NumPy replay of csrc/ell_bfm.cu's
 work partition (the row-prefix read, the first-slot rule of the warp
 reduction, the per-destination halo walk, the frontier) bit-equal to the
-twin.  The kernel itself runs only on the card (chip_smoke.py).
+twin; `DeviceGraph.symmetric` on the meshes and on graphs with directed
+edges taken out; the push frontier (an improved row flags its
+neighbours) equal to the twin's pull on symmetric graphs at every step
+of whole solves, with and without a level mask, the states equal to the
+JAX package's `bfm_step` (and its masked step); and a NumPy replay of the
+push kernel's work partition bit-equal to the twin.  The kernel itself
+runs only on the card (chip_smoke.py).
 """
 import numpy as np
 import pytest
@@ -414,3 +420,196 @@ def test_kernel_work_partition_replay_equals_twin(graphs, dtype):
         _same(p1, want.prev.numpy(), "prev")
         _same(f1, want.front.numpy(), "front")
         st = want
+
+
+# ----------------------------------------------------------------------
+# the push frontier of csrc/ell_bfm.cu (push_step_kernel) on symmetric
+# graphs
+# ----------------------------------------------------------------------
+
+def _cut_edges(g, n_cut, seed):
+    """g with n_cut directed edges taken out (the slot pointed back at its
+    row, weight +inf), rebuilt by device_graph."""
+    nbr, w = g.nbr.numpy().copy(), g.w.numpy().copy()
+    rng = np.random.default_rng(seed)
+    rows = np.flatnonzero(g.deg.numpy()[:g.n] > 1)
+    for i in rng.choice(rows, n_cut, replace=False):
+        nbr[i, 0], w[i, 0] = i, np.inf
+    return prelax.device_graph(nbr, w, g.halo_src.numpy(), g.halo_dst.numpy(),
+                               g.n, "cpu")
+
+
+def test_device_graph_symmetry_flag(graphs):
+    """device_graph checks once whether the real slots are symmetric: true
+    on init_annulus's graph (with its halo twins) and on the Delaunay
+    mesh, false once a few directed edges are taken out (one is enough),
+    and on a graph whose one edge runs one way."""
+    for name in ("16x6", "delaunay"):
+        gr, A, halo, U = graphs[name]
+        g = pt.prepare(A, halo, gr, U["Vp"], PC(), device="cpu")
+        assert g.symmetric is True
+        assert _cut_edges(g, 5, 1).symmetric is False
+        assert _cut_edges(g, 1, 2).symmetric is False
+    nbr = np.array([[1, 0], [1, 1]], np.int32)
+    deg = prelax.row_degrees(nbr)
+    assert deg.tolist() == [1, 0]
+    assert not prelax.real_slots_symmetric(nbr, deg)
+    nbr = np.array([[1, 0, 0], [0, 1, 1], [2, 2, 2]], np.int32)
+    assert prelax.real_slots_symmetric(nbr, prelax.row_degrees(nbr))
+
+
+def _push_replay(state, g, mask=None, warps=7):
+    """push_step_kernel in NumPy: the state copied through and the new
+    frontier cleared; then the items (field, row) in each warp's order
+    (warp gw takes gw, gw + W, ...), the ones in the frontier or at a halo
+    destination relaxed and merged as the pull route's warp does; an
+    improved row writes its value and predecessor and flags itself and
+    its real slots' rows where the mask holds.  A state whose frontier
+    is empty comes back as it is."""
+    if not int(state.live):
+        return state
+    d0s, p0s, f0s = (state.dist.numpy(), state.prev.numpy(),
+                     state.front.numpy())
+    nbr, w, deg = g.nbr.numpy(), g.w.numpy(), g.deg.numpy()
+    didx, hoff, hsrc = g.didx.numpy(), g.hoff.numpy(), g.hsrc.numpy()
+    m = np.ones(nbr.shape[0], bool) if mask is None else mask.numpy()
+    S, n_pad = d0s.shape
+    d1, p1, f1 = d0s.copy(), p0s.copy(), np.zeros_like(f0s)
+
+    def relaxed(r, d0, p0, f0):
+        if not f0[r]:
+            return d0[r], p0[r]
+        best, kb = _warp_argmin(d0, nbr[r], w[r], deg[r])
+        return (best, nbr[r, kb]) if best < d0[r] else (d0[r], p0[r])
+
+    total = S * n_pad
+    for gw in range(warps):
+        for e in range(gw, total, warps):
+            b, i = divmod(e, n_pad)
+            d0, p0, f0 = d0s[b], p0s[b], f0s[b]
+            if not (f0[i] or didx[i] >= 0):
+                continue
+            v, p = relaxed(i, d0, p0, f0)
+            if didx[i] >= 0:
+                vd, mn, pm = v, v, p
+                for h in range(hoff[didx[i]], hoff[didx[i] + 1]):
+                    s = hsrc[h]
+                    vs, ps = relaxed(s, d0, p0, f0)
+                    if vs < d0[s] and vd > vs:
+                        if vs < mn:
+                            mn, pm = vs, ps
+                        elif vs == mn:
+                            pm = ps
+                v, p = mn, pm
+            if not v < d0[i]:
+                continue
+            d1[b, i], p1[b, i] = v, p
+            for j in [i] + nbr[i, : deg[i]].tolist():
+                if m[j]:
+                    f1[b, j] = True
+    return prelax.BFMState(dist=torch.from_numpy(d1),
+                           prev=torch.from_numpy(p1),
+                           front=torch.from_numpy(f1), it=state.it + 1,
+                           live=torch.tensor(int(f1.any()), dtype=torch.int32))
+
+
+def _push_frontier(d0, d1, g, mask=None):
+    """The push frontier alone, vectorised: every row that improved (d1 <
+    d0) flags itself and the rows of its real slots, where the mask
+    holds."""
+    nbr, deg = g.nbr.numpy(), g.deg.numpy()
+    f1 = np.zeros(d0.shape, bool)
+    for b, i in zip(*np.nonzero(d1 < d0)):
+        f1[b, i] = True
+        f1[b, nbr[i, : deg[i]]] = True
+    return f1 if mask is None else f1 & mask.numpy()
+
+
+def _sym_tie_graph(rng, n, dtype):
+    """_random_tie_graph with symmetric slots (its adjacency is A + A.T)."""
+    g = _random_tie_graph(rng, n, dtype)
+    assert g.symmetric
+    return g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", ["16x6", "delaunay", "ties"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_push_replay_equals_the_pull_and_jax(graphs, case, dtype, masked):
+    """On symmetric graphs the push equals the pull: the replay of the
+    push route after every step of a whole solve (from init_state to an
+    empty frontier) equals bfm_step_reference (dist, prev, front, it,
+    live), and the JAX package's bfm_step (with the level mask: its
+    _masked_step, bfm_step's frontier ANDed with the mask)."""
+    rng = np.random.default_rng(3)
+    if case == "ties":
+        pg = _sym_tie_graph(rng, 50, np.dtype(dtype))
+        srcs = [0, 17]
+        jg = jrelax.DeviceGraph(nbr=jnp.asarray(pg.nbr.numpy()),
+                                w=jnp.asarray(pg.w.numpy()),
+                                halo_src=jnp.asarray(pg.halo_src.numpy()),
+                                halo_dst=jnp.asarray(pg.halo_dst.numpy()),
+                                n=pg.n)
+    else:
+        gr, A, halo, U = graphs[case]
+        jg = jbfm.prepare(A, halo, gr, U["Vp"], JC(dtype=dtype))
+        pg = pbfm.prepare(A, halo, gr, U["Vp"], PC(dtype=dtype),
+                          device="cpu")
+        srcs = [_src(gr), _src(gr, 190.0)]
+    assert pg.symmetric
+    n_pad = pg.nbr.shape[0]
+    mask = torch.from_numpy(rng.random(n_pad) < 0.8) if masked else None
+    mj = None if mask is None else jnp.asarray(mask.numpy())
+    ps = prelax.init_state(pg, srcs, dtype, mask=mask)
+    js = jax.vmap(lambda s: jrelax.init_state(jg, s, jnp.dtype(dtype)))(
+        jnp.asarray(srcs, jnp.int32))
+    if mj is not None:
+        js = js._replace(front=js.front & mj)
+
+    def jstep(s):
+        s = jax.vmap(jrelax.bfm_step, in_axes=(0, None))(s, jg)
+        return s if mj is None else s._replace(front=s.front & mj)
+
+    for k in range(1000):
+        for f in ("dist", "prev", "front"):
+            _same(getattr(ps, f).numpy(), getattr(js, f), f"{f} at step {k}")
+        assert int(ps.it) == k
+        if not int(ps.live):
+            break
+        want = prelax.bfm_step_reference(ps, pg, mask=mask)
+        _same(_push_frontier(ps.dist.numpy(), want.dist.numpy(), pg, mask),
+              want.front.numpy(), f"push front at step {k}")
+        assert int(want.live) == int(want.front.any())
+        ps = want
+        js = jstep(js)
+    assert not bool(np.asarray(js.front).any()) and k > 3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_push_kernel_replay_equals_twin(graphs, dtype):
+    """push_step_kernel's work partition replayed (the items in its warps'
+    order, the relaxation and merge of the pull route's warp, the writes
+    of the improved rows only and their flags) equals bfm_step_reference
+    on symmetric graphs: the 16x6 halo graph in the middle of a solve
+    (S=2), and a tie-heavy graph with repeated halo destinations, with
+    and without a level mask."""
+    gr, A, halo, U = graphs["16x6"]
+    pg = pt.prepare(A, halo, gr, U["Vp"], PC(dtype=dtype), device="cpu")
+    st = prelax.init_state(pg, [_src(gr), _src(gr, 190.0)], dtype)
+    for k in range(12):
+        if k in (1, 6, 11):
+            want = prelax.bfm_step_reference(st, pg)
+            got = _push_replay(st, pg)
+            for f in got._fields:
+                _same(getattr(got, f).numpy(), getattr(want, f).numpy(), f)
+        st = prelax.bfm_step(st, pg)
+    rng = np.random.default_rng(7)
+    g = _sym_tie_graph(rng, 50, np.dtype(dtype))
+    for mask in (None, torch.from_numpy(rng.random(g.nbr.shape[0]) < 0.7)):
+        st = prelax.init_state(g, [0, 17], dtype, mask=mask)
+        for _ in range(6):
+            want = prelax.bfm_step_reference(st, g, mask=mask)
+            got = _push_replay(st, g, mask)
+            for f in got._fields:
+                _same(getattr(got, f).numpy(), getattr(want, f).numpy(), f)
+            st = want

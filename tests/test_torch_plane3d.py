@@ -462,6 +462,86 @@ def test_kernel_replay_star2_cluster_equals_twin(dtype):
         assert np.array_equal(got, want), down
 
 
+def _global_replay(d, W, trees, taps, down, carry):
+    """csrc/plane3d.cu's global route in NumPy: a plane at a time, the
+    input plane with its cross taps into buffer A (the earlier planes read
+    back from the output, NaN until written), each in-plane tap a Jacobi
+    update from one buffer into the other, the axis-0 line scans (the
+    forward copy in place, the backward copy in the other buffer, then
+    min(forward, backward) in place) and the axis-1 line scans into the
+    output plane."""
+    S, nA, p0, p1 = d.shape
+    t0f, t0b, t1f, t1b = trees
+    out = np.full_like(d, np.nan)
+    sgn = 1 if down else -1
+    nc = 0 if carry is None else carry.shape[1]
+    cross = [t for t in taps if t[1] >= 1]
+    inpl = [t for t in taps if t[1] == 0]
+    aa, bb = np.meshgrid(np.arange(p0), np.arange(p1), indexing="ij")
+
+    def tap(src_plane, base, sft, da, db, p):
+        na, nb = aa + da, bb + db
+        ok = (na >= 0) & (na < p0) & (nb >= 0) & (nb < p1)
+        src = src_plane[np.where(ok, na, 0), np.where(ok, nb, 0)]
+        assert not np.isnan(src[ok]).any()
+        return np.where(ok, np.minimum(base, src + W[p, sft]), base)
+
+    for s in range(S):
+        for j in range(nA):
+            p = nA - 1 - j if down else j
+            x = d[s, p].copy()
+            for sft, m, da, db in cross:
+                if j >= m:
+                    prev = out[s, p + m * sgn]
+                elif m - 1 - j < nc:
+                    prev = carry[s, m - 1 - j]
+                else:
+                    continue
+                x = tap(prev, x, sft, da, db, p)
+            for sft, _, da, db in inpl:
+                x = tap(x, x, sft, da, db, p)
+            for b in range(p1):
+                F, G = x[:, b].copy(), x[:, b].copy()
+                _scan_line(F, G, t0f[p][:, b], t0b[p][:, b])
+                x[:, b] = np.minimum(F, G)
+            for a in range(p0):
+                F, G = x[a].copy(), x[a].copy()
+                _scan_line(F, G, t1f[p][a], t1b[p][a])
+                out[s, p, a] = np.minimum(F, G)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("star,carry", [(1, "none"), (1, "plane"),
+                                        (2, "tuple")])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_global_route_replay_equals_twin(axis, star, carry, dtype):
+    """The global route's order (cross taps, Jacobi in-plane taps, the
+    two scans, a plane at a time through global buffers), replayed on
+    the kernel's tables for S = 2 sources, both directions, equals the
+    plain twin."""
+    jp, pk, Wj, scj, Wt, sct = _both(star, dtype)
+    if carry != "none":
+        Wt = torch.from_numpy(_opened(pk, axis))
+        sct = ps._scan_costs_of(Wt, pk.shifts)
+    lt = ps._sweep_layout3d(Wt, sct, axis)
+    trees = [t.numpy() for t in pp3.scan_sum_trees(*lt[1:5])]
+    rng = np.random.default_rng(17 * axis + star)
+    d = _field(rng, (2,) + pk.shape, dtype)
+    _, ct = _carry(rng, carry, 2, _plane_shape(pk.shape, axis), dtype)
+    carry_np = None
+    if ct is not None:
+        planes = ct if isinstance(ct, tuple) else (ct,)
+        carry_np = np.stack([p.numpy() for p in planes], axis=1)
+    for down in (True, False):
+        want = pp3.plane_sweep3d_reference(torch.from_numpy(d), lt, axis,
+                                           down, ct, pk.shifts).numpy()
+        taps = pp3._tap_table(pk.shifts, axis, down, "cpu").numpy().tolist()
+        got = _global_replay(np.moveaxis(d, 1 + axis, 1), lt.W.numpy(),
+                             trees, taps, down, carry_np)
+        assert np.array_equal(np.moveaxis(got, 1, 1 + axis), want), down
+
+
 def test_tap_table_lists_cross_then_in_plane_taps():
     """The kernel's tap rows: the cross taps of the pass's direction
     (m = the plane distance), then the in-plane taps in the stencil's
@@ -496,8 +576,9 @@ def test_plane_fits_shared_memory_or_is_refused():
     backward sum trees (T = n + n/2 + ... over the levels of a line of
     n); a thread for 4 nodes of its rows and a warp for each of its
     lines.  Planes over 227 KB that one block refused now fit a cluster
-    (171x171 float64, 256x256 float32); one that no cluster fits is
-    refused by name before any launch."""
+    (171x171 float64, 256x256 float32); one that no cluster fits (256x256
+    float64, 1024x1024), which used to be refused, takes the global route
+    (ROADMAP C.15), a plan of zeros: no plane is refused for its size."""
     def plan(*a):
         return tuple(pp3.plane3d_plan(*a))
 
@@ -523,10 +604,10 @@ def test_plane_fits_shared_memory_or_is_refused():
                                           + 2 * 6 * T5), 6, 5, 0)
     assert plan(171, 171, 8)[:2] == (16, 480)
     assert plan(256, 256, 4)[:3] == (16, 1024, 192000)
-    with pytest.raises(ValueError, match="232448 bytes"):
-        pp3.plane3d_plan(256, 256, 8)
-    with pytest.raises(ValueError, match="shared memory"):
-        pp3.plane3d_plan(1024, 1024, 4)
+    assert plan(256, 256, 8) == (0, 0, 0, 0, 0, 0)
+    assert plan(1024, 1024, 4) == (0, 0, 0, 0, 0, 0)
+    assert plan(1024, 1024, 8, 2) == (0, 0, 0, 0, 0, 0)
+    assert plan(2, 100000, 4)[0] == 0 and plan(2, 1000, 4)[0] == 1
     # the route by size, and bands no thinner than twice the reach
     assert plan(63, 64, 4)[0] == 1 and plan(64, 64, 4)[0] == 16
     assert plan(24, 256, 4, 2)[0] == 4

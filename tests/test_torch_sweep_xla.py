@@ -20,11 +20,13 @@ the 48x12 annulus (spacing 150 km), as tests/test_theta_shard.py uses:
     `AnnulusSolver(method="sweep")` runs, and the defaults are the JAX
     package's (engine "xla", mode "hclosure");
   * the kernel's launch planner (`tsweep_plan`: lanes a thread, threads,
-    halo, shared bytes, its refusals by name) on the 180x63 column, and a
-    NumPy replay of the kernel's order (the weight rows in batches of one
-    kind, step 1 from halo columns, the chain's ping-pong, the three
-    rotating columns) equal to `_sweep` and to the JAX package's
-    `_sweep`.
+    halo, shared bytes, the global route for a column the shared one
+    cannot hold, its refusals of malformed tables by name) on the 180x63
+    column, and NumPy replays of the kernel's order (the weight rows in
+    batches of one kind, step 1 from halo columns, the chain's
+    ping-pong, the three rotating columns; on the global route p1 and p2
+    read back from the output) equal to `_sweep` and to the JAX
+    package's `_sweep`.
 """
 import inspect
 
@@ -186,8 +188,12 @@ def test_tsweep_plan_at_180x63(monkeypatch):
     thread (896 threads); the offsets (85 dc = -1, 75 dc = -2 as they
     are, then 84 dc = 0 steps and the ten chain spans back and forth
     reduced mod 896); a halo of 42 lanes.  A smaller thread cap or a
-    wider column takes more lanes a thread; a column no plan fits is
-    refused by name."""
+    wider column takes more lanes a thread; a column whose five columns
+    do not fit a block's shared memory (6,000 lanes in float64, 12,000
+    in float32), or that 16 lanes a thread do not cover, takes the
+    global route, which used to be refused (ROADMAP C.15); only
+    malformed tables are refused by name: no dc = -+1 or -+2 tap, or a
+    step-1 offset over the column."""
     ML, d1, d2, d0, spans = _taps_180x63()
     assert (ML, len(d1), len(d2), len(d0), len(spans)) == (896, 85, 75, 84, 10)
     p = psw.tsweep_plan(ML, 4, d1, d2, d0, spans, True)
@@ -208,11 +214,23 @@ def test_tsweep_plan_at_180x63(monkeypatch):
     assert (p.lpt, p.threads, p.smem) == (
         2, 576, 12 * 264 + (2 * 1152 + 3 * (1152 + 84)) * 8)
     assert psw.tsweep_plan(3328, 8, d1, d2, d0, spans, True)[2:4] == (4, 832)
-    with pytest.raises(ValueError, match="232448 bytes"):
-        psw.tsweep_plan(6000, 8, d1, d2, d0, spans, True)
+    # over 232448 bytes of shared memory: the global route
+    g = psw.tsweep_plan(6000, 8, d1, d2, d0, spans, True)
+    assert (g.route, g.lpt, g.threads, g.smem) == ("global", 0, 1024, 0)
+    assert g.halo == 42 and g.offs[160] == d0[0] % 6000
+    g = psw.tsweep_plan(12000, 4, d1, d2, d0, spans, True)
+    assert (g.route, g.lpt, g.threads, g.smem) == ("global", 0, 1024, 0)
+    p = psw.tsweep_plan(11000, 4, d1, d2, d0, spans, True)
+    assert (p.route, p.lpt, p.threads) == ("shared", 16, 704)
+    assert p.smem == 12 * 264 + (2 * 11000 + 3 * 11084) * 4 <= 232448
+    # more lanes than 16 a thread cover: the global route too
     monkeypatch.setattr(psw, "TSWEEP_THREADS", 32)
-    with pytest.raises(ValueError, match="lanes a thread"):
-        psw.tsweep_plan(ML, 4, d1, d2, d0, spans, True)
+    g = psw.tsweep_plan(ML, 4, d1, d2, d0, spans, True)
+    assert (g.route, g.lpt, g.threads) == ("global", 0, 32)
+    with pytest.raises(ValueError, match="reaches 42 lanes"):
+        psw.tsweep_plan(40, 4, d1, d2, d0, spans, True)
+    with pytest.raises(ValueError, match="at least one"):
+        psw.tsweep_plan(ML, 4, [], [], d0, spans, True)
 
 
 def _tsweep_replay(v, tabs, plan, n1, reverse, carry, K):
@@ -320,3 +338,81 @@ def test_tsweep_replay_equals_twin(monkeypatch, tables, reverse, col_relax,
             jnp.asarray(T["v"]), T["jt"], T["js"], reverse, col_relax,
             None if ci is None else tuple(map(jnp.asarray, ci))))
     np.testing.assert_array_equal(got, _JAX_SWEEPS[key])
+
+
+def _tsweep_global_replay(v, tabs, offs, n1, n2, reverse, carry):
+    """csrc/tsweep.cu's global route in NumPy, one block a source: p1 and
+    p2 the output's last two columns (before the first two, the carry or
+    the field's own wrap columns), step 1 with its offsets wrapped by a
+    compare each way, the in-column steps ping-ponging between two
+    scratch columns (NaN at first: a stale read shows), the last one
+    into the output."""
+    S, nt, ML = v.shape
+    w1, w2 = tabs[0], tabs[1]
+    steps = np.concatenate(tabs[2:]) if len(tabs) > 2 else np.zeros((0, ML))
+    out = np.full_like(v, np.nan)
+    m = np.arange(ML)
+    for s in range(S):
+        order = list(range(nt))[::-1] if reverse else list(range(nt))
+        src1 = carry[0][s] if carry else v[s, order[-1]]
+        src2 = carry[1][s] if carry else v[s, order[-2]]
+        a = np.full(ML, np.nan, v.dtype)
+        b = np.full(ML, np.nan, v.dtype)
+        for k, c in enumerate(order):
+            p1 = out[s, order[k - 1]] if k >= 1 else src1
+            p2 = out[s, order[k - 2]] if k >= 2 else (src1 if k == 1
+                                                       else src2)
+            r = v[s, c].copy()
+            for i in range(n1 + n2):
+                j = m + offs[i]
+                j = np.where(j < 0, j + ML, np.where(j >= ML, j - ML, j))
+                src, w = (p1, w1[i]) if i < n1 else (p2, w2[i - n1])
+                r = np.minimum(r, src[j] + w)
+            if not len(steps):
+                out[s, c] = r
+                continue
+            a[:] = r
+            x, y = a, b
+            for t in range(len(steps)):
+                j = m + offs[n1 + n2 + t]
+                j = np.where(j >= ML, j - ML, j)
+                new = np.minimum(x, x[j] + steps[t])
+                if t + 1 == len(steps):
+                    out[s, c] = new
+                else:
+                    y[:] = new
+                    x, y = y, x
+    return out
+
+
+@pytest.mark.parametrize("with_carry", [False, True], ids=["wrap", "carry"])
+@pytest.mark.parametrize("col_relax", [True, False])
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "bwd"])
+def test_tsweep_global_replay_equals_twin(tables, reverse, col_relax,
+                                          with_carry):
+    """The global route's order of updates equals `_sweep` bit for bit,
+    in float64 and float32, at 48x12 and on a column three times as wide
+    (the weight rows' lanes repeated)."""
+    T = tables
+    for reps in (1, 3):
+        t, s = T["t"], T["s"]
+        if reps > 1:
+            t = t._replace(wg=tuple(a.repeat(1, reps) for a in t.wg),
+                           cfp=t.cfp.repeat(1, reps),
+                           cbp=t.cbp.repeat(1, reps))
+            s = s._replace(ML=s.ML * reps)
+        g1_w, g1_d, g2_w, g2_d, w0, d0 = psw._tap_groups(t, s, reverse)
+        plan = psw.tsweep_plan(s.ML, T["v"].itemsize, g1_d, g2_d, d0,
+                               s.chain_spans, col_relax)
+        v = np.tile(T["v"], (1, 1, reps))
+        ci = (tuple(np.tile(c, (1, reps)) for c in T["carry"])
+              if with_carry else None)
+        tabs = [a.numpy() for a in (g1_w, g2_w, w0, t.cfp, t.cbp)]
+        if not col_relax:
+            tabs = tabs[:2]
+        got = _tsweep_global_replay(v, tabs, plan.offs, len(g1_d),
+                                    len(g2_d), reverse, ci)
+        want = psw._sweep(torch.from_numpy(v), t, s, reverse, col_relax,
+                          None if ci is None
+                          else tuple(map(torch.from_numpy, ci))).numpy()
+        np.testing.assert_array_equal(got, want)

@@ -61,7 +61,23 @@ DIR holds the earlier sources, unpacked from an earlier commit (e.g.
           row, batches of half and twice the rows and without the step
           barrier, and one dependent step alone in a block of 896 threads
           and in clusters of 2 and 4 (distributed shared memory, a
-          cluster barrier a step), with the us a step.
+          cluster barrier a step), with the us a step;
+  banded_gs one Gauss-Seidel direction on the production Delaunay
+          annulus (RCM, B = 512, P = 2): the mean over solve_banded_gs's
+          66 directions and the 33-round solve, float32 S=1 and S=8 and
+          float64 S=1 (the earlier banded.cu with banded_gs_launch(din,
+          dtmp, dout, toff, tcol, tw, didx, hoff, hsrc, n_dest, S, n_pad,
+          B, P, forward, smem, is_double, stream); the package's window
+          route); with --breakdown the package's with one piece of a pass
+          left out (the taps, the ring gather, the pass barriers), with
+          the next block's staging waited at once, and with P = 1 and 0;
+  bfm_step one BFM step, each step of a whole solve from the plain
+          version's states: 180x63 S=1 and S=8 float32, 48x12 float64,
+          and bfm_ms level 1's masked step at 180x63 (the earlier
+          ell_bfm.cu's two launches, ell_bfm_step_launch; the package's
+          push route, and its pull route); with --breakdown the push
+          route with the flags' push, the state's copy or the grid sync
+          left out.
 Both versions are built with the package's nvcc flags into a temporary
 directory, run on the same inputs and held bit-equal to the plain
 versions (fused with the same iterations); then each shape is timed
@@ -91,6 +107,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -1206,6 +1223,352 @@ def tsweep_ab(old_dir, reps, rows, breakdown, tmp):
         print(json.dumps(rows[-1]), flush=True)
 
 
+# ---- banded_gs: the window route against the earlier kernel ----
+
+# pieces of csrc/banded.cu gs_window_kernel left out (timing only: each
+# computes another function)
+_GS_NEW_SKIP = {
+    "no taps": [("          for (int u = 0; u < 8; u += 2) {\n            v0 = min_of(v0, add_rn(r[u], w[u]));\n            v1 = min_of(v1, add_rn(r[u + 1], w[u + 1]));\n          }",
+                 "          for (int u = 0; u < 8; u += 2) {\n          }"),
+                ("        for (; k < D; ++k) v0 = min_of(v0, add_rn(ring[ip[32 * k]], wp[32 * k]));\n", "")],
+    "no ring gather": [("#pragma unroll\n          for (int u = 0; u < 8; ++u) r[u] = ring[j[u]];",
+                        "#pragma unroll\n          for (int u = 0; u < 8; ++u) r[u] = w[u] + j[u];"),
+                       ("add_rn(ring[ip[32 * k]], wp[32 * k])",
+                        "add_rn(wp[32 * k], wp[32 * k])")],
+    "staging waited at once": [("      stage_taps(q + 1, rb_of(q + 1), n0, n1);\n      cp_async_commit();\n",
+                                "      stage_taps(q + 1, rb_of(q + 1), n0, n1);\n      cp_async_commit();\n      cp_async_wait_all();\n")],
+    "no pass barriers": [("      __syncthreads();\n      const bool last = p + 1 == P;",
+                          "      const bool last = p + 1 == P;"),
+                         ("      if (!last) __syncthreads();\n", "")],
+}
+
+
+def _gs_old_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn = lib.banded_gs_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    return lib
+
+
+def _gs_new_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn = lib.banded_gs_window_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [
+        ctypes.c_void_p]
+    return lib
+
+
+def _gs_old_call(lib, d, bg, forward, passes=2):
+    """One direction of the earlier banded_gs (launch interface
+    banded_gs_launch(din, dtmp, dout, toff, tcol, tw, didx, hoff, hsrc,
+    n_dest, S, n_pad, B, P, forward, smem, is_double, stream))."""
+    S, n_pad = d.shape
+    out = torch.empty_like(d)
+    n_dest = int(bg.hoff.shape[0]) - 1
+    tmp = torch.empty_like(d) if n_dest > 0 else out
+    rc = lib.banded_gs_launch(
+        d.data_ptr(), tmp.data_ptr(), out.data_ptr(), bg.toff.data_ptr(),
+        bg.tcol.data_ptr(), bg.tw.data_ptr(), bg.didx.data_ptr(),
+        bg.hoff.data_ptr(), bg.hsrc.data_ptr(), n_dest, S, n_pad, 512,
+        passes, int(forward), 2 * 512 * d.element_size(),
+        int(d.dtype == torch.float64), torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    return out
+
+
+def _gs_new_call(lib, d, bg, forward, passes=2):
+    """One direction of a build `lib` of the package's banded.cu on the
+    window route (its layout from the package)."""
+    from raytracer_tpu_torch.ops import banded as pb
+
+    lay = pb._gs_route(bg, 512)
+    p = lay.plan
+    S, n_pad = d.shape
+    out = torch.empty_like(d)
+    n_dest = int(bg.hoff.shape[0]) - 1
+    tmp = torch.empty_like(d) if n_dest > 0 else out
+    rc = lib.banded_gs_window_launch(
+        d.data_ptr(), tmp.data_ptr(), out.data_ptr(), lay.meta.data_ptr(),
+        lay.idx.data_ptr(), lay.w.data_ptr(), lay.blk.data_ptr(),
+        bg.didx.data_ptr(), bg.hoff.data_ptr(), bg.hsrc.data_ptr(), n_dest,
+        S, n_pad, 512, passes, int(forward), p.K, p.Wr, p.G32, p.nmax,
+        p.smem, int(d.dtype == torch.float64),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    return out
+
+
+def _gs_solve(call, d, rounds):
+    """`rounds` Gauss-Seidel rounds (forward then backward) with the host
+    read of solve_banded_gs's changed flag after each."""
+    for _ in range(rounds):
+        n = call(call(d, True), False)
+        bool((n < d).any())
+        d = n
+    return d
+
+
+def banded_gs_ab(old_dir, reps, rows, breakdown, tmp):
+    """The earlier banded_gs and the package's (the window route), in
+    turns, on the production Delaunay annulus (the RCM order, B = 512,
+    P = 2): a direction's mean over the 66 directions of solve_banded_gs
+    (33 rounds from the surface source), float32 S=1, float64 S=1 and
+    float32 S=8 (the sources of chip_smoke.py phase 16), and the solve
+    itself (the 33 rounds with their host reads); both held bit-equal to
+    banded_gs_reference after every direction first.  With `breakdown`:
+    the package's built with one piece of a pass left out (the taps, the
+    ring gather, the pass barriers) and run with P = 1 and P = 0, float32
+    S=1 (timing only), and one that
+    waits for the next block's staging as soon as it starts (the
+    copies' time not hidden)."""
+    from raytracer_tpu_torch.ops import banded as pb
+
+    old = _gs_old_bind(_old_lib(old_dir, "banded", tmp))
+    new = _gs_new_bind(pb._banded_lib())
+    dg = rt.add_midpoints(rt.triangle_annulus_2d(**chip_smoke.DELAUNAY))
+    dA = rt.node_adjacency(dg, star=0)
+    U = chip_smoke._ak135_vp(dg)
+    src = rt.closest_point(dg, 0.0, rt.R, system="polar")
+    srcs8 = [rt.closest_point(dg, np.deg2rad(d), rt.R, system="polar")
+             for d in np.linspace(0.0, 175.0, 8)]
+    rounds = chip_smoke.JAX_BANDED["gs"][0]
+    bgs = {}
+    for dtype, srcs in (("float32", [src]), ("float64", [src]),
+                        ("float32", srcs8)):
+        cfg = rt.SolverConfig(dtype=dtype)
+        if dtype not in bgs:
+            bgs[dtype] = rt.prepare_banded(dA, chip_smoke._no_halo(), dg, U,
+                                           cfg)
+        bg = bgs[dtype]
+        twin = chip_smoke._dense_on_card(bg)
+        d0 = pb._sources(bg, srcs, cfg)
+        d = d0
+        for k in range(2 * rounds):      # bit-equal after every direction
+            fwd = k % 2 == 0
+            want = pb.banded_gs_reference(d, twin, fwd)
+            for name, lib, call in (("old", old, _gs_old_call),
+                                    ("new", new, _gs_new_call)):
+                got = call(lib, d, bg, fwd)
+                assert torch.equal(got, want), (name, dtype, len(srcs), k)
+            d = want
+
+        def dirs(lib, call):
+            def run():
+                x = d0
+                for k in range(2 * rounds):
+                    x = call(lib, x, bg, k % 2 == 0)
+            return run
+
+        o, n = _turns(dirs(old, _gs_old_call), dirs(new, _gs_new_call),
+                      max(1, reps // 4))
+        so, sn = _turns(lambda: _gs_solve(lambda x, f: _gs_old_call(
+            old, x, bg, f), d0, rounds), lambda: _gs_solve(
+            lambda x, f: _gs_new_call(new, x, bg, f), d0, rounds),
+            max(1, reps // 4))
+        rows.append(dict(kernel="banded_gs", mesh="Delaunay nr=60",
+                         dtype=dtype, S=len(srcs),
+                         old_ms=[x / (2 * rounds) for x in o],
+                         new_ms=[x / (2 * rounds) for x in n],
+                         old_solve_ms=so, new_solve_ms=sn,
+                         plan=pb._gs_route(bg, 512).plan._asdict(),
+                         bit_equal=True))
+        print(json.dumps(rows[-1]), flush=True)
+    if not breakdown:
+        return
+    bg = bgs["float32"]
+    d0 = pb._sources(bg, [src], rt.SolverConfig())
+    with open(kernels.source_path("banded")) as f:
+        text = f.read()
+    libs = {"new": new, **_variants(text, _GS_NEW_SKIP, tmp, "gs_new",
+                                    _gs_new_bind)}
+
+    def dirs(lib, passes):
+        def run():
+            x = d0
+            for k in range(2 * rounds):
+                x = _gs_new_call(lib, x, bg, k % 2 == 0, passes)
+        return run
+
+    for turn in range(2):
+        split = {name: _ms(dirs(lib, 2), max(1, reps // 4)) / (2 * rounds)
+                 for name, lib in libs.items()}
+        for passes in (1, 0):
+            split[f"P={passes}"] = _ms(dirs(new, passes),
+                                       max(1, reps // 4)) / (2 * rounds)
+        split["old"] = _ms(lambda: [_gs_old_call(old, d0, bg, k % 2 == 0)
+                                    for k in range(2 * rounds)],
+                           max(1, reps // 4)) / (2 * rounds)
+        rows.append(dict(kernel="banded_gs", split_ms=split, turn=turn,
+                         phases=186))
+        print(json.dumps(rows[-1]), flush=True)
+
+
+# ---- bfm_step: the push route against the earlier two launches ----
+
+_BFM_NEW_SKIP = {
+    "no push": [("      for (int k = lane; k < dg; k += 32) {\n        const int j = nbr[row + k];",
+                 "      for (int k = lane; k < 0; k += 32) {\n        const int j = nbr[row + k];")],
+    "no state copy": [("    dist1[e] = dist0[e];\n    prev1[e] = prev0[e];\n", "")],
+    "no grid sync": [("  cg::this_grid().sync();\n", "")],
+}
+
+
+def _bfm_bind(lib: ctypes.CDLL, push: bool) -> ctypes.CDLL:
+    fn = lib.ell_bfm_step_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    if push:
+        fn = lib.ell_bfm_push_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+    return lib
+
+
+def _bfm_call(lib, st, g, mask, push):
+    """One step of build `lib` on state st (fields (S, n_pad)): the push
+    route (ell_bfm_push_launch) or the pull (ell_bfm_step_launch, the
+    earlier build's only route)."""
+    from raytracer_tpu_torch.ops.relax import _INT32_MAX
+
+    d0, p0 = st.dist, st.prev
+    f0 = st.front.view(torch.uint8)
+    S, n_pad = d0.shape
+    d1, p1, f1 = torch.empty_like(d0), torch.empty_like(p0), torch.empty_like(f0)
+    it_out = torch.empty((), dtype=torch.int32, device=d0.device)
+    live_out = torch.zeros((), dtype=torch.int32, device=d0.device)
+    head = (d0.data_ptr(), p0.data_ptr(), f0.data_ptr(), g.nbr.data_ptr(),
+            g.w.data_ptr(), g.deg.data_ptr(), g.didx.data_ptr(),
+            g.hoff.data_ptr(), g.hsrc.data_ptr(),
+            None if mask is None else mask.data_ptr(), st.it.data_ptr(),
+            st.live.data_ptr(), d1.data_ptr(), p1.data_ptr())
+    tail = (S, n_pad, g.nbr.shape[1], _INT32_MAX,
+            int(d0.dtype == torch.float64),
+            torch.cuda.current_stream().cuda_stream)
+    if push:
+        rc = lib.ell_bfm_push_launch(*head, f1.data_ptr(), it_out.data_ptr(),
+                                     live_out.data_ptr(), *tail)
+    else:
+        imp = torch.empty_like(f0)
+        rc = lib.ell_bfm_step_launch(*head, imp.data_ptr(), f1.data_ptr(),
+                                     it_out.data_ptr(), live_out.data_ptr(),
+                                     *tail)
+    assert rc == 0, rc
+    return st._replace(dist=d1, prev=p1, front=f1.view(torch.bool), it=it_out,
+                       live=live_out)
+
+
+def _bfm_states(g, st, mask):
+    """The states of a whole solve from `st` (the plain version), each
+    field (S, n_pad): every step's input."""
+    from raytracer_tpu_torch.ops import relax
+
+    out = []
+    while int(st.live):
+        out.append(st)
+        st = relax.bfm_step_reference(st, g, None, mask)
+    return out
+
+
+def bfm_step_ab(old_dir, reps, rows, breakdown, tmp):
+    """The earlier bfm_step (two launches: the relaxation, then the pulled
+    frontier) and the package's push route (one cooperative launch), in
+    turns, each step of a whole solve timed from the plain version's
+    states: 180x63 S=1 and S=8 float32 (the surface source; chip_smoke.py
+    phase 3f's eight), 48x12 S=1 float64, and the level-masked step of
+    bfm_ms's level 1 at 180x63 float32; both held bit-equal to
+    bfm_step_reference on every state first.  Also the package's pull
+    route on the same states, and each version's device time a step by
+    kernel (torch.profiler: a step's host call outlasts its kernels).
+    With `breakdown`: the push route built with one piece left out (the
+    flags' push, the state's copy, the grid sync; timing only), by its
+    device time a step."""
+    from raytracer_tpu_torch.models.partition import partition_grid
+    from raytracer_tpu_torch.ops import relax
+    from raytracer_tpu_torch.solvers.multiphase import _level_mask_t
+
+    old = _bfm_bind(_old_lib(old_dir, "ell_bfm", tmp), False)
+    new = _bfm_bind(relax._ell_bfm_lib(), True)
+    gr, A, halo = rt.init_annulus(180, 63, spacing=20.0)
+    G = rt.prepare(A, halo, gr, chip_smoke._ak135_vp(gr))
+    src = rt.closest_point(gr, 0.0, rt.R, system="polar")
+    srcs8 = [rt.closest_point(gr, np.deg2rad(d), rt.R, system="polar")
+             for d in np.linspace(0.0, 315.0, 8)]
+    gs, As, hs = rt.init_annulus(48, 12, spacing=150.0)
+    g48 = rt.prepare(As, hs, gs, chip_smoke._ak135_vp(gs),
+                     rt.SolverConfig(dtype="float64"))
+    src48 = rt.closest_point(gs, 0.0, rt.R, system="polar")
+    mask = _level_mask_t(partition_grid(gr), 1, gr, G.nbr.shape[0], "cuda")
+    two = lambda s: s if s.dist.dim() == 2 else s._replace(
+        dist=s.dist[None], prev=s.prev[None], front=s.front[None])
+    cases = [("180x63", "float32", G, [src], None),
+             ("180x63", "float32", G, srcs8, None),
+             ("48x12", "float64", g48, [src48], None),
+             ("180x63 bfm_ms level 1", "float32", G, [src], mask)]
+    states_s1 = None
+    for grid, dtype, g, srcs, m in cases:
+        assert g.symmetric
+        st = relax.init_state(g, srcs, dtype, mask=m)
+        states = [two(s) for s in _bfm_states(g, st, m)]
+        if grid == "180x63" and len(srcs) == 1:
+            states_s1 = states
+        for s in states:                  # bit-equal on every state
+            want = two(relax.bfm_step_reference(s, g, None, m))
+            for name, lib, push in (("old", old, False), ("new", new, True)):
+                got = _bfm_call(lib, s, g, m, push)
+                for f in got._fields:
+                    assert torch.equal(getattr(got, f), getattr(want, f)), (
+                        name, grid, f)
+
+        def steps(lib, push):
+            return lambda: [_bfm_call(lib, s, g, m, push) for s in states]
+
+        o, n = _turns(steps(old, False), steps(new, True), max(1, reps // 4))
+        pull = _ms(steps(new, False), max(1, reps // 4))
+        dev = {k: {name: t / len(states) for name, t in
+                   chip_smoke._kernel_split_ms(fn, 1).items()}
+               for k, fn in (("old", steps(old, False)),
+                             ("new push", steps(new, True)),
+                             ("new pull", steps(new, False)))}
+        host = {}                    # the host's time to enqueue a step
+        for k, fn in (("old", steps(old, False)),
+                      ("new push", steps(new, True)),
+                      ("new pull", steps(new, False)),
+                      ("package bfm_step", lambda: [relax.bfm_step(
+                          s, g, None, m) for s in states])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host[k] = 1e3 * (time.perf_counter() - t0) / len(states)
+            torch.cuda.synchronize()
+        rows.append(dict(kernel="bfm_step", grid=grid, dtype=dtype,
+                         S=len(srcs), masked=m is not None, steps=len(states),
+                         old_ms=[x / len(states) for x in o],
+                         new_ms=[x / len(states) for x in n],
+                         new_pull_ms=pull / len(states),
+                         device_ms_by_kernel=dev, host_ms_a_call=host,
+                         bit_equal=True))
+        print(json.dumps(rows[-1]), flush=True)
+    if not breakdown:
+        return
+    with open(kernels.source_path("ell_bfm")) as f:
+        text = f.read()
+    libs = {"push": new, **_variants(text, _BFM_NEW_SKIP, tmp, "bfm_new",
+                                     lambda lib: _bfm_bind(lib, True))}
+    for turn in range(2):    # device ms a step (torch.profiler)
+        split = {name: sum(chip_smoke._kernel_split_ms(
+            lambda: [_bfm_call(lib, s, G, None, True) for s in states_s1],
+            1).values()) / len(states_s1) for name, lib in libs.items()}
+        split["old (pull, two launches)"] = sum(chip_smoke._kernel_split_ms(
+            lambda: [_bfm_call(old, s, G, None, False) for s in states_s1],
+            1).values()) / len(states_s1)
+        rows.append(dict(kernel="bfm_step", split_ms=split, turn=turn,
+                         steps=len(states_s1)))
+        print(json.dumps(rows[-1]), flush=True)
+
+
 def _build_probe(tmp):
     src = os.path.join(tmp, "step_probe.cu")
     with open(src, "w") as f:
@@ -1237,7 +1600,7 @@ def main(argv=None):
                     help="directory with the earlier kernel sources")
     ap.add_argument("--kernels", default="titer,diag",
                     help="comma-separated: titer, diag, witer, relax, fused, "
-                         "plane3d, tsweep")
+                         "plane3d, tsweep, banded_gs, bfm_step")
     ap.add_argument("--old-pkg", default=None,
                     help="directory holding an earlier raytracer_tpu_torch, "
                          "to time whole solves against")
@@ -1274,6 +1637,10 @@ def main(argv=None):
             tsweep_ab(a.old, a.reps, rows, a.breakdown, tmp)
         if "plane3d" in want:
             plane3d_ab(a.old, a.reps, rows, a.breakdown, tmp)
+        if "banded_gs" in want:
+            banded_gs_ab(a.old, a.reps, rows, a.breakdown, tmp)
+        if "bfm_step" in want:
+            bfm_step_ab(a.old, a.reps, rows, a.breakdown, tmp)
         if a.breakdown and "fused" in want:
             fused_breakdown(tmp, {"old": a.old, "new": kernels.CSRC_DIR},
                             max(1, a.reps // 4), rows)
