@@ -74,16 +74,22 @@ the exit code is non-zero):
      and 15) and of PcP at 180x63, both directions, float32 and float64
      (blocks without a finite tap included), timed on level 1's table;
      (3i) paths (the predecessor walk with its COO and dense sensitivity
-     rows) on the 180x63 sweep prev (150 receivers, max_len 972) and on
-     16x6 with its halo, float64 and float32: nodes and ids bit-equal,
-     vals and dense rows within 1e-12 / 1e-6 relative; bend (the Adam
+     rows) on the 180x63 sweep prev (150 receivers, max_len 972), on
+     16x6 with its halo and on its tree with a 3-cycle and the source's
+     entry -1, float64 and float32, in the three call forms (nodes, COO,
+     dense): nodes and ids bit-equal, vals and dense rows within 1e-12 /
+     1e-6 relative, two launches' dense rows equal; bend (the Adam
      bend in one launch) in lockstep with its twin on the five paths of
      tests/test_torch_refine.py, 2-D and 3-D, 10 and 50 steps: float64
      within 1e-6 s and 1e-3 km, float32 within twice the twin's own
      spread under a one-ulp nudge of its input (measured in the run);
      chunks equal to one launch; the 150-path --refine fan at 800 steps
      in float64 at or below its input and within twice the JAX package's
-     float64 spread of the twin (JAX_REFINE_SPREAD64), timed in float32;
+     float64 spread of the twin (JAX_REFINE_SPREAD64), timed in float32
+     and float64; a table-shaped sub-batch (1,024 x 384 x 2, quad 16,
+     float64) in lockstep after 10 steps and, after 200, at or below its
+     input and within twice the twin's spread under a 1e-9 km nudge,
+     timed;
      (3j) gridsearch (the locator's grid search, a thread a column and
      the whole catalogue in one call) against its twin on the card in
      both formulas (direct, expanded) and float32 and float64: at the
@@ -3912,10 +3918,12 @@ def _fan(gr, n=None):
 
 
 def _paths_check(gr, U, prev, src, recs, max_len, halo, dtype, what):
-    """`paths` (walk, COO rows, dense rows) against its twin on the card:
-    nodes and ids bit-equal, vals and the dense rows within 1e-12
-    (float64) or 1e-6 (float32) relative to the largest |val|; returns
-    the relative error and the (device tensors of the) inputs."""
+    """`paths` against its twin on the card in its three call forms
+    (nodes, COO rows, dense rows): nodes and ids bit-equal, vals and the
+    dense rows within 1e-12 (float64) or 1e-6 (float32) relative to the
+    largest |val|, the forms' shared outputs equal and two launches' dense
+    rows equal; returns the relative error and the (device tensors of
+    the) inputs."""
     import numpy as np
     import torch
 
@@ -3926,12 +3934,20 @@ def _paths_check(gr, U, prev, src, recs, max_len, halo, dtype, what):
     terms = S._device_terms(gr, np.asarray(U, dtype), halo, dev)
     prev_t = torch.as_tensor(np.asarray(prev, np.int32), device=dev)
     recs_t = torch.as_tensor(np.asarray(recs, np.int32), device=dev)
+    only = OP.paths(prev_t, src, recs_t, max_len)
+    coo = OP.paths(prev_t, src, recs_t, max_len, terms)
     got = OP.paths(prev_t, src, recs_t, max_len, terms, dense=True)
+    again = OP.paths(prev_t, src, recs_t, max_len, terms, dense=True)
     want = OP.paths_reference(prev_t, src, recs_t, max_len, terms,
                               dense=True)
     torch.cuda.synchronize()
-    assert torch.equal(got.nodes, want.nodes), f"paths nodes {what}"
-    assert torch.equal(got.ids, want.ids), f"paths ids {what}"
+    assert only.ids is None and coo.dense is None, what
+    for out in (only, coo, got):
+        assert torch.equal(out.nodes, want.nodes), f"paths nodes {what}"
+    for out in (coo, got):
+        assert torch.equal(out.ids, want.ids), f"paths ids {what}"
+    assert torch.equal(coo.vals, got.vals), f"paths vals {what}"
+    assert torch.equal(again.dense, got.dense), f"paths two launches {what}"
     scale = float(want.vals.abs().max())
     err = max(float((got.vals - want.vals).abs().max()),
               float((got.dense - want.dense).abs().max())) / scale
@@ -3951,6 +3967,21 @@ def _paths_work(n, n_rec, max_len, ndim, P, itemsize):
               + itemsize * n_rec * n)
     ops = n_rec * K * (3 * ndim + 8 + 2)
     return float(nbytes), float(ops)
+
+
+def _table_batch(fan):
+    """A sub-batch shaped as refined_travel_time_table's: the fan's paths
+    at m 384, seven copies with their interior vertices moved by up to 5
+    km (seed 22), the first 1,024."""
+    import numpy as np
+
+    from raytracer_tpu_torch.solvers import refine as RF
+
+    s384 = np.stack([RF.resample_path(p, 384) for p in fan])
+    tiles = np.concatenate([s384] * 7)[:1024].copy()
+    rng = np.random.default_rng(22)
+    tiles[:, 1:-1] += rng.uniform(-5.0, 5.0, tiles[:, 1:-1].shape)
+    return tiles
 
 
 def _lift(p, ang=0.3):
@@ -4010,8 +4041,17 @@ def phase_paths_kernels(rec: dict):
     st = rt.closest_point(gt, 0.0, rt.R, system="polar")
     Dt = rt.dijkstra(At, ht, st, gt, Ut, rt.SolverConfig(dtype="float64"))
     _, rt16 = _fan(gt)
+    # and its tree with a 3-cycle that a walk enters (ROADMAP C.9) and
+    # the source's own entry -1 (a walk stops at the source)
+    cyc = np.asarray(Dt.prev).copy()
+    walk = rt.recontruct_path(Dt.prev, st, rt16[40])
+    assert len(walk) >= 4, walk
+    cyc[walk[2]] = walk[0]
+    cyc[st] = -1
     for dtype in (np.float64, np.float32):
         _paths_check(gt, Ut, Dt.prev, st, rt16, 88, ht, dtype, "16x6")
+        _paths_check(gt, Ut, cyc, st, rt16, 88, ht, dtype,
+                     "16x6 with a 3-cycle and -1")
     ms = _cuda_ms(lambda: OP.paths(prev_t, src, recs_t, max_len, terms,
                                    dense=True), 10)
     plain = _cuda_ms(lambda: OP.paths_reference(prev_t, src, recs_t,
@@ -4105,6 +4145,36 @@ def phase_paths_kernels(rec: dict):
     bms64 = _cuda_ms(lambda: OB.bend(P64, tab64, 3.0, rt.R, 800, 8), 3)
     rec["bend"] = dict(ms=bms, plain_ms=bplain, bound_ms=bbound,
                        bound_by=bby, max_abs_err=e32_fan)
+    # a table-shaped sub-batch (1,024 x 384 x 2, quad 16, float64; the
+    # plan of refined_travel_time_table's launches, several passes of
+    # segments a step): in lockstep with the twin after 10 steps (1e-6 s,
+    # 1e-3 km); after 200 steps every time at or below its input's and
+    # within twice the twin's own spread under a 1e-9 km nudge of the
+    # interior vertices (seed 22; these perturbed candidates are flatter
+    # than the fan's paths, so their spread is the yardstick, measured in
+    # the run)
+    Pb = torch.as_tensor(_table_batch(fan), device="cuda")
+    lk = OB.bend(Pb, tab64, 3.0, rt.R, 10, 16)
+    lt = OB.bend_reference(Pb, tab64, 3.0, rt.R, 10, 16)
+    sub_lock = (float((lk[1] - lt[1]).abs().max()),
+                float((lk[0] - lt[0]).abs().max()))
+    assert sub_lock[0] <= 1e-6 and sub_lock[1] <= 1e-3, sub_lock
+    _, tb_k = OB.bend(Pb, tab64, 3.0, rt.R, 200, 16)
+    _, tb_t = OB.bend_reference(Pb, tab64, 3.0, rt.R, 200, 16)
+    nudge = Pb.clone()
+    nudge[:, 1:-1] += 1e-9 * torch.as_tensor(
+        np.random.default_rng(22).choice([-1.0, 1.0], nudge[:, 1:-1].shape),
+        device="cuda")
+    _, tb_n = OB.bend_reference(nudge, tab64, 3.0, rt.R, 200, 16)
+    tb_in = OB.ttime(Pb, tab64, 16)
+    assert bool((tb_k <= tb_in + 1e-6).all()) and bool(
+        (tb_t <= tb_in + 1e-6).all())
+    sub_err = float((tb_k - tb_t).abs().max())
+    sub_spread = float((tb_n - tb_t).abs().max())
+    assert sub_err <= 2.0 * sub_spread, (sub_err, sub_spread)
+    sub_ms = _cuda_ms(lambda: OB.bend(Pb, tab64, 3.0, rt.R, 200, 16), 2)
+    sub_plan = OB.bend_plan(*Pb.shape, 16, 8, torch.cuda.get_device_properties(
+        0).multi_processor_count)
     print(f"phase 3i kernels: paths (walk, COO rows, dense rows) on the "
           f"180x63 sweep prev ({gr.nnods} nodes, solve {t_solve:.2f} s, "
           f"150 receivers, max_len {max_len}) and on 16x6 with its halo, "
@@ -4123,7 +4193,13 @@ def phase_paths_kernels(rec: dict):
           f"s), every time at or below its input's; a launch {bms:.3f} ms "
           f"float32 (float64 {bms64:.3f} ms), plain {bplain:.1f} ms, bound "
           f"{bbound:.4f} ms ({bby}: {ops32 / 1e9:.2f} G operations), float32 "
-          f"max |t - twin| {e32_fan:.3e} s", flush=True)
+          f"max |t - twin| {e32_fan:.3e} s; a table-shaped sub-batch "
+          f"(1024 x 384 x 2, quad 16, float64, plan {sub_plan.threads} "
+          f"threads x {sub_plan.lanes} lanes): 10 steps {sub_lock[0]:.2e} s "
+          f"{sub_lock[1]:.2e} km from the twin, 200 steps max |t - twin| "
+          f"{sub_err:.3e} s (the twin's own spread under a 1e-9 km nudge "
+          f"{sub_spread:.3e} s), every time at or below its input's, a "
+          f"launch {sub_ms:.3f} ms", flush=True)
 
 
 def phase_paths(rec: dict, tmp: str):

@@ -30,11 +30,17 @@ The Adam count carries across calls, so a bend cut into chunks
 (`chunk=`) gives the result of one run.
 
 `bend` takes CPU polylines to the twin and CUDA ones to the kernel (or
-raises); `bend.launches` counts the kernel's launches.
+raises); `bend.launches` counts the kernel's launches.  On the card a
+block bends one path; `bend_plan` picks its threads and the lanes that
+share a segment's quadrature points from the batch, the path and the
+card's SM count, and `bias_table` gives the launch its steps' Adam bias
+corrections, computed on the host as the twin computes them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -45,7 +51,18 @@ from ..kernels import BLOCK_SMEM
 
 B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
 EPS = 1e-18          # under each sqrt of the functional
-THREADS = 128        # the kernel's block: one block a path
+MAX_WARPS = 32       # csrc/bend.cu kMaxWarps: the warps' partial times
+BIAS_WINDOW = 64     # csrc/bend.cu kBiasWindow: steps of bias corrections
+SM_THREADS = 1024    # threads an SM holds at the kernel's 64 registers
+SM_SMEM = 228 * 1024  # shared memory an SM has (1 KB of it kept a block)
+H100_SMS = 132
+# the planner's cost of a step, in the latency of one float32 quadrature
+# point (a float64 one costs two): the fixed part (the segment's length
+# and terms, the Adam update, two barriers), a doubling of the block's
+# warps (the warps' sum, the barriers) and one level of xor shuffles in a
+# group (set from the fan's and the table sub-batch's times at 12 plans
+# on an H100, PERF.md)
+STEP_FIXED, WARP_LEVEL, SHUFFLE_LEVEL = 4.0, 1.2, 3.0
 
 
 class SlownessTable(NamedTuple):
@@ -65,8 +82,10 @@ class BendState(NamedTuple):
     bestT: torch.Tensor  # (B,) its time
 
 
+@functools.lru_cache(maxsize=16)
 def quad_points(quad: int, dtype, device) -> torch.Tensor:
-    """The `quad` midpoints of [0, 1] (jnp.linspace's values)."""
+    """The `quad` midpoints of [0, 1] (jnp.linspace's values; kept: a copy
+    to the card in every call would wait for the card each time)."""
     ts = np.linspace(0.5 / quad, 1.0 - 0.5 / quad, quad)
     return torch.as_tensor(ts, dtype=dtype, device=device)
 
@@ -168,9 +187,68 @@ def _chunks(iters: int, chunk: Optional[int]):
 def smem_bytes(m: int, d: int, quad: int, itemsize: int) -> int:
     """The kernel's dynamic shared memory for one path: the iterate, the
     best iterate, Adam's two moments, the segments' two gradients, the
-    quadrature points and the reduction's slots."""
-    return itemsize * (4 * m * d + 2 * (m - 1) * d + quad + THREADS // 32
-                       + 2)
+    quadrature points, the warps' partial times and the window of bias
+    corrections."""
+    return itemsize * (4 * m * d + 2 * (m - 1) * d + quad + MAX_WARPS
+                       + 2 * BIAS_WINDOW)
+
+
+class BendPlan(NamedTuple):
+    """How the kernel bends a batch: one path a block of `threads`
+    threads, `lanes` lanes a segment (each takes every lanes-th
+    quadrature point), `smem` bytes of shared memory a block, `per_sm`
+    blocks an SM holds at once."""
+
+    threads: int
+    lanes: int
+    smem: int
+    per_sm: int
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def bend_plan(Bn: int, m: int, d: int, quad: int, itemsize: int,
+              sms: int = H100_SMS) -> BendPlan:
+    """The kernel's block for a batch of Bn paths of m vertices in d
+    dimensions: the (threads, lanes) of least modelled time, waves of
+    blocks x (STEP_FIXED + WARP_LEVEL a doubling of warps + the longest
+    lane's quadrature points a step, itemsize/4 each + SHUFFLE_LEVEL a
+    shuffle level); ties go to fewer threads, then fewer lanes.  A path
+    whose state does not fit one block's shared memory raises."""
+    smem = smem_bytes(m, d, quad, itemsize)
+    if smem > BLOCK_SMEM:
+        raise ValueError(f"bend: a path of {m} vertices in {d} dimensions "
+                         f"at quad {quad} needs {smem} bytes of shared "
+                         f"memory, above the {BLOCK_SMEM} a block may have")
+    best = None
+    for threads in (128, 256, 512, 1024):
+        per_sm = min(SM_THREADS // threads, SM_SMEM // (smem + 1024))
+        waves = max(1, math.ceil(Bn / (sms * per_sm)))
+        lanes = 1
+        while lanes <= min(32, _pow2_ceil(quad)):
+            chain = (math.ceil((m - 1) * lanes / threads)
+                     * math.ceil(quad / lanes))
+            cost = waves * (STEP_FIXED + chain * itemsize / 4
+                            + WARP_LEVEL * math.log2(threads // 32)
+                            + SHUFFLE_LEVEL * (lanes.bit_length() - 1))
+            if best is None or cost < best[0]:
+                best = (cost, BendPlan(threads, lanes, smem, per_sm))
+            lanes *= 2
+    return best[1]
+
+
+@functools.lru_cache(maxsize=16)
+def bias_table(count0: int, iters: int, dtype, device) -> torch.Tensor:
+    """(2, iters): 1 - B1 ** count and 1 - B2 ** count for count =
+    count0 + 1 ... count0 + iters, Python's float power in double as the
+    twin computes them, cast to `dtype` (kept: a bend of the same steps
+    reuses it)."""
+    counts = range(count0 + 1, count0 + iters + 1)
+    return torch.tensor([[1 - B1 ** c for c in counts],
+                         [1 - B2 ** c for c in counts]],
+                        dtype=torch.float64).to(dtype=dtype, device=device)
 
 
 def _bend_lib() -> ctypes.CDLL:
@@ -178,25 +256,28 @@ def _bend_lib() -> ctypes.CDLL:
     fn = lib.bend_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int]
-                       + [ctypes.c_double] * 4 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
+                       + [ctypes.c_double] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
     return lib
 
 
 def _launch(state: BendState, prof: SlownessTable, lr: float, r_max: float,
-            iters: int, quad: int, init: bool, final: bool) -> BendState:
+            iters: int, quad: int, plan: BendPlan, init: bool,
+            final: bool) -> BendState:
     """One kernel launch: [init,] `iters` steps [, final], in place on
     copies of the state's tensors."""
     P, mu, nu, count, bestP, bestT = state
     Bn, m, d = P.shape
     ts = quad_points(quad, P.dtype, P.device)
+    bias = bias_table(count, iters, P.dtype, P.device)
     stream = torch.cuda.current_stream(P.device).cuda_stream
     rc = _bend_lib().bend_launch(
         P.data_ptr(), mu.data_ptr(), nu.data_ptr(), bestP.data_ptr(),
-        bestT.data_ptr(), ts.data_ptr(), prof.tab.data_ptr(),
-        prof.tab.shape[0], float(prof.r0), float(prof.inv_dr), float(lr),
-        float(r_max), int(count), int(iters), int(quad), Bn, m, d,
+        bestT.data_ptr(), ts.data_ptr(), bias.data_ptr(),
+        prof.tab.data_ptr(), prof.tab.shape[0], float(prof.r0),
+        float(prof.inv_dr), float(lr), float(r_max), int(iters), int(quad),
+        Bn, m, d, plan.threads, plan.lanes,
         int(init) | (int(final) << 1), int(P.dtype == torch.float64),
         stream)
     if rc != 0:
@@ -227,10 +308,10 @@ def bend(P: torch.Tensor, prof: SlownessTable, lr: float, r_max: float,
     carried between them; the result is the same).
 
     CUDA polylines (float32 or float64) go to the hand-written kernel
-    `csrc/bend.cu`: one block a path, its iterate, best iterate and Adam
-    moments in shared memory, every step of a chunk in one launch
-    (`bend.launches` counts them).  CPU polylines go to
-    `bend_reference`.  Any other device raises."""
+    `csrc/bend.cu`: one block a path as `bend_plan` shapes it, its
+    iterate, best iterate and Adam moments in shared memory, every step
+    of a chunk in one launch (`bend.launches` counts them).  CPU
+    polylines go to `bend_reference`.  Any other device raises."""
     _check(P, prof, quad)
     if P.device.type == "cpu":
         return bend_reference(P, prof, lr, r_max, iters, quad, chunk)
@@ -238,18 +319,16 @@ def bend(P: torch.Tensor, prof: SlownessTable, lr: float, r_max: float,
         raise ValueError(f"bend runs on cuda or cpu, not {P.device}")
     kernels.require_float("bend", P.dtype)
     Bn, m, d = P.shape
-    need = smem_bytes(m, d, quad, P.element_size())
-    if need > BLOCK_SMEM:
-        raise ValueError(f"a path of {m} vertices needs {need} bytes of "
-                         f"shared memory, above the {BLOCK_SMEM} a block "
-                         "may have")
+    plan = bend_plan(Bn, m, d, quad, P.element_size(),
+                     torch.cuda.get_device_properties(P.device)
+                     .multi_processor_count)
     P = P.contiguous().clone()
     z = torch.zeros_like(P)
     state = BendState(P, z, z.clone(), 0, P.clone(),
                       torch.empty(Bn, dtype=P.dtype, device=P.device))
     pieces = _chunks(iters, chunk)
     for k, n in enumerate(pieces):
-        state = _launch(state, prof, lr, r_max, n, quad, init=k == 0,
+        state = _launch(state, prof, lr, r_max, n, quad, plan, init=k == 0,
                         final=k == len(pieces) - 1)
     return state.bestP, state.bestT
 

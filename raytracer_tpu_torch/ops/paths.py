@@ -22,7 +22,10 @@ What a call computes (`paths_reference`, the JAX functions op for op):
   * with `dense`, the (n_rec, n) matrix: each row's vals added at its
     ids, the a-column first, in order.
 `paths` takes a CPU tensor to the twin and a CUDA tensor to the kernel
-(or raises); `paths.launches` counts the kernel's launches.
+(or raises); `paths.launches` counts the kernel's launches.  On the card
+the walk runs on jump tables f^(2^j) (`jump_levels` of them), so every
+(receiver, step) is computed at once, and the kernel writes each dense
+row whole (zeros and its column sums in the twin's order).
 """
 from __future__ import annotations
 
@@ -100,6 +103,13 @@ def paths_reference(prev: torch.Tensor, source: int,
     return PathsOut(nodes, ids, vals, mat)
 
 
+def jump_levels(max_len: int) -> int:
+    """The jump tables the kernel builds for walks of max_len nodes:
+    f^(2^j) for j < levels, enough for the binary digits of max_len - 1
+    (at least one: the pairs' second node is f of the first)."""
+    return max(1, (max_len - 1).bit_length())
+
+
 def _paths_lib() -> ctypes.CDLL:
     lib = kernels.load("paths")
     fn = lib.paths_launch
@@ -108,7 +118,7 @@ def _paths_lib() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
                        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
                        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-                       + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] + [ctypes.c_void_p] * 4
                        + [ctypes.c_int, ctypes.c_void_p])
     return lib
 
@@ -127,13 +137,17 @@ def paths(prev: torch.Tensor, source: int, receivers: torch.Tensor,
     """Walk `prev` ((n,) int32) from each receiver ((n_rec,) int32) for
     `max_len` steps; with `terms` also the COO sensitivity rows, and with
     `dense` the dense rows (see the module docstring).  prev must hold
-    node ids in [0, n); the kernel stops a walk that meets one outside.
+    node ids in [0, n); the kernel stops a walk that meets one outside
+    (where the twin and the JAX package emit a -1 and go on from
+    prev[n - 1]).
 
-    A CUDA `prev` goes to the hand-written kernel `csrc/paths.cu`: one
-    thread a receiver walks its row and writes its nodes, ids and vals,
-    and adds its own dense row (no atomics: the result is the same every
-    run); float32 or float64 by U's dtype.  A CPU `prev` goes to
-    `paths_reference`.  Any other device raises."""
+    A CUDA `prev` goes to the hand-written kernel `csrc/paths.cu`: jump
+    tables of the walk's step, then one block a receiver computes every
+    step of its row at once and writes its nodes, ids and vals, and its
+    whole dense row (each column's terms summed in the twin's order by
+    one thread, no atomics: the result is the same every run); float32
+    or float64 by U's dtype.  A CPU `prev` goes to `paths_reference`.
+    Any other device raises."""
     if max_len < 1:
         raise ValueError(f"max_len must be >= 1, got {max_len}")
     if dense and terms is None:
@@ -167,14 +181,17 @@ def paths(prev: torch.Tensor, source: int, receivers: torch.Tensor,
         ids = torch.empty((n_rec, width), dtype=torch.int32, device=dev)
         vals = torch.empty((n_rec, width), dtype=U.dtype, device=dev)
         if dense:
-            mat = torch.zeros((n_rec, n), dtype=U.dtype, device=dev)
+            mat = torch.empty((n_rec, n), dtype=U.dtype, device=dev)
         is_double = int(U.dtype == torch.float64)
+    jumps = torch.empty((jump_levels(max_len), n), dtype=torch.int32,
+                        device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _paths_lib().paths_launch(
         prev.data_ptr(), int(source), receivers.data_ptr(), n_rec,
         int(max_len), nodes.data_ptr(), ptr(coords), ndim, n, ptr(U),
-        ptr(partners), P, ptr(ids), ptr(vals), ptr(mat), is_double, stream)
+        ptr(partners), P, ptr(ids), ptr(vals), ptr(mat), jumps.data_ptr(),
+        is_double, stream)
     if rc != 0:
         raise RuntimeError(f"paths kernel launch failed: CUDA error {rc}")
     paths.launches += 1

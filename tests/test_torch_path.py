@@ -99,3 +99,70 @@ def test_paths_wrapper_refuses():
     out = op.paths(prev, 0, recs, 3)
     assert out.ids is None and out.dense is None
     np.testing.assert_array_equal(out.nodes.numpy(), [[1, 1, 1], [2, 2, 2]])
+
+
+def _jump_walk(prev, source, receivers, max_len):
+    """NumPy replay of the `paths` kernel's walk: the jump tables f^(2^j)
+    (f: the source stays, an id outside [0, n) stays, else prev), then
+    every (r, k) from k's binary digits."""
+    prev = np.asarray(prev, np.int64)
+    a = np.arange(prev.shape[0])
+    F = [np.where((a == source) | (prev < 0) | (prev >= a.size), a, prev)]
+    while len(F) < op.jump_levels(max_len):
+        F.append(F[-1][F[-1]])
+    x = np.repeat(np.asarray(receivers, np.int64)[:, None], max_len, axis=1)
+    k = np.arange(max_len)
+    for j, Fj in enumerate(F):
+        bit = (k >> j) & 1 == 1
+        x[:, bit] = Fj[x[:, bit]]
+    return x.astype(np.int32)
+
+
+def _three_references(prev, src, recs, max_len):
+    got = _jump_walk(prev, src, recs, max_len)
+    want = np.asarray(jp.backtrace_paths(prev, src, np.asarray(recs),
+                                         max_len))
+    twin = op.walk_reference(torch.as_tensor(np.asarray(prev)), src,
+                             torch.as_tensor(np.asarray(recs)), max_len)
+    np.testing.assert_array_equal(twin.numpy(), want)
+    return got, want
+
+
+@pytest.mark.parametrize("max_len", [1, 7, 88, 300])
+def test_jump_walk_equals_the_walks(tree, max_len):
+    gr, src, D, recs = tree
+    got, want = _three_references(D.prev, src, recs, max_len)
+    np.testing.assert_array_equal(got, want)
+    # a prev with cycles (ROADMAP C.9), a self-loop and the source's own
+    # entry -1 (never read: a walk stops at the source)
+    rng = np.random.default_rng(22)
+    n = 300
+    prev = rng.integers(0, n, size=n)
+    prev[5] = -1
+    prev[10], prev[11], prev[12] = 11, 12, 10         # a 3-cycle
+    prev[20] = 20
+    recs = np.concatenate([rng.integers(0, n, 20), [10, 5, 20, 12]])
+    got, want = _three_references(prev, 5, recs, max_len)
+    np.testing.assert_array_equal(got, want)
+    assert op.jump_levels(max_len) == max(1, (max_len - 1).bit_length())
+
+
+@pytest.mark.parametrize("max_len", [1, 7, 88, 300])
+def test_jump_walk_stops_at_ids_outside(max_len):
+    """A walk that meets -1 or n stays there in the kernel; the twin and
+    the JAX package emit a -1 and go on from prev[n - 1] (and the twin
+    cannot index n): on the prev with those entries made self-loops,
+    which is the kernel's rule, all three agree."""
+    rng = np.random.default_rng(23)
+    n = 200
+    prev = rng.integers(0, n, size=n)
+    prev[7], prev[8] = -1, n
+    prev[30], prev[31] = 7, 8
+    recs = np.array([30, 31, 7, 8, 3, 150])
+    looped = np.where((prev < 0) | (prev >= n), np.arange(n), prev)
+    got = _jump_walk(prev, 3, recs, max_len)
+    np.testing.assert_array_equal(got, _three_references(looped, 3, recs,
+                                                         max_len)[1])
+    if max_len > 2:
+        np.testing.assert_array_equal(got[:2, 1:], [[7] * (max_len - 1),
+                                                    [8] * (max_len - 1)])

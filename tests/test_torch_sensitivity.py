@@ -153,3 +153,62 @@ def test_solver_sensitivity_matrix_equals_jax(tiny_annulus, tiny_velocity):
     assert done.sum() >= 2
     np.testing.assert_allclose((Gp.numpy() @ tiny_velocity)[done],
                                -np.asarray(Dp.dist)[recs][done], rtol=1e-9)
+
+
+def _row_sums(nodes, g, n, dtype):
+    """NumPy replay of the `paths` kernel's dense row: lam (the least p
+    with nodes[K-p] == nodes[K]) and mu (the least i with nodes[i] ==
+    nodes[i+lam]), then each first occurrence's column: its a-terms
+    g[i'] (i' < K), then its b-terms g[i'-1] (i' >= 1), over its
+    occurrences in order from +0.0, the source's tail of zero pairs as
+    the one term g[mu-1]."""
+    K = len(nodes) - 1
+    lam = next((p for p in range(1, K + 1) if nodes[K - p] == nodes[K]), 0)
+    mu = next(i for i in range(K + 1) if nodes[i] == nodes[i + lam]) \
+        if lam else K + 1
+    row = np.zeros(n, dtype)
+    for i in range(min(mu + lam, K + 1)):
+        occ = list(range(i, K + 1, lam)) if lam and i >= mu else [i]
+        s = dtype(0.0)
+        if lam == 1 and i >= mu and i < K and g[i] == 0:
+            s = s + g[i - 1] if i >= 1 else s
+        else:
+            for j in occ:
+                if j < K:
+                    s = s + g[j]
+            for j in occ:
+                if j >= 1:
+                    s = s + g[j - 1]
+        row[nodes[i]] = s
+    return row
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_row_sums_equal_the_twin_bit_for_bit(solved, tiny_velocity, dtype):
+    gr, _, halo, src, D, recs = solved
+    terms = ps._device_terms(gr, np.asarray(tiny_velocity, dtype), halo,
+                             "cpu")
+    n = gr.nnods
+    # the Dijkstra tree, and the same tree with a 3-cycle that two walks
+    # enter (ROADMAP C.9: its nodes' columns sum ~2 K/3 nonzero terms)
+    cyc = np.asarray(D.prev).copy()
+    a = rt.recontruct_path(D.prev, src, recs[2])[3]
+    b, c = cyc[a], cyc[cyc[a]]
+    cyc[c] = a
+    looped = 0
+    for prev in (np.asarray(D.prev), cyc):
+        want = pt.ops.paths.paths_reference(
+            torch.as_tensor(prev.astype(np.int32)), src,
+            torch.as_tensor(np.asarray(recs, np.int32)), 88, terms,
+            dense=True)
+        for r in range(len(recs)):
+            got = _row_sums(want.nodes[r].numpy(), want.vals[r].numpy(), n,
+                            dtype)
+            np.testing.assert_array_equal(got.view(np.uint8),
+                                          want.dense[r].numpy()
+                                          .view(np.uint8))
+            hits = np.bincount(want.ids[r].numpy(),
+                               weights=want.vals[r].numpy() != 0,
+                               minlength=n)
+            looped += int(hits.max() >= 3)
+    assert looped >= 1 and {a, b, c} <= set(want.nodes[2].tolist())

@@ -12,17 +12,38 @@ first worker to reach the module makes both and stores them in the
 run's shared temporary directory, and the others wait on its file lock
 and read them, so each module's group and references are made once a
 run.
+
+While the group's thread runs, the references' compiles write nothing to
+JAX's persistent compilation cache (conftest.py's): a worker died in
+XLA's serialisation of an executable for that cache (a segmentation
+fault in `put_executable_and_time`) while a group ran beside it.  Reads
+from the cache go on; the references are made once a run anyway.
 """
 from __future__ import annotations
 
+import contextlib
 import fcntl
 import os
 import pickle
 import threading
 
+import jax
+
 from raytracer_tpu_torch.parallel import launch
 
 WORLD = 8
+_MIN_CACHED = "jax_persistent_cache_min_compile_time_secs"
+
+
+@contextlib.contextmanager
+def _no_cache_writes():
+    """No compile is slow enough to be written to the persistent cache."""
+    old = getattr(jax.config, _MIN_CACHED)
+    jax.config.update(_MIN_CACHED, float("inf"))
+    try:
+        yield
+    finally:
+        jax.config.update(_MIN_CACHED, old)
 
 
 def _make(calls, references):
@@ -36,12 +57,13 @@ def _make(calls, references):
         except BaseException as e:      # re-raised in the caller
             out["error"] = e
 
-    t = threading.Thread(target=group, daemon=True)
-    t.start()
-    try:
-        refs = references()
-    finally:
-        t.join()
+    with _no_cache_writes():
+        t = threading.Thread(target=group, daemon=True)
+        t.start()
+        try:
+            refs = references()
+        finally:
+            t.join()
     if "error" in out:
         raise out["error"]
     return out["ranks"], refs

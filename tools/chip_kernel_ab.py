@@ -77,7 +77,29 @@ DIR holds the earlier sources, unpacked from an earlier commit (e.g.
           ell_bfm.cu's two launches, ell_bfm_step_launch; the package's
           push route, and its pull route); with --breakdown the push
           route with the flags' push, the state's copy or the grid sync
-          left out.
+          left out;
+  bend    a whole bend in one launch: the --refine fan (150 x 128 x 2,
+          quad 8, 800 steps) in float32 and float64 and a table-shaped
+          sub-batch (1,024 x 384 x 2, quad 16, 1,600 steps, float64), and
+          the package's kernel at eleven other plans (threads x lanes)
+          (the earlier bend.cu with bend_launch(P, mu, nu, bestP, bestT,
+          ts, tab, n_tab, r0, inv_dr, lr, r_max, count0, iters, quad, B,
+          m, d, flags, is_double, stream)); with --breakdown the
+          package's with one piece of a step left out (the vertex update,
+          the gradient, the warps' sum, the barriers, the shuffles, all
+          but a lane's first point, the eval, the eval and the update),
+          with IEEE divisions and square roots, the points unrolled by 8,
+          by 4 or not at all, and the slowness table in shared memory;
+  paths   the walk of the 150-receiver fan on the 180x63 sweep prev
+          (max_len 972) as nodes, COO rows and dense rows in float64 and
+          dense rows in float32, each version as its wrapper calls it
+          (the earlier paths.cu with paths_launch(prev, source,
+          receivers, n_rec, max_len, nodes, coords, ndim, n, U, partners,
+          P, ids, vals, dense, is_double, stream) after torch.zeros of
+          the dense matrix); with --breakdown the package's with the
+          column sums, the dense writes, the jump levels, the pair terms
+          or the rows' lam and mu left out, the earlier one's forms, and
+          the device time by kernel.
 Both versions are built with the package's nvcc flags into a temporary
 directory, run on the same inputs and held bit-equal to the plain
 versions (fused with the same iterations); then each shape is timed
@@ -1569,6 +1591,374 @@ def bfm_step_ab(old_dir, reps, rows, breakdown, tmp):
         print(json.dumps(rows[-1]), flush=True)
 
 
+# ---- bend: the lane-shared design against the earlier one ----
+
+_BEND_NEW_SKIP = {
+    "no update": [("    for (int v = threadIdx.x; v < m; v += blockDim.x) {\n      const T fr",
+                   "    for (int v = threadIdx.x; v < 0; v += blockDim.x) {\n      const T fr")],
+    "no gradient": [("    const T t = path_time<T, D, true>(P, m, ts, quad, lanes, pf, gA, gB, red);",
+                     "    const T t = path_time<T, D, false>(P, m, ts, quad, lanes, pf, gA, gB, red);")],
+    "no sum of warps": [("  for (int o = 1; o < p2; o <<= 1) t = add_rn(t, __shfl_xor_sync(kFull, t, o));", "")],
+    "no step barriers": [("    }\n    __syncthreads();\n  }\n", "    }\n  }\n"),
+                         ("  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = tpart;\n  __syncthreads();",
+                          "  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = tpart;")],
+    "no shuffles in a group": [("  for (int o = 1; o < width; o <<= 1) v = add_rn(v, __shfl_xor_sync(kFull, v, o));",
+                                "")],
+    "one point a lane": [("  for (int k = lane; k < quad; k += lanes) {", "  for (int k = lane; k < lane + 1; k += lanes) {")],
+    "IEEE divisions and square roots": [
+        ("  const T y = recip(b);\n  const T q = mul_rn(a, y);\n  return fma(fma(-q, b, a), y, q);",
+         "  return a / b;"),
+        ("  const float y = rsqrtf(fmaxf(x, kFloatMin));", "  return sqrtf(x);\n  const float y = 0;"),
+        ("  double y = static_cast<double>(rsqrtf(fmaxf(static_cast<float>(x), kFloatMin)));",
+         "  return sqrt(x);\n  double y = 0;")],
+    "no eval": [("  for (int j0 = 0; j0 < m - 1; j0 += groups) {",
+                 "  for (int j0 = 0; j0 < 0; j0 += groups) {")],
+    "no eval or update": [
+        ("  for (int j0 = 0; j0 < m - 1; j0 += groups) {",
+         "  for (int j0 = 0; j0 < 0; j0 += groups) {"),
+        ("    for (int v = threadIdx.x; v < m; v += blockDim.x) {\n      const T fr",
+         "    for (int v = threadIdx.x; v < 0; v += blockDim.x) {\n      const T fr")],
+    "points unrolled by 8": [("#pragma unroll (sizeof(T) == 4 ? 4 : 2)\n  for (int k = lane; k < quad; k += lanes) {",
+                              "#pragma unroll 8\n  for (int k = lane; k < quad; k += lanes) {")],
+    "points unrolled by 4": [("#pragma unroll (sizeof(T) == 4 ? 4 : 2)\n  for (int k = lane; k < quad; k += lanes) {",
+                              "#pragma unroll 4\n  for (int k = lane; k < quad; k += lanes) {")],
+    "points not unrolled": [("#pragma unroll (sizeof(T) == 4 ? 4 : 2)\n  for (int k = lane; k < quad; k += lanes) {",
+                             "#pragma unroll 1\n  for (int k = lane; k < quad; k += lanes) {")],
+    "table in shared": [
+        ("  T* win = red + kMaxWarps;\n",
+         "  T* win = red + kMaxWarps;\n  T* stab = win + 2 * kBiasWindow;\n"
+         "  for (int i = threadIdx.x; i < pf.n; i += blockDim.x) stab[i] = pf.tab[i];\n"
+         "  pf.tab = stab;\n"),
+        ("  const size_t smem = smem_bytes(m, D, quad, sizeof(T));",
+         "  const size_t smem = smem_bytes(m, D, quad, sizeof(T)) + sizeof(T) * n_tab;")],
+}
+
+
+def _bend_old_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn = lib.bend_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int]
+                   + [ctypes.c_double] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    return lib
+
+
+def _bend_new_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn = lib.bend_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
+                   + [ctypes.c_double] * 4 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    return lib
+
+
+def _bend_call(lib, P, tab, iters, quad, plan=None, lr=3.0):
+    """One whole bend of the (B, m, d) stack P in one launch (init, the
+    steps, the final selection) by build `lib`: the earlier interface
+    when `plan` is None, else the package's with plan (threads, lanes);
+    returns (points, times)."""
+    from raytracer_tpu_torch.ops import bend as OB
+
+    Bn, m, d = P.shape
+    P = P.clone()
+    mu, nu, bestP = torch.zeros_like(P), torch.zeros_like(P), P.clone()
+    bestT = torch.empty(Bn, dtype=P.dtype, device=P.device)
+    ts = OB.quad_points(quad, P.dtype, P.device)
+    head = (P.data_ptr(), mu.data_ptr(), nu.data_ptr(), bestP.data_ptr(),
+            bestT.data_ptr(), ts.data_ptr())
+    prof = (tab.tab.data_ptr(), tab.tab.shape[0], float(tab.r0),
+            float(tab.inv_dr), lr, float(rt.R))
+    st = torch.cuda.current_stream().cuda_stream
+    dbl = int(P.dtype == torch.float64)
+    if plan is None:
+        rc = lib.bend_launch(*head, *prof, 0, iters, quad, Bn, m, d, 3, dbl,
+                             st)
+    else:
+        bias = OB.bias_table(0, iters, P.dtype, P.device)
+        rc = lib.bend_launch(*head, bias.data_ptr(), *prof, iters, quad, Bn,
+                             m, d, plan[0], plan[1], 3, dbl, st)
+    assert rc == 0, rc
+    return bestP, bestT
+
+
+def _bend_inputs():
+    """The --refine fan of chip_smoke.py phase 3i (the 150 sweep paths of
+    180x63 at m 128) and its table-shaped sub-batch (chip_smoke.py
+    _table_batch: 1,024 candidates at m 384), with the AK135 slowness
+    table."""
+    from raytracer_tpu_torch.solvers import refine as RF
+
+    gr, A, halo = rt.init_annulus(180, 63, spacing=20.0)
+    U = chip_smoke._ak135_vp(gr)
+    src = rt.closest_point(gr, 0.0, rt.R, system="polar")
+    D = rt.AnnulusSolver(gr, A, halo, U).solve(src)
+    _, recs = chip_smoke._fan(gr)
+    fan = [rt.recontruct_path(D.prev, src, r) for r in recs]
+    fan = [np.stack([gr.x[p], gr.z[p]], axis=1) for p in fan]
+    s128 = np.stack([RF.resample_path(p, 128) for p in fan])
+    prof = rt.velocity_profile("ak135")
+    return (s128, chip_smoke._table_batch(fan),
+            RF._uniform_slowness(prof.r, prof.Vp))
+
+
+def bend_ab(old_dir, reps, rows, breakdown, tmp):
+    """The earlier bend (one block of 128 threads a path, a segment a
+    thread) and the package's (bend_plan's block, a segment's quadrature
+    points over lanes, the bias corrections from the host), in turns:
+    the --refine fan (150 x 128 x 2, quad 8, 800 steps) in float32 and
+    float64 and a table-shaped sub-batch (1,024 x 384 x 2, quad 16, 1,600
+    steps, float64), a whole bend a launch; both held against
+    bend_reference first (chip_smoke.py phase 3i's gate on the fan in
+    float64, the package's one launch equal to four chunks bit for bit).  Also
+    the package's kernel at other plans (threads, lanes) on the same
+    inputs.  With `breakdown`: the package's built with one piece of a
+    step left out (the vertex update, the gradient, the sum of the warps'
+    times; timing only) and with the slowness table staged in shared
+    memory, on the fan (in float32 also at 512 x 4 and 256 x 2) and the
+    sub-batch."""
+    from raytracer_tpu_torch.ops import bend as OB
+
+    old = _bend_old_bind(_old_lib(old_dir, "bend", tmp))
+    new = _bend_new_bind(OB._bend_lib())
+    s128, tiles, (r0, inv_dr, tab) = _bend_inputs()
+    tabs = {dt: OB.uniform_table(r0, inv_dr, tab, getattr(torch, dt), "cuda")
+            for dt in ("float32", "float64")}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # the gates: chip_smoke.py phase 3i's on the fan in float64 (800
+    # steps within twice the JAX package's spread of the twin, every time
+    # at or below its input's), chunks bit-equal
+    P = torch.as_tensor(s128, device="cuda")
+    want = OB.bend_reference(P, tabs["float64"], 3.0, rt.R, 800, 8)[1]
+    t_in = OB.ttime(P, tabs["float64"], 8)
+    plan = OB.bend_plan(*P.shape, 8, 8, sms)
+    for name, got in (("old", _bend_call(old, P, tabs["float64"], 800, 8)),
+                      ("new", _bend_call(new, P, tabs["float64"], 800, 8,
+                                         plan[:2]))):
+        et = float((got[1] - want).abs().max())
+        assert et <= 2.0 * chip_smoke.JAX_REFINE_SPREAD64, (name, et)
+        assert bool((got[1] <= t_in + 1e-6).all()), name
+    one = OB.bend(P, tabs["float64"], 3.0, rt.R, 120, 8)
+    cut = OB.bend(P, tabs["float64"], 3.0, rt.R, 120, 8, chunk=35)
+    assert torch.equal(one[0], cut[0]) and torch.equal(one[1], cut[1])
+    cases = [("--refine fan", s128, "float32", 8, 800),
+             ("--refine fan", s128, "float64", 8, 800),
+             ("table sub-batch", tiles, "float64", 16, 1600)]
+    others = [(1024, 8), (512, 4), (512, 8), (256, 1), (256, 2), (256, 4),
+              (128, 1), (128, 2), (128, 4), (64, 1), (64, 2), (32, 1)]
+    for what, stack, dt, quad, iters in cases:
+        P = torch.as_tensor(stack, dtype=getattr(torch, dt), device="cuda")
+        tb = tabs[dt]
+        plan = OB.bend_plan(*P.shape, quad, P.element_size(), sms)
+        n_reps = max(1, reps // (20 if what == "table sub-batch" else 4))
+        o, n = _turns(lambda: _bend_call(old, P, tb, iters, quad),
+                      lambda: _bend_call(new, P, tb, iters, quad, plan[:2]),
+                      n_reps)
+        alt = {f"{t}x{ln}": _ms(lambda: _bend_call(new, P, tb, iters, quad,
+                                                   (t, ln)), n_reps)
+               for t, ln in others if (t, ln) != tuple(plan[:2])}
+        bytes_, ops = OB.bend_work(*P.shape, quad, iters, P.element_size())
+        rows.append(dict(kernel="bend", case=what, shape=list(P.shape),
+                         dtype=dt, quad=quad, iters=iters, old_ms=o,
+                         new_ms=n, plan=plan._asdict(), other_plans_ms=alt,
+                         bound_ms=chip_smoke._bound_ms(
+                             bytes_, ops, chip_smoke.H100_F64_OPS_PER_S
+                             if dt == "float64" else
+                             chip_smoke.H100_F32_OPS_PER_S)[0]))
+        print(json.dumps(rows[-1]), flush=True)
+    if not breakdown:
+        return
+    with open(kernels.source_path("bend")) as f:
+        text = f.read()
+    libs = {"new": new, **_variants(text, _BEND_NEW_SKIP, tmp, "bend_new",
+                                    _bend_new_bind)}
+    for what, stack, dt, quad, iters in cases:
+        P = torch.as_tensor(stack, dtype=getattr(torch, dt), device="cuda")
+        plans = [tuple(OB.bend_plan(*P.shape, quad, P.element_size(),
+                                    sms)[:2])]
+        if what == "--refine fan" and dt == "float32":
+            plans += [pl for pl in ((512, 4), (256, 2)) if pl != plans[0]]
+        n_reps = max(1, reps // (20 if what == "table sub-batch" else 4))
+        for plan in plans:
+            for turn in range(2):
+                split = {name: _ms(lambda: _bend_call(
+                    lib, P, tabs[dt], iters, quad, plan), n_reps)
+                    for name, lib in libs.items()}
+                rows.append(dict(kernel="bend", case=what, dtype=dt,
+                                 plan=plan, split_ms=split, turn=turn))
+                print(json.dumps(rows[-1]), flush=True)
+
+
+# ---- paths: jump tables and whole rows against the earlier walk ----
+
+_PATHS_NEW_SKIP = {
+    "no column sums": [("  if (!((sg.bits[i >> 5] >> (i & 31)) & 1u)) return T(0);", "  return T(0);")],
+    "no dense writes": [("  write_columns(drow, c0, c1, sg);", "")],
+    "no jump levels": [("  for (int j = 0; j + 1 < lv; j += kLevelsALaunch) {",
+                        "  for (int j = 0; j + 1 < 1; j += kLevelsALaunch) {")],
+    "no pair terms": [("    const T g = pair_g(tm, n, a, b);", "    const T g = T(a);")],
+    "no lam and mu": [("  const int lam = s_lam == INT_MAX ? 0 : s_lam;", "  const int lam = 0;")],
+    "zeros only": [("  if (!((sg.bits[i >> 5] >> (i & 31)) & 1u)) return T(0);", "  return T(0);")],
+    "plain stores": [("  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));",
+                      "  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);"),
+                     ("  __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));",
+                      "  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);")],
+    "16 chunks an SM": [("    const int want = (4 * sms + n_rec - 1) / n_rec;",
+                         "    const int want = (16 * sms + n_rec - 1) / n_rec;")],
+}
+
+
+def _paths_old_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn = lib.paths_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
+def _paths_new_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn = lib.paths_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
+def _paths_call(lib, prev, src, recs, max_len, terms, form, new):
+    """One call as its wrapper makes it: the outputs allocated (the
+    earlier one's dense matrix zeroed by torch.zeros, the package's
+    jump-table scratch), one paths_launch of build `lib`; form is
+    "nodes", "coo" or "dense"."""
+    from raytracer_tpu_torch.ops import paths as OP
+
+    dev = prev.device
+    n, n_rec = prev.shape[0], recs.shape[0]
+    coords, U, partners = terms
+    nodes = torch.empty((n_rec, max_len), dtype=torch.int32, device=dev)
+    w = 2 * (max_len - 1)
+    ids = torch.empty((n_rec, w), dtype=torch.int32, device=dev)
+    vals = torch.empty((n_rec, w), dtype=U.dtype, device=dev)
+    mat = None
+    if form == "dense":
+        mat = (torch.empty if new else torch.zeros)((n_rec, n), dtype=U.dtype,
+                                                    device=dev)
+    with_terms = form != "nodes"
+    ptr = lambda t: None if t is None else t.data_ptr()
+    args = [prev.data_ptr(), int(src), recs.data_ptr(), n_rec, max_len,
+            nodes.data_ptr(), ptr(coords) if with_terms else None,
+            coords.shape[0], n, U.data_ptr(), partners.data_ptr(),
+            partners.shape[1], ids.data_ptr(), vals.data_ptr(), ptr(mat)]
+    if new:
+        jumps = torch.empty((OP.jump_levels(max_len), n), dtype=torch.int32,
+                            device=dev)
+        args.append(jumps.data_ptr())
+    args += [int(U.dtype == torch.float64),
+             torch.cuda.current_stream().cuda_stream]
+    rc = lib.paths_launch(*args)
+    assert rc == 0, rc
+    return nodes, ids, vals, mat
+
+
+def paths_ab(old_dir, reps, rows, breakdown, tmp):
+    """The earlier paths (a thread a receiver walking its row and adding
+    its dense row in place, the matrix zeroed by torch.zeros first) and
+    the package's (jump tables, a block a row writing it whole), each as
+    its wrapper calls it, in turns: chip_smoke.py phase 3i's call (the
+    180x63 sweep prev, the 150-receiver fan, max_len 972) in the three
+    forms (nodes, COO rows, dense rows) in float64 and the dense form in
+    float32, and the package's wrapper `paths` itself; nodes and ids
+    bit-equal to paths_reference, the vals and dense rows of both
+    versions bit-equal to each other and within 1e-12 (float64) / 1e-6
+    (float32) of the twin's, two launches of the package's equal.  With
+    `breakdown`: the package's built with one piece left out (the column
+    sums, the whole dense writes, the jump levels beyond the first, the
+    pair terms, the rows' lam and mu; timing only), dense float64."""
+    from raytracer_tpu_torch.ops import paths as OP
+    from raytracer_tpu_torch.solvers import sensitivity as S
+
+    old = _paths_old_bind(_old_lib(old_dir, "paths", tmp))
+    new = _paths_new_bind(OP._paths_lib())
+    gr, A, halo = rt.init_annulus(180, 63, spacing=20.0)
+    U = chip_smoke._ak135_vp(gr)
+    src = rt.closest_point(gr, 0.0, rt.R, system="polar")
+    D = rt.AnnulusSolver(gr, A, halo, U).solve(src)
+    _, recs = chip_smoke._fan(gr)
+    max_len = 4 * (180 + 63)
+    prev = torch.as_tensor(np.asarray(D.prev, np.int32), device="cuda")
+    rt_ = torch.as_tensor(np.asarray(recs, np.int32), device="cuda")
+    for dtype, forms in ((np.float64, ("nodes", "coo", "dense")),
+                         (np.float32, ("dense",))):
+        terms = S._device_terms(gr, np.asarray(U, dtype), halo, "cuda")
+        want = OP.paths_reference(prev, src, rt_, max_len, terms, dense=True)
+        for form in forms:
+            got = {}
+            for name, lib, is_new in (("old", old, False), ("new", new, True)):
+                got[name] = _paths_call(lib, prev, src, rt_, max_len, terms,
+                                        form, is_new)
+                assert torch.equal(got[name][0], want.nodes), (name, form)
+                if form != "nodes":
+                    assert torch.equal(got[name][1], want.ids), (name, form)
+                    verr = float((got[name][2] - want.vals).abs().max())
+                    assert verr <= (1e-12 if dtype == np.float64 else 1e-6) \
+                        * float(want.vals.abs().max()), (name, form, verr)
+            if form != "nodes":
+                assert torch.equal(got["old"][2], got["new"][2]), form
+            if form == "dense":
+                assert torch.equal(got["old"][3], got["new"][3]), dtype
+                again = _paths_call(new, prev, src, rt_, max_len, terms,
+                                    form, True)[3]
+                assert torch.equal(again, got["new"][3]), dtype
+                err = float((got["new"][3] - want.dense).abs().max()) / float(
+                    want.vals.abs().max())
+                assert err <= (1e-12 if dtype == np.float64 else 1e-6), err
+            o, n = _turns(lambda: _paths_call(old, prev, src, rt_, max_len,
+                                              terms, form, False),
+                          lambda: _paths_call(new, prev, src, rt_, max_len,
+                                              terms, form, True), reps)
+            wrapper = _ms(lambda: OP.paths(
+                prev, src, rt_, max_len, None if form == "nodes" else terms,
+                dense=form == "dense"), reps)
+            rows.append(dict(kernel="paths", grid="180x63", form=form,
+                             dtype=np.dtype(dtype).name, receivers=len(recs),
+                             max_len=max_len, old_ms=o, new_ms=n,
+                             new_wrapper_ms=wrapper,
+                             levels=OP.jump_levels(max_len), bit_equal=True))
+            print(json.dumps(rows[-1]), flush=True)
+    if not breakdown:
+        return
+    terms = S._device_terms(gr, np.asarray(U, np.float64), halo, "cuda")
+    with open(kernels.source_path("paths")) as f:
+        text = f.read()
+    libs = {"new": new, **_variants(text, _PATHS_NEW_SKIP, tmp, "paths_new",
+                                    _paths_new_bind)}
+    for turn in range(2):
+        split = {name: _ms(lambda: _paths_call(lib, prev, src, rt_, max_len,
+                                               terms, "dense", True), reps)
+                 for name, lib in libs.items()}
+        dm = torch.empty((len(recs), gr.nnods), dtype=torch.float64,
+                         device="cuda")
+        split["zero_ of the matrix"] = _ms(lambda: dm.zero_(), reps)
+        split["torch.empty + torch.zeros of the matrix"] = _ms(
+            lambda: torch.zeros((len(recs), gr.nnods), dtype=torch.float64,
+                                device="cuda"), reps)
+        split.update({f"old {form}": _ms(lambda: _paths_call(
+            old, prev, src, rt_, max_len, terms, form, False), reps)
+            for form in ("nodes", "coo", "dense")})
+        split.update({f"new {form}": _ms(lambda: _paths_call(
+            new, prev, src, rt_, max_len, terms, form, True), reps)
+            for form in ("nodes", "coo")})
+        split["device by kernel, new dense"] = chip_smoke._kernel_split_ms(
+            lambda: _paths_call(new, prev, src, rt_, max_len, terms, "dense",
+                                True), 5)
+        rows.append(dict(kernel="paths", split_ms=split, turn=turn))
+        print(json.dumps(rows[-1]), flush=True)
+
+
 def _build_probe(tmp):
     src = os.path.join(tmp, "step_probe.cu")
     with open(src, "w") as f:
@@ -1600,7 +1990,8 @@ def main(argv=None):
                     help="directory with the earlier kernel sources")
     ap.add_argument("--kernels", default="titer,diag",
                     help="comma-separated: titer, diag, witer, relax, fused, "
-                         "plane3d, tsweep, banded_gs, bfm_step")
+                         "plane3d, tsweep, banded_gs, bfm_step, bend, "
+                         "paths")
     ap.add_argument("--old-pkg", default=None,
                     help="directory holding an earlier raytracer_tpu_torch, "
                          "to time whole solves against")
@@ -1611,6 +2002,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("chip_kernel_ab: needs an NVIDIA GPU")
     print("device:", torch.cuda.get_device_name(0), "|", _smi(), flush=True)
+    print("clocks:", subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip(),
+        flush=True)
     if a.ptxas:
         for name in a.kernels.split(","):
             p = subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS,
@@ -1641,12 +2036,20 @@ def main(argv=None):
             banded_gs_ab(a.old, a.reps, rows, a.breakdown, tmp)
         if "bfm_step" in want:
             bfm_step_ab(a.old, a.reps, rows, a.breakdown, tmp)
+        if "bend" in want:
+            bend_ab(a.old, a.reps, rows, a.breakdown, tmp)
+        if "paths" in want:
+            paths_ab(a.old, a.reps, rows, a.breakdown, tmp)
         if a.breakdown and "fused" in want:
             fused_breakdown(tmp, {"old": a.old, "new": kernels.CSRC_DIR},
                             max(1, a.reps // 4), rows)
         if a.old_pkg:
             solves_ab(a.old_pkg, rows)
     print(_smi())
+    print("clocks:", subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip(),
+        flush=True)
 
 
 if __name__ == "__main__":
