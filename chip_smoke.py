@@ -63,10 +63,19 @@ the exit code is non-zero):
      halo) S=2 and on the production Delaunay annulus in float64, on the
      3-D graph of example_grid3d (24x24x16, S=3); timed over the 180x63
      solve with its bound from each step's frontier; (3g) banded_sweep
-     (a Jacobi iteration of the banded solve) and banded_gs (a
-     Gauss-Seidel direction) the same way on the production Delaunay
-     annulus in float32 (the JAX package's 214 steps and 33 rounds) and
-     float64, and on 16x6 with its halo (S=2), timed; (3h) the
+     (Jacobi iterations of the banded solve, many a cooperative launch)
+     and banded_gs (a Gauss-Seidel direction) against their plain
+     versions from the start field to the fixpoint, banded_sweep in
+     launches of 1, 8 and the whole solve's iterations (every launch's
+     field, flag and iteration count equal to the plain version's after
+     as many iterations), banded_gs after every direction: on the
+     production Delaunay annulus in float32 (the JAX package's 214 steps
+     and 33 rounds), float64 and float32 S=8, with both kernels' routes
+     that keep nothing in shared memory forced (float64), on the nr=12
+     mesh in its natural order (S=2) and on 16x6 with its halo (S=2);
+     the shared and global routes of banded_sweep both taken; the whole
+     solve's launch timed with its device time an iteration against an
+     iteration's bound; (3h) the
      level-masked bfm_step in lockstep with its plain version over
      bfm_ms's two masked stages (level 1, then level 15 restarted at the
      best Boundary_1 node) at 48x12, float32 and float64, the same `it`;
@@ -90,12 +99,14 @@ the exit code is non-zero):
      float64) in lockstep after 10 steps and, after 200, at or below its
      input and within twice the twin's spread under a 1e-9 km nudge,
      timed;
-     (3j) gridsearch (the locator's grid search, a thread a column and
-     the whole catalogue in one call) against its twin on the card in
-     both formulas (direct, expanded) and float32 and float64: at the
+     (3j) gridsearch (the locator's grid search: a lane's column tile
+     against its warp's events, one reduction an (event, block), the
+     whole catalogue in one call) against its twin on the card in both
+     formulas (direct, expanded) and float32 and float64: at the
      location path's shape (the 12 station fields of the 180x63 graph, 64
-     events) and on odd cases (K 7 over 3,617 columns with non-finite and
-     duplicated columns, K 100 past the register tile, an all-inf row),
+     events, and the one event of `locate`) and on odd cases (K 7 over
+     3,617 columns with non-finite and duplicated columns, K 100 past a
+     chunk of K, an all-inf row),
      under the tie rule of ops/gridsearch_check.py (the misfit at the
      pick within the tolerance of the minimum, m and t0 to the twin's at
      that node, ids equal where no tie; float64 within 1e-12 of m in the
@@ -175,8 +186,9 @@ the exit code is non-zero):
      ENGINE_ATOL of the port's auto sweep field on the same graph; the
      host prepare and the steady solve timed;
  16. AnnulusSolver(method="auto") on the production Delaunay annulus:
-     the JAX package's warning, 'banded' (the banded_sweep kernel) in
-     214 iterations, the field equal to the JAX digest (JAX_BANDED), prev
+     the JAX package's warning, 'banded' (one launch of the
+     banded_sweep kernel) in 214 iterations, the field equal to the JAX
+     digest (JAX_BANDED), prev
      from the host PrevRecovery; solve_banded_gs (the banded_gs kernel)
      in 33 rounds equal to its JAX digest; in float64 the Gauss-Seidel
      field within 1e-9 s of the Jacobi one and that within 1e-9 s of
@@ -520,6 +532,7 @@ JAX_TOMO = {'misfit0': 166.3869370505062, 'misfit1': 12.6883003705345,
             'corr': 0.340739033992204}
 # wrapper -> the CUDA kernels it launches, by their names in a profile
 KERNEL_NAMES = {"band": ("band_kernel",),
+                "banded_sweep": ("banded_jacobi_kernel",),
                 "rsweep": ("rsweep_shared", "rsweep_global"),
                 "bfm_step": ("push_step_kernel", "relax_merge_kernel",
                              "frontier_kernel"),
@@ -3146,28 +3159,58 @@ def _dense_on_card(bg):
     return bg._replace(W=bg.W.to(bg.tw.device))
 
 
-def _banded_lockstep(bg, srcs, cfg, what, jacobi=True):
-    """banded_step (unless not `jacobi`) and banded_gs (the kernels)
-    against their plain versions from the sources' start field to the
-    fixpoint, equal after every call; returns (Jacobi steps, Gauss-Seidel
-    rounds)."""
+def _banded_twin_states(bg, srcs, cfg):
+    """The plain version's banded states iteration by iteration on the
+    card, from the sources' start field to the fixpoint."""
     import torch
 
     from raytracer_tpu_torch.ops import banded as pb
 
-    d0 = pb._sources(bg, srcs, cfg)
     twin = _dense_on_card(bg)
+    d0 = pb._sources(bg, srcs, cfg)
     one = torch.ones((), dtype=torch.int32, device=d0.device)
-    sk = sr = pb.BandedState(d0, one, torch.zeros_like(one))
-    n = 0
-    while jacobi and int(sr.changed):
-        sk, sr = pb.banded_step(sk, bg), pb.banded_step_reference(sr, twin)
-        n += 1
-        for f in sk._fields:
-            if not torch.equal(getattr(sk, f), getattr(sr, f)):
-                raise AssertionError(f"banded_sweep kernel != plain version "
-                                     f"({what}, {f}, step {n})")
-    dk = dr = d0
+    states = [pb.BandedState(d0, one, torch.zeros_like(one))]
+    while int(states[-1].changed):
+        states.append(pb.banded_step_reference(states[-1], twin))
+    return states
+
+
+def _jacobi_route(bg, S):
+    from raytracer_tpu_torch.ops import banded as pb
+
+    r = pb._jacobi_route(bg, S)
+    return getattr(r, "plan", r).route
+
+
+def _banded_lockstep(bg, srcs, cfg, what):
+    """banded_sweep in launches of 1, 8 and the whole solve's iterations,
+    each launch's state (field, flag, iterations) equal to the plain
+    version's after as many iterations, and banded_gs against its plain
+    version after every direction, from the sources' start field to the
+    fixpoint; returns (Jacobi iterations, Gauss-Seidel rounds,
+    banded_sweep's route)."""
+    import torch
+
+    from raytracer_tpu_torch.ops import banded as pb
+
+    states = _banded_twin_states(bg, srcs, cfg)
+    n = len(states) - 1
+    route = _jacobi_route(bg, len(srcs))
+    for count in (1, 8, cfg.max_iters):
+        sk, launches = states[0], 0
+        while int(sk.changed):
+            sk = pb.banded_step(sk, bg, cfg.max_iters, count)
+            launches += 1
+            want = states[min(launches * count, n)]
+            for f in sk._fields:
+                if not torch.equal(getattr(sk, f), getattr(want, f)):
+                    raise AssertionError(
+                        f"banded_sweep kernel != plain version ({what}, "
+                        f"{route} route, count {count}, {f}, launch "
+                        f"{launches})")
+        assert launches == -(-n // count), (what, count, launches, n)
+    twin = _dense_on_card(bg)
+    dk = dr = pb._sources(bg, srcs, cfg)
     rounds = 0
     while True:
         start = dr
@@ -3180,7 +3223,7 @@ def _banded_lockstep(bg, srcs, cfg, what, jacobi=True):
                                      f"forward={forward})")
         rounds += 1
         if not bool((dr < start).any()):
-            return n, rounds
+            return n, rounds, route
 
 
 def phase_banded_kernels(rec: dict):
@@ -3192,37 +3235,51 @@ def phase_banded_kernels(rec: dict):
 
     dg, dA, dsrc = rec["delaunay"]
     U = _ak135_vp(dg)
-    cases, routes = [], set()
+    cases, routes, jroutes = [], set(), set()
     for dtype in ("float32", "float64"):
         cfg = rt.SolverConfig(dtype=dtype)
         t0 = time.perf_counter()
         bg = rt.prepare_banded(dA, _no_halo(), dg, U, cfg)
         torch.cuda.synchronize()
         t_prep = time.perf_counter() - t0
-        n, rounds = _banded_lockstep(bg, [dsrc], cfg, f"Delaunay {dtype}")
+        n, rounds, jr = _banded_lockstep(bg, [dsrc], cfg,
+                                         f"Delaunay {dtype}")
         cases.append(f"the production Delaunay mesh {dtype} ({n} steps, "
-                     f"{rounds} rounds)")
+                     f"{rounds} rounds; banded_sweep {jr})")
         routes.add((dtype, "rcm", pb._gs_route(bg, 512).plan.route))
+        jroutes.add(jr)
         if dtype == "float32":
             assert (n, rounds) == (JAX_BANDED["jacobi"][0],
                                    JAX_BANDED["gs"][0]), (n, rounds)
             bg32, n32, r32, t_prep32 = bg, n, rounds, t_prep
         else:
-            bg64 = bg
-    # the wide-band route with its rows in global memory (forced: no
-    # shared memory) on the production mesh in float64
+            bg64, n64 = bg, n
+    # eight sources at once (phase 16's table), float32
+    srcs8 = [rt.closest_point(dg, np.deg2rad(d), rt.R, system="polar")
+             for d in np.linspace(0.0, 175.0, 8)]
+    cfg32 = rt.SolverConfig()
+    n8, _, jr = _banded_lockstep(bg32, srcs8, cfg32, "Delaunay float32 S=8")
+    cases.append(f"the production mesh float32 S=8 ({n8} steps; "
+                 f"banded_sweep {jr})")
+    jroutes.add(jr)
+    # the routes that keep nothing in shared memory (forced: none to
+    # spend) on the production mesh in float64: banded_gs's wide route
+    # with its rows in global memory, banded_sweep's global route
     keep = pb.BLOCK_SMEM
     try:
         pb.BLOCK_SMEM = 0
-        bgw = bg64._replace(gs={})
+        bgw = bg64._replace(gs={}, jacobi={})
         assert pb._gs_route(bgw, 512) == pb.GsPlan("wide", 512, 0)
         cfg = rt.SolverConfig(dtype="float64")
-        _, rounds = _banded_lockstep(bgw, [dsrc], cfg,
-                                     "Delaunay float64, wide route forced",
-                                     jacobi=False)
-        cases.append(f"the production mesh float64 on the wide route with "
-                     f"its rows in global memory ({rounds} rounds)")
+        n, rounds, jr = _banded_lockstep(
+            bgw, [dsrc], cfg, "Delaunay float64, global routes forced")
+        assert (n, jr) == (n64, "global"), (n, jr)
+        cases.append(f"the production mesh float64 on banded_gs's wide "
+                     f"route with its rows in global memory and "
+                     f"banded_sweep's global route ({n} steps, {rounds} "
+                     f"rounds)")
         routes.add(("float64", "rcm", "wide, global rows"))
+        jroutes.add(jr)
     finally:
         pb.BLOCK_SMEM = keep
     # order="natural" (a band of 2,918 rows) on the nr=12 Delaunay mesh:
@@ -3236,36 +3293,60 @@ def phase_banded_kernels(rec: dict):
         route = pb._gs_route(bg, 512)
         route = getattr(route, "plan", route).route
         routes.add((dtype, "natural", route))
-        n, rounds = _banded_lockstep(bg, [0, 17], cfg,
-                                     f"natural nr=12 {dtype}")
+        n, rounds, jr = _banded_lockstep(bg, [0, 17], cfg,
+                                         f"natural nr=12 {dtype}")
+        jroutes.add(jr)
         cases.append(f"order='natural' on the nr=12 Delaunay mesh {dtype} "
-                     f"S=2 ({n}, {rounds}; {route} route)")
+                     f"S=2 ({n}, {rounds}; {route} route, banded_sweep "
+                     f"{jr})")
     assert {r for *_, r in routes} == {"window", "wide",
                                        "wide, global rows"}, routes
     gs, As, hs = rt.init_annulus(16, 6, spacing=200.0)
     for dtype in ("float32", "float64"):
         cfg = rt.SolverConfig(dtype=dtype)
         bg = rt.prepare_banded(As, hs, gs, _ak135_vp(gs), cfg)
-        n, rounds = _banded_lockstep(
+        n, rounds, jr = _banded_lockstep(
             bg, [rt.closest_point(gs, 0.0, rt.R, system="polar"), 40], cfg,
             f"16x6 {dtype}")
+        jroutes.add(jr)
         cases.append(f"16x6 with its halo {dtype} S=2 ({n}, {rounds}; "
-                     f"{pb._gs_route(bg, 512).route} route)")
+                     f"{pb._gs_route(bg, 512).route} route, banded_sweep "
+                     f"{jr})")
+    assert jroutes == {"shared", "global"}, jroutes
 
-    cfg = rt.SolverConfig()
-    d0 = pb._sources(bg32, [dsrc], cfg)
+    # banded_sweep on the main path's shape: the whole solve in one launch
+    d0 = pb._sources(bg32, [dsrc], cfg32)
     one = torch.ones((), dtype=torch.int32, device=d0.device)
     st = pb.BandedState(d0, one, torch.zeros_like(one))
-    ms = _steps_ms(lambda s: pb.banded_step(s, bg32), st, n32)
+    cap = cfg32.max_iters
+
+    def whole(g, state):
+        return lambda: pb.banded_step(state, g, cap, cap)
+
+    ms = _cuda_ms(whole(bg32, st), 10)
+    call1 = _steps_ms(lambda s: pb.banded_step(s, bg32), st, n32)
     twin32 = _dense_on_card(bg32)
-    plain = _steps_ms(lambda s: pb.banded_step_reference(s, twin32), st,
-                      n32)
+    plain = n32 * _steps_ms(lambda s: pb.banded_step_reference(s, twin32),
+                            st, n32)
+    cfg64 = rt.SolverConfig(dtype="float64")
+    d64 = pb._sources(bg64, [dsrc], cfg64)
+    ms64 = _cuda_ms(whole(bg64, pb.BandedState(d64, one,
+                                               torch.zeros_like(one))), 10)
+    st8 = pb.BandedState(pb._sources(bg32, srcs8, cfg32), one,
+                         torch.zeros_like(one))
+    ms8 = _cuda_ms(whole(bg32, st8), 5)
     nbytes, ops = _banded_work(bg32, 1)
-    bound, by = _bound_ms(nbytes, ops)
-    split = _kernel_split_ms(lambda: _steps_ms(
-        lambda s: pb.banded_step(s, bg32), st, n32), 1)
+    bound_it, by_it = _bound_ms(nbytes, ops)
+    nbytes_s, ops_s = _banded_work(bg32, 1, passes=n32)
+    bound, by = _bound_ms(nbytes_s, ops_s)
+    split = _kernel_split_ms(whole(bg32, st), 3)
+    on_card = sum(v for k, v in split.items()
+                  if k in KERNEL_NAMES["banded_sweep"])
+    plan32 = pb._jacobi_route(bg32, 1).plan
     rec["banded_sweep"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                               bound_by=by, max_abs_err=0.0)
+                               bound_by=by, max_abs_err=0.0,
+                               ms_per_iteration=on_card / n32,
+                               bound_ms_per_iteration=bound_it)
     calls = 2 * r32
 
     def gs_calls(fn, g):
@@ -3278,27 +3359,31 @@ def phase_banded_kernels(rec: dict):
     gms = _steps_ms(gs_calls(pb.banded_gs, bg32), d0, 1) / calls
     gplain = _steps_ms(gs_calls(pb.banded_gs_reference, twin32), d0,
                        1) / calls
-    cfg64 = rt.SolverConfig(dtype="float64")
-    gms64 = _steps_ms(gs_calls(pb.banded_gs, bg64),
-                      pb._sources(bg64, [dsrc], cfg64), 1) / calls
-    srcs8 = [rt.closest_point(dg, np.deg2rad(d), rt.R, system="polar")
-             for d in np.linspace(0.0, 175.0, 8)]
-    gms8 = _steps_ms(gs_calls(pb.banded_gs, bg32),
-                     pb._sources(bg32, srcs8, cfg), 1) / calls
+    gms64 = _steps_ms(gs_calls(pb.banded_gs, bg64), d64, 1) / calls
+    gms8 = _steps_ms(gs_calls(pb.banded_gs, bg32), st8.dist, 1) / calls
     gsplit = _kernel_split_ms(lambda: gs_calls(pb.banded_gs, bg32)(d0), 1)
     lay = pb._gs_route(bg32, 512)
     gbytes, gops = _banded_work(bg32, 1, passes=2)
     gbound, gby = _bound_ms(gbytes, gops)
     rec["banded_gs"] = dict(ms=gms, plain_ms=gplain, bound_ms=gbound,
                             bound_by=gby, max_abs_err=0.0)
-    print(f"phase 3g kernels: banded_sweep and banded_gs bit-equal to "
-          f"their plain versions after every call on " + ", ".join(cases)
+    print(f"phase 3g kernels: banded_sweep (in launches of 1, 8 and the "
+          f"whole solve's iterations, every launch's state) and banded_gs "
+          f"(every direction) bit-equal to their plain versions on "
+          + ", ".join(cases)
           + f". Delaunay ({bg32.n} nodes, {len(bg32.offsets_np)} offsets, "
           f"{int(bg32.tw.numel())} finite taps; prepare_banded "
-          f"{t_prep32:.2f} s): banded_sweep a call {ms:.4f} ms over the "
-          f"{n32} steps of a solve, plain {plain:.3f} ms, bound "
-          f"{bound:.5f} ms ({by}, {nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} M "
-          f"ops); device ms a solve by kernel: "
+          f"{t_prep32:.2f} s): banded_sweep's whole solve ({n32} "
+          f"iterations) one launch of {ms:.4f} ms (shared route: "
+          f"{plan32.blocks} blocks of {plan32.R} rows, window {plan32.Wmax} "
+          f"rows, {plan32.nmax} tap slots the fullest block, {plan32.smem} "
+          f"bytes; float64 {ms64:.4f} ms, S=8 {ms8:.4f} ms), on the card "
+          f"{on_card:.4f} ms = {on_card / n32:.5f} ms an iteration against "
+          f"its bound {bound_it:.5f} ms ({by_it}, {nbytes / 1e6:.2f} MB, "
+          f"{ops / 1e6:.2f} M ops); the launch's bound {bound:.5f} ms "
+          f"({by}: its inputs once, {n32} iterations' operations); "
+          f"{call1:.4f} ms a call of one iteration (count 1); plain "
+          f"{plain:.3f} ms the solve; device ms of the solve by kernel: "
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(split.items()))
           + f"; banded_gs a call (a direction, B=512, P=2, the window "
           f"route: ring {lay.plan.Wr} rows, {lay.plan.nmax} tap slots the "
@@ -3404,9 +3489,7 @@ def phase_graph_banded(rec: dict):
     it_ref, dig_ref = JAX_BANDED["jacobi"]
     launches = counts["banded_sweep"]
     assert solver.last_iterations == it_ref, solver.last_iterations
-    from raytracer_tpu_torch.ops.banded import CHECK_EVERY
-
-    assert launches == -(-it_ref // CHECK_EVERY) * CHECK_EVERY, counts
+    assert launches == 1, counts       # the whole solve in one launch
     assert sum(counts.values()) == launches, counts
     rec["banded_sweep"]["launches"] = launches
     assert _digest(D.dist, "<f4") == dig_ref, "banded field != JAX digest"
@@ -4495,12 +4578,17 @@ def phase_gridsearch_kernel(rec: dict):
             rows_out[(dt, mode)] = dict(ms=ms, plain_ms=plain,
                                         bound_ms=bound, bound_by=by)
             errs.append(max(out["m_abs"], out["t0_err"]))
+            # the one event of `locate`
+            one, _ = _search_check(T, O[:1], w2, mode,
+                                   f"180x63 {dt} {mode} E=1")
+            errs.append(max(one["m_abs"], one["t0_err"]))
+            ms1 = _cuda_ms(lambda: GS.grid_search(T, O[:1], w2, mode), 20)
             lines.append(f"{dt} {mode}: {out['same_node']} same node, "
                          f"{out['tied']} tied, m within {out['m_abs']:.1e} "
                          f"s^2 ({out['m_of_tol']:.1e} of its tolerance), t0 "
                          f"within {out['t0_err']:.1e} s; "
                          f"{ms:.4f} ms, plain {plain:.2f} ms, bound "
-                         f"{bound:.5f} ms ({by})")
+                         f"{bound:.5f} ms ({by}); one event {ms1:.4f} ms")
     # the odd case: K 7, 37 events over 3,617 columns, with non-finite
     # columns and exact duplicates (the first index wins); K 100, past
     # the kernel's register tile; an all-inf row

@@ -1,5 +1,6 @@
-// The banded solver's two steps on an RCM-ordered graph: a Jacobi
-// iteration (banded_sweep) and one Gauss-Seidel direction (banded_gs).
+// The banded solver's two steps on an RCM-ordered graph: Jacobi
+// iterations (banded_sweep, many a launch) and one Gauss-Seidel
+// direction (banded_gs).
 //
 // Kernels of the port's own choice: the JAX package runs both as XLA
 // (raytracer_tpu/ops/banded.py: the body of _solve_banded_jit, and one
@@ -17,15 +18,22 @@
 // weight).  A +inf tap never wins a minimum, each candidate is one
 // __fadd_rn / __dadd_rn and the minimum does not depend on order, so the
 // floats are those of the dense rolls.
-//   banded_sweep_kernel, a thread a (field, row): with active = changed_in
-//     && it_in < max_iters, v = min(dist0[i], dist0[tcol[t]] + tw[t] over
-//     row i's taps) (jnp.minimum(dist, _banded_sweep(dist))); a halo
-//     destination (didx[i] >= 0) also takes the same swept value of each
-//     of its sources (the scatter-min reads every source after the sweep
-//     and before any write: the thread sweeps the source rows itself);
-//     changed_out = 1 where v < dist0[i], it_out = it_in + 1.  When not
-//     active the field is copied through and it_out = it_in, changed_out
-//     = changed_in, so the host reads the flag every few iterations.
+//   banded_jacobi_kernel (banded_sweep): up to `count` iterations of
+//     the JAX package's loop in one cooperative launch.  While changed
+//     && it < max_iters (the flag and it as the host would read them,
+//     the same in every thread), an iteration writes v = min(src[i],
+//     src[tcol[t]] + tw[t] over row i's taps) (jnp.minimum(dist,
+//     _banded_sweep(dist))) of every (field, row); a halo destination
+//     (didx[i] >= 0) also takes the same swept value of each of its
+//     sources (the scatter-min reads every source after the sweep and
+//     before any write: the thread sweeps the source rows itself, from
+//     src); the changed flag is any v < src[i].  The field ping-pongs
+//     between out (even iterations) and tmp (odd ones); src is dist0 for
+//     the first.  A grid sync ends each iteration; every thread then
+//     reads its flag while the next iteration's window comes in (one of
+//     three flags: a flag is zeroed two syncs after its last read and set
+//     before the next sync).  When no iteration runs, out gets dist0 and
+//     it_out, changed_out the inputs.
 //   banded_gs (one direction), a block of threads a field: the row
 //     blocks of B rows strictly in order (ascending when forward); P
 //     passes a block, each a Jacobi update of the block over its rows'
@@ -42,13 +50,33 @@
 // What bounds them on an H100.  On the production Delaunay annulus
 // (47,616 rows, 496,032 finite taps, mean 10.4 a row) a Jacobi iteration
 // reads the taps once (~4 MB in float32 with their rows and offsets) and
-// the field: ~0.0012 ms at 3.35 TB/s, so one launch (~3 us) bounds it;
-// the gathers of dist0 at i+o stay within the band and in L1/L2.  The
+// the field: ~0.0012 ms at 3.35 TB/s.  The solve is 214 such iterations,
+// each depending on the last.  Its first design launched one kernel an
+// iteration (a thread a (field, row) walking its taps as dependent
+// global loads): 0.0055 ms on the card, a launch's latency, and ~0.03 ms
+// of the wrapper's Python an iteration, 216 launches a solve.  The
 // Gauss-Seidel direction is a chain of NB x P = 93 x 2 = 186 dependent
 // phases on one SM a field: latency, not bandwidth.  Its first design
 // (gs_wide_kernel, now the wide-band route) walked every tap as a chain
 // of dependent global loads (toff, tcol, the source row from in or out,
 // tw), an L2 round trip each: 0.77 ms a direction, ~4.1 us a phase.
+//
+// banded_jacobi_kernel runs the whole solve in one launch: the grid is
+// one block of 512 threads an SM (two blocks of 256 an SM took 7 % longer:
+// twice the blocks at each grid sync) and a grid sync separates the
+// iterations.  On its shared route (ops/banded.jacobi_plan, where it
+// fits) block b owns rows [b R, b R + R) of every field and keeps in
+// shared memory, for the whole launch, its rows' taps (laid out by
+// ops/banded.jacobi_layout as the window route's blocks: rows sorted by
+// tap count onto thread slots, 32 a group padded to the group's widest,
+// tap k of lane l at slot 32 k + l, each a uint16 window slot and a
+// weight) and, each iteration, its window of the field: the rows
+// [lo, hi) its own rows and their taps reach (the band), read from L2
+// with coalesced loads.  An iteration's gathers then touch only shared
+// memory.  Where the window and taps do not fit, the global route walks
+// the tap lists from L2 as the first design did, a thread an item over
+// the resident grid.  The field is read through L2 (__ldcg): a buffer
+// another block wrote in the last iteration may sit stale in L1.
 //
 // The window route (gs_window_kernel) takes every global load off that
 // chain.  With K the band's reach (the largest |offset|), block [b, b+B)
@@ -73,6 +101,7 @@
 // memory, and the block's two row buffers sit in shared memory where they
 // fit, in global memory (one pair a field) where they do not.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
@@ -80,53 +109,189 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 using minplus::add_rn;
 using minplus::min_of;
 using minplus::pos_inf;
 
 constexpr int kThreads = 256;
 constexpr int kGsMaxThreads = 1024;
+constexpr int kJacobiThreads = 512;  // one Jacobi block an SM
+constexpr int kBatch = 8;            // the Jacobi window's loads in flight a thread
 
-// min(d0[r], d0[tcol[t]] + tw[t] over row r's taps)
+// min(d[r], d[tcol[t]] + tw[t] over row r's taps), the field read
+// through L2 (the Jacobi kernel's buffers change within a launch)
 template <typename T>
-__device__ __forceinline__ T swept(const T* __restrict__ d0, int r, const int* __restrict__ toff,
-                                   const int* __restrict__ tcol, const T* __restrict__ tw) {
-  T v = d0[r];
-  const int t1 = toff[r + 1];
-  for (int t = toff[r]; t < t1; ++t) v = min_of(v, add_rn(d0[tcol[t]], tw[t]));
+__device__ __forceinline__ T swept_cg(const T* d, int r, const int* __restrict__ toff,
+                                      const int* __restrict__ tcol, const T* __restrict__ tw) {
+  T v = __ldcg(d + r);
+  const int t1 = __ldg(toff + r + 1);
+  for (int t = __ldg(toff + r); t < t1; ++t)
+    v = min_of(v, add_rn(__ldcg(d + __ldg(tcol + t)), __ldg(tw + t)));
   return v;
 }
 
+// The Jacobi solve's shared-route layout in shared memory (ops/banded.
+// jacobi_plan): the window (S fields x Wmax rows), the thread slots'
+// metadata (R int2, R a multiple of 32), the weights and the window
+// slots (nmax each);
+// every region a multiple of 16 bytes.
+__host__ __device__ __forceinline__ size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    banded_sweep_kernel(const T* __restrict__ dist0, T* __restrict__ dist1,
-                        const int* __restrict__ toff, const int* __restrict__ tcol,
-                        const T* __restrict__ tw, const int* __restrict__ didx,
-                        const int* __restrict__ hoff, const int* __restrict__ hsrc,
-                        const int* __restrict__ it_in, const int* __restrict__ changed_in,
-                        int* __restrict__ it_out, int* __restrict__ changed_out, int S,
-                        int n_pad, int max_iters) {
-  const bool active = *changed_in != 0 && *it_in < max_iters;
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    *it_out = *it_in + (active ? 1 : 0);
-    if (!active) *changed_out = *changed_in;
+struct JacobiSmem {
+  size_t win, meta, w, idx, end;  // byte offsets
+  __host__ __device__ JacobiSmem(int S, int Wmax, int R, int nmax) {
+    win = 0;
+    meta = align16(static_cast<size_t>(S) * Wmax * sizeof(T));
+    w = meta + align16(static_cast<size_t>(R) * sizeof(int2));
+    idx = w + align16(static_cast<size_t>(nmax) * sizeof(T));
+    end = idx + align16(static_cast<size_t>(nmax) * sizeof(unsigned short));
   }
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(S) * n_pad) return;
-  const int b = static_cast<int>(idx / n_pad);
-  const int i = static_cast<int>(idx - static_cast<long long>(b) * n_pad);
-  const T* d0 = dist0 + static_cast<size_t>(b) * n_pad;
-  const T x = d0[i];
-  if (!active) {
-    dist1[idx] = x;
-    return;
+};
+
+template <typename T>
+struct JacobiArgs {
+  const T* dist0;  // (S, n_pad), untouched
+  T* out;          // (S, n_pad): iterations 0, 2, 4, ... write here
+  T* tmp;          // (S, n_pad): iterations 1, 3, ... (unused when count is 1)
+  const int* toff;
+  const int* tcol;
+  const T* tw;  // the tap lists (the global route; halo sources on both)
+  const int* didx;
+  const int* hoff;
+  const int* hsrc;
+  const int2* meta;           // shared route: (blocks, R), a slot a row
+  const unsigned short* idx;  // shared route: the source row's window slot
+  const T* w;                 // shared route: the weights
+  const int* blk;             // shared route: (blocks + 1) tap starts
+  const int* win;             // shared route: (blocks, 2) window rows [lo, hi)
+  const int* it_in;
+  const int* changed_in;
+  int* it_out;
+  int* changed_out;
+  int* flags;  // 3 ints, zeroed by the caller
+  int S, n_pad, max_iters, count, R, nmax, Wmax;
+};
+
+// `count` Jacobi iterations at most (see the head of this file): while
+// changed && it < max_iters, one iteration from src to dst, a grid sync,
+// the flag read by every thread.  kShared: the block's rows [b R, b R +
+// R), its taps and its window of the field in shared memory; else a
+// thread a (field, row) over the whole grid, everything from L2.
+template <typename T, bool kShared>
+__global__ void __launch_bounds__(kJacobiThreads, 1) banded_jacobi_kernel(JacobiArgs<T> a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const bool lead = blockIdx.x == 0 && tid == 0;
+  const JacobiSmem<T> L(a.S, a.Wmax, a.R, a.nmax);
+  T* win = reinterpret_cast<T*>(smem_raw + L.win);
+  int2* meta = reinterpret_cast<int2*>(smem_raw + L.meta);
+  T* wt = reinterpret_cast<T*>(smem_raw + L.w);
+  unsigned short* ix = reinterpret_cast<unsigned short*>(smem_raw + L.idx);
+  const int r0 = blockIdx.x * a.R;
+  int lo = 0, W = 0;
+  if (kShared) {  // the block's taps, once a launch
+    lo = a.win[2 * blockIdx.x];
+    W = a.win[2 * blockIdx.x + 1] - lo;
+    const int t0 = a.blk[blockIdx.x], nt = a.blk[blockIdx.x + 1] - t0;
+    for (int i = tid; i < a.R; i += nth) meta[i] = a.meta[static_cast<size_t>(blockIdx.x) * a.R + i];
+    for (int i = tid; i < nt; i += nth) {
+      wt[i] = a.w[t0 + i];
+      ix[i] = a.idx[t0 + i];
+    }
   }
-  T v = swept(d0, i, toff, tcol, tw);
-  const int g = didx[i];
-  if (g >= 0)
-    for (int h = hoff[g]; h < hoff[g + 1]; ++h) v = min_of(v, swept(d0, hsrc[h], toff, tcol, tw));
-  dist1[idx] = v;
-  if (v < x) *changed_out = 1;
+  const long long total = static_cast<long long>(a.S) * a.n_pad;
+  int it = *a.it_in;
+  bool changed = *a.changed_in != 0;
+  int s = 0;
+  for (;;) {
+    const bool go = s < a.count && it < a.max_iters;
+    // the last iteration's flag, read while this iteration's window comes
+    // in (the window of an iteration that does not run is dropped)
+    if (s > 0) changed = *reinterpret_cast<volatile int*>(a.flags + (s - 1) % 3) != 0;
+    const T* src = s == 0 ? a.dist0 : ((s & 1) ? a.out : a.tmp);
+    T* dst = (s & 1) ? a.tmp : a.out;
+    if (kShared && go)  // kBatch loads in flight a thread, then their stores
+      for (int q0 = tid; q0 < a.S * W; q0 += kBatch * nth) {
+        T v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int q = q0 + u * nth, f = q / W, r = q - f * W;
+          if (q < a.S * W) v[u] = __ldcg(src + static_cast<size_t>(f) * a.n_pad + lo + r);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int q = q0 + u * nth, f = q / W, r = q - f * W;
+          if (q < a.S * W) win[f * a.Wmax + r] = v[u];
+        }
+      }
+    if (!(go && changed)) break;  // the same in every thread
+    // the flag of the next iteration: every thread read it two grid
+    // syncs ago, nobody writes it before the next one
+    if (lead) a.flags[(s + 1) % 3] = 0;
+    bool any = false;
+    if (kShared) {
+      __syncthreads();
+      for (int q = tid; q < a.S * a.R; q += nth) {
+        const int f = q / a.R, t = q - f * a.R;
+        const int2 m = meta[t];
+        if (m.x < 0) continue;
+        const int row = r0 + m.x;
+        const T* wf = win + f * a.Wmax;
+        const T x = wf[row - lo];
+        T v0 = x, v1 = pos_inf<T>();
+        const int D = m.y >> 20, st = m.y & 0xfffff;
+        int k = 0;
+        for (; k + 2 <= D; k += 2) {
+          v0 = min_of(v0, add_rn(wf[ix[st + 32 * k]], wt[st + 32 * k]));
+          v1 = min_of(v1, add_rn(wf[ix[st + 32 * k + 32]], wt[st + 32 * k + 32]));
+        }
+        if (k < D) v0 = min_of(v0, add_rn(wf[ix[st + 32 * k]], wt[st + 32 * k]));
+        T v = min_of(v0, v1);
+        const int g = __ldg(a.didx + row);
+        if (g >= 0) {
+          const T* d0 = src + static_cast<size_t>(f) * a.n_pad;
+          for (int h = __ldg(a.hoff + g); h < __ldg(a.hoff + g + 1); ++h)
+            v = min_of(v, swept_cg(d0, __ldg(a.hsrc + h), a.toff, a.tcol, a.tw));
+        }
+        dst[static_cast<size_t>(f) * a.n_pad + row] = v;
+        any |= v < x;
+      }
+    } else {
+      const long long nthg = static_cast<long long>(gridDim.x) * nth;
+      for (long long e = static_cast<long long>(blockIdx.x) * nth + tid; e < total; e += nthg) {
+        const int f = static_cast<int>(e / a.n_pad);
+        const int i = static_cast<int>(e - static_cast<long long>(f) * a.n_pad);
+        const T* d0 = src + static_cast<size_t>(f) * a.n_pad;
+        const T x = __ldcg(d0 + i);
+        T v = swept_cg(d0, i, a.toff, a.tcol, a.tw);
+        const int g = __ldg(a.didx + i);
+        if (g >= 0)
+          for (int h = __ldg(a.hoff + g); h < __ldg(a.hoff + g + 1); ++h)
+            v = min_of(v, swept_cg(d0, __ldg(a.hsrc + h), a.toff, a.tcol, a.tw));
+        dst[e] = v;
+        any |= v < x;
+      }
+    }
+    if (__syncthreads_or(any) && tid == 0) *reinterpret_cast<volatile int*>(a.flags + s % 3) = 1;
+    grid.sync();
+    ++it;
+    ++s;
+  }
+  // the result into out: no iteration ran (dist0), or the last one wrote tmp
+  if ((s & 1) == 0) {
+    const T* res = s == 0 ? a.dist0 : a.tmp;
+    const long long nthg = static_cast<long long>(gridDim.x) * nth;
+    for (long long e = static_cast<long long>(blockIdx.x) * nth + tid; e < total; e += nthg)
+      a.out[e] = __ldcg(res + e);
+  }
+  if (lead) {
+    *a.it_out = it;
+    *a.changed_out = changed ? 1 : 0;
+  }
 }
 
 // The wide-band route: rows out of the block read from global memory;
@@ -183,7 +348,6 @@ __global__ void __launch_bounds__(kGsMaxThreads)
 // values), the pass's new values (B), then two tap buffers, each the
 // per-slot metadata (G32 int2), the weights and the ring slots (nmax
 // each); every region a multiple of 16 bytes.
-__host__ __device__ __forceinline__ size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
 template <typename T>
 struct GsSmem {
@@ -338,17 +502,37 @@ unsigned grid_of(int S, int n_pad) {
   return static_cast<unsigned>((static_cast<long long>(S) * n_pad + kThreads - 1) / kThreads);
 }
 
-template <typename T>
-int launch_sweep(const void* dist0, void* dist1, const void* toff, const void* tcol,
-                 const void* tw, const void* didx, const void* hoff, const void* hsrc,
-                 const void* it_in, const void* changed_in, void* it_out, void* changed_out,
-                 int S, int n_pad, int max_iters, cudaStream_t st) {
-  banded_sweep_kernel<T><<<grid_of(S, n_pad), kThreads, 0, st>>>(
-      static_cast<const T*>(dist0), static_cast<T*>(dist1), static_cast<const int*>(toff),
-      static_cast<const int*>(tcol), static_cast<const T*>(tw), static_cast<const int*>(didx),
-      static_cast<const int*>(hoff), static_cast<const int*>(hsrc),
-      static_cast<const int*>(it_in), static_cast<const int*>(changed_in),
-      static_cast<int*>(it_out), static_cast<int*>(changed_out), S, n_pad, max_iters);
+// The most blocks of the Jacobi kernel resident at once with `smem`
+// bytes of dynamic shared memory (the cooperative launch's limit).
+template <typename T, bool kShared>
+int jacobi_capacity(int smem, int& blocks) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(banded_jacobi_kernel<T, kShared>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, banded_jacobi_kernel<T, kShared>,
+                                                      kJacobiThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  blocks = per_sm * sms;
+  return 0;
+}
+
+template <typename T, bool kShared>
+int launch_jacobi(JacobiArgs<T> a, int blocks, int smem, cudaStream_t st) {
+  int cap = 0;
+  const int rc = jacobi_capacity<T, kShared>(smem, cap);
+  if (rc) return rc;
+  if (blocks < 1 || blocks > cap) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* args[] = {&a};
+  const cudaError_t e =
+      cudaLaunchCooperativeKernel(reinterpret_cast<void*>(banded_jacobi_kernel<T, kShared>),
+                                  dim3(blocks), dim3(kJacobiThreads), args, smem, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -415,29 +599,73 @@ int launch_window(const void* din, void* dtmp, void* dout, const void* meta, con
 
 }  // namespace
 
-// Launches one Jacobi iteration on `stream`; returns the CUDA error as an
-// int (0 when the launch was accepted).  dist0/dist1 (S, n_pad) float32,
-// or float64 when is_double; toff (n_pad+1), tcol, tw (tw of dist's type)
+// Launches up to `count` Jacobi iterations (one cooperative launch of
+// `blocks` blocks of 512 threads) on `stream`; returns the CUDA error as
+// an int (0 when the launch was accepted).  dist0 (S, n_pad) float32, or
+// float64 when is_double, is left untouched; out and tmp (S, n_pad) of
+// its type (tmp may be out when count is 1); toff (n_pad+1), tcol, tw
 // the tap lists; didx (n_pad), hoff (D+1), hsrc int32 the halo groups
-// (tcol, tw and hsrc may be empty);
-// it_in, changed_in, it_out, changed_out one int32 each, changed_out
-// zeroed by the caller.  All contiguous device memory.
-extern "C" int banded_sweep_launch(const void* dist0, void* dist1, const void* toff,
-                                   const void* tcol, const void* tw, const void* didx,
-                                   const void* hoff, const void* hsrc, const void* it_in,
-                                   const void* changed_in, void* it_out, void* changed_out,
-                                   int S, int n_pad, int max_iters, int is_double,
-                                   void* stream) {
-  if (S < 1 || n_pad < 1 || max_iters < 0 || !dist0 || !dist1 || !toff || !didx || !hoff ||
-      !it_in || !changed_in || !it_out || !changed_out)
+// (tcol, tw and hsrc may be empty); it_in, changed_in, it_out,
+// changed_out one int32 each; flags 3 int32, zeroed by the caller.
+// shared != 0 takes the shared route: meta (blocks, R) int2, idx
+// (uint16) and w the tap layout of ops/banded.jacobi_layout, blk (blocks
+// + 1) its tap starts, win (blocks, 2) the window rows, R rows a block,
+// smem the bytes JacobiSmem gives; else those are null and 0 and blocks
+// threads stride over the (field, row) items.  All contiguous device
+// memory.
+extern "C" int banded_jacobi_launch(const void* dist0, void* out, void* tmp, const void* toff,
+                                    const void* tcol, const void* tw, const void* didx,
+                                    const void* hoff, const void* hsrc, const void* meta,
+                                    const void* idx, const void* w, const void* blk,
+                                    const void* win, const void* it_in, const void* changed_in,
+                                    void* it_out, void* changed_out, void* flags, int S,
+                                    int n_pad, int max_iters, int count, int shared, int blocks,
+                                    int R, int nmax, int Wmax, int smem, int is_double,
+                                    void* stream) {
+  if (S < 1 || n_pad < 1 || max_iters < 0 || count < 1 || !dist0 || !out || !tmp ||
+      (count > 1 && tmp == out) || !toff || !didx || !hoff || !it_in || !changed_in ||
+      !it_out || !changed_out || !flags || smem < 0 ||
+      static_cast<size_t>(smem) > minplus::kBlockSmem)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (shared) {
+    if (!meta || !idx || !w || !blk || !win || R < 32 || R % 32 || nmax < 0 ||
+        nmax % 32 || Wmax < 1 || Wmax > 65536 ||
+        static_cast<long long>(R) * blocks < n_pad ||
+        static_cast<size_t>(smem) != (is_double ? JacobiSmem<double>(S, Wmax, R, nmax).end
+                                                : JacobiSmem<float>(S, Wmax, R, nmax).end))
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else if (smem != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_double ? launch_sweep<double>(dist0, dist1, toff, tcol, tw, didx, hoff, hsrc, it_in,
-                                          changed_in, it_out, changed_out, S, n_pad,
-                                          max_iters, st)
-                   : launch_sweep<float>(dist0, dist1, toff, tcol, tw, didx, hoff, hsrc, it_in,
-                                         changed_in, it_out, changed_out, S, n_pad,
-                                         max_iters, st);
+  const auto args = [&](auto zero) {
+    using T = decltype(zero);
+    return JacobiArgs<T>{static_cast<const T*>(dist0),
+                         static_cast<T*>(out),
+                         static_cast<T*>(tmp),
+                         static_cast<const int*>(toff),
+                         static_cast<const int*>(tcol),
+                         static_cast<const T*>(tw),
+                         static_cast<const int*>(didx),
+                         static_cast<const int*>(hoff),
+                         static_cast<const int*>(hsrc),
+                         static_cast<const int2*>(meta),
+                         static_cast<const unsigned short*>(idx),
+                         static_cast<const T*>(w),
+                         static_cast<const int*>(blk),
+                         static_cast<const int*>(win),
+                         static_cast<const int*>(it_in),
+                         static_cast<const int*>(changed_in),
+                         static_cast<int*>(it_out),
+                         static_cast<int*>(changed_out),
+                         static_cast<int*>(flags),
+                         S, n_pad, max_iters, count, R, nmax, Wmax};
+  };
+  if (is_double)
+    return shared ? launch_jacobi<double, true>(args(0.0), blocks, smem, st)
+                  : launch_jacobi<double, false>(args(0.0), blocks, smem, st);
+  return shared ? launch_jacobi<float, true>(args(0.0f), blocks, smem, st)
+                : launch_jacobi<float, false>(args(0.0f), blocks, smem, st);
 }
 
 // Launches one Gauss-Seidel direction on the wide-band route (and, with

@@ -21,13 +21,18 @@ The solves (`solve_banded`, Jacobi; `solve_banded_gs`, Gauss-Seidel
 block sweeps) are loops of two steps, each a hand-written CUDA kernel
 (`csrc/banded.cu`, kernels of the port's own choice: the JAX package
 runs them as XLA) on a CUDA field and its plain twin on a CPU one:
-  * `banded_step` (kernel `banded_sweep`): one Jacobi iteration of the
-    JAX package's `_solve_banded_jit` body, the sweep, the halo
-    scatter-min (every source read before any write) and the changed
-    flag, with `it` and the flag kept on the device; an iteration after
-    the field stops changing, or at max_iters, changes nothing, so the
-    loop reads the host every `CHECK_EVERY` iterations.  Each candidate
-    is one add and the min is exact, so the kernel's walk over the finite
+  * `banded_step` (kernel `banded_sweep`): up to `count` Jacobi
+    iterations of the JAX package's `_solve_banded_jit` loop (the sweep,
+    the halo scatter-min with every source read before any write, the
+    changed flag; while changed and it < max_iters), `it` and the flag
+    kept on the device.  On the card one cooperative launch runs them
+    with a grid sync between iterations, on the route `jacobi_plan`
+    picks from the shapes: the shared route (each block's rows, their
+    taps laid out by `jacobi_layout` and the block's window of the field
+    in shared memory) where they fit, the global route (the tap lists
+    and the field from L2) where they do not.  `solve_banded` runs the
+    whole solve as one call and reads the host once.  Each candidate is
+    one add and the min is exact, so the kernel's walk over the finite
     taps gives the floats of the twin's dense rolls.
   * `banded_gs` (kernel `banded_gs`): one direction of
     `_solve_banded_gs_jit`'s `sweep`, blocks of B rows strictly in order
@@ -53,7 +58,8 @@ from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
 from ..kernels import BLOCK_SMEM
 from .circulant import csr_edge_weights, resolve_device
 from .graph import _round_up, halo_by_destination, pad_halo, rcm_permutation
-from .relax import _INT32_MAX, CHECK_EVERY
+from .bend import H100_SMS
+from .relax import _INT32_MAX
 
 CHUNK = 8  # offsets folded into one step of the JAX package's scan
 
@@ -75,6 +81,8 @@ class BandedGraph(NamedTuple):
     gs     : banded_gs's window layouts on the device, by (B, dtype):
              `gs_layout`, built at prepare time on a CUDA device for the
              default block, else at first use
+    jacobi : banded_sweep's plans and shared-route layouts on the device,
+             by (S, dtype): `jacobi_layout`, built at first use
     """
 
     offs: torch.Tensor
@@ -93,6 +101,7 @@ class BandedGraph(NamedTuple):
     hoff: torch.Tensor
     hsrc: torch.Tensor
     gs: dict
+    jacobi: dict
 
 
 def tap_lists(offs: np.ndarray, W: np.ndarray):
@@ -128,7 +137,7 @@ def banded_graph(offs, W, halo_src, halo_dst, perm, iperm, n: int,
                      n_pad=int(n_pad),
                      offsets_np=np.asarray(offsets_np, dtype=np.int64),
                      toff=t(toff), tcol=t(tcol), tw=t(tw), didx=t(didx),
-                     hoff=t(hoff), hsrc=t(hsrc), gs={})
+                     hoff=t(hoff), hsrc=t(hsrc), gs={}, jacobi={})
     if bg.tw.device.type == "cuda":
         _gs_route(bg, _gs_block(bg.n_pad, 512))
     return bg
@@ -285,10 +294,10 @@ def banded_gs_reference(dist: torch.Tensor, bg: BandedGraph, forward: bool,
 
 def _banded_lib() -> ctypes.CDLL:
     lib = kernels.load("banded")
-    if lib.banded_sweep_launch.argtypes is None:
-        lib.banded_sweep_launch.restype = ctypes.c_int
-        lib.banded_sweep_launch.argtypes = (
-            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    if lib.banded_jacobi_launch.argtypes is None:
+        lib.banded_jacobi_launch.restype = ctypes.c_int
+        lib.banded_jacobi_launch.argtypes = (
+            [ctypes.c_void_p] * 19 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         lib.banded_gs_launch.restype = ctypes.c_int
         lib.banded_gs_launch.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
@@ -315,32 +324,216 @@ def _check_field(d: torch.Tensor, bg: BandedGraph, name: str) -> bool:
     return True
 
 
+# ----------------------------------------------------------------------
+# banded_sweep: many Jacobi iterations a launch
+# ----------------------------------------------------------------------
+
+JACOBI_MIN_ROWS = 32
+JACOBI_MAX_WINDOW = 65536       # uint16 window slots
+
+
+class JacobiPlan(NamedTuple):
+    """A banded_sweep launch: `route` "shared" (each of `blocks` blocks
+    owns R rows, a multiple of 32, a thread slot each, and holds their
+    taps, nmax tap slots, and its window of the field, S x Wmax values,
+    in `smem` bytes of shared memory) or "global" (`blocks` blocks stride
+    over the (field, row) items and read the taps and the field from
+    L2)."""
+
+    route: str
+    blocks: int
+    smem: int
+    R: int = 0
+    nmax: int = 0
+    Wmax: int = 0
+
+
+def jacobi_smem(S: int, Wmax: int, R: int, nmax: int,
+                itemsize: int) -> int:
+    """csrc/banded.cu JacobiSmem: the window (S x Wmax values), the slots'
+    metadata (R int2), the weights and the uint16 window slots (nmax
+    each), each region a multiple of 16 bytes."""
+    return (_align16(S * Wmax * itemsize) + _align16(8 * R)
+            + _align16(nmax * itemsize) + _align16(2 * nmax))
+
+
+def _jacobi_shape(toff: np.ndarray, tcol: np.ndarray, n_pad: int, R: int):
+    """Blocks of R rows over [0, n_pad): (blocks, order, width, goff,
+    nmax, lo, hi) - `_gs_shape` of the rows padded to blocks x R with
+    empty rows, and each block's window [lo, hi): its own rows and every
+    row its taps read."""
+    toff = np.asarray(toff, dtype=np.int64)
+    G = -(-n_pad // R)
+    toff_p = np.concatenate([toff, np.full(G * R - n_pad, toff[-1])])
+    order, width, goff, nmax = _gs_shape(toff_p, G * R, R)
+    lo = np.arange(G, dtype=np.int64) * R
+    hi = np.minimum(lo + R, n_pad)
+    deg = np.diff(toff)
+    if len(tcol):
+        b = np.repeat(np.arange(n_pad), deg) // R
+        tc = np.asarray(tcol, dtype=np.int64)
+        np.minimum.at(lo, b, tc)
+        np.maximum.at(hi, b, tc + 1)
+    return G, order, width, goff, nmax, lo, hi
+
+
+def jacobi_plan(toff, tcol, n_pad: int, S: int, itemsize: int,
+                sms: int = H100_SMS) -> JacobiPlan:
+    """The route of a banded_sweep launch from the shapes alone: the
+    shared route, one block of 512 threads an SM (the rows split evenly,
+    at least 32 a block, a multiple of 32), where a block's taps and its
+    window of the S fields fit its shared memory (and the window uint16
+    slots); else the global route.  Never raises for size."""
+    toff = np.asarray(toff.cpu() if torch.is_tensor(toff) else toff)
+    tcol = np.asarray(tcol.cpu() if torch.is_tensor(tcol) else tcol)
+    R = _round_up(max(-(-n_pad // sms), JACOBI_MIN_ROWS), 32)
+    G, _, width, _, nmax, lo, hi = _jacobi_shape(toff, tcol, n_pad, R)
+    Wmax = int((hi - lo).max())
+    smem = jacobi_smem(S, Wmax, R, nmax, itemsize)
+    if (Wmax <= JACOBI_MAX_WINDOW and nmax < GS_MAX_START
+            and int(width.max(initial=0)) < GS_MAX_WIDTH
+            and smem <= BLOCK_SMEM):
+        return JacobiPlan("shared", G, smem, R, nmax, Wmax)
+    return JacobiPlan("global", sms, 0)
+
+
+class JacobiLayout(NamedTuple):
+    """banded_sweep's shared-route layout (`jacobi_layout`): block b owns
+    rows [b R, b R + R) (the last one fewer), sorted by tap count onto
+    R thread slots as `GsLayout`'s blocks are; tap k of slot t at
+    blk[b] + start[b, t] + 32 k.
+      meta : (blocks, R, 2) int32: the slot's row in the block (-1:
+             none), and start | width << 20
+      idx  : (total,) uint16 bits (int16 storage) the source row's slot in
+             the block's window, row - win[b, 0]; padding: the slot's own
+             row's, with weight +inf
+      w    : (total,) the weights
+      blk  : (blocks + 1,) int32 the blocks' tap starts
+      win  : (blocks, 2) int32 the window rows [lo, hi)"""
+
+    meta: torch.Tensor
+    idx: torch.Tensor
+    w: torch.Tensor
+    blk: torch.Tensor
+    win: torch.Tensor
+    plan: JacobiPlan
+
+
+def jacobi_layout(toff, tcol, tw, n_pad: int, S: int, itemsize: int,
+                  device, sms: int = H100_SMS):
+    """banded_sweep's layout of S fields (see `JacobiLayout`) from the tap
+    lists (host arrays or tensors), on `device`, with its plan from
+    `jacobi_plan`; on the global route that JacobiPlan alone."""
+    toff, tcol, tw = (np.asarray(a.cpu() if torch.is_tensor(a) else a)
+                      for a in (toff, tcol, tw))
+    plan = jacobi_plan(toff, tcol, n_pad, S, itemsize, sms)
+    if plan.route != "shared":
+        return plan
+    R = plan.R
+    G, order, width, goff, _, lo, hi = _jacobi_shape(toff, tcol, n_pad, R)
+    Gn = R // 32
+    counts = 32 * width                                    # (G, Gn)
+    blk = np.zeros(G + 1, dtype=np.int64)
+    np.cumsum(counts.sum(axis=1), out=blk[1:])
+    total = int(blk[-1])
+    rows = np.arange(G)[:, None] * R + order               # global rows
+    real = rows < n_pad
+    # every slot position: (block, group, lane, k); padding first
+    gstart = (blk[:-1, None] + goff).reshape(-1)
+    n_of = counts.reshape(-1)
+    gid = np.repeat(np.arange(G * Gn), n_of)
+    q = np.arange(total) - np.repeat(gstart, n_of)
+    rb = gid // Gn
+    t = (gid % Gn) * 32 + q % 32
+    idx = (rows[rb, t] - lo[rb]).astype(np.uint16)
+    w = np.full(total, np.inf, dtype=tw.dtype)
+    # the real taps: tap k of row r at its slot's position
+    deg = np.diff(toff.astype(np.int64))
+    r = np.repeat(np.arange(n_pad), deg)
+    k = np.arange(len(tcol)) - np.repeat(toff[:-1].astype(np.int64), deg)
+    slot_of = np.empty((G, R), dtype=np.int64)
+    np.put_along_axis(slot_of, order, np.arange(R)[None, :], axis=1)
+    rbt, lr = r // R, r % R
+    ts = slot_of[rbt, lr]
+    pos = blk[rbt] + goff[rbt, ts // 32] + ts % 32 + 32 * k
+    idx[pos] = (np.asarray(tcol, dtype=np.int64) - lo[rbt]).astype(np.uint16)
+    w[pos] = tw
+    meta = np.zeros((G, R, 2), dtype=np.int32)
+    meta[..., 0] = np.where(real, order, -1)
+    lane = np.arange(R) % 32
+    meta[..., 1] = (goff[:, np.arange(R) // 32] + lane[None, :]) \
+        | (width[:, np.arange(R) // 32] << 20)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return JacobiLayout(meta=dev(meta), idx=dev(idx.view(np.int16)),
+                        w=dev(w), blk=dev(blk.astype(np.int32)),
+                        win=dev(np.stack([lo, hi], 1).astype(np.int32)),
+                        plan=plan)
+
+
+def _jacobi_route(bg: BandedGraph, S: int):
+    """The plan of a launch on S fields of bg (a JacobiLayout for the
+    shared route, built once and kept in bg.jacobi; a JacobiPlan for the
+    global route)."""
+    key = (S, str(bg.tw.dtype))
+    got = bg.jacobi.get(key)
+    if got is None:
+        sms = torch.cuda.get_device_properties(
+            bg.tw.device).multi_processor_count
+        got = jacobi_layout(bg.toff, bg.tcol, bg.tw, bg.n_pad, S,
+                            bg.tw.element_size(), bg.tw.device, sms)
+        bg.jacobi[key] = got
+    return got
+
+
 def banded_step(s: BandedState, bg: BandedGraph,
-                max_iters: Optional[int] = None) -> BandedState:
-    """One Jacobi iteration of the banded solve; returns a new state, the
-    input untouched.  A CUDA field (float32 or float64) goes to the
-    hand-written kernel `banded_sweep` of `csrc/banded.cu` (one launch: a
-    thread a (source, row) over the row's finite taps, a halo
-    destination's thread also sweeping its sources; `it` and `changed`
-    on the device; `banded_step.launches` counts the calls), a CPU field
-    to `banded_step_reference`.  Any other device raises."""
+                max_iters: Optional[int] = None,
+                count: int = 1) -> BandedState:
+    """Up to `count` Jacobi iterations of the banded solve (fewer where
+    the field stops changing or `it` reaches max_iters, the JAX package's
+    loop rule); returns a new state, the input untouched.  A CUDA field
+    (float32 or float64) goes to the hand-written kernel `banded_sweep`
+    of `csrc/banded.cu`: one cooperative launch that runs the iterations
+    with a grid sync between them, on the route `jacobi_plan` picks from
+    the shapes (`banded_step.launches` counts the launches).  A CPU
+    field goes to `count` calls of `banded_step_reference`.  Any other
+    device raises."""
+    if count < 1:
+        raise ValueError(f"count must be >= 1, got {count}")
     d = s.dist
     if not _check_field(d, bg, "banded_sweep"):
-        return banded_step_reference(s, bg, max_iters)
+        for _ in range(count):
+            nxt = banded_step_reference(s, bg, max_iters)
+            if nxt is s:
+                break
+            s = nxt
+        return s
     d = d.contiguous()
+    S = d.shape[0]
+    route = _jacobi_route(bg, S)
     out = torch.empty_like(d)
+    tmp = torch.empty_like(d) if count > 1 else out
     it_in = s.it.to(torch.int32).contiguous()
     ch_in = s.changed.to(torch.int32).contiguous()
     it_out = torch.empty((), dtype=torch.int32, device=d.device)
-    ch_out = torch.zeros((), dtype=torch.int32, device=d.device)
+    ch_out = torch.empty((), dtype=torch.int32, device=d.device)
+    flags = torch.zeros(3, dtype=torch.int32, device=d.device)
     cap = _INT32_MAX if max_iters is None else int(max_iters)
     stream = torch.cuda.current_stream(d.device).cuda_stream
-    rc = _banded_lib().banded_sweep_launch(
-        d.data_ptr(), out.data_ptr(), bg.toff.data_ptr(),
+    if isinstance(route, JacobiLayout):
+        p = route.plan
+        lay = [route.meta.data_ptr(), route.idx.data_ptr(),
+               route.w.data_ptr(), route.blk.data_ptr(), route.win.data_ptr()]
+    else:
+        p = route
+        lay = [None] * 5
+    rc = _banded_lib().banded_jacobi_launch(
+        d.data_ptr(), out.data_ptr(), tmp.data_ptr(), bg.toff.data_ptr(),
         bg.tcol.data_ptr(), bg.tw.data_ptr(), bg.didx.data_ptr(),
-        bg.hoff.data_ptr(), bg.hsrc.data_ptr(), it_in.data_ptr(),
+        bg.hoff.data_ptr(), bg.hsrc.data_ptr(), *lay, it_in.data_ptr(),
         ch_in.data_ptr(), it_out.data_ptr(), ch_out.data_ptr(),
-        d.shape[0], bg.n_pad, cap, int(d.dtype == torch.float64), stream)
+        flags.data_ptr(), S, bg.n_pad, cap, int(min(count, _INT32_MAX)),
+        int(p.route == "shared"), p.blocks, p.R, p.nmax, p.Wmax,
+        p.smem, int(d.dtype == torch.float64), stream)
     if rc != 0:
         raise RuntimeError(f"banded_sweep kernel launch failed: CUDA error "
                            f"{rc}")
@@ -614,17 +807,14 @@ def solve_banded(
 ) -> Tuple[np.ndarray, int]:
     """(S, n) distance fields in ORIGINAL node order + iteration count.
 
-    Exact fixpoint: iterate while any distance strictly improves."""
+    Exact fixpoint: iterate while any distance strictly improves.  The
+    whole solve is one `banded_step` call (on the card one launch of
+    banded_sweep), then one host read."""
     one = torch.ones((), dtype=torch.int32, device=bg.tw.device)
     s = BandedState(dist=_sources(bg, sources, config), changed=one,
                     it=torch.zeros_like(one))
-    check = CHECK_EVERY if bg.tw.device.type == "cuda" else 1
-    while True:
-        for _ in range(check):
-            s = banded_step(s, bg, config.max_iters)
-        changed, it = torch.stack([s.changed, s.it]).tolist()
-        if not changed or it >= config.max_iters:
-            return _unpermute(bg, s.dist), it
+    s = banded_step(s, bg, config.max_iters, max(config.max_iters, 1))
+    return _unpermute(bg, s.dist), int(s.it)
 
 
 def solve_banded_gs(

@@ -59,9 +59,8 @@ def grid_search_reference(T: torch.Tensor, t_obs: torch.Tensor,
 
 
 def _catalogue_obs(T_obs: torch.Tensor, w2: torch.Tensor):
-    """The event side of the expanded form, (W2, s1, a, A); the wrapper
-    hands the kernel these very tensors, so the twin and the kernel
-    demean the picks alike."""
+    """The event side of the expanded form, (W2, s1, a, A) (the kernel
+    forms the same terms from T_obs and w2 with its own sums)."""
     W2 = torch.sum(w2)
     s1 = T_obs @ w2
     Oc = T_obs - (s1 / W2)[:, None]
@@ -113,12 +112,27 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] + [ctypes.c_void_p] * 5
+                        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                        + [ctypes.c_int, ctypes.c_void_p])
         lib.gridsearch_blocks.restype = ctypes.c_int
-        lib.gridsearch_blocks.argtypes = [ctypes.c_int]
+        lib.gridsearch_blocks.argtypes = [ctypes.c_int] * 3
     return lib
+
+
+_BLOCKS: dict = {}   # (n, expanded, is_double) -> pass 1's blocks
+
+
+def _blocks(lib, n: int, expanded: int, is_double: int) -> int:
+    key = (n, expanded, is_double)
+    nb = _BLOCKS.get(key)
+    if nb is None:
+        nb = lib.gridsearch_blocks(n, expanded, is_double)
+        if nb < 1:
+            raise RuntimeError(f"gridsearch kernel: no launch shape for {n} "
+                               f"columns: CUDA error {-nb}")
+        _BLOCKS[key] = nb
+    return nb
 
 
 def grid_search(T: torch.Tensor, T_obs: torch.Tensor, w2: torch.Tensor,
@@ -130,10 +144,13 @@ def grid_search(T: torch.Tensor, T_obs: torch.Tensor, w2: torch.Tensor,
     formula (see the module docstring).
 
     A CUDA T goes to the hand-written kernel `csrc/gridsearch.cu`: a
-    thread a column, the whole catalogue in one call, the first index
-    among equal minima.  A CPU T goes to the twins: event by event in
-    the direct mode, in 64-event blocks in the expanded one.  Any other
-    device raises."""
+    lane's tile of columns against its warp's events, its best kept as it
+    walks the columns in order, one reduction an (event, block), the
+    whole catalogue in one call, the first index among equal minima; the
+    kernel forms W2 and the expanded formula's event side itself, so the
+    call is one allocation of each output type and the launch.  A CPU T
+    goes to the twins: event by event in the direct mode, in 64-event
+    blocks in the expanded one.  Any other device raises."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if T.dim() != 2 or T_obs.dim() != 2 or T_obs.shape[1] != T.shape[0] \
@@ -158,31 +175,22 @@ def grid_search(T: torch.Tensor, T_obs: torch.Tensor, w2: torch.Tensor,
     K, n = T.shape
     E = T_obs.shape[0]
     T, T_obs, w2 = T.contiguous(), T_obs.contiguous(), w2.contiguous()
-    A = s1 = None
-    if mode == "expanded":
-        W2, s1, obs, A = _catalogue_obs(T_obs, w2)
-        obs, A, s1 = obs.contiguous(), A.contiguous(), s1.contiguous()
-    else:
-        W2, obs = torch.sum(w2), T_obs
-    W2 = W2.reshape(1)
     lib = _lib()
-    nb = lib.gridsearch_blocks(n)
-    pm = torch.empty(max(E * nb, 1), dtype=T.dtype, device=dev)
-    pj = torch.empty(max(E * nb, 1), dtype=torch.int32, device=dev)
-    j = torch.empty(E, dtype=torch.int64, device=dev)
-    t0 = torch.empty(E, dtype=T.dtype, device=dev)
-    m = torch.empty(E, dtype=T.dtype, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()
+    expanded, is_double = int(mode == "expanded"), int(T.dtype == torch.float64)
+    nb = _blocks(lib, n, expanded, is_double)
+    # (t0, m, the partial misfits) and (j, the partial columns as int32)
+    vals = torch.empty(E * (2 + nb) + 1, dtype=T.dtype, device=dev)
+    ids = torch.empty(E + (E * nb + 1) // 2 + 1, dtype=torch.int64,
+                      device=dev)
+    vp, ip, size = vals.data_ptr(), ids.data_ptr(), T.element_size()
     rc = lib.gridsearch_launch(
-        T.data_ptr(), K, n, obs.data_ptr(), E, w2.data_ptr(), W2.data_ptr(),
-        ptr(A), ptr(s1), int(mode == "expanded"), pm.data_ptr(),
-        pj.data_ptr(), j.data_ptr(), t0.data_ptr(), m.data_ptr(),
-        int(T.dtype == torch.float64),
+        T.data_ptr(), K, n, T_obs.data_ptr(), E, w2.data_ptr(), expanded, nb,
+        vp + 2 * E * size, ip + 8 * E, ip, vp, vp + E * size, is_double,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gridsearch kernel launch failed: CUDA error {rc}")
     grid_search.launches += 1
-    return j, t0, m
+    return ids[:E], vals[:E], vals[E:2 * E]
 
 
 grid_search.launches = 0

@@ -33,6 +33,7 @@ import raytracer_tpu_torch.models.zoeppritz as p_zoep
 import raytracer_tpu_torch.solvers.refine as p_refine
 from raytracer_tpu_torch import main_annulus as p_main
 from raytracer_tpu_torch.config import R
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 JAX = dict(amp=j_amp, flat=j_flat, iasp=j_iasp, interp=j_interp, ray=j_ray,
            zoep=j_zoep)

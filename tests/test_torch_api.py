@@ -25,6 +25,7 @@ from raytracer_tpu.utils.cache import build_circulant_cached as j_cached
 from raytracer_tpu.utils.io import travel_times as j_tt
 from raytracer_tpu_torch import main_annulus
 from raytracer_tpu_torch.utils.cache import build_circulant_cached as p_cached
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

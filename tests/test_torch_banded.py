@@ -32,6 +32,7 @@ import raytracer_tpu_torch as pt
 from raytracer_tpu_torch import convert
 from raytracer_tpu_torch.config import SolverConfig as PC
 from raytracer_tpu_torch.ops import banded as pb
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 NO_HALO = np.empty((0, 2), np.int64)
 
@@ -444,3 +445,281 @@ def test_gs_window_replay_equals_twin(meshes, name, order, B, P):
                                       block=B, passes=P).numpy()[0]
         got = _gs_window_replay(d[0], lay, K, forward, P, pbg.n_pad, B)
         _same(got, want, f"forward={forward}")
+
+
+# ----------------------------------------------------------------------
+# banded_sweep: many Jacobi iterations a launch - the shared route's
+# layout, the route choice and a NumPy replay of csrc/banded.cu
+# banded_jacobi_kernel (the grid sync, the flag, the loop rule)
+# ----------------------------------------------------------------------
+
+def _tap_table(pbg):
+    """(n_pad, most taps) source rows and weights of each row's taps,
+    padded with the row itself at +inf."""
+    toff, tcol, tw = pbg.toff.numpy(), pbg.tcol.numpy(), pbg.tw.numpy()
+    deg = np.diff(toff)
+    k = np.arange(max(int(deg.max(initial=0)), 1))
+    ok = k[None, :] < deg[:, None]
+    pos = np.where(ok, toff[:-1, None] + k[None, :], 0)
+    rows = np.arange(len(deg))[:, None]
+    return (np.where(ok, tcol[np.minimum(pos, len(tcol) - 1)], rows),
+            np.where(ok, tw[np.minimum(pos, len(tw) - 1)], np.inf))
+
+
+def _swept(src, rows, tab):
+    """(S, len(rows)): min(src[:, r], src[:, tcol] + tw over r's taps)."""
+    tc, tw = tab[0][rows], tab[1][rows]
+    return np.minimum(src[:, rows], (src[:, tc] + tw).min(axis=2))
+
+
+def _decode_jacobi(pbg, lay):
+    """The reads of one iteration of the kernel, decoded once: (rows, src
+    rows, weights) with the slots' rows (every row once), and for each
+    its (padded) taps' source rows and weights.  The shared route: block
+    b's slot t holds row b R + meta[b, t, 0] and reads tap k at layout
+    position blk[b] + start + 32 k from the block's window, row win[b, 0]
+    + idx (the window holds the rows [win[b, 0], win[b, 1]) of the
+    field, so a read outside it would fail here); the global route: each
+    row over its tap lists."""
+    if not isinstance(lay, pb.JacobiLayout):
+        tc, tw = _tap_table(pbg)
+        return np.arange(pbg.n_pad), tc, tw
+    meta, idx, w, blk, win = (lay.meta.numpy(),
+                              lay.idx.numpy().view(np.uint16).astype(np.int64),
+                              lay.w.numpy(), lay.blk.numpy(), lay.win.numpy())
+    R = lay.plan.R
+    b, t = np.nonzero(meta[:, :, 0] >= 0)
+    rows = b * R + meta[b, t, 0]
+    start, width = meta[b, t, 1] & 0xFFFFF, meta[b, t, 1] >> 20
+    k = np.arange(max(int(width.max(initial=0)), 1))
+    ok = k[None, :] < width[:, None]
+    pos = np.where(ok, blk[b][:, None] + start[:, None] + 32 * k[None, :], 0)
+    lo, hi = win[b, 0], win[b, 1]
+    assert ((rows >= lo) & (rows < hi)).all()
+    assert (idx[pos][ok] < (hi - lo)[:, None].repeat(len(k), 1)[ok]).all()
+    return (rows, np.where(ok, lo[:, None] + idx[pos], rows[:, None]),
+            np.where(ok, w[pos], np.inf))
+
+
+def _jacobi_iteration(src, dst, pbg, reads, tab):
+    """One iteration of the kernel from src into dst through its decoded
+    reads (every row written once); returns whether any value fell.  A
+    halo destination also takes its sources' sweeps, read from the tap
+    lists."""
+    didx, hoff, hsrc = pbg.didx.numpy(), pbg.hoff.numpy(), pbg.hsrc.numpy()
+    rows, sr, sw = reads
+    dst[:] = np.nan
+    dst[:, rows] = np.minimum(src[:, rows], (src[:, sr] + sw).min(axis=2))
+    dest = np.flatnonzero(didx >= 0)
+    if len(dest):
+        g = didx[dest]
+        cnt = hoff[g + 1] - hoff[g]
+        srcs = np.concatenate([hsrc[hoff[x]:hoff[x + 1]] for x in g])
+        swept = _swept(src, srcs, tab)
+        merged = dst[:, dest].copy()
+        np.minimum.at(merged, (slice(None), np.repeat(np.arange(len(dest)),
+                                                      cnt)), swept)
+        dst[:, dest] = merged
+    assert not np.isnan(dst).any()
+    return bool((dst < src).any())
+
+
+def _jacobi_replay(state, pbg, lay, count, max_iters):
+    """banded_jacobi_kernel in NumPy: while s < count, changed and it <
+    max_iters, iteration s reads dist0 (s = 0) or the buffer iteration
+    s - 1 wrote and writes out (s even) or tmp (s odd); the flag of
+    iteration s (one of three, zeroed two syncs after its last read) is
+    read after the grid sync by every thread; out gets dist0 when no
+    iteration ran, tmp's rows when the last one wrote there."""
+    d0 = state.dist.numpy()
+    tab = _tap_table(pbg)
+    reads = _decode_jacobi(pbg, lay)
+    it, changed = int(state.it), bool(int(state.changed))
+    out = np.full_like(d0, np.nan)
+    tmp = np.full_like(d0, np.nan)
+    flags = [0, 0, 0]
+    s = 0
+    while s < count and changed and it < max_iters:
+        src = d0 if s == 0 else (out if s % 2 else tmp)
+        dst = tmp if s % 2 else out
+        flags[(s + 1) % 3] = 0
+        if _jacobi_iteration(src, dst, pbg, reads, tab):
+            flags[s % 3] = 1
+        changed = bool(flags[s % 3])
+        it += 1
+        s += 1
+    if s % 2 == 0:
+        out[:] = d0 if s == 0 else tmp
+    return pb.BandedState(torch.from_numpy(out),
+                          torch.tensor(int(changed), dtype=torch.int32),
+                          torch.tensor(it, dtype=torch.int32))
+
+
+JACOBI = [("16x6", "float64", "rcm", 2, 132),
+          ("16x6", "float64", "rcm", 2, None),
+          ("delaunay", "float32", "rcm", 1, 132),
+          ("delaunay", "float64", "rcm", 2, 4),
+          ("delaunay", "float32", "natural", 1, 4)]
+
+
+@pytest.fixture(scope="module")
+def jacobi_cases(meshes):
+    """case -> its port graph, the twin's states iteration by iteration
+    (banded_step_reference from the sources' start field to the
+    fixpoint) and the JAX package's solves (the whole one and the one cut
+    at max_iters 5); each made at its first use."""
+    made = {}
+
+    def get(name, dtype, order, S):
+        key = (name, dtype, order, S)
+        if key not in made:
+            gr, jbg, pbg = _pair(meshes, name, "Vp", dtype, order)
+            srcs = [_src(gr), _src(gr, 150.0)][:S]
+            st = pb.BandedState(pb._sources(pbg, srcs, PC(dtype=dtype)),
+                                torch.ones((), dtype=torch.int32),
+                                torch.zeros((), dtype=torch.int32))
+            states = [st]
+            while int(states[-1].changed):
+                states.append(pb.banded_step_reference(states[-1], pbg))
+            made[key] = (pbg, states,
+                         jb.solve_banded(jbg, srcs, JC(dtype=dtype)),
+                         jb.solve_banded(jbg, srcs,
+                                         JC(dtype=dtype, max_iters=5)))
+        return made[key]
+
+    return get
+
+
+def _lay(pbg, S, sms):
+    """The case's route: jacobi_layout on `sms` SMs, or (None) the global
+    route of 4 blocks."""
+    if sms is None:
+        return pb.JacobiPlan("global", 4, 0)
+    return pb.jacobi_layout(pbg.toff, pbg.tcol, pbg.tw, pbg.n_pad, S,
+                            pbg.tw.element_size(), "cpu", sms)
+
+
+@pytest.mark.parametrize("count", [1, 3, 8, 100_000])
+@pytest.mark.parametrize("case", JACOBI, ids=lambda c: "-".join(map(str, c)))
+def test_jacobi_replay_equals_twin_and_jax(jacobi_cases, case, count):
+    """Launch after launch of `count` iterations, the replay's state (the
+    field, `changed`, `it`) equals `count` calls of banded_step_reference
+    (the twin's state after as many iterations), and the last one the
+    JAX package's `_solve_banded_jit` fields and iteration count; the
+    solve cut at max_iters 5 inside a launch equals the JAX package's
+    cut; a launch from the fixpoint changes nothing."""
+    name, dtype, order, S, sms = case
+    pbg, states, (dj, ij), (dj5, ij5) = jacobi_cases(name, dtype, order, S)
+    lay = _lay(pbg, S, sms)
+    cap = 100_000
+    got = states[0]
+    launches = 0
+    while int(got.changed):
+        got = _jacobi_replay(got, pbg, lay, count, cap)
+        launches += 1
+        want = states[min(launches * count, len(states) - 1)]
+        for f in got._fields:
+            _same(getattr(got, f).numpy(), getattr(want, f).numpy(),
+                  f"{f} after launch {launches}")
+    assert int(got.it) == ij == len(states) - 1
+    assert launches == -(-ij // count)
+    _same(pb._unpermute(pbg, got.dist), dj, "field against JAX")
+    cut = _jacobi_replay(states[0], pbg, lay, max(count, 8), 5)
+    assert int(cut.it) == ij5 == 5
+    _same(pb._unpermute(pbg, cut.dist), dj5, "cut field against JAX")
+    again = _jacobi_replay(got, pbg, lay, count, cap)
+    for f in got._fields:
+        _same(getattr(again, f).numpy(), getattr(got, f).numpy(), f)
+
+
+def test_banded_step_count_is_count_twin_calls(jacobi_cases):
+    """On a CPU field banded_step(count) is `count` calls of the twin,
+    stopping at the fixpoint and at max_iters."""
+    pbg, states, _, _ = jacobi_cases("16x6", "float64", "rcm", 2)
+    for count, cap in ((1, 100), (8, 100), (8, 5), (100_000, 100_000)):
+        got = pb.banded_step(states[0], pbg, cap, count)
+        want = states[min(count, cap, len(states) - 1)]
+        for f in got._fields:
+            _same(getattr(got, f).numpy(), getattr(want, f).numpy(), f)
+    with pytest.raises(ValueError, match="count"):
+        pb.banded_step(states[0], pbg, count=0)
+
+
+def test_jacobi_layout_holds_exactly_the_tap_lists(meshes):
+    """Decoded slot by slot, the shared route's layout holds each row's
+    taps of `tap_lists` (the window slot back to the source row) on one
+    thread slot of its block, groups of 32 slots padded to their widest
+    row with the row's own slot at +inf, every block's window covering its
+    rows and every row its taps read."""
+    for name, order, sms in (("delaunay", "rcm", 4), ("delaunay", "natural",
+                                                      132), ("16x6", "rcm", 132)):
+        _, _, pbg = _pair(meshes, name, "Vp", "float32", order)
+        lay = _lay(pbg, 1, sms)
+        toff, tcol, tw = (pbg.toff.numpy(), pbg.tcol.numpy(),
+                          pbg.tw.numpy())
+        meta, idx, w, blk, win = (lay.meta.numpy(),
+                                  lay.idx.numpy().view(np.uint16),
+                                  lay.w.numpy(), lay.blk.numpy(),
+                                  lay.win.numpy())
+        p = lay.plan
+        assert meta.shape == (p.blocks, p.R, 2) and p.R % 32 == 0
+        assert p.blocks * p.R >= pbg.n_pad > (p.blocks - 1) * p.R
+        assert int(np.diff(blk).max()) == p.nmax and (blk % 32 == 0).all()
+        assert int((win[:, 1] - win[:, 0]).max()) == p.Wmax
+        assert p.smem == pb.jacobi_smem(1, p.Wmax, p.R, p.nmax, 4)
+        seen = []
+        for b in range(p.blocks):
+            lo, hi = win[b]
+            for t in range(p.R):
+                row = meta[b, t, 0]
+                if row < 0:
+                    assert b * p.R + t >= pbg.n_pad or t >= 0
+                    continue
+                r = b * p.R + row
+                seen.append(r)
+                assert lo <= r < hi
+                start, width = meta[b, t, 1] & 0xFFFFF, meta[b, t, 1] >> 20
+                pos = blk[b] + start + 32 * np.arange(width)
+                n = toff[r + 1] - toff[r]
+                _same(idx[pos[:n]].astype(np.int64) + lo,
+                      tcol[toff[r]:toff[r + 1]].astype(np.int64),
+                      f"row {r} sources")
+                _same(w[pos[:n]], tw[toff[r]:toff[r + 1]], f"row {r} weights")
+                assert np.isinf(w[pos[n:]]).all()
+                assert (idx[pos[n:]].astype(np.int64) + lo == r).all()
+        assert sorted(seen) == list(range(pbg.n_pad))
+
+
+def test_jacobi_route_follows_the_shapes(meshes):
+    """The shared route, one block an SM, where a block's taps and its
+    window of the S fields fit its 227 KB (and the window's uint16
+    slots), else the global route: no shape is refused.  Rows split
+    evenly, at least 32 a block, a multiple of 32."""
+    _, _, pbg = _pair(meshes, "delaunay", "Vp", "float32")
+    plan = lambda S, it, sms: pb.jacobi_plan(pbg.toff, pbg.tcol, pbg.n_pad,
+                                             S, it, sms)
+    assert pbg.n_pad == 4096
+    p = plan(1, 4, 132)
+    assert (p.route, p.blocks, p.R) == ("shared", 128, 32)
+    p = plan(1, 4, 4)
+    assert (p.route, p.blocks, p.R) == ("shared", 4, 1024)
+    assert p.smem == pb.jacobi_smem(1, p.Wmax, 1024, p.nmax, 4)
+    # eight float64 fields: 205,888 bytes a block on 4 SMs, 117,568 on 8
+    assert plan(8, 8, 4).smem == 205888 <= pb.BLOCK_SMEM
+    assert (plan(8, 8, 8).blocks, plan(8, 8, 8).smem) == (8, 117568)
+    # a slice that does not fit: 16 float64 or 64 float32 fields' windows
+    # with a quarter of the rows a block
+    assert plan(16, 8, 4) == pb.JacobiPlan("global", 4, 0)
+    assert plan(64, 4, 4) == pb.JacobiPlan("global", 4, 0)
+    assert plan(4096, 8, 132) == pb.JacobiPlan("global", 132, 0)
+    # a band too wide for the window's uint16 slots: a synthetic graph
+    n = 1 << 17
+    toff = np.arange(n + 1, dtype=np.int32)
+    tcol = ((np.arange(n) + n // 2) % n).astype(np.int32)
+    assert pb.jacobi_plan(toff, tcol, n, 1, 4, 132).route == "global"
+    near = ((np.arange(n) + 7) % n).astype(np.int32)
+    near[-7:] = n - 1
+    assert pb.jacobi_plan(toff, near, n, 1, 4, 132).route == "shared"
+    # the layout's own choice: the JacobiPlan alone on the global route
+    assert pb.jacobi_layout(pbg.toff, pbg.tcol, pbg.tw, pbg.n_pad, 64, 4,
+                            "cpu", 4) == pb.JacobiPlan("global", 4, 0)

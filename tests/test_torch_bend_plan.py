@@ -30,6 +30,7 @@ from raytracer_tpu.config import R, SolverConfig
 from raytracer_tpu.solvers import refine as jr
 from raytracer_tpu_torch.ops import bend as ob
 from raytracer_tpu_torch.solvers import refine as pr
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 LOCKSTEP = {10: (1e-6, 1e-3), 50: (1e-6, 1e-3)}      # chip_smoke.py 3i
 PLANS = [(512, 4), (128, 8), (96, 1)]                 # (threads, lanes)

@@ -41,6 +41,7 @@ from raytracer_tpu_torch.config import SolverConfig as PC
 from raytracer_tpu_torch.ops import relax as prelax
 from raytracer_tpu_torch.solvers import bfm as pbfm
 from raytracer_tpu_torch.solvers import radius_stepping as prs
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 NO_HALO = np.empty((0, 2), np.int64)
 

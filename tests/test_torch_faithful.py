@@ -20,6 +20,7 @@ import raytracer_tpu_torch as pt
 from raytracer_tpu.models import annulus as j_ann
 from raytracer_tpu_torch.models import annulus as p_ann
 from raytracer_tpu_torch.ops.wrapped_t import supports_twrapped
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 MESHES = {"16x6": (16, 6, 200.0), "36x12": (36, 12, 100.0)}
 FIELDS = ("x", "z", "theta", "r", "twin_class", "is_quad", "e2n_flat",

@@ -29,6 +29,7 @@ import raytracer_tpu_torch as pt
 from raytracer_tpu_torch.config import SolverConfig as PConfig
 from raytracer_tpu_torch.contrib import fused_circulant as pfc
 from raytracer_tpu_torch.contrib import pallas_circulant as ppc
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 JF32, PF32 = JConfig(dtype="float32"), PConfig(dtype="float32")
 # 21x6 has theta pad rows (ntheta 21 -> 24 rows) and a second slot tile

@@ -22,6 +22,7 @@ from raytracer_tpu_torch.models import delaunay as pdel
 from raytracer_tpu_torch.ops import graph as pgraph
 from raytracer_tpu_torch.ops import relax as prelax
 from raytracer_tpu_torch.ops import weights as pw
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 
 def _same(a, b, what):

@@ -28,6 +28,7 @@ from raytracer_tpu_torch.ops.diag_circulant import \
     decompose_diagonals as p_decomp
 from raytracer_tpu_torch.ops.wrapped_t import \
     pack_twrapped_stencil as p_pack
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 SIZES = {"48x12": (48, 12, 150.0), "180x63": (180, 63, 20.0)}
 

@@ -32,6 +32,7 @@ from raytracer_tpu_torch.config import SolverConfig as PortConfig
 from raytracer_tpu_torch.ops import gridsearch as gs
 from raytracer_tpu_torch.ops import gridsearch_check as gc
 from raytracer_tpu_torch.solvers import locate as pl
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 STATION_DEGS = [0.0, 45.0, 90.0, 135.0, 180.0, 225.0, 315.0]
 RTOL = 1e-12
@@ -444,3 +445,244 @@ def test_locate_needs_the_graph():
     assert loc.node_rms < 1e-8
     with pytest.raises(ValueError, match="graph A"):
         pt.locate(solver, stations, t_obs, fields=fields)
+
+
+# ----------------------------------------------------------------------
+# A NumPy replay of csrc/gridsearch.cu: its column tiles, event chunks,
+# a lane's running best over its columns, the warp's shuffle-down
+# reduction once per (event, block) and the finishing warp over the
+# blocks' partials
+# ----------------------------------------------------------------------
+
+NO_COL = 0x7FFFFFFF
+TILE, LANE_COLS, WARPS, K_CHUNK = 128, 4, 8, 16
+
+
+def _before(m1, j1, m2, j2):
+    """(m1, j1) before (m2, j2): the lesser misfit, NaN the least, then the
+    lower column (the kernel's `before`)."""
+    n1, n2 = np.isnan(m1), np.isnan(m2)
+    return np.where(n1 != n2, n1, np.where(n1 | (m1 == m2), j1 < j2,
+                                           m1 < m2))
+
+
+def _shfl_down_argmin(m, j):
+    """warp_argmin over the last axis (32 lanes): at each offset a lane
+    takes lane l + off's pair when it comes before its own (a lane past
+    31 reads its own), lane 0's pair at the end."""
+    lane = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        src = np.where(lane + off < 32, lane + off, lane)
+        mo, jo = m[..., src], j[..., src]
+        take = _before(mo, jo, m, j)
+        m, j = np.where(take, mo, m), np.where(take, jo, j)
+    return m[..., 0], j[..., 0]
+
+
+def _kernel_pick(m, blocks, expanded):
+    """The kernel's (j, m) from the misfits m (E, n) on `blocks` blocks:
+    warp w of a block takes events [e0 + w ept, e0 + w ept + ept) of each
+    chunk of 8 ept (ept 8 expanded, 4 direct); lane l walks its columns
+    tile by tile (tiles b, b + blocks, ...), l + 32 i within a tile, from
+    (+inf, its first column), replacing its pair only by a pair that
+    comes before it; the warp's lanes reduced once an (event, block);
+    then one warp an event over the blocks' partials."""
+    E, n = m.shape
+    ept = 8 if expanded else 4
+    tiles = -(-n // TILE)
+    pm = np.full((E, blocks), np.inf, dtype=m.dtype)
+    pj = np.full((E, blocks), NO_COL, dtype=np.int64)
+    lanes = np.arange(32)
+    for e0 in range(0, E, WARPS * ept):
+        for b in range(blocks):
+            for w in range(WARPS):
+                ev = np.arange(e0 + w * ept, e0 + (w + 1) * ept)
+                ev = ev[ev < E]
+                if not len(ev):
+                    continue
+                first = b * TILE + lanes
+                bm = np.full((len(ev), 32), np.inf, dtype=m.dtype)
+                bj = np.repeat(np.where(first < n, first, NO_COL)[None],
+                               len(ev), 0)
+                for tile in range(b, tiles, blocks):
+                    for i in range(LANE_COLS):
+                        c = tile * TILE + lanes + 32 * i
+                        live = c < n
+                        mc = m[ev][:, np.minimum(c, n - 1)]
+                        keep = live & ~(mc >= bm) & (bm == bm)
+                        bm, bj = np.where(keep, mc, bm), np.where(keep, c, bj)
+                pm[ev, b], pj[ev, b] = _shfl_down_argmin(bm, bj)
+    fm = np.full((E, 32), np.inf, dtype=m.dtype)
+    fj = np.full((E, 32), NO_COL, dtype=np.int64)
+    for b in range(blocks):
+        lane = b % 32
+        take = _before(pm[:, b], pj[:, b], fm[:, lane], fj[:, lane])
+        fm[:, lane] = np.where(take, pm[:, b], fm[:, lane])
+        fj[:, lane] = np.where(take, pj[:, b], fj[:, lane])
+    mm, jj = _shfl_down_argmin(fm, fj)
+    return jj, mm
+
+
+def _kernel_rows(T, T_obs, w2, mode):
+    """Every (event, column) misfit in the kernel's order of operations, in
+    T's dtype (NumPy rounds the products the kernel fuses): W2 and the
+    sums over K in ascending k; expanded with the event side (a, A) the
+    kernel forms."""
+    with np.errstate(invalid="ignore"):
+        dt = T.dtype
+        W2 = _ksum(w2)
+        fin = np.isfinite(T).all(axis=0)
+        if mode == "expanded":
+            mean = _ksum(w2 * T_obs, axis=1) / W2
+            oc = T_obs - mean[:, None]
+            a = w2[None, :] * oc
+            A = _ksum(a * oc, axis=1)
+            s2 = np.zeros(T.shape[1], dt)
+            for k in range(T.shape[0]):
+                s2 = s2 + w2[k] * T[k]
+            mean = np.where(fin, s2 / W2, dt.type(0))
+            C = np.zeros(T.shape[1], dt)
+            B = np.zeros((T_obs.shape[0], T.shape[1]), dt)
+            for k in range(T.shape[0]):
+                tc = np.where(fin, T[k] - mean, dt.type(0))
+                C = C + w2[k] * (tc * tc)
+                B = B + a[:, k, None] * tc[None, :]
+            m = (A[:, None] - dt.type(2) * B) + C[None, :]
+        else:
+            s = np.zeros((T_obs.shape[0], T.shape[1]), dt)
+            for k in range(T.shape[0]):
+                s = s + w2[k] * (T_obs[:, k, None] - T[k][None, :])
+            t0 = s / W2
+            m = np.zeros_like(s)
+            for k in range(T.shape[0]):
+                d = (T_obs[:, k, None] - T[k][None, :]) - t0
+                m = m + w2[k] * (d * d)
+        return np.where(fin[None, :], m, dt.type(np.inf))
+
+
+def _ksum(x, axis=0):
+    """The sum over `axis` in ascending order, in x's dtype."""
+    x = np.moveaxis(np.asarray(x), axis, 0)
+    out = np.zeros(x.shape[1:], x.dtype)
+    for v in x:
+        out = out + v
+    return out
+
+
+def _kernel_t0(T, T_obs, w2, j, mode):
+    """finish_kernel's t0 at the picked columns."""
+    dt = T.dtype
+    W2 = _ksum(w2)
+    out = np.empty(len(j), dt)
+    for e, c in enumerate(j):
+        col = T[:, c]
+        if mode == "expanded":
+            s1 = _ksum(w2 * T_obs[e])
+            s2 = dt.type(0)
+            if np.isfinite(col).all():
+                for k in range(len(col)):
+                    s2 = s2 + w2[k] * col[k]
+            out[e] = (s1 - s2) / W2
+        else:
+            s = dt.type(0)
+            for k in range(len(col)):
+                s = s + w2[k] * (T_obs[e, k] - col[k])
+            out[e] = s / W2
+    return out
+
+
+@pytest.mark.parametrize("expanded", [False, True])
+@pytest.mark.parametrize("blocks", [1, 3, 8, 40])
+def test_kernel_pick_is_the_first_minimum(expanded, blocks):
+    """Given the twin's misfits, the kernel's reduction order picks what
+    argmin picks: the first of equal minima across lanes, warps, column
+    tiles and blocks, a NaN first, node 0 in an all-inf row; for E = 1
+    and E not a multiple of the event chunk."""
+    rng = np.random.default_rng(7)
+    for E in (1, 37, 70):
+        n = 5000
+        m = rng.uniform(5.0, 9.0, (E, n))
+        m[rng.random((E, n)) < 0.1] = np.inf
+        ties = [(5, 133), (31, 32), (127, 128), (40, 40 + 3 * TILE),
+                (4000, 4001), (640, 4999)]
+        for e in range(E):
+            a, b = ties[e % len(ties)]
+            m[e, [a, b]] = 1.0 + (e % 3 == 0) * 0.5
+        if E > 1:
+            m[1] = np.inf                           # all inf: node 0
+        if E > 5:
+            m[3, [700, 90, 4500]] = np.nan           # the first NaN
+            m[4, [2000, 3000]] = -np.inf
+        if E > 20:
+            m[20, :] = np.nan
+        for dt in (np.float64, np.float32):
+            mm = m.astype(dt)
+            j, got = _kernel_pick(mm, blocks, expanded)
+            want = np.argmin(mm, axis=1)
+            np.testing.assert_array_equal(j, want)
+            assert np.array_equal(got, mm[np.arange(E), want], equal_nan=True)
+        if E > 5:
+            assert j[3] == 90 and j[4] == 2000
+        if E > 1:
+            assert j[1] == 0
+
+
+SEARCH_RTOL = {np.float64: 1e-12, np.float32: 1e-4}
+SEARCH_T0_ATOL = {np.float64: 0.0, np.float32: 1e-3}
+
+
+def _search_cases(coarse):
+    rng = np.random.default_rng(3)
+    T = coarse["jfields"]
+    n = T.shape[1]
+    ev = rng.integers(0, n, size=70)
+    obs = T[:, ev].T + rng.normal(0.0, 0.2, (70, T.shape[0]))
+    yield "fixture E=70", T, obs, np.full(T.shape[0], 25.0)
+    yield "fixture E=1", T, obs[:1], np.full(T.shape[0], 25.0)
+    # K = 20 (past a chunk of K), non-finite and duplicated columns
+    K, n2 = 20, 3001
+    T2 = rng.uniform(10.0, 900.0, (K, n2))
+    T2[:, rng.integers(0, n2, 30)] = np.inf
+    T2[4, 17] = np.inf
+    T2[:, 2600] = T2[:, 40]
+    T2[:, 41] = T2[:, 40]
+    T2[:, 40 + TILE] = T2[:, 40]
+    obs2 = T2[:, rng.integers(0, n2, 37)].T + 2.0
+    obs2[np.isinf(obs2)] = 600.0
+    obs2[:2] = T2[:, 40] + 4.0
+    obs2[2:] += rng.normal(0.0, 0.3, obs2[2:].shape)
+    yield "K=20 E=37", T2, obs2, rng.uniform(0.5, 2.0, K)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("mode", gs.MODES)
+def test_kernel_replay_holds_to_jax_under_the_tie_rule(coarse, mode, dtype):
+    """The kernel's arithmetic and reduction order, replayed on 3 and 5
+    blocks, against the JAX search of the same formula under the tie
+    rule of gridsearch_check, both held to the twin's rows: 70 events
+    (not a multiple of a chunk), one event, and K = 20 with non-finite
+    and exactly duplicated columns (the first index)."""
+    for what, T, obs, w2 in _search_cases(coarse):
+        T, obs, w2 = (np.asarray(x, dtype) for x in (T, obs, w2))
+        terms = (SEARCH_RTOL[dtype] if dtype == np.float64
+                 else gc.ulp_rtol(torch.float32, T.shape[0]))
+        rows = gc.misfit_rows(*(torch.from_numpy(x) for x in (T, obs, w2)),
+                              mode, SEARCH_RTOL[dtype], terms,
+                              SEARCH_T0_ATOL[dtype])
+        m_all = _kernel_rows(T, obs, w2, mode)
+        for blocks in (3, 5):
+            j, m = _kernel_pick(m_all, blocks, mode == "expanded")
+            t0 = _kernel_t0(T, obs, w2, j, mode)
+            try:
+                gc.search_agreement(rows, j, t0, m)
+            except AssertionError as e:
+                raise AssertionError((what, blocks, *e.args)) from None
+        if what.startswith("K=20"):
+            assert j[:2].tolist() == [40, 40]
+        if mode == "expanded":
+            jax = [np.asarray(v) for v in
+                   jl._grid_search_catalogue_jit(T, obs, w2)]
+        else:
+            picks = [jl._grid_search_jit(T, row, w2) for row in obs]
+            jax = [np.array([float(p[i]) for p in picks]) for i in range(3)]
+        gc.search_agreement(rows, *jax)

@@ -24,6 +24,7 @@ from raytracer_tpu_torch.config import SolverConfig as PortConfig
 from raytracer_tpu_torch.ops import gridsearch_check as gc
 from raytracer_tpu_torch.solvers import refine as p_refine
 from raytracer_tpu_torch.solvers import locate as pl
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 LO, HI = (0.0, 0.0, rt.R - 1500.0), (np.deg2rad(40.0), np.deg2rad(40.0),
                                      rt.R)

@@ -26,6 +26,7 @@ from raytracer_tpu.solvers import multiphase as jmp
 import raytracer_tpu_torch as pt
 from raytracer_tpu_torch.config import SolverConfig as PC
 from raytracer_tpu_torch.solvers import multiphase as pmp
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 F32J, F32P = JC(dtype="float32"), PC(dtype="float32")
 

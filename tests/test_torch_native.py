@@ -19,6 +19,7 @@ import raytracer_tpu_torch as pt
 from raytracer_tpu.models import annulus as j_ann
 from raytracer_tpu_torch import native
 from raytracer_tpu_torch.models import annulus as p_ann
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = {"dedup": False, "faithful": True}

@@ -36,6 +36,7 @@ from raytracer_tpu_torch.solvers import bfm as pbfm
 from raytracer_tpu_torch.solvers.solve3d import prepare3d
 
 import torch_group
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 J64, J32 = JConfig(dtype="float64"), JConfig(dtype="float32")
 P64, P32 = pt.SolverConfig(dtype="float64"), pt.SolverConfig(dtype="float32")

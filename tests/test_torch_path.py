@@ -19,6 +19,7 @@ from raytracer_tpu.solvers import path as jp
 import raytracer_tpu_torch as pt
 from raytracer_tpu_torch.ops import paths as op
 from raytracer_tpu_torch.solvers import path as pp
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 
 @pytest.fixture(scope="module")

@@ -36,6 +36,7 @@ from raytracer_tpu.solvers import phases as jph
 import raytracer_tpu_torch as pt
 from raytracer_tpu_torch.config import SolverConfig as PC
 from raytracer_tpu_torch.solvers import phases as pph
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32J, F32P = JC(dtype="float32"), PC(dtype="float32")

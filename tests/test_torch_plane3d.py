@@ -30,6 +30,7 @@ import raytracer_tpu_torch as pt
 from raytracer_tpu_torch.config import SolverConfig as PConfig
 from raytracer_tpu_torch.ops import plane3d as pp3
 from raytracer_tpu_torch.solvers import solve3d as ps
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 
 @pytest.fixture(autouse=True, scope="module")

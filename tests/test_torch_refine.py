@@ -37,6 +37,7 @@ import raytracer_tpu_torch as pt
 from raytracer_tpu_torch.config import SolverConfig as PC
 from raytracer_tpu_torch.ops import bend as ob
 from raytracer_tpu_torch.solvers import refine as pr
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 F64 = SolverConfig(dtype="float64")
 KW = dict(m=64, quad=8)

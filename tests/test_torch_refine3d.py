@@ -30,6 +30,7 @@ import raytracer_tpu_torch as pt
 from raytracer_tpu_torch.config import SolverConfig as PC
 from raytracer_tpu_torch.solvers import refine as pr
 from raytracer_tpu_torch.solvers import solve3d as ps
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 JF32, PF32 = JC(dtype="float32"), PC(dtype="float32")
 CMB = 3481.5

@@ -17,6 +17,7 @@ from raytracer_tpu.ops import sweep_theta as jsw
 from raytracer_tpu_torch import kernels
 from raytracer_tpu_torch.ops import sweep_theta as psw
 from raytracer_tpu_torch.ops.wrapped_t import pack_twrapped_stencil
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 
 def _statics(NTL, NTB, MT=24, K8=16):

@@ -22,6 +22,7 @@ from raytracer_tpu.solvers import sensitivity as js
 import raytracer_tpu_torch as pt
 from raytracer_tpu_torch.config import SolverConfig as PC
 from raytracer_tpu_torch.solvers import sensitivity as ps
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 F64 = SolverConfig(dtype="float64")
 RTOL = 1e-12

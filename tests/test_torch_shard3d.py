@@ -26,6 +26,7 @@ from raytracer_tpu_torch.parallel import launch, mesh as pm
 from raytracer_tpu_torch.parallel import shard3d as ps3
 
 import torch_group
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 J64 = JConfig(dtype="float64")
 P64 = pt.SolverConfig(dtype="float64")

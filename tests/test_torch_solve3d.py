@@ -42,6 +42,7 @@ from raytracer_tpu_torch.config import SolverConfig as PConfig
 from raytracer_tpu_torch.convert import packed3d_from_numpy
 from raytracer_tpu_torch.ops import sweep3d as pk
 from raytracer_tpu_torch.solvers import solve3d as ps
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JF32, PF32 = JConfig(dtype="float32"), PConfig(dtype="float32")

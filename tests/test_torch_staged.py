@@ -44,6 +44,7 @@ from raytracer_tpu_torch.ops.wrapped_t import \
     pack_twrapped_stencil as p_pack
 from raytracer_tpu_torch.solvers import multiphase as pmp
 from raytracer_tpu_torch.solvers import phases as pph
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 PALLAS_ATOL = 1e-4     # tests/test_torch_sweep.py
 GRIDS = {"16x6": (16, 6, 200.0), "24x8": (24, 8, 150.0)}

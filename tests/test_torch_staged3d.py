@@ -26,6 +26,7 @@ import raytracer_tpu_torch as pt
 from raytracer_tpu_torch.config import SolverConfig as PConfig
 from raytracer_tpu_torch.models import velocity as pv
 from raytracer_tpu_torch.solvers import solve3d as ps
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 JF32, PF32 = JConfig(dtype="float32"), PConfig(dtype="float32")
 CMB = 3481.5

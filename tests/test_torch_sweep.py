@@ -21,6 +21,7 @@ from raytracer_tpu_torch import convert
 from raytracer_tpu_torch.ops import sweep_theta as psw
 from raytracer_tpu_torch.ops.wrapped_t import \
     pack_twrapped_stencil as p_pack
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 JCFG = JConfig(dtype="float32")
 CFG = pt.SolverConfig(dtype="float32")

@@ -30,6 +30,7 @@ from raytracer_tpu_torch.models import grid3d as pg
 from raytracer_tpu_torch.ops import sweep3d as pk
 from raytracer_tpu_torch.solvers import solve3d as ps
 from raytracer_tpu_torch.utils.coords import spherical2cart as p_s2c
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -31,6 +31,7 @@ import raytracer_tpu_torch as pt
 from raytracer_tpu_torch import kernels
 from raytracer_tpu_torch.ops import sweep_theta as psw
 from raytracer_tpu_torch.ops.wrapped_t import pack_twrapped_stencil
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64_ATOL = 1e-9

@@ -43,6 +43,7 @@ from raytracer_tpu.ops.wrapped_t import pack_twrapped_stencil as jpack
 import raytracer_tpu_torch as pt
 from raytracer_tpu_torch.ops import sweep_theta as psw
 from raytracer_tpu_torch.ops.wrapped_t import pack_twrapped_stencil as ppack
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 MODES = ["theta", "r", "both", "kernel", "kernel-r", "hclosure"]
 F32_ATOL = 1e-3

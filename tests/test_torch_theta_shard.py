@@ -31,6 +31,7 @@ from raytracer_tpu_torch.solvers import phases as pph
 
 import jax
 import torch_group
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 J64 = JConfig(dtype="float64")
 P64 = pt.SolverConfig(dtype="float64")

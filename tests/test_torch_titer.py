@@ -24,6 +24,7 @@ import raytracer_tpu_torch as pt
 from raytracer_tpu_torch.convert import stencil_from_numpy
 from raytracer_tpu_torch.ops import stream_t as pst
 from raytracer_tpu_torch.ops import wrapped_t as pwt
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 NTHETAS = [9, 12, 16, 20, 24, 30]
 

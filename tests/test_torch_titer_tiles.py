@@ -29,6 +29,7 @@ from raytracer_tpu.ops import wrapped_t as jwt
 import raytracer_tpu_torch as pt
 from raytracer_tpu_torch.convert import stencil_from_numpy
 from raytracer_tpu_torch.ops import wrapped_t as pwt
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 
 @pytest.fixture(autouse=True, scope="module")

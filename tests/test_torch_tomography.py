@@ -31,6 +31,7 @@ import raytracer_tpu as rt                                 # noqa: E402
 from raytracer_tpu.config import SolverConfig as JC        # noqa: E402
 from raytracer_tpu_torch import example_tomography as pe   # noqa: E402
 from raytracer_tpu_torch.config import SolverConfig as PC  # noqa: E402
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 ARGS = (32, 8, 250.0)
 KW = dict(verbose=False, n_src=8, n_rec=24)

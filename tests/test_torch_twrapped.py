@@ -22,6 +22,7 @@ from raytracer_tpu_torch.config import SolverConfig as PConfig
 from raytracer_tpu_torch.convert import stencil_from_numpy
 from raytracer_tpu_torch.ops import circulant as pci
 from raytracer_tpu_torch.ops import wrapped_t as pwt
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 TOL = 2e-3
 JF32, PF32 = JConfig(dtype="float32"), PConfig(dtype="float32")

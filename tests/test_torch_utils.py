@@ -34,6 +34,7 @@ from raytracer_tpu_torch.utils import io as p_io
 from raytracer_tpu_torch.utils import plotting as p_plot
 from raytracer_tpu_torch.utils import profiling as p_prof
 from raytracer_tpu_torch.utils import timing as p_timing
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = os.path.join(ROOT, "raytracer_tpu")

@@ -26,6 +26,7 @@ from raytracer_tpu.ops import diag_wrapped as jdw
 import raytracer_tpu_torch as pt
 from raytracer_tpu_torch.convert import wrapped_from_numpy
 from raytracer_tpu_torch.ops import diag_wrapped as pdw
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -34,6 +34,7 @@ from raytracer_tpu_torch.config import SolverConfig as PConfig
 from raytracer_tpu_torch.convert import wrapped_from_numpy
 from raytracer_tpu_torch.ops import diag_wrapped as pdw
 from raytracer_tpu_torch.ops.diag_circulant import decompose_diagonals
+from jax_mappings import below_the_map_limit  # noqa: F401,E402
 
 TOL = 2e-3
 JF32, PF32 = JConfig(dtype="float32"), PConfig(dtype="float32")

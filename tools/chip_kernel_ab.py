@@ -99,7 +99,22 @@ DIR holds the earlier sources, unpacked from an earlier commit (e.g.
           the dense matrix); with --breakdown the package's with the
           column sums, the dense writes, the jump levels, the pair terms
           or the rows' lam and mu left out, the earlier one's forms, and
-          the device time by kernel.
+          the device time by kernel;
+  banded_sweep the Jacobi solve of the production Delaunay annulus as
+          solve_banded runs it: the earlier kernel an iteration a launch
+          with a host read every 8 (banded_sweep_launch(dist0, dist1,
+          toff, tcol, tw, didx, hoff, hsrc, it_in, changed_in, it_out,
+          changed_out, S, n_pad, max_iters, is_double, stream)), the
+          package's the whole solve in one launch; float32 S=1 and S=8,
+          float64; with --breakdown launches of 1 and 8 iterations, the
+          global route, a fixed 214 iterations with one piece left out,
+          the window's loads one at a time, and two blocks of 256 an SM;
+  gridsearch a call at the location path's shape (K 12, 150,121 nodes):
+          64 events in both formulas and types, and `locate`'s one
+          event (the earlier gridsearch_launch(T, K, n, obs, E, w2, W2, A,
+          s1, expanded, pm, pj, j, t0, m, is_double, stream) behind its
+          wrapper's torch ops); with --breakdown the package's with one
+          piece left out, in three other shapes, and at E = 8 to 512.
 Both versions are built with the package's nvcc flags into a temporary
 directory, run on the same inputs and held bit-equal to the plain
 versions (fused with the same iterations); then each shape is timed
@@ -1959,6 +1974,373 @@ def paths_ab(old_dir, reps, rows, breakdown, tmp):
         print(json.dumps(rows[-1]), flush=True)
 
 
+def _sweep_old_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn = lib.banded_sweep_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    return lib
+
+
+def _sweep_old_solve(lib, bg, d0, check=8):
+    """The earlier solve_banded on the card: one launch of the earlier
+    banded_sweep an iteration (launch interface banded_sweep_launch(dist0,
+    dist1, toff, tcol, tw, didx, hoff, hsrc, it_in, changed_in, it_out,
+    changed_out, S, n_pad, max_iters, is_double, stream)), a host read of
+    the flag every `check` launches; returns (field, iterations)."""
+    it = torch.zeros((), dtype=torch.int32, device="cuda")
+    ch = torch.ones((), dtype=torch.int32, device="cuda")
+    d = d0
+    stream = torch.cuda.current_stream().cuda_stream
+    while True:
+        for _ in range(check):
+            out = torch.empty_like(d)
+            it_out = torch.empty((), dtype=torch.int32, device="cuda")
+            ch_out = torch.zeros((), dtype=torch.int32, device="cuda")
+            rc = lib.banded_sweep_launch(
+                d.data_ptr(), out.data_ptr(), bg.toff.data_ptr(),
+                bg.tcol.data_ptr(), bg.tw.data_ptr(), bg.didx.data_ptr(),
+                bg.hoff.data_ptr(), bg.hsrc.data_ptr(), it.data_ptr(),
+                ch.data_ptr(), it_out.data_ptr(), ch_out.data_ptr(),
+                d.shape[0], bg.n_pad, 2 ** 31 - 1,
+                int(d.dtype == torch.float64), stream)
+            assert rc == 0, rc
+            d, it, ch = out, it_out, ch_out
+        changed, iters = torch.stack([ch, it]).tolist()
+        if not changed:
+            return d, iters
+
+
+# csrc/banded.cu's Jacobi kernel run for a fixed number of iterations
+# (the changed flag not obeyed), and so with one piece of an iteration
+# left out (timing only): the grid sync, the window's loads, the taps
+_FIXED = ("    if (!(go && changed)) break;  // the same in every thread\n",
+          "    if (!go) break;\n")
+_JACOBI_NEW_SKIP = {
+    "fixed count": [_FIXED],
+    "no grid sync": [_FIXED, ("    grid.sync();\n    ++it;", "    ++it;")],
+    "no window loads": [_FIXED, ("    if (kShared && go)  //",
+                                 "    if (kShared && go && s < 0)  //")],
+    "window loads one at a time": [_FIXED, (
+        "constexpr int kBatch = 8;", "constexpr int kBatch = 1;")],
+    "no taps": [_FIXED, ("        for (; k + 2 <= D; k += 2) {",
+                         "        for (; k + 2 <= 0; k += 2) {"),
+                ("        if (k < D) v0 = min_of", "        if (k < 0) v0 = min_of")],
+}
+
+
+# another shape of the same Jacobi kernel: two blocks of 256 threads an SM
+# (twice the blocks at the grid sync, the same threads an SM)
+_JACOBI_NEW_SHAPES = {
+    "two blocks of 256 an SM": [
+        ("constexpr int kJacobiThreads = 512;", "constexpr int kJacobiThreads = 256;"),
+        ("__launch_bounds__(kJacobiThreads, 1) banded_jacobi_kernel",
+         "__launch_bounds__(kJacobiThreads, 2) banded_jacobi_kernel")],
+}
+
+
+def _jacobi_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.banded_jacobi_launch.restype = ctypes.c_int
+    lib.banded_jacobi_launch.argtypes = (
+        [ctypes.c_void_p] * 19 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    return lib
+
+
+def banded_sweep_ab(old_dir, reps, rows, breakdown, tmp):
+    """The earlier banded_sweep (an iteration a launch, the host read
+    every 8 launches) and the package's (the whole solve in one
+    cooperative launch), in turns, each as solve_banded runs it, on the
+    production Delaunay annulus (RCM): float32 S=1, float64 S=1 and
+    float32 S=8 (chip_smoke.py phase 16's sources); both held bit-equal
+    to the plain version's fixpoint and its iterations first.  Each
+    version's device time a solve by kernel (torch.profiler).  With
+    `breakdown`: the package's in launches of 1 and 8 iterations (the
+    host read after each), on its global route (forced), and by device
+    time for a fixed 214 iterations with one piece left out (the grid
+    sync, the window's loads, the taps; timing only), with the window's
+    loads one at a time, and as two blocks of 256 threads an SM (held
+    bit-equal)."""
+    from raytracer_tpu_torch.ops import banded as pb
+
+    old = _sweep_old_bind(_old_lib(old_dir, "banded", tmp))
+    dg = rt.add_midpoints(rt.triangle_annulus_2d(**chip_smoke.DELAUNAY))
+    dA = rt.node_adjacency(dg, star=0)
+    U = chip_smoke._ak135_vp(dg)
+    src = rt.closest_point(dg, 0.0, rt.R, system="polar")
+    srcs8 = [rt.closest_point(dg, np.deg2rad(d), rt.R, system="polar")
+             for d in np.linspace(0.0, 175.0, 8)]
+    bgs = {}
+    for dtype, srcs in (("float32", [src]), ("float64", [src]),
+                        ("float32", srcs8)):
+        cfg = rt.SolverConfig(dtype=dtype)
+        if dtype not in bgs:
+            bgs[dtype] = rt.prepare_banded(dA, chip_smoke._no_halo(), dg, U,
+                                           cfg)
+        bg = bgs[dtype]
+        states = chip_smoke._banded_twin_states(bg, srcs, cfg)
+        want = states[-1]
+        st0 = states[0]
+        cap = cfg.max_iters
+
+        def new_solve(count=cap, g=bg):
+            s = st0
+            while True:
+                s = pb.banded_step(s, g, cap, count)
+                changed, iters = torch.stack([s.changed, s.it]).tolist()
+                if not changed:
+                    return s.dist, iters
+
+        od, oi = _sweep_old_solve(old, bg, st0.dist)
+        nd, ni = new_solve()
+        assert torch.equal(od, want.dist) and oi == int(want.it), dtype
+        assert torch.equal(nd, want.dist) and ni == int(want.it), dtype
+        o, n = _turns(lambda: _sweep_old_solve(old, bg, st0.dist),
+                      new_solve, reps)
+        split_old = chip_smoke._kernel_split_ms(
+            lambda: _sweep_old_solve(old, bg, st0.dist), 3)
+        split_new = chip_smoke._kernel_split_ms(new_solve, 3)
+        rows.append(dict(kernel="banded_sweep", mesh="Delaunay nr=60",
+                         dtype=dtype, S=len(srcs), iterations=ni,
+                         old_solve_ms=o, new_solve_ms=n,
+                         old_device_ms=split_old, new_device_ms=split_new,
+                         route=chip_smoke._jacobi_route(bg, len(srcs)),
+                         bit_equal=True))
+        print(json.dumps(rows[-1]), flush=True)
+        if not breakdown or dtype != "float32" or len(srcs) != 1:
+            continue
+        split = {f"count {c}": _ms(lambda: new_solve(c), max(1, reps // 4))
+                 for c in (1, 8)}
+        keep = pb.BLOCK_SMEM
+        try:
+            pb.BLOCK_SMEM = 0
+            bgw = bg._replace(jacobi={})
+            assert chip_smoke._jacobi_route(bgw, 1) == "global"
+            gd, gi = new_solve(g=bgw)
+            assert torch.equal(gd, want.dist) and gi == ni
+            split["global route"] = _ms(lambda: new_solve(g=bgw), reps)
+            split["global route, device by kernel"] = \
+                chip_smoke._kernel_split_ms(lambda: new_solve(g=bgw), 3)
+        finally:
+            pb.BLOCK_SMEM = keep
+        with open(kernels.source_path("banded")) as f:
+            text = f.read()
+        libs = _variants(text, _JACOBI_NEW_SKIP, tmp, "jacobi_new",
+                         _jacobi_bind)
+        keep = pb._banded_lib
+        try:
+            for name, lib in libs.items():
+                pb._banded_lib = lambda lib=lib: lib
+                split[f"{ni} iterations, {name}"] = \
+                    chip_smoke._kernel_split_ms(
+                        lambda: pb.banded_step(st0, bg, cap, ni), 5).get(
+                            "banded_jacobi_kernel")
+        finally:
+            pb._banded_lib = keep
+        shapes = _variants(text, _JACOBI_NEW_SHAPES, tmp, "jacobi_shape",
+                           _jacobi_bind)
+        keep = pb._banded_lib
+        try:
+            for name, lib in shapes.items():    # twice the blocks, each half
+                pb._banded_lib = lambda lib=lib: lib
+                g = bg._replace(jacobi={})
+                sms = torch.cuda.get_device_properties(0).multi_processor_count
+                g.jacobi[(1, str(bg.tw.dtype))] = pb.jacobi_layout(
+                    bg.toff, bg.tcol, bg.tw, bg.n_pad, 1,
+                    bg.tw.element_size(), "cuda", 2 * sms)
+                sd, si = new_solve(g=g)
+                assert torch.equal(sd, want.dist) and si == ni, name
+                split[name] = _ms(lambda: new_solve(g=g), reps)
+                split[f"{name}, device"] = chip_smoke._kernel_split_ms(
+                    lambda: new_solve(g=g), 3).get("banded_jacobi_kernel")
+        finally:
+            pb._banded_lib = keep
+        rows.append(dict(kernel="banded_sweep", split_ms=split))
+        print(json.dumps(rows[-1]), flush=True)
+
+
+# csrc/gridsearch.cu with one piece left out (timing only: each computes
+# another function): the product's sums, the tile's column prep (its
+# finiteness and demeaning), the running bests (the misfits still
+# formed), the next tile's copy (the tile's times left as they were)
+_SEARCH_NEW_SKIP = {
+    "no product": [("            accumulate(acc, msum, K, b, walk);\n", "")],
+    "no column prep": [("        prepare(c0, b);\n", "")],
+    "no running bests": [(
+        "            keep_first(fin ? m : inf_of<T>(), c, bm[i], bj[i]);\n",
+        "            bm[i] = fin ? bm[i] + m : bm[i];\n")],
+    "no next-tile copy": [(
+        "        if (tile + gridDim.x < tiles) stage_tile(c0 + gridDim.x * kTile, 0, b ^ 1);\n",
+        "")],
+}
+
+
+# other shapes of csrc/gridsearch.cu's design, each computing the same
+# function: one block an SM (no register cap below 255), two columns a
+# lane (64-column tiles), four events a warp in the expanded formula
+_SEARCH_NEW_SHAPES = {
+    "one block an SM": [("__launch_bounds__(kThreads, 2)\n    search_kernel",
+                         "__launch_bounds__(kThreads, 1)\n    search_kernel")],
+    "two columns a lane": [("constexpr int kCT = 4;", "constexpr int kCT = 2;")],
+    "four events a warp": [("constexpr int kEPT = kExpanded ? 8 : 4;",
+                            "constexpr int kEPT = 4;")],
+}
+
+
+def _search_new_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn = lib.gridsearch_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int, ctypes.c_void_p])
+    lib.gridsearch_blocks.restype = ctypes.c_int
+    lib.gridsearch_blocks.argtypes = [ctypes.c_int] * 3
+    return lib
+
+
+def _search_old_bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn = lib.gridsearch_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int, ctypes.c_void_p])
+    lib.gridsearch_blocks.restype = ctypes.c_int
+    lib.gridsearch_blocks.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _search_old_call(lib, T, O, w2, mode):
+    """One call of the earlier grid search as its wrapper made it (launch
+    interface gridsearch_launch(T, K, n, obs, E, w2, W2, A, s1, expanded,
+    pm, pj, j, t0, m, is_double, stream), its partials sized by
+    gridsearch_blocks(n))."""
+    from raytracer_tpu_torch.ops import gridsearch as GS
+
+    K, n = T.shape
+    E = O.shape[0]
+    A = s1 = None
+    if mode == "expanded":
+        W2, s1, obs, A = GS._catalogue_obs(O, w2)
+        obs, A, s1 = obs.contiguous(), A.contiguous(), s1.contiguous()
+    else:
+        W2, obs = torch.sum(w2), O
+    W2 = W2.reshape(1)
+    nb = lib.gridsearch_blocks(n)
+    pm = torch.empty(max(E * nb, 1), dtype=T.dtype, device="cuda")
+    pj = torch.empty(max(E * nb, 1), dtype=torch.int32, device="cuda")
+    j = torch.empty(E, dtype=torch.int64, device="cuda")
+    t0 = torch.empty(E, dtype=T.dtype, device="cuda")
+    m = torch.empty(E, dtype=T.dtype, device="cuda")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = lib.gridsearch_launch(
+        T.data_ptr(), K, n, obs.data_ptr(), E, w2.data_ptr(), W2.data_ptr(),
+        ptr(A), ptr(s1), int(mode == "expanded"), pm.data_ptr(),
+        pj.data_ptr(), j.data_ptr(), t0.data_ptr(), m.data_ptr(),
+        int(T.dtype == torch.float64), torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    return j, t0, m
+
+
+def gridsearch_ab(old_dir, reps, rows, breakdown, tmp):
+    """The earlier grid search (a thread a column, a warp and block
+    reduction an event) and the package's (a lane's column tile and
+    event chunk, one reduction an (event, block)), in turns, a call with
+    its wrapper, at the location path's shape (K 12, n 150,121 station
+    fields of the 180x63 grid, 64 events; the fields from the auto solver
+    as chip_smoke.py phase 3j takes them): float64 and float32, expanded
+    and direct, and the one-event direct call of `locate`; both held to
+    the plain version's rows under the tie rule first.  Each version's
+    device time a call by kernel (torch.profiler).  With `breakdown`: the
+    package's built with one piece left out (the product, the column
+    prep, the running bests, the next tile's copy; timing only) and in
+    three other shapes of the design (one block an SM, two columns a
+    lane, four events a warp; held to the tie rule), float64 E = 64 in
+    both formulas, and the package's at E = 8, 16, 32, 128 and
+    512 expanded float64."""
+    from raytracer_tpu_torch.ops import gridsearch as GS
+    from raytracer_tpu_torch.ops import gridsearch_check as GC
+
+    old = _search_old_bind(_old_lib(old_dir, "gridsearch", tmp))
+    gr, A, halo = rt.init_annulus(180, 63, spacing=20.0)
+    solver = rt.AnnulusSolver(gr, A, halo, chip_smoke._ak135_vp(gr))
+    stations = [rt.closest_point(gr, np.deg2rad(d), rt.R, system="polar")
+                for d in chip_smoke.LOCATE_STATION_DEGS]
+    fields = rt.station_fields(solver, stations)
+    rng = np.random.default_rng(0)
+    K, n = fields.shape
+    ev = rng.integers(0, n, size=64)
+    T_obs = fields[:, ev].T + rng.normal(0.0, 0.2, (64, K))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = [(dt, mode, 64) for dt in (torch.float64, torch.float32)
+             for mode in ("expanded", "direct")] + [
+        (torch.float64, "direct", 1)]
+    for dt, mode, E in cases:
+        T = torch.as_tensor(fields, dtype=dt, device="cuda")
+        O = torch.as_tensor(T_obs[:E], dtype=dt, device="cuda")
+        w2 = torch.full((K,), 25.0, dtype=dt, device="cuda")
+        rows_ = chip_smoke._search_rows(T, O, w2, mode)
+        GC.search_agreement(rows_, *_search_old_call(old, T, O, w2, mode))
+        GC.search_agreement(rows_, *GS.grid_search(T, O, w2, mode))
+        o, nw = _turns(lambda: _search_old_call(old, T, O, w2, mode),
+                       lambda: GS.grid_search(T, O, w2, mode), reps)
+        split_old = chip_smoke._kernel_split_ms(
+            lambda: _search_old_call(old, T, O, w2, mode), 10)
+        split_new = chip_smoke._kernel_split_ms(
+            lambda: GS.grid_search(T, O, w2, mode), 10)
+        rows.append(dict(kernel="gridsearch", dtype=str(dt).split(".")[-1],
+                         mode=mode, K=K, n=n, E=E, old_call_ms=o,
+                         new_call_ms=nw, old_device_ms=split_old,
+                         new_device_ms=split_new, tie_rule=True))
+        print(json.dumps(rows[-1]), flush=True)
+    if not breakdown:
+        return
+    T = torch.as_tensor(fields, device="cuda")
+    w2 = torch.full((K,), 25.0, dtype=torch.float64, device="cuda")
+    O = torch.as_tensor(T_obs, device="cuda")
+    with open(kernels.source_path("gridsearch")) as f:
+        text = f.read()
+    libs = {"new": GS._lib(), **_variants(text, _SEARCH_NEW_SKIP, tmp,
+                                          "search_new", _search_new_bind)}
+    shapes = _variants(text, _SEARCH_NEW_SHAPES, tmp, "search_shape",
+                       _search_new_bind)
+    keep = GS._lib
+    try:
+        for name, lib in shapes.items():       # the same function: checked
+            GS._lib = lambda lib=lib: lib
+            for mode in ("expanded", "direct"):
+                rows_ = chip_smoke._search_rows(T, O, w2, mode)
+                GC.search_agreement(rows_, *GS.grid_search(T, O, w2, mode))
+        libs.update(shapes)
+    finally:
+        GS._lib = keep
+    keep = GS._lib
+    try:
+        for turn in range(2):
+            split = {}
+            for name, lib in libs.items():
+                GS._lib = lambda lib=lib: lib
+                for mode in ("expanded", "direct"):
+                    dev = chip_smoke._kernel_split_ms(
+                        lambda: GS.grid_search(T, O, w2, mode), 10)
+                    split[f"{name} {mode}"] = dev.get("search_kernel")
+            rows.append(dict(kernel="gridsearch", float64_E64_search_ms=split,
+                             turn=turn))
+            print(json.dumps(rows[-1]), flush=True)
+    finally:
+        GS._lib = keep
+    split = {}
+    for E in (8, 16, 32, 128, 512):
+        e = rng.integers(0, n, size=E)
+        O = torch.as_tensor(fields[:, e].T + rng.normal(0.0, 0.2, (E, K)),
+                            device="cuda")
+        dev = chip_smoke._kernel_split_ms(
+            lambda: GS.grid_search(T, O, w2, "expanded"), 10)
+        split[f"E={E}"] = dev
+    rows.append(dict(kernel="gridsearch", split_ms=split))
+    print(json.dumps(rows[-1]), flush=True)
+
+
 def _build_probe(tmp):
     src = os.path.join(tmp, "step_probe.cu")
     with open(src, "w") as f:
@@ -1991,7 +2373,7 @@ def main(argv=None):
     ap.add_argument("--kernels", default="titer,diag",
                     help="comma-separated: titer, diag, witer, relax, fused, "
                          "plane3d, tsweep, banded_gs, bfm_step, bend, "
-                         "paths")
+                         "paths, banded_sweep, gridsearch")
     ap.add_argument("--old-pkg", default=None,
                     help="directory holding an earlier raytracer_tpu_torch, "
                          "to time whole solves against")
@@ -2040,6 +2422,10 @@ def main(argv=None):
             bend_ab(a.old, a.reps, rows, a.breakdown, tmp)
         if "paths" in want:
             paths_ab(a.old, a.reps, rows, a.breakdown, tmp)
+        if "banded_sweep" in want:
+            banded_sweep_ab(a.old, a.reps, rows, a.breakdown, tmp)
+        if "gridsearch" in want:
+            gridsearch_ab(a.old, a.reps, rows, a.breakdown, tmp)
         if a.breakdown and "fused" in want:
             fused_breakdown(tmp, {"old": a.old, "new": kernels.CSRC_DIR},
                             max(1, a.reps // 4), rows)
