@@ -1,0 +1,9 @@
+"""rsweep_ms.table: the device milliseconds of the radial sweeps on the
+rsweep kernel (`sweep.rsweep` spans) in a traced table request, each
+span from its entry to its exit CUDA event in stream order (idle inside
+the span included)."""
+from portbench.metrics._program import per_table_device_ms
+
+
+def read(run):
+    return per_table_device_ms(run, "sweep.rsweep")

@@ -74,7 +74,10 @@ def library_path(name: str) -> str:
 
 def build(name: str) -> float:
     """Compile `csrc/<name>.cu` unless its library exists; returns the
-    seconds spent compiling (0.0 when the library was already there)."""
+    seconds spent compiling (0.0 when the library was already there).
+    A compile is the set-up span `build.nvcc`."""
+    from .utils import profiling
+
     out = library_path(name)
     if os.path.exists(out):
         return 0.0
@@ -82,8 +85,10 @@ def build(name: str) -> float:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, source_path(name)],
-                          capture_output=True, text=True)
+    with profiling.setup_span("build.nvcc"):
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp,
+                               source_path(name)],
+                              capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
@@ -100,10 +105,14 @@ def require_float(name: str, dtype) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library `name`, built on first use."""
+    """The kernel library `name`, built on first use (the set-up span
+    `build.kernel`)."""
     lib = _LIBS.get(name)
     if lib is None:
-        build(name)
-        lib = ctypes.CDLL(library_path(name))
+        from .utils import profiling
+
+        with profiling.setup_span("build.kernel"):
+            build(name)
+            lib = ctypes.CDLL(library_path(name))
         _LIBS[name] = lib
     return lib

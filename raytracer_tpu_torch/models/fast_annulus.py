@@ -33,6 +33,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 
 from ..config import R
+from ..utils import profiling
 from ..utils.coords import polar2cartesian
 from .annulus import Grid2D, RaggedView, init_annulus
 
@@ -107,6 +108,7 @@ def tile_wedge_grid(gr_w: Grid2D, cmap_w, ntheta: int,
     )
 
 
+@profiling.setup_span("build.grid")
 def init_annulus_circulant(
     ntheta: int,
     nr: int,

@@ -13,6 +13,7 @@ from typing import Callable
 import numpy as np
 
 from ..config import DISCONTINUITY_RADII, VELOCITY_BUFFER
+from ..utils import profiling
 
 _DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 
@@ -34,6 +35,7 @@ class VelProfile:
     Vs: np.ndarray
 
 
+@profiling.setup_span("build.velocity")
 def velocity_profile(model: str = "ak135") -> VelProfile:
     """Load a radial Earth model table and convert depth -> radius.
 
@@ -78,6 +80,7 @@ class LinearInterpolation:
         return np.interp(r, self.x, self.y)
 
 
+@profiling.setup_span("build.velocity")
 def interpolate_velocity(r: np.ndarray, interpolant: Callable, buffer: float = VELOCITY_BUFFER) -> np.ndarray:
     """Sample a radial velocity interpolant onto grid nodes.
 

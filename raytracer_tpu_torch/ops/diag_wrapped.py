@@ -36,6 +36,7 @@ import torch
 from .. import kernels
 from ..kernels import BLOCK_SMEM
 from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
+from ..utils import profiling
 from .circulant import CirculantGraph, _DC_RANGE, resolve_device
 from .diag_circulant import (BAND_LANE_HALO, BAND_LANES, BAND_ROWS,
                              LANES, SUB, TapLists, _block_taps,
@@ -155,12 +156,16 @@ def _pipelined_chunk_solve(sources, S: int, n_out: int, dtype, dispatch,
     if device_out:
         rows = [vals_it[:n_real, :-1] for _, n_real, vals_it in pending]
         dist = rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
-        its = torch.stack([v[0, -1] for _, _, v in pending]).cpu().numpy()
+        with profiling.span("copy_out", dist.device):
+            profiling.count(profiling.HOST_SYNCS)
+            its = torch.stack([v[0, -1] for _, _, v in pending]).cpu().numpy()
         return dist, int(its.max())
     out = np.empty((len(sources), n_out), dtype=dtype)
     iters = 0
     for lo, n_real, vals_it in pending:
-        arr = vals_it.cpu().numpy()
+        with profiling.span("copy_out", vals_it.device):
+            profiling.count(profiling.HOST_SYNCS)
+            arr = vals_it.cpu().numpy()
         out[lo:lo + n_real] = arr[:n_real, :-1]
         # chunks converge at different counts; report the slowest
         iters = max(iters, int(arr[0, -1]))
@@ -182,6 +187,7 @@ def _extract_cached(dcache: dict, cmap, receivers, device):
         if len(ext) >= _EXTRACT_CACHE_MAX:
             del dcache[ext[0]]
         m_idx, c_idx, center_mask, valid = _node_extract_arrays(cmap, receivers)
+        profiling.count(profiling.HOST_SYNCS, 4)   # copies from host memory
         dcache[key] = (len(m_idx), tuple(
             torch.as_tensor(a.astype(np.int64) if a.dtype != bool else a,
                             device=device)

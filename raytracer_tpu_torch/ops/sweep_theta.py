@@ -47,6 +47,7 @@ import torch
 from .. import kernels
 from ..kernels import BLOCK_SMEM
 from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
+from ..utils import profiling
 from .circulant import CirculantGraph, _DC_RANGE, resolve_device
 from .diag_circulant import LANES, SUB, _round_up, decompose_diagonals
 from .diag_wrapped import (_extract_cached, _pipelined_chunk_solve,
@@ -697,10 +698,11 @@ def _kernel_tables(wtab: torch.Tensor, rst: RSweepStatic, upward: bool):
         wtab._rsweep_plans = cache
     key = (rst, upward)
     if key not in cache[1]:
-        plan = plan_rsweep(wtab.detach().cpu().numpy(), rst, upward)
-        cache[1][key] = (plan,) + tuple(
-            torch.as_tensor(a, device=wtab.device).contiguous()
-            for a in (plan.ent, plan.binfo, plan.near))
+        with profiling.setup_span("build.sweep_tables"):
+            plan = plan_rsweep(wtab.detach().cpu().numpy(), rst, upward)
+            cache[1][key] = (plan,) + tuple(
+                torch.as_tensor(a, device=wtab.device).contiguous()
+                for a in (plan.ent, plan.binfo, plan.near))
     return cache[1][key]
 
 
@@ -724,28 +726,31 @@ def rsweep(buf: torch.Tensor, wtab: torch.Tensor, rst: RSweepStatic,
     (launched on the current stream; `rsweep.launches` counts the
     launches) with the finite taps of `wtab` packed by `plan_rsweep`
     (once per table, `_kernel_tables`); a CPU tensor goes to
-    `rsweep_reference`.  Any other device raises.
+    `rsweep_reference`.  Any other device raises.  The call is the span
+    `sweep.rsweep`.
     """
-    _check_rsweep_args(buf, wtab, rst, upward)
-    if buf.device.type == "cpu":
-        return rsweep_reference(buf, wtab, rst, upward)
-    if buf.device.type != "cuda":
-        raise ValueError(f"rsweep runs on cuda or cpu, not {buf.device}")
-    kernels.require_float("rsweep", buf.dtype)
-    if buf.data_ptr() % 16:
-        raise ValueError("rsweep takes a 16-byte aligned buffer")
-    plan, ent, binfo, near = _kernel_tables(wtab, rst, upward)
-    stream = torch.cuda.current_stream(buf.device).cuda_stream
-    rc = _rsweep_lib().rsweep_launch(
-        buf.data_ptr(), ent.data_ptr(), binfo.data_ptr(), near.data_ptr(),
-        buf.shape[0],
-        rst.MT, rst.K8, rst.NTL, rst.NTB, int(upward), int(plan.shared),
-        plan.ent_cap, plan.threads, plan.far_lanes, plan.near_lanes,
-        int(buf.dtype == torch.float64), stream)
-    if rc != 0:
-        raise RuntimeError(f"rsweep kernel launch failed: CUDA error {rc}")
-    rsweep.launches += 1
-    return buf
+    with profiling.span("sweep.rsweep", buf.device):
+        _check_rsweep_args(buf, wtab, rst, upward)
+        if buf.device.type == "cpu":
+            return rsweep_reference(buf, wtab, rst, upward)
+        if buf.device.type != "cuda":
+            raise ValueError(f"rsweep runs on cuda or cpu, not {buf.device}")
+        kernels.require_float("rsweep", buf.dtype)
+        if buf.data_ptr() % 16:
+            raise ValueError("rsweep takes a 16-byte aligned buffer")
+        plan, ent, binfo, near = _kernel_tables(wtab, rst, upward)
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
+        rc = _rsweep_lib().rsweep_launch(
+            buf.data_ptr(), ent.data_ptr(), binfo.data_ptr(),
+            near.data_ptr(), buf.shape[0],
+            rst.MT, rst.K8, rst.NTL, rst.NTB, int(upward), int(plan.shared),
+            plan.ent_cap, plan.threads, plan.far_lanes, plan.near_lanes,
+            int(buf.dtype == torch.float64), stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"rsweep kernel launch failed: CUDA error {rc}")
+        rsweep.launches += 1
+        return buf
 
 
 rsweep.launches = 0
@@ -1074,21 +1079,22 @@ class SweepState(NamedTuple):
 
 def _ring_chain(v, tbl: SweepTables, static: SweepStatic):
     """Full-field ring (theta) and chain (slot) min-plus doubling scans,
-    exact torch.roll wrap."""
-    nt = static.nt
-    s = 1
-    while s < nt:
-        v = torch.minimum(v, torch.roll(v, s, dims=1) + s * tbl.ring_f)
-        s *= 2
-    s = 1
-    while s < nt:
-        v = torch.minimum(v, torch.roll(v, -s, dims=1) + s * tbl.ring_b)
-        s *= 2
-    for k, sp in enumerate(static.chain_spans):
-        v = torch.minimum(v, torch.roll(v, sp, dims=2) + tbl.cfp[k])
-    for k, sp in enumerate(static.chain_spans):
-        v = torch.minimum(v, torch.roll(v, -sp, dims=2) + tbl.cbp[k])
-    return v
+    exact torch.roll wrap (the span `sweep.ring_chain`)."""
+    with profiling.span("sweep.ring_chain", v.device):
+        nt = static.nt
+        s = 1
+        while s < nt:
+            v = torch.minimum(v, torch.roll(v, s, dims=1) + s * tbl.ring_f)
+            s *= 2
+        s = 1
+        while s < nt:
+            v = torch.minimum(v, torch.roll(v, -s, dims=1) + s * tbl.ring_b)
+            s *= 2
+        for k, sp in enumerate(static.chain_spans):
+            v = torch.minimum(v, torch.roll(v, sp, dims=2) + tbl.cfp[k])
+        for k, sp in enumerate(static.chain_spans):
+            v = torch.minimum(v, torch.roll(v, -sp, dims=2) + tbl.cbp[k])
+        return v
 
 
 def _hscan(v, tbl: SweepTables, static: SweepStatic):
@@ -1096,19 +1102,20 @@ def _hscan(v, tbl: SweepTables, static: SweepStatic):
     length L composes from its binary digits as the field updates level
     by level (Gauss-Seidel between levels; Jacobi across the 2*cap+1
     slot-drift taps within one (level, sign), which read windows of ONE
-    +inf-padded copy of the span-rolled field)."""
-    cap = static.h_cap
-    S, nt, ML = v.shape
-    pad = torch.full((S, nt, cap), float("inf"), dtype=v.dtype,
-                     device=v.device)
-    for k, span in enumerate(static.h_spans):
-        for s_i, sgn in enumerate((+1, -1)):
-            vp = torch.cat([pad, torch.roll(v, sgn * span, dims=1), pad],
-                           dim=2)
-            win = vp.unfold(2, ML, 1)      # (S, nt, 2cap+1, ML): dm + cap
-            cand = (win + tbl.wh[k][s_i]).amin(dim=2)
-            v = torch.minimum(v, cand)
-    return v
+    +inf-padded copy of the span-rolled field; the span `sweep.hscan`)."""
+    with profiling.span("sweep.hscan", v.device):
+        cap = static.h_cap
+        S, nt, ML = v.shape
+        pad = torch.full((S, nt, cap), float("inf"), dtype=v.dtype,
+                         device=v.device)
+        for k, span in enumerate(static.h_spans):
+            for s_i, sgn in enumerate((+1, -1)):
+                vp = torch.cat([pad, torch.roll(v, sgn * span, dims=1), pad],
+                               dim=2)
+                win = vp.unfold(2, ML, 1)   # (S, nt, 2cap+1, ML): dm + cap
+                cand = (win + tbl.wh[k][s_i]).amin(dim=2)
+                v = torch.minimum(v, cand)
+        return v
 
 
 def _seam_plan(tbl: SweepTables, static: SweepStatic, rst: RSweepStatic,
@@ -1130,6 +1137,8 @@ def _seam_plan(tbl: SweepTables, static: SweepStatic, rst: RSweepStatic,
     shifts = [torch.as_tensor((m[None, :] + np.asarray(d)[:, None]) % ML,
                               device=device)
               for d in static.dms]
+    # each tensor is a copy from host memory
+    profiling.count(profiling.HOST_SYNCS, 2 * len(windows) + len(shifts))
     return windows, shifts
 
 
@@ -1151,58 +1160,81 @@ def _seamfix(v, tbl: SweepTables, static: SweepStatic, plan):
 def _to_T(v, rst: RSweepStatic, upward: bool):
     """(S, nt, ML) -> (S, MT+K8, NTL) kernel buffer: slots as rows, theta
     as lanes, +inf pad lanes [nt, NTL) and K8 +inf pad rows above the
-    field (down) or below it (up)."""
-    S, nt, _ = v.shape
-    buf = torch.full((S, rst.MT + rst.K8, rst.NTL), float("inf"),
-                     dtype=v.dtype, device=v.device)
-    off = rst.K8 if upward else 0
-    buf[:, off: off + rst.MT, :nt] = v[:, :, : rst.MT].transpose(1, 2)
-    return buf
+    field (down) or below it (up); the span `sweep.layout`."""
+    with profiling.span("sweep.layout", v.device):
+        S, nt, _ = v.shape
+        buf = torch.full((S, rst.MT + rst.K8, rst.NTL), float("inf"),
+                         dtype=v.dtype, device=v.device)
+        off = rst.K8 if upward else 0
+        buf[:, off: off + rst.MT, :nt] = v[:, :, : rst.MT].transpose(1, 2)
+        return buf
 
 
 def _from_T(buf, rst: RSweepStatic, nt: int, ML: int, upward: bool):
-    """Inverse of `_to_T`: slot pad lanes [MT, ML) come back +inf."""
-    S = buf.shape[0]
-    off = rst.K8 if upward else 0
-    v = torch.full((S, nt, ML), float("inf"), dtype=buf.dtype,
-                   device=buf.device)
-    v[:, :, : rst.MT] = buf[:, off: off + rst.MT, :nt].transpose(1, 2)
-    return v
+    """Inverse of `_to_T`: slot pad lanes [MT, ML) come back +inf (the
+    span `sweep.layout`)."""
+    with profiling.span("sweep.layout", buf.device):
+        S = buf.shape[0]
+        off = rst.K8 if upward else 0
+        v = torch.full((S, nt, ML), float("inf"), dtype=buf.dtype,
+                       device=buf.device)
+        v[:, :, : rst.MT] = buf[:, off: off + rst.MT, :nt].transpose(1, 2)
+        return v
+
+
+def _fan(v, cen, fan, fan_in):
+    """The centre's min over the fan, then its spread back out."""
+    cen = torch.minimum(cen, (v + fan_in).amin(dim=(1, 2)))
+    return torch.minimum(v, cen[:, None, None] + fan), cen
 
 
 def _run_sweep_rounds(dist0, cen0, it0: int, tbl: SweepTables, wtab_dn,
                       wtab_up, tol, static: SweepStatic, rst: RSweepStatic,
-                      max_iters: int, halo_map=None) -> SweepState:
+                      max_iters: int, halo_map=None,
+                      plan=None) -> SweepState:
     """Rounds from an explicit initial field until no distance improves
     by more than `tol` (read once per round) or `max_iters` rounds.
 
     `halo_map` ((K, ML) int64 tensor, optional): the staged solves' twin
     min-merge (`_twin_merge`), once per round after the seamfix,
-    improvement-gated against the round-start field."""
+    improvement-gated against the round-start field.  `plan`: the
+    seamfix's index tensors (`_seam_plan`), made here when None.
+
+    Each round is a `sweep.round` span (profiling.span) whose child spans
+    tile it: `sweep.fan`, then a radial sweep (`_to_T`, `rsweep` and
+    `_from_T`: `sweep.layout`, `sweep.rsweep`, `sweep.layout`) and a
+    closure (`_ring_chain`, `_hscan`) down and up, `sweep.seamfix`,
+    `sweep.converged`."""
     nt, ML = static.nt, static.ML
+    dev = dist0.device
     fan, fan_in = tbl.fan_w, tbl.fan_in
-    plan = _seam_plan(tbl, static, rst, dist0.device)
+    if plan is None:
+        plan = _seam_plan(tbl, static, rst, dev)
     v, cen, it, changed = dist0, cen0, it0, True
     while changed and it < max_iters:
-        v0, cen0 = v, cen
-        cen = torch.minimum(cen, (v + fan_in).amin(dim=(1, 2)))
-        v = torch.minimum(v, cen[:, None, None] + fan)
-        v = _from_T(rsweep(_to_T(v, rst, False), wtab_dn, rst, False),
-                    rst, nt, ML, False)
-        v = _hscan(_ring_chain(v, tbl, static), tbl, static)
-        v = _from_T(rsweep(_to_T(v, rst, True), wtab_up, rst, True),
-                    rst, nt, ML, True)
-        v = _hscan(_ring_chain(v, tbl, static), tbl, static)
-        v = _seamfix(v, tbl, static, plan)
-        if halo_map is not None:
-            v = _twin_merge(v, v0, halo_map)
-        changed = bool(((v < v0 - tol).any()
-                        | (cen < cen0 - tol).any()).item())
+        with profiling.span("sweep.round", dev):
+            v0, cen0 = v, cen
+            with profiling.span("sweep.fan", dev):
+                v, cen = _fan(v, cen, fan, fan_in)
+            v = _from_T(rsweep(_to_T(v, rst, False), wtab_dn, rst, False),
+                        rst, nt, ML, False)
+            v = _hscan(_ring_chain(v, tbl, static), tbl, static)
+            v = _from_T(rsweep(_to_T(v, rst, True), wtab_up, rst, True),
+                        rst, nt, ML, True)
+            v = _hscan(_ring_chain(v, tbl, static), tbl, static)
+            with profiling.span("sweep.seamfix", dev):
+                v = _seamfix(v, tbl, static, plan)
+                if halo_map is not None:
+                    v = _twin_merge(v, v0, halo_map)
+            with profiling.span("sweep.converged", dev):
+                profiling.count(profiling.HOST_SYNCS)
+                changed = bool(((v < v0 - tol).any()
+                                | (cen < cen0 - tol).any()).item())
         it += 1
     # settle the fan after the last round (a no-op after a no-change
     # round; it matters only when max_iters cut the loop)
-    cen = torch.minimum(cen, (v + fan_in).amin(dim=(1, 2)))
-    v = torch.minimum(v, cen[:, None, None] + fan)
+    with profiling.span("sweep.fan", dev):
+        v, cen = _fan(v, cen, fan, fan_in)
     return SweepState(v, cen, changed, it)
 
 
@@ -1211,10 +1243,13 @@ def _solve_sweep(src_m, src_c, src_cen, tbl: SweepTables, wtab_dn,
                  max_iters: int) -> SweepState:
     """Full solve of a source block on the tables' device: zero at each
     source's (column, slot), or at the centre for centre sources."""
-    dist0, cen0 = _source_field(src_m, src_c, src_cen, static.nt,
-                                static.ML, wtab_dn.dtype, wtab_dn.device)
+    dev = wtab_dn.device
+    with profiling.span("sweep.chunk_setup", dev):
+        dist0, cen0 = _source_field(src_m, src_c, src_cen, static.nt,
+                                    static.ML, wtab_dn.dtype, dev)
+        plan = _seam_plan(tbl, static, rst, dev)
     return _run_sweep_rounds(dist0, cen0, 0, tbl, wtab_dn, wtab_up, tol,
-                             static, rst, max_iters)
+                             static, rst, max_iters, plan=plan)
 
 
 # each xla-engine mode's sweep sequence of a round (the fan runs first):
@@ -1243,9 +1278,13 @@ def _source_field(src_m, src_c, src_cen, ntl: int, ML: int, dtype, dev,
     dist0 = torch.full((S, ntl, ML), float("inf"), dtype=dtype, device=dev)
     cen0 = torch.full((S,), float("inf"), dtype=dtype, device=dev)
     for b in range(S):
+        # a Python number written into a device tensor is a copy from
+        # host memory
         if src_cen[b]:
+            profiling.count(profiling.HOST_SYNCS)
             cen0[b] = 0.0
         elif col0 <= int(src_c[b]) < col0 + ntl:
+            profiling.count(profiling.HOST_SYNCS)
             dist0[b, int(src_c[b]) - col0, int(src_m[b])] = 0.0
     return dist0, cen0
 
@@ -1267,8 +1306,7 @@ def _solve_sweep_xla(src_m, src_c, src_cen, tbl: SweepTables, tol,
     v, cen, it, changed = dist0, cen0, 0, True
     while changed and it < max_iters:
         v0, cen0 = v, cen
-        cen = torch.minimum(cen, (v + fan_in).amin(dim=(1, 2)))
-        v = torch.minimum(v, cen[:, None, None] + fan)
+        v, cen = _fan(v, cen, fan, fan_in)
         for step in seq:
             if step in ("fwd", "bwd"):
                 v = tsweep(v, tbl, static, step == "bwd", col_relax=not bare)
@@ -1284,26 +1322,27 @@ def _solve_sweep_xla(src_m, src_c, src_cen, tbl: SweepTables, tol,
         it += 1
     # settle the fan after the last round (a no-op after a no-change
     # round; it matters only when max_iters cut the loop)
-    cen = torch.minimum(cen, (v + fan_in).amin(dim=(1, 2)))
-    v = torch.minimum(v, cen[:, None, None] + fan)
+    v, cen = _fan(v, cen, fan, fan_in)
     return SweepState(v, cen, changed, it)
 
 
 def device_tables(ws: TWStencil, cg: CirculantGraph, dtype, device):
     """(tables, static, wtab_dn, wtab_up, rst) with the tensors on
     `device`, cached in the stencil's dcache per device."""
-    tbl, static = pack_sweep_tables(ws, cg, dtype)
-    (wdn, wup), rst = pack_rsweep_tables(ws, cg, dtype)
     key = ("sweep_device", str(device))
-    if key not in ws.dcache:
-        ws.dcache[key] = (
-            tables_to_device(tbl, device),
-            torch.tensor(wdn, device=device),
-            torch.tensor(wup, device=device))
-        if torch.device(device).type == "cuda" and wdn.dtype == np.float32:
-            # the kernel's packed taps, once per upload
-            _kernel_tables(ws.dcache[key][1], rst, False)
-            _kernel_tables(ws.dcache[key][2], rst, True)
+    with profiling.setup_span("build.sweep_tables", key not in ws.dcache):
+        tbl, static = pack_sweep_tables(ws, cg, dtype)
+        (wdn, wup), rst = pack_rsweep_tables(ws, cg, dtype)
+        if key not in ws.dcache:
+            ws.dcache[key] = (
+                tables_to_device(tbl, device),
+                torch.tensor(wdn, device=device),
+                torch.tensor(wup, device=device))
+            if (torch.device(device).type == "cuda"
+                    and wdn.dtype == np.float32):
+                # the kernel's packed taps, once per upload
+                _kernel_tables(ws.dcache[key][1], rst, False)
+                _kernel_tables(ws.dcache[key][2], rst, True)
     tbl_t, wdn_t, wup_t = ws.dcache[key]
     return tbl_t, static, wdn_t, wup_t, rst
 
@@ -1346,6 +1385,7 @@ def solve_circulant_sweep(
     sources = np.atleast_1d(np.asarray(sources, dtype=np.int64))
     cmap = cg.cmap
     S = max(1, min(batch, len(sources)))
+    profiling.count(profiling.HOST_SYNCS)   # tol, a copy from host memory
     tol = torch.tensor(config.tol_value(), dtype=wdn.dtype, device=device)
     n_out, ext = _extract_cached(ws.dcache, cmap, receivers, device)
 

@@ -37,6 +37,7 @@ import torch
 from .. import kernels
 from ..kernels import BLOCK_SMEM
 from ..config import DEFAULT_SOLVER_CONFIG, SolverConfig
+from ..utils import profiling
 from .circulant import CirculantGraph, _DC_RANGE, resolve_device
 from .diag_circulant import LANES, SUB, _round_up, decompose_diagonals
 from .diag_wrapped import (_chain_spans, _compose_vertical, _extract_cached,
@@ -236,15 +237,18 @@ def _textract(dist: torch.Tensor, cen: torch.Tensor, it: int,
     """(S, k+1): node-ordered values gathered on the device from the
     (S, nt, ML) field, with the round count appended as the last column
     - one tensor, one copy to the host."""
-    S, nt, ML = dist.shape
-    flat = dist.reshape(S, nt * ML)
-    g = flat[:, c_idx * ML + m_idx]                      # (S, k)
-    inf = torch.tensor(float("inf"), dtype=dist.dtype, device=dist.device)
-    g = torch.where(valid[None, :], g, inf)
-    vals = torch.where(center_mask[None, :], cen[:, None], g)
-    itcol = torch.full((S, 1), float(it), dtype=dist.dtype,
-                       device=dist.device)
-    return torch.cat([vals, itcol], dim=1)
+    with profiling.span("extract", dist.device):
+        S, nt, ML = dist.shape
+        flat = dist.reshape(S, nt * ML)
+        g = flat[:, c_idx * ML + m_idx]                      # (S, k)
+        profiling.count(profiling.HOST_SYNCS)   # inf, a copy from host memory
+        inf = torch.tensor(float("inf"), dtype=dist.dtype,
+                           device=dist.device)
+        g = torch.where(valid[None, :], g, inf)
+        vals = torch.where(center_mask[None, :], cen[:, None], g)
+        itcol = torch.full((S, 1), float(it), dtype=dist.dtype,
+                           device=dist.device)
+        return torch.cat([vals, itcol], dim=1)
 
 
 # ----------------------------------------------------------------------

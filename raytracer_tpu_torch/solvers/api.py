@@ -37,6 +37,7 @@ from ..ops.stream_t import solve_circulant_stream
 from ..ops.sweep_theta import solve_circulant_sweep
 from ..ops.wrapped_t import (max_twrapped_batch, pack_twrapped_stencil,
                              solve_circulant_twrapped, supports_twrapped)
+from ..utils import profiling
 from ..utils.cache import build_circulant_cached
 from . import bfm as _bfm
 from .types import BellmanFordMoore
@@ -113,6 +114,7 @@ class AnnulusSolver:
     PyTorch versions and is there for tests.
     """
 
+    @profiling.setup_span("build.solver")
     def __init__(
         self,
         gr,
@@ -204,9 +206,10 @@ class AnnulusSolver:
         `config.band_closure` for the Jacobi engines."""
         attr = "_sweep_stencil" if sweep else "_twrapped_stencil"
         if getattr(self, attr) is None:
-            setattr(self, attr, pack_twrapped_stencil(
-                self.circulant, dtype=np.dtype(self.config.dtype),
-                band_closure=0 if sweep else self.config.band_closure))
+            with profiling.setup_span("build.stencil"):
+                setattr(self, attr, pack_twrapped_stencil(
+                    self.circulant, dtype=np.dtype(self.config.dtype),
+                    band_closure=0 if sweep else self.config.band_closure))
         return getattr(self, attr)
 
     def _dist_batch(self, sources: Sequence[int], receivers=None,
@@ -343,17 +346,18 @@ class AnnulusSolver:
         the device.  'diag', 'pallas', 'fused', 'circulant', 'banded' and
         'ell' solve chunk by chunk, `batch` sources per call.
         """
-        receivers = np.asarray(receivers)
-        if self._method in _BATCHED:
-            return self._dist_batch([int(s) for s in sources],
-                                    receivers=receivers, batch=batch)
-        out = np.empty((len(sources), len(receivers)),
-                       dtype=np.dtype(self.config.dtype))
-        for i in range(0, len(sources), batch):
-            chunk = [int(s) for s in sources[i:i + batch]]
-            out[i:i + len(chunk)] = self._dist_batch(chunk,
-                                                     receivers=receivers)
-        return out
+        with profiling.span("table", self.device):
+            receivers = np.asarray(receivers)
+            if self._method in _BATCHED:
+                return self._dist_batch([int(s) for s in sources],
+                                        receivers=receivers, batch=batch)
+            out = np.empty((len(sources), len(receivers)),
+                           dtype=np.dtype(self.config.dtype))
+            for i in range(0, len(sources), batch):
+                chunk = [int(s) for s in sources[i:i + batch]]
+                out[i:i + len(chunk)] = self._dist_batch(
+                    chunk, receivers=receivers)
+            return out
 
     def sensitivity_matrix(self, D: BellmanFordMoore, source: int,
                            receivers: Sequence[int], max_len: int = 0):

@@ -30,6 +30,11 @@ import pytest
 import raytracer_tpu as rt
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skipped where there is none")
+
+
 @pytest.fixture(scope="session")
 def tiny_annulus():
     """Small grid used across solver tests: ntheta=16, nr=6 (+7 forced)."""
